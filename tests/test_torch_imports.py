@@ -1,0 +1,104 @@
+"""The port stands alone: no JAX, nothing of the reference package.
+
+``repro_torch`` and ``chip_smoke.py`` import torch, numpy and the standard
+library only (the card's machine has no JAX), and the entry points run on
+the card unless the caller asks for the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    out = []
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        out.append(".".join(parts))
+    return out
+
+
+def test_importing_every_module_loads_no_jax_and_no_reference():
+    mods = _modules()
+    assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+
+
+def _forbidden(path: Path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            top = n.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append((path.name, node.lineno, n))
+    return bad
+
+
+def test_no_jax_or_reference_import_in_source():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert all(f.is_file() for f in files)
+    bad = [b for f in files for b in _forbidden(f)]
+    assert bad == [], bad
+
+
+def test_entry_points_default_to_cuda():
+    """Without ``device="cpu"`` the model, ``build_prefill_step``/``build_decode_step`` and the engine
+    ask for the card, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the cuda default is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.core.zeropp import ZeroConfig
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine, steps
+
+    cfg, z = get_config("qwen3-0.6b").reduced(), ZeroConfig(dp_axes=("model",))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(cfg, z)
+    model = Model(cfg, z, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    for build in (lambda: steps.build_prefill_step(model),
+                  lambda: steps.build_decode_step(model),
+                  lambda: ServeEngine(model, params, n_slots=1, kv_len=16)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    eng = ServeEngine(model, params, n_slots=1, kv_len=16, device="cpu")
+    uid = eng.submit(np.arange(3), max_new_tokens=2)
+    assert len(eng.run(max_steps=10)[uid]) == 2
+
+
+def test_engine_refuses_later_slices():
+    from repro_torch.configs import get_config
+    from repro_torch.core.zeropp import ZeroConfig
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    model = Model(get_config("qwen3-0.6b").reduced(),
+                  ZeroConfig(dp_axes=("model",)), device="cpu")
+    for kw in ({"pool": "paged"}, {"tune": "static"},
+               {"draft": (model, {})}):
+        with pytest.raises(NotImplementedError):
+            ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu", **kw)
+
