@@ -24,10 +24,12 @@ last line is printed.
    7, 33, 120, 257, 600 and 1500 tokens — the last prefills in the 2048
    bucket, through the chunked attention path — 32 new tokens each, so
    slots recycle).  Checks that every request finishes, that each
-   request's first-token logits match its own standalone raw prefill, and
-   that every kernel's launch count over the run is > 0 and equals what
-   the code issues per model call; prints greedy agreement with
-   per-request decode, TTFT, decode tokens/s and ms per decode step.
+   request's first-token logits match its own standalone raw prefill,
+   that each of the engine's batched decode steps matches the request
+   decoded alone on the engine's own tokens (teacher-forced), and that
+   every kernel's launch count over the run is > 0 and equals what the
+   code issues per model call; prints greedy agreement, TTFT, decode
+   tokens/s and ms per decode step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -49,10 +51,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.quant import QuantConfig  # noqa: E402
 from repro_torch.core.zeropp import ZeroConfig  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
-from repro_torch.kernels import platform  # noqa: E402
+from repro_torch.kernels import platform, ref  # noqa: E402
 from repro_torch.kernels import quant_block as qb  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve import ServeEngine, steps  # noqa: E402
@@ -71,6 +74,11 @@ N_SLOTS, KV_LEN = 4, 2048
 # prompt, the chunked vs the dense attention path), so the rounding of
 # every activation differs; logits are ~N(0, 1) at this init
 LOGIT_ATOL = 0.25
+# decode logits, engine (one batched step over all slots) vs the request
+# alone at the same position, fed the engine's own tokens: bf16 again, and
+# cuBLAS picks its GEMM kernel by the batch's row count, so the summation
+# order differs between M = 4 and M = 1
+DECODE_ATOL = 0.25
 
 
 def fail(msg: str) -> None:
@@ -118,39 +126,53 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     cfg = QuantConfig(bits=8, block_size=256)
     rec = {}
 
-    # B1 / B2 at the path's flat-shard shapes: one layer group, the
-    # embedding table (both (1, N) rows, bf16, INT8, block 256)
-    for n in (15_730_944, 155_582_464):
+    # B1 / B2 at every flat-shard shape of the path (all (1, N) rows, bf16,
+    # INT8, block 256): the head norm, one layer group, one unembedding
+    # chunk (quantize only: the dequant-GEMM consumes it) and the embedding
+    q_err = d_err = 0.0
+    for n, with_b2 in ((1024, True), (15_730_944, True),
+                       (38_895_616, False), (155_582_464, True)):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
-        pp, sp = qb._quantize_plain(x, cfg)
+        pp, sp = quant.quantize_blockwise(x, cfg)
+        err = max((p.int() - pp.int()).abs().max().item(),
+                  (s - sp).abs().max().item())
+        q_err = max(q_err, err)
         if not (torch.equal(p, pp) and torch.equal(s, sp)):
-            fail(f"B1 quantize (1, {n}) differs from its plain version")
-        d = qb.dequantize(p, s, cfg, torch.bfloat16)
-        if not torch.equal(d, qb._dequantize_plain(p, s, cfg, torch.bfloat16)):
-            fail(f"B2 dequantize (1, {n}) differs from its plain version")
-        del pp, sp, d
+            fail(f"B1 quantize (1, {n}) differs from its plain version "
+                 f"(max abs err {err})")
+        del pp, sp
         nb = n // 256
         q_ms = median_ms(lambda: qb.quantize(x, cfg), flush)
-        q_plain = median_ms(lambda: qb._quantize_plain(x, cfg), flush, n=5)
+        q_plain = median_ms(lambda: quant.quantize_blockwise(x, cfg), flush,
+                            n=5)
         q_bound = bound(2 * n + n + 4 * nb, 5 * n, F32_OPS_S)
-        d_ms = median_ms(lambda: qb.dequantize(p, s, cfg, torch.bfloat16),
-                         flush)
-        d_plain = median_ms(
-            lambda: qb._dequantize_plain(p, s, cfg, torch.bfloat16), flush,
-            n=5)
-        d_bound = bound(n + 4 * nb + 2 * n, n, F32_OPS_S)
         print(f"B1 quantize   (1, {n}) bf16->int8: bit-identical; "
               f"kernel {q_ms:.4f} ms, plain {q_plain:.4f} ms, "
               f"bound {q_bound[0]:.4f} ms ({q_bound[1]})", flush=True)
-        print(f"B2 dequantize (1, {n}) int8->bf16: bit-identical; "
-              f"kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, "
-              f"bound {d_bound[0]:.4f} ms ({d_bound[1]})", flush=True)
         if n == 15_730_944:   # the per-layer shape: 28 launches per call
             rec["quantize_blockwise"] = dict(ms=q_ms, plain_ms=q_plain,
                                              bound=q_bound, shape=(1, n))
-            rec["dequantize_blockwise"] = dict(ms=d_ms, plain_ms=d_plain,
-                                               bound=d_bound, shape=(1, n))
+        if with_b2:
+            d = qb.dequantize(p, s, cfg, torch.bfloat16)
+            dp = quant.dequantize_blockwise(p, s, cfg, torch.bfloat16)
+            err = (d.float() - dp.float()).abs().max().item()
+            d_err = max(d_err, err)
+            if not torch.equal(d, dp):
+                fail(f"B2 dequantize (1, {n}) differs from its plain version "
+                     f"(max abs err {err})")
+            del d, dp
+            d_ms = median_ms(lambda: qb.dequantize(p, s, cfg, torch.bfloat16),
+                             flush)
+            d_plain = median_ms(lambda: quant.dequantize_blockwise(
+                p, s, cfg, torch.bfloat16), flush, n=5)
+            d_bound = bound(n + 4 * nb + 2 * n, n, F32_OPS_S)
+            print(f"B2 dequantize (1, {n}) int8->bf16: bit-identical; "
+                  f"kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, "
+                  f"bound {d_bound[0]:.4f} ms ({d_bound[1]})", flush=True)
+            if n == 15_730_944:
+                rec["dequantize_blockwise"] = dict(
+                    ms=d_ms, plain_ms=d_plain, bound=d_bound, shape=(1, n))
         del x, p, s
 
     # small INT4 and stochastic-rounding (u field) cases, bit-identical
@@ -161,10 +183,14 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         x = torch.randn(3, 8192, generator=g, device=dev).to(dtype)
         u = torch.rand(3, 8192, generator=g, device=dev) if with_u else None
         p, s = qb.quantize(x, c, u)
-        pp, sp = qb._quantize_plain(x, c, u)
+        pp, sp = quant.quantize_blockwise(x, c, u)
         d = qb.dequantize(p, s, c, torch.bfloat16)
-        if not (torch.equal(p, pp) and torch.equal(s, sp) and torch.equal(
-                d, qb._dequantize_plain(p, s, c, torch.bfloat16))):
+        dp = quant.dequantize_blockwise(p, s, c, torch.bfloat16)
+        q_err = max(q_err, (p.int() - pp.int()).abs().max().item(),
+                    (s - sp).abs().max().item())
+        d_err = max(d_err, (d.float() - dp.float()).abs().max().item())
+        if not (torch.equal(p, pp) and torch.equal(s, sp)
+                and torch.equal(d, dp)):
             fail(f"B1/B2 INT{bits} {dtype} u={with_u} differ from plain")
     print("B1/B2 INT4, f32 input and u-field cases: bit-identical",
           flush=True)
@@ -179,7 +205,7 @@ def kernel_phase(flush: torch.Tensor) -> dict:
                           dtype=torch.int8)
         sc = torch.rand(N, NB, generator=g, device=dev) * 0.01
         out = dm.dequant_matmul(x, w, sc)
-        want = dm._dequant_matmul_plain(x, w, sc)
+        want = ref.dequant_matmul_ref(x, w, sc)
         if not torch.isfinite(out).all():
             fail("B8 produced non-finite values")
         err = (out - want).abs().max().item()
@@ -191,7 +217,7 @@ def kernel_phase(flush: torch.Tensor) -> dict:
                f"{err:.3e} (tol rtol 1e-5, atol {tol:.3e})"
         if (T, NB) == (4, 4):
             ms = median_ms(lambda: dm.dequant_matmul(x, w, sc), flush)
-            plain = median_ms(lambda: dm._dequant_matmul_plain(x, w, sc),
+            plain = median_ms(lambda: ref.dequant_matmul_ref(x, w, sc),
                               flush, n=5)
             b8 = bound(N * K + 4 * N * NB + 2 * T * K + 4 * T * N,
                        2 * T * N * K, BF16_OPS_S)
@@ -201,8 +227,8 @@ def kernel_phase(flush: torch.Tensor) -> dict:
                     f"bound {b8[0]:.4f} ms ({b8[1]})"
         print(line, flush=True)
     rec["dequant_matmul"]["max_abs_err"] = max(errs)
-    rec["quantize_blockwise"]["max_abs_err"] = 0.0
-    rec["dequantize_blockwise"]["max_abs_err"] = 0.0
+    rec["quantize_blockwise"]["max_abs_err"] = q_err
+    rec["dequantize_blockwise"]["max_abs_err"] = d_err
     torch.cuda.synchronize()
     return rec
 
@@ -241,9 +267,17 @@ def engine_phase() -> dict:
         first_logits.append(logits[0, 0].float().clone())
         return logits, caches
 
+    # per request, the engine's decode logits of its j-th token: j -> (V,)
+    step_logits: dict = {}
+
     def decode_fn(*a):
         calls["decode"] += 1
-        return dec.fn(*a)
+        logits, caches = dec.fn(*a)
+        for act in eng.slots:
+            if act is not None:
+                step_logits.setdefault(act.req.uid, {})[act.n_gen] = \
+                    logits[act.slot, 0].float().clone()
+        return logits, caches
 
     eng._prefill = steps.ServeStep(fn=prefill_fn, run_spec=pre.run_spec)
     eng._decode = steps.ServeStep(fn=decode_fn, run_spec=dec.run_spec)
@@ -278,41 +312,71 @@ def engine_phase() -> dict:
           flush=True)
 
     # each request alone: raw prefill at its exact length, then decode
+    # teacher-forced on the engine's own tokens, so every one of the
+    # engine's batched decode steps is held against the same request run
+    # alone at the same positions
     ps = steps.build_prefill_step(model)
     ds = steps.build_decode_step(model)
-    worst, agree, total = 0.0, 0, 0
+    worst = dec_worst = 0.0
+    shift_min = float("inf")
+    agree = decisive = decisive_agree = 0
     for i, (u, p) in enumerate(zip(uids, prompts)):
+        toks = res[u]
         logits, caches = ps.fn(params, {"tokens": torch.from_numpy(
             p[None, :]).long().cuda()})
-        ref = logits[0, -1].float()
-        if not torch.isfinite(ref).all() or ref.shape != (cfg.vocab,):
+        want = logits[0, -1].float()
+        if not torch.isfinite(want).all() or want.shape != (cfg.vocab,):
             fail(f"request {u}: standalone prefill logits bad")
-        err = (first_logits[i] - ref).abs().max().item()
+        err = (first_logits[i] - want).abs().max().item()
         worst = max(worst, err)
         if err > LOGIT_ATOL:
             fail(f"request {u} (prompt {len(p)}): first-token logits differ "
                  f"from its standalone prefill by {err} > {LOGIT_ATOL}")
         caches = steps.pad_prefill_caches(caches, KV_LEN)
-        toks = [int(ref.argmax())]
+        same = int(int(want.argmax()) == toks[0])
+        req_err = 0.0
         for j in range(1, MAX_NEW):
+            prev = want
             lg, caches = ds.fn(params, caches,
-                               {"tokens": torch.tensor([[toks[-1]]],
+                               {"tokens": torch.tensor([[toks[j - 1]]],
                                                        device="cuda")},
                                torch.tensor([len(p) + j - 1], device="cuda"))
-            toks.append(int(lg[0, -1].argmax()))
-        same = sum(a == b for a, b in zip(toks, res[u]))
+            want = lg[0, -1].float()
+            got = step_logits[u][j]
+            req_err = max(req_err, (got - want).abs().max().item())
+            # what an engine one position behind would have produced
+            shift_min = min(shift_min, (got - prev).abs().max().item())
+            same += int(int(want.argmax()) == toks[j])
+            top2 = torch.topk(want, 2).values
+            if (top2[0] - top2[1]).item() > 2 * DECODE_ATOL:
+                decisive += 1
+                decisive_agree += int(int(want.argmax()) == toks[j])
+        dec_worst = max(dec_worst, req_err)
         agree += same
-        total += MAX_NEW
         print(f"  request {u} prompt {len(p):5d}: first-token logits max "
-              f"abs diff {err:.4f}; greedy agreement with per-request "
-              f"decode {same}/{MAX_NEW}", flush=True)
+              f"abs diff {err:.4f}; teacher-forced decode logits max abs "
+              f"diff {req_err:.4f}; greedy agreement {same}/{MAX_NEW}",
+              flush=True)
+    total = len(uids) * MAX_NEW
+    print(f"engine: batched decode vs each request alone (teacher-forced): "
+          f"logits max abs diff {dec_worst:.4f} (bar {DECODE_ATOL}); a "
+          f"one-position slip would differ by at least {shift_min:.4f}; "
+          f"greedy agreement {agree}/{total}, {decisive_agree}/{decisive} "
+          f"where the top-2 gap exceeds {2 * DECODE_ATOL}", flush=True)
+    if dec_worst > DECODE_ATOL:
+        fail(f"batched decode logits differ from the request alone by "
+             f"{dec_worst} > {DECODE_ATOL}")
+    if shift_min <= DECODE_ATOL:
+        fail(f"the decode check cannot tell a one-position slip "
+             f"({shift_min}) from rounding ({DECODE_ATOL})")
+    if decisive_agree != decisive:
+        fail(f"greedy tokens differ at {decisive - decisive_agree} decisive "
+             f"steps")
     profile_decode(dec.fn, params, eng.pool.caches,
                    [len(p) for p in prompts[:N_SLOTS]])
     st = eng.stats()
     print(f"engine: first-token logits vs standalone prefill max abs diff "
-          f"{worst:.4f} (bar {LOGIT_ATOL}); greedy agreement {agree}/{total}"
-          f" (bf16 and M-dependent GEMM kernels: batch invariance is not "
-          f"exact on the card)", flush=True)
+          f"{worst:.4f} (bar {LOGIT_ATOL})", flush=True)
     print(f"engine: TTFT p50 {st['ttft_ms']['p50']:.2f} ms (p90 "
           f"{st['ttft_ms']['p90']:.2f}), decode {st['tok_per_s']:.1f} tok/s,"
           f" {st['tok_latency_ms']['p50']:.3f} ms per decode step (p50)",

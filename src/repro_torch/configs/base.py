@@ -1,69 +1,39 @@
-"""ArchConfig: static description of an architecture (own copy of the
-reference's ``configs/base.py`` fields this port reads)."""
+"""ArchConfig: static description of a dense decoder (own copy of the
+reference's ``configs/base.py``, cut to the fields the port's dense
+``attn`` path and its flat parameter layout read)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense|moe|ssm|hybrid|audio|vlm
     n_layers: int
     d_model: int
     vocab: int
-    # block pattern tiled over n_layers; this port runs "attn" blocks
-    pattern: Tuple[str, ...] = ("attn",)
     # attention
-    n_heads: int = 0
-    n_kv_heads: int = 0
-    head_dim: int = 0
-    qkv_bias: bool = False
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
     qk_norm: bool = False
     rope_theta: float = 10000.0
-    mrope: bool = False
-    logit_softcap: float = 0.0
-    window: int = 0
-    # mlp
+    # mlp (SiLU-gated)
     d_ff: int = 0
-    act: str = "silu"
-    # moe (kept so reduced() and the flat layout match the reference)
-    n_experts: int = 0
-    top_k: int = 0
-    n_shared: int = 0
-    moe_ff: int = 0
-    expert_chunks: int = 1
     # the unembedding is stored TRANSPOSED (V, d) in this many vocab-row
     # chunks, each gathered on its own; 0 = auto (<= 512 MB per chunk)
     unemb_chunks: int = 0
-    # io
-    embed_inputs: bool = False
-    note: str = ""
 
     @property
     def d_head(self) -> int:
-        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+        return self.head_dim
 
     def reduced(self, **overrides) -> "ArchConfig":
-        """Tiny same-family config for CPU tests (the reference's rule)."""
-        scale: Dict = dict(
-            n_layers=max(len(self.pattern), 2) if len(self.pattern) > 1
-            else min(self.n_layers, 2),
-            d_model=64,
-            vocab=128,
-            n_heads=4 if self.n_heads else 0,
-            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
-            head_dim=16 if self.n_heads else 0,
-            d_ff=96 if self.d_ff else 0,
-            window=min(self.window, 8) if self.window else 0,
-            n_experts=8 if self.n_experts else 0,
-            top_k=min(self.top_k, 2) if self.top_k else 0,
-            n_shared=min(self.n_shared, 1),
-            moe_ff=32 if self.moe_ff else 0,
-            expert_chunks=2 if self.n_experts else 1,
-            unemb_chunks=2,
-            name=self.name + "-reduced",
-        )
+        """Tiny config of the same shape family for CPU tests (the
+        reference's rule for a dense ``attn`` stack)."""
+        scale = dict(n_layers=min(self.n_layers, 2), d_model=64, vocab=128,
+                     n_heads=4, n_kv_heads=min(self.n_kv_heads, 2),
+                     head_dim=16, d_ff=96, unemb_chunks=2,
+                     name=self.name + "-reduced")
         scale.update(overrides)
         return dataclasses.replace(self, **scale)

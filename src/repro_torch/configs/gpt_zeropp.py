@@ -2,8 +2,8 @@
 from repro_torch.configs.base import ArchConfig
 
 
+# paper §5.4 convergence model
 CONFIG_GPT_350M = ArchConfig(
-    name="gpt-350m", family="dense", n_layers=24, d_model=1024, vocab=50304,
-    pattern=("attn",), n_heads=16, n_kv_heads=16, head_dim=64, d_ff=4096,
-    note="paper §5.4 convergence model")
+    name="gpt-350m", n_layers=24, d_model=1024, vocab=50304, n_heads=16,
+    n_kv_heads=16, head_dim=64, d_ff=4096)
 gpt_350m = CONFIG_GPT_350M

@@ -4,7 +4,8 @@ Counterpart of the reference's ``kernels/dequant_matmul.py``
 (``dequant_matmul_pallas``): ``x @ dequant(W).T`` with the blockwise
 scales applied inside the kernel, so the dequantized weight matrix is
 never written.  The CUDA kernel lives in ``csrc/dequant_matmul.cu`` (its
-header note gives the design and what bounds it).
+header note gives the design and what bounds it); its plain PyTorch
+version is the staged ``ref.dequant_matmul_ref``.
 
 Numerics: each weight is dequantized in fp32 and rounded through
 ``compute_dtype`` (bf16) exactly as the staged path does, and products
@@ -27,15 +28,6 @@ _ARGTYPES = {
 }
 
 
-def _dequant_matmul_plain(x: torch.Tensor, payload: torch.Tensor,
-                          scales: torch.Tensor,
-                          compute_dtype: torch.dtype = torch.bfloat16
-                          ) -> torch.Tensor:
-    """The staged math (``ref.dequant_matmul_ref``) in fp32 on fp32
-    copies, TF32 off."""
-    return ref.dequant_matmul_ref(x, payload, scales, compute_dtype)
-
-
 def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,
                    scales: torch.Tensor,
                    compute_dtype: torch.dtype = torch.bfloat16
@@ -49,7 +41,7 @@ def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)}, payload {tuple(payload.shape)}"
                          f", scales {tuple(scales.shape)}: need K % NB == 0")
     if x.device.type == "cpu":
-        return _dequant_matmul_plain(x, payload, scales, compute_dtype)
+        return ref.dequant_matmul_ref(x, payload, scales, compute_dtype)
     for t, what in ((x, "x"), (payload, "payload"), (scales, "scales")):
         if t.device.type != "cuda":
             raise ValueError(f"{what} must be a CUDA tensor, got {t.device}")

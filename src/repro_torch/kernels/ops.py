@@ -8,10 +8,11 @@ through here, with the reference's shapes and dtypes.  N-D inputs are
 flattened to 2-D rows (``_as2d``: a flat shard becomes ``(1, N)``), as the
 reference does before its Pallas calls.
 
-The route follows the tensor: a CUDA tensor launches the hand-written
-kernel (``kernels/quant_block.py``, ``kernels/dequant_matmul.py``), a CPU
-tensor takes the plain PyTorch version.  There is no backend switch and
-no fallback from a failed build or launch.
+This module only reshapes.  The route is taken one layer down, in the
+kernel wrappers (``kernels/quant_block.py``, ``kernels/dequant_matmul.py``):
+a CUDA tensor launches the hand-written kernel, a CPU tensor takes the
+plain PyTorch version.  There is no backend switch and no fallback from a
+failed build or launch.
 """
 from __future__ import annotations
 
@@ -61,13 +62,12 @@ def dequantize_blockwise(payload: torch.Tensor, scales: torch.Tensor,
 
 def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,
                    scales: torch.Tensor,
-                   compute_dtype: torch.dtype = torch.bfloat16,
-                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   compute_dtype: torch.dtype = torch.bfloat16
+                   ) -> torch.Tensor:
     """Fused INT8-weight x activation GEMM: ``x @ dequant(payload).T``.
 
     x: (T, K); payload: (N, K) int8 rows; scales: (N, NB) float32 with
     K % NB == 0.  Dequantized weights round through ``compute_dtype``
-    before the product, accumulation is fp32; returns (T, N) out_dtype.
+    before the product, accumulation is fp32; returns (T, N) float32.
     """
-    out = _dm.dequant_matmul(x, payload, scales, compute_dtype)
-    return out if out_dtype == torch.float32 else out.to(out_dtype)
+    return _dm.dequant_matmul(x, payload, scales, compute_dtype)

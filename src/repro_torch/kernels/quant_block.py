@@ -3,8 +3,8 @@
 Counterpart of the reference's ``kernels/quant_block.py``
 (``quantize_pallas``, ``dequantize_pallas``).  The CUDA kernels live in
 ``csrc/quant_block.cu`` (its header note gives the design and what bounds
-them); the plain PyTorch versions beside them are the definitions of
-``repro_torch.core.quant`` at the kernels' 2-D signature.
+them); their plain PyTorch versions are ``repro_torch.core.quant``'s
+``quantize_blockwise`` and ``dequantize_blockwise``.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
 There is no other route: a failed build or launch raises.
@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import quant as _q
+from repro_torch.core import quant
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import platform
 
@@ -34,18 +34,6 @@ _QUANT_BLOCKS = (64, 128, 256, 512, 1024)   # one warp per block: 2..32 per lane
 
 def _lib() -> ctypes.CDLL:
     return platform.library("quant_block", _ARGTYPES)
-
-
-def _quantize_plain(x: torch.Tensor, cfg: QuantConfig,
-                    u: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _q.quantize_blockwise(x, cfg, u)
-
-
-def _dequantize_plain(payload: torch.Tensor, scales: torch.Tensor,
-                      cfg: QuantConfig, out_dtype: torch.dtype
-                      ) -> torch.Tensor:
-    return _q.dequantize_blockwise(payload, scales, cfg, out_dtype)
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
@@ -69,7 +57,7 @@ def quantize(x: torch.Tensor, cfg: QuantConfig,
     if u is not None and tuple(u.shape) != (R, C):
         raise ValueError(f"u shape {tuple(u.shape)} != x shape {(R, C)}")
     if x.device.type == "cpu":
-        return _quantize_plain(x, cfg, u)
+        return quant.quantize_blockwise(x, cfg, u)
     _check_cuda(x, "x")
     if x.dtype not in platform.DTYPE_CODES:
         raise TypeError(f"quantize takes float32/bfloat16, got {x.dtype}")
@@ -106,7 +94,7 @@ def dequantize(payload: torch.Tensor, scales: torch.Tensor, cfg: QuantConfig,
         raise ValueError(f"payload {tuple(payload.shape)} / scales "
                          f"{tuple(scales.shape)} do not match block {block}")
     if payload.device.type == "cpu":
-        return _dequantize_plain(payload, scales, cfg, out_dtype)
+        return quant.dequantize_blockwise(payload, scales, cfg, out_dtype)
     _check_cuda(payload, "payload")
     _check_cuda(scales, "scales")
     if out_dtype not in platform.DTYPE_CODES:

@@ -11,8 +11,7 @@ import torch
 
 def dequant_matmul_ref(x: torch.Tensor, payload: torch.Tensor,
                        scales: torch.Tensor,
-                       compute_dtype: torch.dtype = torch.bfloat16,
-                       out_dtype: torch.dtype = torch.float32
+                       compute_dtype: torch.dtype = torch.bfloat16
                        ) -> torch.Tensor:
     """Staged oracle for the fused INT8 dequant-GEMM: dequantize the whole
     (N, K) weight matrix through ``compute_dtype`` rounding (fp32 scale
@@ -20,6 +19,7 @@ def dequant_matmul_ref(x: torch.Tensor, payload: torch.Tensor,
 
     The product runs on fp32 copies with TF32 off: a bf16*bf16 product is
     exact in fp32, so this is the staged result up to summation order.
+    Returns (T, N) float32.
     x: (T, K); payload: (N, K) int8; scales: (N, NB) with K % NB == 0.
     """
     N, K = payload.shape
@@ -34,4 +34,4 @@ def dequant_matmul_ref(x: torch.Tensor, payload: torch.Tensor,
         out = xf @ wf.T
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    return out.to(out_dtype)
+    return out

@@ -15,7 +15,7 @@ dtype before the value product, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -40,43 +40,30 @@ def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd)
 
 
-def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-          window: int) -> torch.Tensor:
-    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                      device=q_pos.device)
-    if causal:
-        mask &= q_pos[:, None] >= k_pos[None, :]
-    if window:
-        mask &= q_pos[:, None] - k_pos[None, :] < window
-    return mask
+def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    return q_pos[:, None] >= k_pos[None, :]
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: int = 0,
-        softmax_scale: Optional[float] = None, logit_softcap: float = 0.0,
         kv_chunk: int = 1024) -> torch.Tensor:
-    """Prefill attention, forward only.  q (B, Sq, H, hd); k, v
+    """Causal prefill attention, forward only.  q (B, Sq, H, hd); k, v
     (B, S, K, hd).  Sequences longer than ``kv_chunk`` (and a multiple of
     it) take the chunked online-softmax path, which keeps the working set
     at O(Sq·kv_chunk) — the reference's rule and arithmetic."""
     B, Sq, H, hd = q.shape
     S = k.shape[1]
-    scale = softmax_scale or hd ** -0.5
+    scale = hd ** -0.5
     q_pos = torch.arange(Sq, device=q.device)
     if S > kv_chunk and S % kv_chunk == 0:
-        return _flash_forward(q, k, v, q_pos, scale, causal, window,
-                              logit_softcap, kv_chunk)
+        return _flash_forward(q, k, v, q_pos, scale, kv_chunk)
     logits = _logits(q, k, scale)
-    if logit_softcap:
-        logits = torch.tanh(logits / logit_softcap) * logit_softcap
-    mask = _mask(q_pos, torch.arange(S, device=q.device), causal, window)
+    mask = _causal(q_pos, torch.arange(S, device=q.device))
     logits = torch.where(mask[None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return _pv(p, v)
 
 
-def _flash_forward(q, k, v, q_pos, scale, causal, window, softcap,
-                   kv_chunk):
+def _flash_forward(q, k, v, q_pos, scale, kv_chunk):
     """Chunked online-softmax forward (the reference's _flash_fwd_impl)."""
     B, Sq, H, hd = q.shape
     S = k.shape[1]
@@ -86,11 +73,9 @@ def _flash_forward(q, k, v, q_pos, scale, causal, window, softcap,
     for k0 in range(0, S, kv_chunk):
         kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
         logits = _logits(q, kc, scale)
-        if softcap:
-            logits = torch.tanh(logits / softcap) * softcap
         k_pos = k0 + torch.arange(kv_chunk, device=q.device)
-        logits = torch.where(_mask(q_pos, k_pos, causal, window)[None, None],
-                             logits, NEG_INF)
+        logits = torch.where(_causal(q_pos, k_pos)[None, None], logits,
+                             NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -114,34 +99,20 @@ def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
 
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cache_pos: torch.Tensor, *,
-                  softmax_scale: Optional[float] = None, window: int = 0,
-                  logit_softcap: float = 0.0,
-                  slot_positions: Optional[torch.Tensor] = None
+                  v_cache: torch.Tensor, cache_pos: torch.Tensor
                   ) -> torch.Tensor:
     """Exact decode attention of (B, 1, H, hd) queries over a (B, S, K, hd)
-    cache.  Each row masks its own valid prefix (``cache_pos`` per
-    sequence); ``slot_positions`` (B, S) or (S,) gives the global position
-    held by each cache slot (ring caches; negative = empty)."""
+    cache whose slot s holds position s.  Each row attends to its own
+    valid prefix, the slots at or before its ``cache_pos``."""
     B, _, H, hd = q.shape
     S = k_cache.shape[1]
-    scale = softmax_scale or hd ** -0.5
     cache_pos = per_seq_pos(cache_pos, B).to(q.device)
-    logits = _logits(q, k_cache, scale)                   # (B, H, 1, S)
-    if logit_softcap:
-        logits = torch.tanh(logits / logit_softcap) * logit_softcap
-    pos = torch.arange(S, device=q.device) if slot_positions is None \
-        else slot_positions
-    if pos.dim() == 1:
-        pos = pos[None, :]
-    valid = (pos >= 0) & (pos <= cache_pos[:, None])      # (B, S)
-    if window:
-        valid &= pos > cache_pos[:, None] - window
-    vmask = valid[:, None, None, :]
+    logits = _logits(q, k_cache, hd ** -0.5)              # (B, H, 1, S)
+    valid = torch.arange(S, device=q.device)[None, :] <= cache_pos[:, None]
+    vmask = valid[:, None, None, :]                       # (B, 1, 1, S)
     logits = torch.where(vmask, logits, NEG_INF)
     m = logits.amax(dim=-1)                               # (B, H, 1)
-    e = torch.exp(logits - m[..., None])
-    e = torch.where(vmask, e, 0.0)
+    e = torch.where(vmask, torch.exp(logits - m[..., None]), 0.0)
     denom = e.sum(dim=-1)                                 # (B, H, 1)
     num = _pv(e.to(q.dtype), v_cache)                     # (B, 1, H, hd)
     out = num / denom.permute(0, 2, 1)[..., None].to(num.dtype)

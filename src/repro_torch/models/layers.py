@@ -22,19 +22,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
             * (1.0 + scale.to(torch.float32))).to(dt)
 
 
-def swiglu(x: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor,
-           act: str = "silu") -> torch.Tensor:
-    """Gated MLP.  ``w_gate_up``: (d, 2*ff) fused gate|up; ``w_down``:
-    (ff, d)."""
-    gu = x @ w_gate_up
-    g, u = torch.chunk(gu, 2, dim=-1)
-    if act == "silu":
-        a = F.silu(g)
-    elif act == "gelu":
-        a = F.gelu(g, approximate="tanh")
-    else:
-        raise ValueError(act)
-    return (a * u) @ w_down
+def swiglu(x: torch.Tensor, w_gate_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SiLU-gated MLP.  ``w_gate_up``: (d, 2*ff) fused gate|up;
+    ``w_down``: (ff, d)."""
+    g, u = torch.chunk(x @ w_gate_up, 2, dim=-1)
+    return (F.silu(g) * u) @ w_down
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float

@@ -1,7 +1,8 @@
 """The Model of the serving path: parameter groups, init, prefill, decode.
 
 Port of the reference's ``models/model.py`` ``Model`` for dense ``attn``
-stacks.  ``Model`` owns the flat ZeRO parameter groups — same specs,
+stacks (the reference's block pattern ``("attn",)``: one block per layer
+group, named ``0.*`` in the flat layout).  ``Model`` owns the flat ZeRO parameter groups — same specs,
 offsets and padding as the reference, so its buffers load unchanged
 (``repro_torch.convert``) — and drives the layer loop through the gather
 engine (``core/zeropp.py``): each group is qwZ-gathered right before the
@@ -11,7 +12,7 @@ compute that uses it.  The head takes the fused INT8 route
 Groups (flat buffers):
 
   embed  : (E_pad,)            token embedding
-  blocks : (n_periods, P_pad)  one period of the pattern per loop step
+  blocks : (n_layers, P_pad)   one attn block per loop step
   head   : (H_pad,)            final norm
   unemb  : (nv, U_pad)         unembedding, TRANSPOSED (V, d), nv chunks
 
@@ -19,7 +20,7 @@ The model runs on ``device`` ("cuda" unless the caller asks for "cpu").
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -42,22 +43,14 @@ Params = Dict[str, torch.Tensor]
 class Model:
     def __init__(self, cfg: ArchConfig, zcfg: ZeroConfig, world: int = 1,
                  device="cuda"):
-        if tuple(cfg.pattern) != ("attn",) or cfg.embed_inputs or cfg.mrope:
-            raise ValueError(
-                f"{cfg.name}: the port runs token-in dense 'attn' stacks; "
-                f"pattern {cfg.pattern} is not ported yet")
         self.device = platform.resolve_device(device)
         self.cfg = cfg
         self.zcfg = zcfg
         self.world = world
-        self.period = tuple(cfg.pattern)
         self.n_periods = cfg.n_layers
         align = zcfg.align(world) if zcfg.distributed else zcfg.align(1)
-
-        pe: List = []
-        for i, kind in enumerate(self.period):
-            pe += block_entries(cfg, kind, f"{i}.")
-        self.period_spec = ParamSpec(tuple(pe), align=align)
+        self.period_spec = ParamSpec(tuple(block_entries(cfg, "0.")),
+                                     align=align)
         self.embed_spec = ParamSpec((("emb", (cfg.vocab, cfg.d_model)),),
                                     align=align)
         self.head_spec = ParamSpec((("fnorm", (cfg.d_model,)),), align=align)
@@ -199,13 +192,10 @@ class Model:
         cfg, z = self.cfg, self.zcfg
 
         def period_fn(W, h, cache):
-            p = self.period_spec.unpack(W.to(z.compute_dtype))
-            new = []
-            for i, kind in enumerate(self.period):
-                h, c, _ = apply_block(cfg, kind, _sub(p, f"{i}."), h, rs, pos,
-                                      None if cache is None else cache[i])
-                new.append(c)
-            return h, tuple(new)
+            p = _sub(self.period_spec.unpack(W.to(z.compute_dtype)), "0.")
+            h, c = apply_block(cfg, p, h, rs, pos,
+                               None if cache is None else cache[0])
+            return h, (c,)
         return period_fn
 
     @torch.no_grad()
@@ -220,10 +210,9 @@ class Model:
         pos = {"rope": self._rope_tables(rs, h.shape[1])}
         h, ys = zero_scan_inference(self._period_fn(rs, pos), self.zcfg)(
             params["blocks"], h)
-        # per-layer caches -> one (n_periods, B, S, K, hd) stack per kind
-        caches = tuple({key: torch.stack([y[j][key] for y in ys])
-                        for key in ("k", "v")}
-                       for j in range(len(self.period)))
+        # per-layer caches -> one (n_layers, B, S, K, hd) stack each
+        caches = ({key: torch.stack([y[0][key] for y in ys])
+                   for key in ("k", "v")},)
         h_last = h[:, -1:, :] if last_pos is None \
             else select_positions(h, last_pos)
         return self._head_logits(params, h_last), {"blocks": caches,
@@ -253,9 +242,8 @@ class Model:
 
     def cache_shapes(self, batch: int, kv_len: int):
         """GLOBAL cache shapes matching decode_fn's layout."""
-        per = tuple({k: (self.n_periods,) + s for k, s in
-                     init_cache_shapes(self.cfg, batch, kv_len).items()}
-                    for _ in self.period)
+        per = ({k: (self.n_periods,) + s for k, s in
+                init_cache_shapes(self.cfg, batch, kv_len).items()},)
         return {"blocks": per, "rem": None}
 
     def init_caches(self, batch: int, kv_len: int,

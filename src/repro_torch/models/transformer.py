@@ -20,29 +20,17 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 
 
-def _attn_entries(cfg: ArchConfig, pre: str) -> List[Tuple[str, Tuple[int, ...]]]:
+def block_entries(cfg: ArchConfig, pre: str
+                  ) -> List[Tuple[str, Tuple[int, ...]]]:
+    """Parameter entries of one ``attn`` block, in the reference's order."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     e = [(pre + "ln1", (d,)),
          (pre + "wq", (d, H * hd)), (pre + "wk", (d, K * hd)),
          (pre + "wv", (d, K * hd)), (pre + "wo", (H * hd, d))]
-    if cfg.qkv_bias:
-        e += [(pre + "bq", (H * hd,)), (pre + "bk", (K * hd,)),
-              (pre + "bv", (K * hd,))]
     if cfg.qk_norm:
         e += [(pre + "qn", (hd,)), (pre + "kn", (hd,))]
-    return e
-
-
-def _mlp_entries(cfg: ArchConfig, pre: str) -> List[Tuple[str, Tuple[int, ...]]]:
-    d = cfg.d_model
-    return [(pre + "ln2", (d,)), (pre + "wgu", (d, 2 * cfg.d_ff)),
-            (pre + "wdn", (cfg.d_ff, d))]
-
-
-def block_entries(cfg: ArchConfig, kind: str, pre: str):
-    if kind == "attn":
-        return _attn_entries(cfg, pre) + _mlp_entries(cfg, pre)
-    raise ValueError(f"block kind {kind!r} is not ported yet")
+    return e + [(pre + "ln2", (d,)), (pre + "wgu", (d, 2 * cfg.d_ff)),
+                (pre + "wdn", (cfg.d_ff, d))]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,20 +44,15 @@ def _sub(p: Dict[str, torch.Tensor], pre: str) -> Dict[str, torch.Tensor]:
     return {k[n:]: v for k, v in p.items() if k.startswith(pre)}
 
 
-def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor,
-                rs: RunSpec, pos, cache):
+def _attn_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
+                cache):
     """Attention mixer (+ cache handling); returns (mix_out, new_cache)."""
     B, S, d = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     hn = nn.rms_norm(h, p["ln1"])
-    q = hn @ p["wq"]
-    k = hn @ p["wk"]
-    v = hn @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    q = (hn @ p["wq"]).reshape(B, S, H, hd)
+    k = (hn @ p["wk"]).reshape(B, S, K, hd)
+    v = (hn @ p["wv"]).reshape(B, S, K, hd)
     if cfg.qk_norm:
         q = nn.rms_norm(q, p["qn"])
         k = nn.rms_norm(k, p["kn"])
@@ -78,33 +61,21 @@ def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor,
     k = nn.apply_rope(k, cos, sin)
 
     if rs.mode == "decode":
-        cap = cache["k"].shape[1]
-        t = attn.per_seq_pos(pos["cache_pos"], B)            # (B,)
-        slot = torch.remainder(t, cap)
-        kc, vc = attn.cache_insert(cache["k"], cache["v"], k, v, slot)
-        gslot = torch.arange(cap, device=h.device)
-        # ring slot -> global position, per sequence: (B, S)
-        spos = t[:, None] - torch.remainder(t[:, None] - gslot[None, :], cap)
-        o = attn.decode_attend(q, kc, vc, t, logit_softcap=cfg.logit_softcap,
-                               slot_positions=spos)
+        # full-attention cache: slot == position
+        t = pos["cache_pos"]
+        kc, vc = attn.cache_insert(cache["k"], cache["v"], k, v, t)
+        o = attn.decode_attend(q, kc, vc, t)
         new_cache = {"k": kc, "v": vc}
     else:
-        o = attn.mha(q, k, v, causal=True, logit_softcap=cfg.logit_softcap)
-        new_cache = _build_prefill_cache(k, v)
+        o = attn.mha(q, k, v)
+        new_cache = {"k": k, "v": v}
     o = o.reshape(B, S, H * hd) @ p["wo"]
     return o, new_cache
 
 
-def _build_prefill_cache(k, v):
-    """Prefill K/V in the decode cache layout: full attention keeps them
-    as they are (slot == position)."""
-    return {"k": k, "v": v}
-
-
-def _mlp_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor):
-    """Feed-forward half (dense); returns (out, aux)."""
-    hn = nn.rms_norm(h, p["ln2"])
-    return nn.swiglu(hn, p["wgu"], p["wdn"], act=cfg.act), 0.0
+def _mlp_block(p, h: torch.Tensor) -> torch.Tensor:
+    """Feed-forward half (dense, SiLU-gated)."""
+    return nn.swiglu(nn.rms_norm(h, p["ln2"]), p["wgu"], p["wdn"])
 
 
 def select_positions(h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -116,16 +87,12 @@ def select_positions(h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return h[rows, pos.to(h.device).long()][:, None, :]
 
 
-def apply_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor,
-                rs: RunSpec, pos, cache):
-    """One block with residuals; returns (h, new_cache, aux)."""
-    if kind != "attn":
-        raise ValueError(f"block kind {kind!r} is not ported yet")
-    mix, new_cache = _attn_block(cfg, kind, p, h, rs, pos, cache)
+def apply_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
+                cache):
+    """One ``attn`` block with residuals; returns (h, new_cache)."""
+    mix, new_cache = _attn_block(cfg, p, h, rs, pos, cache)
     h = h + mix
-    y, aux = _mlp_block(cfg, kind, p, h)
-    h = h + y
-    return h, new_cache, aux
+    return h + _mlp_block(p, h), new_cache
 
 
 def init_cache_shapes(cfg: ArchConfig, batch: int,

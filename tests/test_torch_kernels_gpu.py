@@ -9,9 +9,10 @@ with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_gpu.py``.
 import pytest
 import torch
 
+from repro_torch.core import quant
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import dequant_matmul as dm
-from repro_torch.kernels import platform
+from repro_torch.kernels import platform, ref
 from repro_torch.kernels import quant_block as qb
 
 
@@ -36,11 +37,11 @@ def test_quant_kernels_bit_identical(gen, R, C, block, bits, dtype):
         before = platform.LAUNCHES["quantize_blockwise"]
         p, s = qb.quantize(x, cfg, field)
         assert platform.LAUNCHES["quantize_blockwise"] == before + 1
-        pp, sp = qb._quantize_plain(x, cfg, field)
+        pp, sp = quant.quantize_blockwise(x, cfg, field)
         assert torch.equal(p, pp) and torch.equal(s, sp)
         for out in (torch.float32, torch.bfloat16):
             assert torch.equal(qb.dequantize(p, s, cfg, out),
-                               qb._dequantize_plain(p, s, cfg, out))
+                               quant.dequantize_blockwise(p, s, cfg, out))
     torch.cuda.synchronize()
 
 
@@ -52,7 +53,7 @@ def test_dequant_matmul_kernel_close(gen, T, N, K, NB):
                       dtype=torch.int8)
     s = torch.rand(N, NB, generator=gen, device="cuda") * 0.01
     out = dm.dequant_matmul(x, w, s)
-    want = dm._dequant_matmul_plain(x, w, s)
+    want = ref.dequant_matmul_ref(x, w, s)
     torch.cuda.synchronize()
     tol = 1e-5 * want.abs().max().item()
     torch.testing.assert_close(out, want, rtol=1e-5, atol=tol)
