@@ -5,19 +5,23 @@ Run from the repository root on a machine with one CUDA device:
     python3 chip_smoke.py
 
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
-JAX package, and runs three phases; any failure exits non-zero before the
+JAX package, and runs these phases; any failure exits non-zero before the
 last line is printed.
 
 1. Device and build: prints the card's name and power limit (nvidia-smi),
    then compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together).
-2. Kernel phase: each kernel of the serving path at the path's own shapes
-   against its plain PyTorch version on the same inputs — B1 quantize and
-   B2 dequantize bit-identical, B8 dequant-GEMM within fp32 rtol 1e-5,
-   atol 1e-5·max|out| (summation order) — with its median time (CUDA
-   events, L2 flushed before every launch, warm-up excluded), the plain
-   version's time and the least time the card could take (bytes over
-   3.35 TB/s or operations over the type's peak, whichever is larger).
+2. Kernel phase: each kernel at the shapes its paths give it against its
+   plain PyTorch version on the same inputs — B1 quantize (bf16 serving
+   shards and the fp32 master shards of training), B2 dequantize, and the
+   qgZ kernels B3 reorder-quantize, B4 dequant-reduce-requantize and B5
+   dequant-reduce (every flat group of qwen3-0.6b with N = 1, the reorder
+   shape (Y, X, L) = (2, 8, 1,966,336), and N = 8 at one layer group) all
+   bit-identical; B8 dequant-GEMM within fp32 rtol 1e-5, atol
+   1e-5·max|out| (summation order) — with its median time (CUDA events, L2
+   flushed before every launch, warm-up excluded), the plain version's time
+   and the least time the card could take (bytes over 3.35 TB/s or
+   operations over the type's peak, whichever is larger).
 3. Engine phase: qwen3-0.6b at full width (28 layers, d 1024, vocab
    151936), bf16 weights from a seeded generator, on
    ``ServeEngine(n_slots=4, kv_len=2048)``: six greedy requests (prompts
@@ -30,6 +34,21 @@ last line is printed.
    every kernel's launch count over the run is > 0 and equals what the
    code issues per model call; prints greedy agreement, TTFT, decode
    tokens/s and ms per decode step.
+4. Train-parity phase: qwen3-0.6b widths at 2 layers and a vocabulary of
+   8192 (4 unembedding chunks), fp32 compute, full ZeRO++: one
+   ``loss_and_grads`` of a batch of 2 × 256 on the card (kernels) and on
+   the CPU (plain versions) from the same parameters, held to the rule the
+   CPU tests hold the port to against the reference (loss within 1e-5; a
+   gradient element beyond rtol 1e-5 / atol 1e-6 only by at most one INT4
+   step of its block, in fewer than 1 of 1,000 elements).
+5. Train phase: ``repro_torch.launch.train.train_loop`` at full width
+   (28 layers, bf16 compute, fp32 master and moments, full ZeRO++ on a
+   one-rank ("data", "model") world), 8 steps of ``SyntheticLM`` batches
+   of 8 × 2048 tokens at a constant lr of 3e-4.  Checks finite losses, the
+   last step's loss below the first's by ``LOSS_DROP``, and that every
+   step launches each of B1–B5 exactly once per flat group; prints step
+   time (p50 of steps 2–8), tokens/s, peak memory and one profiled step
+   (device busy share, device kernels, top device ops).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -55,10 +74,15 @@ from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.quant import QuantConfig  # noqa: E402
 from repro_torch.core.zeropp import ZeroConfig  # noqa: E402
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
+from repro_torch.kernels import fused_dequant_reduce_quant as fq  # noqa: E402
 from repro_torch.kernels import platform, ref  # noqa: E402
 from repro_torch.kernels import quant_block as qb  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.serve import ServeEngine, steps  # noqa: E402
+from repro_torch.train.policy import make_policy  # noqa: E402
+from repro_torch.train.trainer import build_train_step  # noqa: E402
 
 HBM_BYTES_S = 3.35e12          # H100 SXM rated memory bandwidth
 F32_OPS_S = 67e12              # fp32 outside the tensor cores
@@ -79,6 +103,15 @@ LOGIT_ATOL = 0.25
 # cuBLAS picks its GEMM kernel by the batch's row count, so the summation
 # order differs between M = 4 and M = 1
 DECODE_ATOL = 0.25
+# flat group sizes of qwen3-0.6b on the training path: one layer group,
+# the embedding, one unembedding chunk and the head norm
+LAYER_N = 15_730_944
+PATH_NS = (LAYER_N, 155_582_464, 38_895_616, 1024)
+REORDER_SHAPE = (2, 8, 1_966_336)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 2048, 8, 3e-4
+# the loss after 8 steps must lie this far below the first step's: half
+# the drop an H100 read over these 8 steps (0.2045)
+LOSS_DROP = 0.1
 
 
 def fail(msg: str) -> None:
@@ -126,12 +159,12 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     cfg = QuantConfig(bits=8, block_size=256)
     rec = {}
 
-    # B1 / B2 at every flat-shard shape of the path (all (1, N) rows, bf16,
+    # B1 / B2 at every flat-shard shape of the paths (all (1, N) rows, bf16,
     # INT8, block 256): the head norm, one layer group, one unembedding
-    # chunk (quantize only: the dequant-GEMM consumes it) and the embedding
+    # chunk (serving feeds it to the dequant-GEMM, training dequantizes
+    # it) and the embedding
     q_err = d_err = 0.0
-    for n, with_b2 in ((1024, True), (15_730_944, True),
-                       (38_895_616, False), (155_582_464, True)):
+    for n in (1024, 15_730_944, 38_895_616, 155_582_464):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
         pp, sp = quant.quantize_blockwise(x, cfg)
@@ -153,26 +186,25 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         if n == 15_730_944:   # the per-layer shape: 28 launches per call
             rec["quantize_blockwise"] = dict(ms=q_ms, plain_ms=q_plain,
                                              bound=q_bound, shape=(1, n))
-        if with_b2:
-            d = qb.dequantize(p, s, cfg, torch.bfloat16)
-            dp = quant.dequantize_blockwise(p, s, cfg, torch.bfloat16)
-            err = (d.float() - dp.float()).abs().max().item()
-            d_err = max(d_err, err)
-            if not torch.equal(d, dp):
-                fail(f"B2 dequantize (1, {n}) differs from its plain version "
-                     f"(max abs err {err})")
-            del d, dp
-            d_ms = median_ms(lambda: qb.dequantize(p, s, cfg, torch.bfloat16),
-                             flush)
-            d_plain = median_ms(lambda: quant.dequantize_blockwise(
-                p, s, cfg, torch.bfloat16), flush, n=5)
-            d_bound = bound(n + 4 * nb + 2 * n, n, F32_OPS_S)
-            print(f"B2 dequantize (1, {n}) int8->bf16: bit-identical; "
-                  f"kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, "
-                  f"bound {d_bound[0]:.4f} ms ({d_bound[1]})", flush=True)
-            if n == 15_730_944:
-                rec["dequantize_blockwise"] = dict(
-                    ms=d_ms, plain_ms=d_plain, bound=d_bound, shape=(1, n))
+        d = qb.dequantize(p, s, cfg, torch.bfloat16)
+        dp = quant.dequantize_blockwise(p, s, cfg, torch.bfloat16)
+        err = (d.float() - dp.float()).abs().max().item()
+        d_err = max(d_err, err)
+        if not torch.equal(d, dp):
+            fail(f"B2 dequantize (1, {n}) differs from its plain version "
+                 f"(max abs err {err})")
+        del d, dp
+        d_ms = median_ms(lambda: qb.dequantize(p, s, cfg, torch.bfloat16),
+                         flush)
+        d_plain = median_ms(lambda: quant.dequantize_blockwise(
+            p, s, cfg, torch.bfloat16), flush, n=5)
+        d_bound = bound(n + 4 * nb + 2 * n, n, F32_OPS_S)
+        print(f"B2 dequantize (1, {n}) int8->bf16: bit-identical; "
+              f"kernel {d_ms:.4f} ms, plain {d_plain:.4f} ms, "
+              f"bound {d_bound[0]:.4f} ms ({d_bound[1]})", flush=True)
+        if n == 15_730_944:
+            rec["dequantize_blockwise"] = dict(
+                ms=d_ms, plain_ms=d_plain, bound=d_bound, shape=(1, n))
         del x, p, s
 
     # small INT4 and stochastic-rounding (u field) cases, bit-identical
@@ -229,6 +261,143 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     rec["dequant_matmul"]["max_abs_err"] = max(errs)
     rec["quantize_blockwise"]["max_abs_err"] = q_err
     rec["dequantize_blockwise"]["max_abs_err"] = d_err
+    torch.cuda.synchronize()
+    return rec
+
+
+def _err(a, b) -> float:
+    """Max abs difference of two tensors, read as integers or floats."""
+    if not a.is_floating_point():
+        a, b = a.int(), b.int()
+    return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+
+def _same(name, shape, got, want) -> float:
+    """Fail unless the kernel's outputs equal the plain version's bit for
+    bit; return the max abs error read from the compared tensors."""
+    err = max(_err(g, w) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{name} {shape} differs from its plain version (max abs err "
+             f"{err})")
+    return err
+
+
+def qgz_kernel_phase(flush: torch.Tensor) -> dict:
+    """B1 on fp32 master shards and the qgZ kernels B3, B4, B5, each at
+    every flat group of the training path (N = 1), B3 at a reordering
+    shape and B4/B5 at N = 8; bit-identical to the plain versions."""
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    c8, c4 = QuantConfig(8, 256), QuantConfig(4, 256)
+    rec = {}
+    errs = {"quantize_reordered": 0.0, "dequant_reduce_quant": 0.0,
+            "dequant_reduce": 0.0}
+
+    def timed(name, n, fn, plain, nbytes, ops):
+        ms = median_ms(fn, flush)
+        plain_ms = median_ms(plain, flush, n=5)
+        b = bound(nbytes, ops, F32_OPS_S)
+        print(f"{name} n={n}: bit-identical; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+        return dict(ms=ms, plain_ms=plain_ms, bound=b)
+
+    for n in PATH_NS:
+        nb = n // 256
+        # B1: the qwZ quantize of an fp32 master shard (training)
+        x = torch.randn(1, n, generator=g, device=dev) * 0.02
+        b1_err = _same("B1 quantize f32", (1, n), qb.quantize(x, c8),
+                       quant.quantize_blockwise(x, c8))
+        r = timed("B1 quantize f32->int8", n, lambda: qb.quantize(x, c8),
+                  lambda: quant.quantize_blockwise(x, c8),
+                  4 * n + n + 4 * nb, 5 * n)
+        if n == LAYER_N:
+            rec["quantize_blockwise_f32"] = dict(r, shape=(1, n))
+        rec.setdefault("quantize_blockwise_f32", {})
+        rec["quantize_blockwise_f32"]["max_abs_err"] = max(
+            b1_err, rec["quantize_blockwise_f32"].get("max_abs_err", 0.0))
+        del x
+        # B3: the bf16 gradient of the group, quantized to INT4 (Y = X = 1)
+        gr = (torch.randn(1, 1, n, generator=g, device=dev) * 1e-3).to(
+            torch.bfloat16)
+        p3 = qb.quantize_reordered(gr, c4)
+        errs["quantize_reordered"] = max(errs["quantize_reordered"], _same(
+            "B3 quantize_reordered", (1, 1, n), p3,
+            ref.quantize_reordered_ref(gr, c4)))
+        r3 = timed("B3 quantize_reordered bf16->int4", n,
+                   lambda: qb.quantize_reordered(gr, c4),
+                   lambda: ref.quantize_reordered_ref(gr, c4),
+                   2 * n + n // 2 + 4 * nb, 5 * n)
+        del gr
+        # B4 then B5 on that payload, N = 1, as the 2-hop reduce runs them
+        pay, sc = p3[0].reshape(1, -1), p3[1].reshape(1, -1)
+        p4 = fq.dequant_reduce_quant(pay, sc, c4, c4)
+        errs["dequant_reduce_quant"] = max(
+            errs["dequant_reduce_quant"],
+            _same("B4 dequant_reduce_quant", (1, n), p4,
+                  ref.dequant_reduce_quant_ref(pay, sc, c4, c4)))
+        r4 = timed("B4 dequant_reduce_quant N=1 int4->int4", n,
+                   lambda: fq.dequant_reduce_quant(pay, sc, c4, c4),
+                   lambda: ref.dequant_reduce_quant_ref(pay, sc, c4, c4),
+                   2 * (n // 2 + 4 * nb), 8 * n)
+        pay5, sc5 = p4[0].reshape(1, -1), p4[1].reshape(1, -1)
+        out = fq.dequant_reduce(pay5, sc5, c4)
+        errs["dequant_reduce"] = max(errs["dequant_reduce"], _same(
+            "B5 dequant_reduce", (1, n), (out,),
+            (ref.dequant_reduce_ref(pay5, sc5, c4),)))
+        r5 = timed("B5 dequant_reduce N=1 int4->f32", n,
+                   lambda: fq.dequant_reduce(pay5, sc5, c4),
+                   lambda: ref.dequant_reduce_ref(pay5, sc5, c4),
+                   n // 2 + 4 * nb + 4 * n, 3 * n)
+        if n == LAYER_N:
+            rec["quantize_reordered"] = dict(r3, shape=(1, 1, n))
+            rec["dequant_reduce_quant"] = dict(r4, shape=(1, n // 2))
+            rec["dequant_reduce"] = dict(r5, shape=(1, n // 2))
+        del p3, p4, pay, sc, pay5, sc5, out
+
+    # B3 where a wrong index would show: Y, X > 1, with and without a u field
+    gr = (torch.randn(*REORDER_SHAPE, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    Y, X, L = REORDER_SHAPE
+    u = torch.rand(X, Y, L, generator=g, device=dev)
+    for field in (None, u):
+        errs["quantize_reordered"] = max(errs["quantize_reordered"], _same(
+            "B3 quantize_reordered", REORDER_SHAPE,
+            qb.quantize_reordered(gr, c4, field),
+            ref.quantize_reordered_ref(gr, c4, field)))
+    n = Y * X * L
+    timed(f"B3 quantize_reordered {REORDER_SHAPE}", n,
+          lambda: qb.quantize_reordered(gr, c4),
+          lambda: ref.quantize_reordered_ref(gr, c4),
+          2 * n + n // 2 + 4 * (n // 256), 5 * n)
+    del gr, u
+
+    # B4 / B5 with N = 8 contributions (the paper's node) at a layer group
+    n, N = LAYER_N, 8
+    nb = n // 256
+    x8 = torch.randn(N, n, generator=g, device=dev) * 1e-3
+    pay, sc = quant.quantize_blockwise(x8, c4)
+    del x8
+    u = torch.rand(n, generator=g, device=dev)
+    for field in (None, u):
+        errs["dequant_reduce_quant"] = max(
+            errs["dequant_reduce_quant"],
+            _same("B4 dequant_reduce_quant", (N, n), fq.dequant_reduce_quant(
+                pay, sc, c4, c4, field),
+                  ref.dequant_reduce_quant_ref(pay, sc, c4, c4, field)))
+    errs["dequant_reduce"] = max(errs["dequant_reduce"], _same(
+        "B5 dequant_reduce", (N, n), (fq.dequant_reduce(pay, sc, c4),),
+        (ref.dequant_reduce_ref(pay, sc, c4),)))
+    timed("B4 dequant_reduce_quant N=8", n,
+          lambda: fq.dequant_reduce_quant(pay, sc, c4, c4),
+          lambda: ref.dequant_reduce_quant_ref(pay, sc, c4, c4),
+          N * (n // 2 + 4 * nb) + n // 2 + 4 * nb, (2 * N + 6) * n)
+    timed("B5 dequant_reduce N=8", n, lambda: fq.dequant_reduce(pay, sc, c4),
+          lambda: ref.dequant_reduce_ref(pay, sc, c4),
+          N * (n // 2 + 4 * nb) + 4 * n, (2 * N + 1) * n)
+    del pay, sc, u
+    for k, e in errs.items():
+        rec[k]["max_abs_err"] = e
     torch.cuda.synchronize()
     return rec
 
@@ -384,26 +553,144 @@ def engine_phase() -> dict:
     return launches
 
 
-def profile_decode(decode, params, caches, positions, n: int = 3) -> None:
-    """Where a batched decode step's time goes: host wall per step
-    (synchronized, no profiler), device busy time per step and device
-    kernels per step (torch.profiler over n more steps), top device ops."""
-    from torch.profiler import ProfilerActivity, profile
+def _grads_within_one_int4_step(got: dict, want: dict) -> tuple:
+    """The CPU tests' rule: every gradient element within rtol 1e-5 / atol
+    1e-6 of ``want``, or off by at most one INT4 step of its 256-block
+    (the block's absmax / 7), the latter in fewer than 1 of 1,000."""
+    n_far = n = 0
+    worst = 0.0
+    for k in want:
+        a = got[k].detach().float().cpu().reshape(-1, 256)
+        b = want[k].detach().float().cpu().reshape(-1, 256)
+        step = b.abs().amax(dim=1, keepdim=True) / 7
+        d = (a - b).abs()
+        worst = max(worst, d.max().item())
+        if not bool((d <= step * (1 + 1e-5) + 1e-12).all()):
+            fail(f"grad {k}: an element is off by more than one INT4 step")
+        n_far += int((d > 1e-6 + 1e-5 * b.abs()).sum())
+        n += a.numel()
+    if n_far >= n / 1000:
+        fail(f"{n_far} of {n} gradient elements beyond rtol 1e-5 / atol 1e-6")
+    return n_far, n, worst
 
+
+def train_parity_phase() -> None:
+    """One loss_and_grads of the full ZeRO++ step on the card and on the
+    CPU, same fp32 parameters and batch (qwen3-0.6b widths, 2 layers,
+    vocab 8192 in 4 chunks, batch 2 x 256, fp32 compute)."""
+    import dataclasses
+    from repro_torch.data.synthetic import SyntheticLM
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              vocab=8192, unemb_chunks=4)
+    pol = make_policy(cfg, variant="zeropp", param_dtype=torch.float32,
+                      compute_dtype=torch.float32, reduce_dtype=torch.float32)
+    cpu_model = Model(cfg, pol.zcfg, device="cpu")
+    params = cpu_model.init_params(torch.Generator().manual_seed(0),
+                                   dtype=torch.float32)
+    lm = SyntheticLM(vocab=cfg.vocab, seq_len=256, seed=7)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = cpu_model if dev == "cpu" else Model(cfg, pol.zcfg,
+                                                     device=dev)
+        st = build_train_step(model, AdamWConfig(), device=dev)
+        batch = train_launch.device_batch(cfg, lm, 0, 2, 1, dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        platform.reset_launches()
+        loss, _, grads = st.loss_and_grads(p, batch)
+        launches = dict(platform.LAUNCHES)
+        out[dev] = (float(loss), grads)
+        if dev == "cuda":
+            groups = 1 + cfg.n_layers + 1 + model.unemb_chunks
+            want = {k: (0 if k == "dequant_matmul" else groups)
+                    for k in launches}
+            if launches != want:
+                fail(f"train parity: launches {launches}, expected {want}")
+    dl = abs(out["cuda"][0] - out["cpu"][0])
+    if not (np.isfinite(out["cuda"][0]) and dl <= 1e-5):
+        fail(f"train parity: loss {out['cuda'][0]} (card) vs "
+             f"{out['cpu'][0]} (CPU)")
+    n_far, n, worst = _grads_within_one_int4_step(out["cuda"][1],
+                                                  out["cpu"][1])
+    print(f"train parity ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab}, batch 2 x 256, fp32): loss card {out['cuda'][0]:.6f}"
+          f" vs CPU {out['cpu'][0]:.6f} (|diff| {dl:.2e} <= 1e-5); grads: "
+          f"{n_far} of {n} elements beyond rtol 1e-5 / atol 1e-6, max abs "
+          f"diff {worst:.3e}, none beyond one INT4 step", flush=True)
+
+
+def train_phase() -> dict:
+    """The full-width ZeRO++ training run through the launcher's loop."""
+    args = train_launch.parser().parse_args([
+        "--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
+        "--lr-schedule", "constant", "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    platform.reset_launches()
+    res = train_launch.train_loop(args)
+    launches = dict(platform.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    built = res["built"]
+    cfg, model = built.arch, built.model
+    groups = 1 + cfg.n_layers + 1 + model.unemb_chunks
+    per_step = {k: (0 if k == "dequant_matmul" else groups)
+                for k in launches}
+    for i, c in enumerate(res["launches"]):
+        if c != per_step:
+            fail(f"train step {i}: launches {c}, expected {per_step}")
+    losses = res["losses"]
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0] - LOSS_DROP:
+        fail(f"loss did not fall by {LOSS_DROP}: {losses}")
+    p50 = statistics.median(res["step_s"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train: {cfg.name} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}), {model.n_params()} params "
+          f"fp32 master + fp32 moments, full ZeRO++ (qwZ INT8, hpZ, qgZ "
+          f"INT4 2-hop) on a one-rank world, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, constant lr {TRAIN_LR}", flush=True)
+    print(f"train: losses {[round(x, 4) for x in losses]} (drop "
+          f"{losses[0] - losses[-1]:.4f}, bar {LOSS_DROP}); entropy bound "
+          f"{res['entropy_bound']:.4f}", flush=True)
+    print(f"train: step p50 (steps 2-{TRAIN_STEPS}) {p50 * 1e3:.1f} ms, "
+          f"{tokens / p50:,.0f} tokens/s, first step "
+          f"{res['step_s'][0] * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches per "
+          f"step {per_step} x {TRAIN_STEPS} steps", flush=True)
+    batch = train_launch.device_batch(cfg, built.lm, TRAIN_STEPS,
+                                      TRAIN_BATCH, 1, model.device)
+    profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
+                 "train step")
+    return launches
+
+
+def profile_decode(decode, params, caches, positions) -> None:
+    """Where a batched decode step's time goes (see profile_step)."""
     batch = {"tokens": torch.zeros((N_SLOTS, 1), dtype=torch.long,
                                    device="cuda")}
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
-    decode(params, caches, batch, pos)
+    profile_step(lambda: decode(params, caches, batch, pos),
+                 f"decode step, {N_SLOTS} slots at positions {positions}",
+                 n=3)
+
+
+def profile_step(step, what: str, n: int = 1) -> None:
+    """Host wall per ``step()`` (synchronized, no profiler, after one
+    warm-up call), then device busy time, device kernels and the top
+    device ops per step from torch.profiler over n more calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        decode(params, caches, batch, pos)
+        step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            decode(params, caches, batch, pos)
+            step()
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -412,13 +699,12 @@ def profile_decode(decode, params, caches, positions, n: int = 3) -> None:
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / n
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile (decode step, {N_SLOTS} slots at positions {positions}):"
-          f" host wall {wall:.3f} ms/step, device busy {busy:.3f} ms/step "
-          f"({100 * busy / wall:.1f}% of the wall), {len(dev) / n:.0f} device"
-          f" kernels/step", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile ({what}): host wall {wall:.3f} ms/step, device busy "
+          f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of the wall), "
+          f"{len(dev) / n:.0f} device kernels/step", flush=True)
     for name, ms in top:
-        print(f"  {ms:8.3f} ms/step  {name[:90]}", flush=True)
+        print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
 
 
 def main() -> None:
@@ -437,20 +723,49 @@ def main() -> None:
               f"registers per thread, {spills} bytes spilled", flush=True)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = kernel_phase(flush)
+    rec.update(qgz_kernel_phase(flush))
+    rec["quantize_blockwise"]["max_abs_err"] = max(
+        rec["quantize_blockwise"]["max_abs_err"],
+        rec["quantize_blockwise_f32"]["max_abs_err"])
     del flush
-    launches = engine_phase()
+    by_path = {"serve": engine_phase()}
+    train_parity_phase()
+    by_path["train"] = train_phase()
 
-    srcs = {"quantize_blockwise": ("src/repro_torch/kernels/csrc/quant_block.cu",
+    # each kernel's path(s): it must have launched in every one of them
+    paths = {"quantize_blockwise": ("serve", "train"),
+             "dequantize_blockwise": ("serve", "train"),
+             "quantize_reordered": ("train",),
+             "dequant_reduce_quant": ("train",),
+             "dequant_reduce": ("train",),
+             "dequant_matmul": ("serve",)}
+    for name, ps in paths.items():
+        for pth in ps:
+            if by_path[pth][name] <= 0:
+                fail(f"{name} was not launched on the {pth} path")
+    cu = "src/repro_torch/kernels/csrc/"
+    srcs = {"quantize_blockwise": (cu + "quant_block.cu",
                                    "src/repro/kernels/quant_block.py:106"),
-            "dequantize_blockwise": ("src/repro_torch/kernels/csrc/quant_block.cu",
+            "dequantize_blockwise": (cu + "quant_block.cu",
                                      "src/repro/kernels/quant_block.py:170"),
-            "dequant_matmul": ("src/repro_torch/kernels/csrc/dequant_matmul.cu",
+            "quantize_reordered": (cu + "quant_block.cu",
+                                   "src/repro/kernels/quant_block.py:217"),
+            "dequant_reduce_quant": (
+                cu + "fused_dequant_reduce_quant.cu",
+                "src/repro/kernels/fused_dequant_reduce_quant.py:104"),
+            "dequant_reduce": (
+                cu + "fused_dequant_reduce_quant.cu",
+                "src/repro/kernels/fused_dequant_reduce_quant.py:73"),
+            "dequant_matmul": (cu + "dequant_matmul.cu",
                                "src/repro/kernels/dequant_matmul.py:58")}
     kernels = []
     for name, (src, replaces) in srcs.items():
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(by_path[p][name] for p in paths[name]),
+                        "launches_by_path": {p: by_path[p][name]
+                                             for p in paths[name]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1], "library_ms": None,

@@ -1,15 +1,19 @@
-"""Load the reference's flat parameter buffers into the port.
+"""Carry the reference's flat buffers and AdamW state into the port, and
+back.
 
 The reference (``repro``) and the port lay out every flat ZeRO buffer
 identically (``core/partition.py``), so conversion is a dtype-faithful
 copy.  The buffers arrive as numpy arrays, e.g.
 ``{k: np.asarray(v) for k, v in reference_params.items()}``; bf16 ones
 have ``ml_dtypes``' bfloat16 dtype, which ``torch.from_numpy`` refuses, so
-they cross as their 16-bit patterns.
+they cross as their 16-bit patterns.  Training state is the fp32 master
+buffers (:func:`params_from_numpy`) and the optimizer's ``m``, ``v`` and
+``count`` (:func:`opt_from_numpy`); :func:`to_numpy` brings either back
+for comparison.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -40,3 +44,25 @@ def params_from_numpy(np_params: Mapping[str, np.ndarray], model,
             raise ValueError(f"{k}: shape {a.shape} != {shape}")
         out[k] = _tensor(a).to(device or model.device)
     return out
+
+
+def opt_from_numpy(np_opt: Mapping[str, Any], model,
+                   device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """The reference's AdamW state ``{"m": {...}, "v": {...}, "count"}``
+    (numpy) as the port's, the moments checked like the parameters."""
+    dev = device or model.device
+    return {"m": params_from_numpy(np_opt["m"], model, dev),
+            "v": params_from_numpy(np_opt["v"], model, dev),
+            "count": torch.tensor(int(np.asarray(np_opt["count"])),
+                                  dtype=torch.int32, device=dev)}
+
+
+def to_numpy(tree: Any) -> Any:
+    """Tensors (in dicts, nested) as numpy arrays on the host; bf16
+    becomes float32 (exact)."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()

@@ -1,21 +1,30 @@
-"""ZeRO++ weight collectives on torch.distributed.
+"""ZeRO++ collectives on torch.distributed.
 
-Port of the serving half of the reference's ``core/collectives.py``:
+Port of the reference's ``core/collectives.py``:
 
-  * :func:`baseline_all_gather` — full-precision all-gather of a flat
-    shard (ZeRO-3, paper Alg. 1);
+  * :func:`baseline_all_gather` / :func:`baseline_reduce_scatter` —
+    full-precision all-gather of a flat shard and reduce-scatter of a flat
+    gradient (ZeRO-3, paper Alg. 1);
   * :func:`qwz_all_gather` — blockwise-INT8 quantized all-gather (qwZ,
     §3.1): quantize the shard once, gather payload + scales, dequantize;
   * :func:`qwz_all_gather_quant` — the same gather that stays quantized,
-    for a fused consumer (the INT8 head GEMM).
+    for a fused consumer (the INT8 head GEMM);
+  * :func:`slice_secondary` / :func:`hpz_all_gather` — hpZ (§3.2): cut
+    the gathered weights into this rank's secondary shard, and gather it
+    back over the fast intra-node group only;
+  * :func:`qgz_reduce_scatter` — qgZ (§3.3): the INT4 hierarchical 2-hop
+    all-to-all gradient reduce-scatter with slice reordering and fp32
+    reductions, each hop one message with the scales packed in.
 
-``group`` is a ``torch.distributed`` process group (None = the default
-group).  With an initialised group of world > 1 the gathers are
-``all_gather_into_tensor``; a world of 1 gathers exactly the shard itself
-— the reference's semantics on a one-device mesh, not a fallback.  The
-quantize and dequantize still run at world 1, as in the reference.  The
-reference's non-blocked ablation, hpZ and qgZ come with the training
-slice.
+``group`` arguments are ``torch.distributed`` process groups (None = the
+default group).  Ranks are row-major over the reference's mesh axes with
+``model`` fastest: the intra group holds X consecutive ranks, the inter
+group every X-th.  A world of 1 (no initialised group, or a group of one)
+makes every gather and all-to-all the identity — the reference's
+semantics on a one-device mesh, not a fallback — while the quantize,
+reduce and dequantize still run, as in the reference.  The reference's
+non-blocked ablation and its 1-hop and ring qgZ variants serve benchmarks
+only and are not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +43,13 @@ def world_size(group=None) -> int:
     return 1
 
 
+def flat_rank(group=None) -> int:
+    """This rank's index within ``group`` (row-major over its axes)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(group)
+    return 0
+
+
 def _gather(shard: torch.Tensor, group=None) -> torch.Tensor:
     """Tiled all-gather of a 1-D shard along dim 0."""
     world = world_size(group)
@@ -45,12 +61,50 @@ def _gather(shard: torch.Tensor, group=None) -> torch.Tensor:
     return out
 
 
+def tier_groups(intra_size: int):
+    """(intra, inter) process groups of the default world, ranks row-major
+    with the intra (``model``) axis fastest: intra groups are runs of
+    ``intra_size`` consecutive ranks, inter groups every ``intra_size``-th
+    rank.  Every rank must call this, in the same order."""
+    world = dist.get_world_size()
+    if world % intra_size:
+        raise ValueError(f"world {world} is not a multiple of {intra_size}")
+    y = world // intra_size
+    intra, _ = dist.new_subgroups_by_enumeration(
+        [[d * intra_size + m for m in range(intra_size)] for d in range(y)])
+    inter, _ = dist.new_subgroups_by_enumeration(
+        [[d * intra_size + m for d in range(y)] for m in range(intra_size)])
+    return intra, inter
+
+
+def gather_bf16(shard: torch.Tensor, group=None) -> torch.Tensor:
+    """All-gather that moves 2-byte lanes: bf16 crosses as its raw bytes
+    (an int8 view, bit-level identity, which every backend takes), other
+    dtypes as themselves."""
+    if shard.dtype != torch.bfloat16:
+        return _gather(shard, group)
+    return _gather(shard.contiguous().view(torch.int8), group).view(
+        torch.bfloat16)
+
+
 def baseline_all_gather(shard: torch.Tensor, group=None,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
     """Full-precision all-gather of a flat parameter shard (ZeRO-3)."""
-    full = _gather(shard, group)
+    full = gather_bf16(shard, group)
     return full if out_dtype is None else full.to(out_dtype)
+
+
+def baseline_reduce_scatter(grad: torch.Tensor, group=None) -> torch.Tensor:
+    """Full-precision reduce-scatter of a flat local gradient (ZeRO-3):
+    this rank's shard of the sum over the group."""
+    world = world_size(group)
+    if world == 1:
+        return grad
+    out = torch.empty((grad.shape[0] // world,), dtype=grad.dtype,
+                      device=grad.device)
+    dist.reduce_scatter_tensor(out, grad.contiguous(), group=group)
+    return out
 
 
 def qwz_all_gather(shard: torch.Tensor, group, cfg: QuantConfig,
@@ -71,3 +125,111 @@ def qwz_all_gather_quant(shard: torch.Tensor, group, cfg: QuantConfig
         raise ValueError(f"shard len {n} % block {cfg.block_size} != 0")
     payload, scales = _kops.quantize_blockwise(shard, cfg)
     return _gather(payload, group), _gather(scales, group)
+
+
+# ---------------------------------------------------------------------------
+# hpZ — hierarchical (secondary) partition all-gather (§3.2)
+# ---------------------------------------------------------------------------
+
+def slice_secondary(full: torch.Tensor, group=None) -> torch.Tensor:
+    """Re-partition gathered weights into this rank's secondary shard over
+    the intra group (paper §3.2.1: once consumed in the forward pass, the
+    weights are partitioned by the secondary partition).  A slice of the
+    gathered tensor: no communication.  At world 1 it is the whole
+    tensor."""
+    x = world_size(group)
+    if x == 1:
+        return full
+    n = full.shape[0] // x
+    i = flat_rank(group)
+    return full[i * n:(i + 1) * n].clone()
+
+
+def hpz_all_gather(secondary: torch.Tensor, group=None) -> torch.Tensor:
+    """Backward all-gather over the fast intra-node group only: the
+    secondary partition replicates the full weights within each intra
+    group, so no byte crosses the slow tier."""
+    return gather_bf16(secondary, group)
+
+
+# ---------------------------------------------------------------------------
+# qgZ — quantized hierarchical all-to-all gradient reduce-scatter (§3.3)
+# ---------------------------------------------------------------------------
+
+def _pack_scales(payload: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Append the fp32 block scales to the int8 payload on the trailing
+    dim, each scale as its 4 bytes (lossless), so ONE all-to-all moves
+    both.  The byte layout is the reference's ``_pack_scales``
+    (``bitcast_convert_type`` to int8 lanes)."""
+    sb = scales.contiguous().view(torch.int8)
+    return torch.cat([payload, sb], dim=-1)
+
+
+def _unpack_scales(msg: torch.Tensor, payload_len: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split a :func:`_pack_scales` message back into (payload, scales)."""
+    payload = msg[..., :payload_len]
+    scales = msg[..., payload_len:].contiguous().view(torch.float32)
+    return payload, scales
+
+
+def _all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """All-to-all along dim 0: chunk j goes to group rank j, and the
+    received chunks are concatenated in source-rank order (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+    if world_size(group) == 1:
+        return x
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+def qgz_reduce_scatter(grad: torch.Tensor, intra_group, inter_group,
+                       cfg: QuantConfig, two_tier: bool = True,
+                       u1: Optional[torch.Tensor] = None,
+                       u2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Replacement for the gradient reduce-scatter (paper §3.3, Figs. 5-9).
+
+    For a world of Y (inter) × X (intra) ranks and a flat local gradient
+    of n = world·L elements:
+
+      1. view it as slices (Y, X, L) — slice (y, x) is bound for the rank
+         at inter coordinate y, intra coordinate x — and quantize it read
+         as (X, Y, L) (B3: the reorder of Eq. (1) -> (2) lives in the
+         kernel's load index);
+      2. all-to-all over the intra group (payload and scales in one
+         message), then dequantize, reduce in fp32 over the X
+         contributions and requantize (B4);
+      3. all-to-all over the inter group, dequantize and reduce over the
+         Y contributions (B5).
+
+    ``two_tier`` is the reference's "inter axes non-empty": False is the
+    single-tier world, where step 2 ends with the final reduce (B5).
+    ``u1`` ((X, Y, L)) and ``u2`` ((Y·L,)) are optional uniform fields
+    for stochastic rounding of the two quantizations.  Returns this rank's
+    fully reduced gradient shard, float32 of length L, summed (not
+    averaged) over the world.
+    """
+    X = world_size(intra_group)
+    Y = world_size(inter_group) if two_tier else 1
+    world = X * Y
+    n = grad.shape[0]
+    if n % (world * cfg.block_size):
+        raise ValueError(f"grad len {n} must be a multiple of world*block "
+                         f"({world}*{cfg.block_size})")
+    L = n // world
+    payload, scales = _kops.quantize_reordered(grad.reshape(Y, X, L), cfg, u1)
+    msg = _all_to_all(_pack_scales(payload, scales), intra_group)
+    payload, scales = _unpack_scales(msg, payload.shape[-1])
+    # payload[x'] is peer x''s contribution to this rank's (Y, L) slices
+    if not two_tier:
+        out = _kops.dequant_reduce(payload.reshape(X, -1),
+                                   scales.reshape(X, -1), cfg)
+        return out.reshape(Y, L)[0]
+    payload2, scales2 = _kops.dequant_reduce_quant(
+        payload.reshape(X, -1), scales.reshape(X, -1), cfg, cfg, u2)
+    payload2 = payload2.reshape(Y, -1)
+    scales2 = scales2.reshape(Y, -1)
+    msg2 = _all_to_all(_pack_scales(payload2, scales2), inter_group)
+    payload2, scales2 = _unpack_scales(msg2, payload2.shape[-1])
+    return _kops.dequant_reduce(payload2, scales2, cfg)

@@ -1,15 +1,27 @@
-"""The ZeRO++ gather engine, serving half.
+"""The ZeRO++ engine: gather-compute-reduce as one differentiable primitive.
 
-Port of the reference's ``core/zeropp.py`` (``ZeroConfig``, ``fwd_gather``,
-``fwd_gather_quant``, ``qwz_gemm_eligible``, ``zero_apply_inference``) and
-of the synchronous body of ``core/schedule.py``'s ``zero_scan_inference``.
-Every weight group is gathered right before the compute that needs it —
-qwZ INT8-quantized when enabled — and dropped after.
+Port of the reference's ``core/zeropp.py``: ``ZeroConfig``, ``fwd_gather``,
+``fwd_gather_quant``, ``qwz_gemm_eligible``, ``grad_reduce``, the training
+primitive ``zero_apply`` and the serving ``zero_apply_inference``, plus the
+synchronous body of ``core/schedule.py``'s ``zero_scan_inference``.
 
-The reference's depth-k prefetch ring is bit-exact with the synchronous
-schedule at every depth, so the port runs the synchronous loop; the ring
-comes with a later slice, as do the training primitives (``zero_apply``
-with hpZ and qgZ).
+``zero_apply`` wraps each layer group's apply function ``f(W_full, *args)``
+as a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
+
+  forward  : W = fwd-gather(primary shard)        [qwZ INT8 if enabled]
+             out = f(W, *args), without autograd
+             saved = (secondary shard of W if hpZ else primary, args)
+  backward : W' = hpZ intra-node gather of the secondary shard
+                  (or the forward gather again when hpZ is off)
+             dW, dargs = autograd of f recomputed on W' [activation
+                  checkpointing: f runs twice]
+             dprimary = qgZ INT4 2-hop all-to-all reduce-scatter
+                  (or the bf16 reduce-scatter baseline)
+
+The secondary copy is a slice of this iteration's forward gather, so hpZ's
+temporal consistency (§3.2.1) holds by construction.  The reference's
+depth-k prefetch ring is bit-exact with the synchronous schedule at every
+depth, so the port runs the synchronous loops (``core/schedule.py``).
 """
 from __future__ import annotations
 
@@ -25,15 +37,22 @@ from repro_torch.core.quant import QuantConfig
 
 @dataclasses.dataclass(frozen=True)
 class ZeroConfig:
-    """Which serving-path optimizations are active.
+    """Which of the paper's optimizations are active, and on which groups.
 
-    ``dp_axes`` names the ZeRO world as the reference's mesh axes do; an
-    empty tuple is local (single-device, no collectives) mode.  A
-    non-empty ``dp_axes`` is "distributed" even at world 1, where the
-    gathers are identities but the qwZ quantize/dequantize still run —
-    exactly the reference on a one-device ``("model",)`` mesh.  The
-    collectives run over ``group`` (None = torch.distributed's default
-    group, or world 1 when it is not initialised).
+    The default is full ZeRO++ (qwZ + hpZ + qgZ); all three off is the
+    ZeRO-3 baseline.  ``dp_axes`` names the ZeRO world as the reference's
+    mesh axes do; an empty tuple is local (single-device, no collectives)
+    mode.  A non-empty ``dp_axes`` is "distributed" even at world 1, where
+    the gathers and all-to-alls are identities but every quantize, reduce
+    and dequantize still runs — exactly the reference on a one-device
+    mesh.  The axis names pick the branch (``inter_axes`` non-empty: qgZ
+    takes its two hops); the process groups carry the traffic: ``group``
+    the whole ZeRO world, ``intra_group`` the fast tier (``intra_axis``:
+    hpZ's secondary group and qgZ's first hop), ``inter_group`` the slow
+    tier (qgZ's second hop).  None is torch.distributed's default group,
+    or a world of 1 when no process group is initialised; at world > 1
+    the caller passes the tiers (``collectives.tier_groups``), and
+    :func:`grad_reduce` checks that they tile the world.
     """
 
     # qwZ (§3.1)
@@ -43,25 +62,53 @@ class ZeroConfig:
     # serving head: feed the gathered INT8 payload straight to the fused
     # dequant-GEMM where the layout allows (see qwz_gemm_eligible)
     qwz_gemm: bool = True
-    # qgZ block: the training-side gradient block, kept because it sets the
-    # flat buffers' alignment (the reference's layout must load unchanged)
+    # hpZ (§3.2): the secondary partition lives on the intra group
+    hpz: bool = True
+    # qgZ (§3.3): INT4 blockwise gradients over the 2-hop all-to-all
+    qgz: bool = True
     qgz_block: int = 256
+    # ZeRO world
     dp_axes: Tuple[str, ...] = ("data", "model")
+    intra_axis: str = "model"
     group: Any = None
+    intra_group: Any = None
+    inter_group: Any = None
+    # numerics
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    reduce_dtype: torch.dtype = torch.bfloat16  # baseline reduce wire dtype
 
     @property
     def distributed(self) -> bool:
         return bool(self.dp_axes)
 
     @property
+    def inter_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.dp_axes if a != self.intra_axis)
+
+    @property
     def qwz_cfg(self) -> QuantConfig:
         return QuantConfig(bits=self.qwz_bits, block_size=self.qwz_block)
+
+    @property
+    def qgz_cfg(self) -> QuantConfig:
+        return QuantConfig(bits=4, block_size=self.qgz_block)
 
     def align(self, world: int) -> int:
         return alignment(world, self.qwz_block, self.qgz_block,
                          2)  # int4 packing needs even blocks
+
+    @classmethod
+    def baseline(cls, **kw) -> "ZeroConfig":
+        """Plain ZeRO-3 (the paper's baseline)."""
+        return cls(qwz=False, hpz=False, qgz=False, **kw)
+
+    @classmethod
+    def local(cls, **kw) -> "ZeroConfig":
+        """Single-device mode (no collectives, no quantization)."""
+        kw.setdefault("dp_axes", ())
+        kw.setdefault("intra_axis", "")
+        return cls(**kw)
 
 
 def fwd_gather(primary: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
@@ -96,6 +143,90 @@ def qwz_gemm_eligible(z: ZeroConfig, rows: int, d: int) -> bool:
     if (rows * d) % b:
         return False
     return d % b == 0 or (b % d == 0 and rows % (b // d) == 0)
+
+
+def grad_reduce(dW: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
+    """Gradient reduce-scatter over the whole ZeRO world (sums, not
+    means), returned in float32 for the optimizer."""
+    if not z.distributed:
+        return dW.to(torch.float32)
+    if z.qgz:
+        two_tier = bool(z.inter_axes)
+        tiers = cl.world_size(z.intra_group) * (
+            cl.world_size(z.inter_group) if two_tier else 1)
+        if tiers != cl.world_size(z.group):
+            raise ValueError(f"intra x inter groups hold {tiers} ranks, the "
+                             f"ZeRO world {cl.world_size(z.group)}")
+        return cl.qgz_reduce_scatter(dW, z.intra_group, z.inter_group,
+                                     z.qgz_cfg, two_tier=two_tier)
+    red = cl.baseline_reduce_scatter(dW.to(z.reduce_dtype), z.group)
+    return red.to(torch.float32)
+
+
+class _ZeroApply(torch.autograd.Function):
+    """``f(W, *args)`` with ZeRO++ collectives around it (see the module
+    note).  Tensor args that are floating point and need a gradient get
+    one; the others (tokens, targets, a chunk index) get None."""
+
+    @staticmethod
+    def forward(ctx, f, z, primary, *args):
+        W = fwd_gather(primary, z)
+        out = f(W, *args)
+        if z.distributed and z.hpz:
+            res = cl.slice_secondary(W, z.intra_group)
+        else:
+            res = primary
+        ctx.f, ctx.z = f, z
+        ctx.is_tensor = [torch.is_tensor(a) for a in args]
+        ctx.others = [a for a in args if not torch.is_tensor(a)]
+        ctx.save_for_backward(res, *[a for a in args if torch.is_tensor(a)])
+        return out
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        z = ctx.z
+        res, *tensors = ctx.saved_tensors
+        if z.distributed and z.hpz:
+            W = cl.hpz_all_gather(res, z.intra_group)   # fast tier only
+        else:
+            W = fwd_gather(res, z)   # the forward gather again
+        W = W.detach().requires_grad_(True)
+        want = [W]
+        args, it_t, it_o = [], iter(tensors), iter(ctx.others)
+        for i, is_t in enumerate(ctx.is_tensor):
+            if not is_t:
+                args.append(next(it_o))
+                continue
+            a = next(it_t).detach()
+            if ctx.needs_input_grad[3 + i] and a.is_floating_point():
+                a.requires_grad_(True)
+                want.append(a)
+            args.append(a)
+        with torch.enable_grad():
+            out = ctx.f(W, *args)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, gouts)
+                 if torch.is_tensor(o) and o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    want, [g for _, g in pairs],
+                                    allow_unused=True)
+        dW = grads[0] if grads[0] is not None else torch.zeros_like(W)
+        dprimary = grad_reduce(dW.reshape(-1), z)
+        it_g = iter(grads[1:])
+        dargs = [next(it_g) if a is not None and torch.is_tensor(a)
+                 and a.requires_grad else None for a in args]
+        return (None, None, dprimary, *dargs)
+
+
+def zero_apply(f: Callable, z: ZeroConfig) -> Callable:
+    """Wrap ``f(W_full, *args) -> out`` into a ZeRO++ layer application:
+    ``g(primary_shard, *args) -> out``, differentiable with respect to the
+    primary shard (through the paper's collectives) and the float tensor
+    args.  ``f`` is recomputed in the backward pass (activation
+    checkpointing), as in the reference; in local mode too."""
+    def apply(primary, *args):
+        return _ZeroApply.apply(f, z, primary, *args)
+    return apply
 
 
 def zero_apply_inference(f: Callable, z: ZeroConfig) -> Callable:

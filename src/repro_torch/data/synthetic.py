@@ -1,0 +1,64 @@
+"""Deterministic synthetic LM data (the port's own copy of the reference's
+``data/synthetic.py``, numpy only; the same draws for the same seed).
+
+An order-1 Markov chain with a low-entropy, seeded transition table: the
+conditional distribution is learnable, so loss curves fall toward the
+chain's conditional entropy, and every batch is a pure function of (seed,
+step, shard).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.configs.base import ArchConfig
+
+
+@dataclasses.dataclass
+class SyntheticLM:
+    vocab: int
+    seq_len: int
+    seed: int = 0
+    branching: int = 4      # candidate next-tokens per state (entropy knob)
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        v = self.vocab
+        k = min(self.branching, v)
+        self._succ = rng.integers(0, v, size=(v, k))          # successor table
+        p = rng.dirichlet(np.full(k, 0.6), size=v)            # skewed probs
+        self._cum = np.cumsum(p, axis=1).astype(np.float64)
+
+    @property
+    def entropy_bound(self) -> float:
+        """Mean conditional entropy (nats) — the best achievable LM loss."""
+        p = np.diff(np.concatenate([np.zeros((self.vocab, 1)), self._cum], 1))
+        p = np.clip(p, 1e-12, 1)
+        return float(-(p * np.log(p)).sum(1).mean())
+
+    def batch(self, step: int, batch_size: int,
+              shard: int = 0, n_shards: int = 1) -> np.ndarray:
+        """(batch_size, seq_len+1) tokens; pure function of its arguments."""
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 65_537 + shard * 257)
+        assert batch_size % n_shards == 0
+        b = batch_size // n_shards
+        out = np.empty((b, self.seq_len + 1), np.int32)
+        state = rng.integers(0, self.vocab, size=b)
+        u = rng.random((b, self.seq_len + 1))
+        for t in range(self.seq_len + 1):
+            out[:, t] = state
+            nxt = (u[:, t, None] < self._cum[state]).argmax(axis=1)
+            state = self._succ[state, nxt]
+        return out
+
+
+def make_batch(arch: ArchConfig, lm: SyntheticLM, step: int,
+               global_batch: int) -> Dict[str, np.ndarray]:
+    """GLOBAL batch dict for one train step: tokens and next-token
+    targets, (global_batch, seq_len) int32 each."""
+    toks = lm.batch(step, global_batch)
+    return {"targets": toks[:, 1:].astype(np.int32),
+            "tokens": toks[:, :-1].astype(np.int32)}

@@ -1,26 +1,35 @@
-// Blockwise quantize (B1) and dequantize (B2) for Hopper (sm_90a).
+// Blockwise quantize (B1), dequantize (B2) and the qgZ reorder-quantize
+// (B3) for Hopper (sm_90a).
 //
 // Replaces the TPU kernels in src/repro/kernels/quant_block.py:
-//   quantize_pallas   (_quant_kernel / _quant_kernel_sr, body _quant_body)
-//   dequantize_pallas (_dequant_kernel, body _dequant_body)
-// and computes the same bits as repro_torch/core/quant.py.
+//   quantize_pallas           (_quant_kernel / _quant_kernel_sr, body _quant_body)
+//   dequantize_pallas         (_dequant_kernel, body _dequant_body)
+//   quantize_reordered_pallas (_quant3_kernel / _quant3_kernel_sr)
+// and computes the same bits as repro_torch/core/quant.py and
+// repro_torch/kernels/ref.py (quantize_reordered_ref).
 //
-// What bounds them: bytes.  Both are a single pass over memory with a
+// What bounds them: bytes.  Each is a single pass over memory with a
 // handful of operations per element (quantize: 2 B read + 1 B written per
 // bf16 element; dequantize: 1 B read + 2 B written), far below the card's
 // ~295 operations per byte, so the only goal is to move each byte once,
 // in wide coalesced transactions.
 //
-// Design.  The TPU kernels tile rows (pick_tiles); on the serving path a
-// flat shard is one row of up to 155 M elements, so here the grid covers
-// quant blocks, not rows.  Quant blocks are contiguous runs of `block`
-// trailing elements, and a contiguous (R, C) input with C % block == 0 is
-// simply R*C/block consecutive blocks, so both kernels are 1-D.
+// Design.  The TPU kernels tile rows (pick_tiles); on the serving and
+// training paths a flat shard is one row of up to 155 M elements, so here
+// the grid covers quant blocks, not rows.  Quant blocks are contiguous
+// runs of `block` trailing elements, and a contiguous (R, C) input with
+// C % block == 0 is simply R*C/block consecutive blocks, so the kernels
+// are 1-D.
 //   quantize:   one warp per quant block.  Each lane owns block/32
 //               consecutive elements (block 256: 8 bf16 = one 16-byte
 //               load), takes the absmax with warp shuffles, and writes its
 //               8 (INT8) or 4 (INT4) payload bytes with one store; lane 0
 //               writes the scale.
+//   reordered:  the same warp body.  Output block (x, y, b) of the (X, Y,
+//               L) result reads input block (y, x, b) of the (Y, X, L)
+//               gradient: the qgZ slice transpose lives in the load index,
+//               with no transpose pass.  The u field, like the output, is
+//               laid out (X, Y, L).
 //   dequantize: one thread per 16 output elements: one 16-byte (INT8) or
 //               8-byte (INT4) payload load, one scale, 32 (bf16) or 64
 //               (f32) bytes stored.
@@ -28,106 +37,38 @@
 // and s = x * (1/scale) use the round-to-nearest intrinsics (no FMA
 // contraction), rounding is rintf (half to even), and the bf16 cast is
 // __float2bfloat16_rn.  Build without --use_fast_math.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "quant_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kThreads = 256;
+using namespace repro_quant;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Load N consecutive elements starting at p (16-byte aligned when the
-// run is a multiple of 16 bytes) into fp32 registers.
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&v)[N]) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  if constexpr (kBytes % 16 == 0) {
-    constexpr int kPer = 16 / (int)sizeof(T);
-#pragma unroll
-    for (int i = 0; i < kBytes / 16; ++i) {
-      uint4 w = reinterpret_cast<const uint4*>(p)[i];
-      const T* e = reinterpret_cast<const T*>(&w);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) v[i * kPer + j] = to_f32(e[j]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = to_f32(p[i]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_bytes(int8_t* __restrict__ p, const int8_t (&b)[N]) {
-  if constexpr (N == 16) {
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(b);
-  } else if constexpr (N == 8) {
-    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(b);
-  } else if constexpr (N == 4) {
-    *reinterpret_cast<uint32_t*>(p) = *reinterpret_cast<const uint32_t*>(b);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) p[i] = b[i];
-  }
-}
-
-// EPL = elements per lane = block / 32 (even, so INT4 pairs stay in a lane).
-template <typename T, int EPL, int BITS>
+// B1: output block blk reads input block blk.  B3 (REORDER): the output is
+// (X, Y, L) with nbl = L / block blocks per slice; output block (x, y, b)
+// reads input block (y, x, b) of the (Y, X, L) input.  u, payload and
+// scales follow the output layout.
+template <typename T, int EPL, int BITS, bool REORDER>
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const T* __restrict__ x, const float* __restrict__ u,
                 int8_t* __restrict__ payload, float* __restrict__ scales,
-                long long n_blocks) {
+                long long n_blocks, int Y, int X, long long nbl) {
   const long long blk = (long long)blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp;
   if (blk >= n_blocks) return;  // whole warp exits together
   const int lane = threadIdx.x % kWarp;
-  const long long base = blk * (EPL * kWarp) + (long long)lane * EPL;
-
+  const long long out_base = blk * (EPL * kWarp) + (long long)lane * EPL;
+  long long in_base = out_base;
+  if constexpr (REORDER) {
+    const long long per_x = (long long)Y * nbl;   // output blocks per x
+    const long long xi = blk / per_x;
+    const long long yi = (blk % per_x) / nbl;
+    const long long b = blk % nbl;
+    in_base = ((yi * X + xi) * nbl + b) * (EPL * kWarp) + (long long)lane * EPL;
+  }
   float v[EPL];
-  load_f32<T, EPL>(x + base, v);
-  float amax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) amax = fmaxf(amax, fabsf(v[i]));
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-
-  constexpr float kQmax = BITS == 8 ? 127.0f : 7.0f;
-  constexpr float kRecip = 1.0f / kQmax;          // folded, correctly rounded
-  const float scale = __fmul_rn(amax, kRecip);
-  const float inv = scale > 0.0f ? __frcp_rn(scale) : 0.0f;
-
-  float uv[EPL];
-  if (u != nullptr) load_f32<float, EPL>(u + base, uv);
-  __align__(16) int8_t q[EPL];
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const float s = __fmul_rn(v[i], inv);
-    float r;
-    if (u != nullptr) {
-      const float lo = floorf(s);
-      r = lo + (uv[i] < __fsub_rn(s, lo) ? 1.0f : 0.0f);
-    } else {
-      r = rintf(s);                               // half to even
-    }
-    r = fminf(fmaxf(r, -kQmax), kQmax);
-    q[i] = (int8_t)(int)r;
-  }
-  if constexpr (BITS == 8) {
-    store_bytes<EPL>(payload + base, q);
-  } else {
-    __align__(16) int8_t packed[EPL / 2];
-#pragma unroll
-    for (int i = 0; i < EPL / 2; ++i)
-      packed[i] = (int8_t)((q[2 * i] & 0xF) | ((q[2 * i + 1] & 0xF) << 4));
-    store_bytes<EPL / 2>(payload + base / 2, packed);
-  }
-  if (lane == 0) scales[blk] = scale;
+  load_f32<T, EPL>(x + in_base, v);
+  quantize_regs<EPL, BITS>(v, u == nullptr ? nullptr : u + out_base,
+                           payload + (BITS == 8 ? out_base : out_base / 2),
+                           scales + blk, lane);
 }
 
 template <typename O> __device__ __forceinline__ O from_f32(float v);
@@ -167,17 +108,18 @@ dequantize_kernel(const int8_t* __restrict__ payload, const float* __restrict__ 
   for (int i = 0; i < (int)(16 * sizeof(O)) / 16; ++i) dst[i] = src[i];
 }
 
-template <typename T, int BITS>
+template <typename T, int BITS, bool REORDER>
 cudaError_t launch_quantize_bits(const void* x, const float* u, int8_t* payload,
                                  float* scales, long long n_blocks, int block,
-                                 cudaStream_t stream) {
+                                 int Y, int X, long long nbl, cudaStream_t stream) {
   const long long grid = (n_blocks + kThreads / kWarp - 1) / (kThreads / kWarp);
   const T* xp = static_cast<const T*>(x);
   switch (block) {
 #define REPRO_Q_CASE(B)                                                        \
   case B:                                                                      \
-    quantize_kernel<T, B / kWarp, BITS><<<(unsigned)grid, kThreads, 0, stream>>>( \
-        xp, u, payload, scales, n_blocks);                                     \
+    quantize_kernel<T, B / kWarp, BITS, REORDER>                               \
+        <<<(unsigned)grid, kThreads, 0, stream>>>(xp, u, payload, scales,      \
+                                                  n_blocks, Y, X, nbl);        \
     break;
     REPRO_Q_CASE(64)
     REPRO_Q_CASE(128)
@@ -191,14 +133,30 @@ cudaError_t launch_quantize_bits(const void* x, const float* u, int8_t* payload,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool REORDER>
 cudaError_t launch_quantize(const void* x, const float* u, int8_t* payload,
                             float* scales, long long n_blocks, int block, int bits,
-                            cudaStream_t stream) {
+                            int Y, int X, long long nbl, cudaStream_t stream) {
   if (bits == 8)
-    return launch_quantize_bits<T, 8>(x, u, payload, scales, n_blocks, block, stream);
+    return launch_quantize_bits<T, 8, REORDER>(x, u, payload, scales, n_blocks, block,
+                                               Y, X, nbl, stream);
   if (bits == 4)
-    return launch_quantize_bits<T, 4>(x, u, payload, scales, n_blocks, block, stream);
+    return launch_quantize_bits<T, 4, REORDER>(x, u, payload, scales, n_blocks, block,
+                                               Y, X, nbl, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <bool REORDER>
+cudaError_t launch_quantize_dtype(const void* x, int x_dtype, const float* u,
+                                  int8_t* payload, float* scales, long long n_blocks,
+                                  int block, int bits, int Y, int X, long long nbl,
+                                  cudaStream_t stream) {
+  if (x_dtype == 0)
+    return launch_quantize<float, REORDER>(x, u, payload, scales, n_blocks, block, bits,
+                                           Y, X, nbl, stream);
+  if (x_dtype == 1)
+    return launch_quantize<__nv_bfloat16, REORDER>(x, u, payload, scales, n_blocks, block,
+                                                   bits, Y, X, nbl, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -232,11 +190,24 @@ int repro_quantize_blockwise(int device, const void* x, int x_dtype, const float
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_blocks == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) err = launch_quantize<float>(x, u, payload, scales, n_blocks, block, bits, s);
-  else if (x_dtype == 1) err = launch_quantize<__nv_bfloat16>(x, u, payload, scales, n_blocks, block, bits, s);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)launch_quantize_dtype<false>(x, x_dtype, u, payload, scales, n_blocks, block,
+                                           bits, 1, 1, n_blocks,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// x: (Y, X, L) contiguous; u, payload, scales: the (X, Y, .) output layout.
+int repro_quantize_reordered(int device, const void* x, int x_dtype, const float* u,
+                             int8_t* payload, float* scales, int Y, int X,
+                             long long L, int block, int bits, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (L % block) return (int)cudaErrorInvalidValue;
+  const long long nbl = L / block;
+  const long long n_blocks = (long long)Y * X * nbl;
+  if (n_blocks == 0) return 0;
+  return (int)launch_quantize_dtype<true>(x, x_dtype, u, payload, scales, n_blocks, block,
+                                          bits, Y, X, nbl,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 int repro_dequantize_blockwise(int device, const int8_t* payload, const float* scales,

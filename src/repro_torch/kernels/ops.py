@@ -1,15 +1,23 @@
 """The seam between the hot path and the kernels.
 
 Counterpart of the reference's ``kernels/ops.py`` (its
-``quantize_blockwise``, ``dequantize_blockwise`` and ``dequant_matmul``):
-every quantized byte on the port's serving path — the qwZ gathers in
-``core/collectives.py`` and the INT8 head in ``models/model.py`` — goes
-through here, with the reference's shapes and dtypes.  N-D inputs are
+``quantize_blockwise``, ``dequantize_blockwise``, ``quantize_reordered``,
+``dequant_reduce``, ``dequant_reduce_quant`` and ``dequant_matmul``):
+every quantized byte on the port's serving and training paths — the qwZ
+gathers and the qgZ reduce in ``core/collectives.py`` and the INT8 head in
+``models/model.py`` — goes through here, with the reference's shapes and
+dtypes.  N-D inputs are
 flattened to 2-D rows (``_as2d``: a flat shard becomes ``(1, N)``), as the
 reference does before its Pallas calls.
 
+Stochastic rounding takes a pre-drawn uniform field ``u`` where the
+reference takes a JAX key (the reference draws that field with
+``core.quant.stochastic_uniform`` and feeds it to its kernels the same
+way).
+
 This module only reshapes.  The route is taken one layer down, in the
-kernel wrappers (``kernels/quant_block.py``, ``kernels/dequant_matmul.py``):
+kernel wrappers (``kernels/quant_block.py``,
+``kernels/fused_dequant_reduce_quant.py``, ``kernels/dequant_matmul.py``):
 a CUDA tensor launches the hand-written kernel, a CPU tensor takes the
 plain PyTorch version.  There is no backend switch and no fallback from a
 failed build or launch.
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import dequant_matmul as _dm
+from repro_torch.kernels import fused_dequant_reduce_quant as _fq
 from repro_torch.kernels import quant_block as _qb
 
 
@@ -58,6 +67,31 @@ def dequantize_blockwise(payload: torch.Tensor, scales: torch.Tensor,
     s2, _ = _as2d(scales)
     x = _qb.dequantize(p2, s2, cfg, out_dtype)
     return x.reshape(*lead, x.shape[-1])
+
+
+def quantize_reordered(x: torch.Tensor, cfg: QuantConfig,
+                       u: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Y, X, L) -> transpose to (X, Y, L), quantize the trailing dim — qgZ
+    step 1, the remap folded into the kernel's load index.  ``u``: the
+    uniform field on the transposed (X, Y, L) layout."""
+    return _qb.quantize_reordered(x, cfg, u)
+
+
+def dequant_reduce(payload: torch.Tensor, scales: torch.Tensor,
+                   cfg: QuantConfig) -> torch.Tensor:
+    """Sum N quantized contributions in fp32: (N, P), (N, NB) -> (C,)
+    float32."""
+    return _fq.dequant_reduce(payload, scales, cfg)
+
+
+def dequant_reduce_quant(payload: torch.Tensor, scales: torch.Tensor,
+                         cfg_in: QuantConfig, cfg_out: QuantConfig,
+                         u: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused dequant -> fp32 reduce -> requant (qgZ intra hop, §4.2).
+    ``u``: optional (C,) uniform field for the requantization."""
+    return _fq.dequant_reduce_quant(payload, scales, cfg_in, cfg_out, u)
 
 
 def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,

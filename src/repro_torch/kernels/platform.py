@@ -14,7 +14,8 @@ What this module owns:
     repository root, one shared library per source, loaded with ctypes.
     :func:`build` compiles every source at once, one ``nvcc`` each, all
     started together.  A library's file name carries a hash of its
-    source, so an edited source is rebuilt.
+    source and of the shared headers (``csrc/*.cuh``), so an edit to
+    either is rebuilt.
   * ``LAUNCHES`` — one plain integer per kernel, raised by its wrapper
     each time it launches the kernel (and nowhere else).
 """
@@ -32,7 +33,7 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("quant_block", "dequant_matmul")
+SOURCES = ("quant_block", "fused_dequant_reduce_quant", "dequant_matmul")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0,
                             "dequantize_blockwise": 0,
+                            "quantize_reordered": 0,
+                            "dequant_reduce_quant": 0,
+                            "dequant_reduce": 0,
                             "dequant_matmul": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -76,6 +80,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

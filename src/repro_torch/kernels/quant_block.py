@@ -1,10 +1,11 @@
-"""B1/B2: blockwise quantize and dequantize of a 2-D array, on the card.
+"""B1/B2/B3: blockwise quantize, dequantize and the qgZ reorder-quantize.
 
 Counterpart of the reference's ``kernels/quant_block.py``
-(``quantize_pallas``, ``dequantize_pallas``).  The CUDA kernels live in
-``csrc/quant_block.cu`` (its header note gives the design and what bounds
-them); their plain PyTorch versions are ``repro_torch.core.quant``'s
-``quantize_blockwise`` and ``dequantize_blockwise``.
+(``quantize_pallas``, ``dequantize_pallas``, ``quantize_reordered_pallas``).
+The CUDA kernels live in ``csrc/quant_block.cu`` (its header note gives
+the design and what bounds them); their plain PyTorch versions are
+``repro_torch.core.quant``'s ``quantize_blockwise`` and
+``dequantize_blockwise`` and ``ref.quantize_reordered_ref``.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
 There is no other route: a failed build or launch raises.
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.quant import QuantConfig
-from repro_torch.kernels import platform
+from repro_torch.kernels import platform, ref
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
@@ -28,6 +29,10 @@ _ARGTYPES = {
     "repro_dequantize_blockwise": [ctypes.c_int, _P, _P, _P, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_int,
                                    ctypes.c_int, _P],
+    "repro_quantize_reordered": [ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
+                                 ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, _P],
 }
 _QUANT_BLOCKS = (64, 128, 256, 512, 1024)   # one warp per block: 2..32 per lane
 
@@ -114,3 +119,43 @@ def dequantize(payload: torch.Tensor, scales: torch.Tensor, cfg: QuantConfig,
     platform.check(lib, err, "dequantize_blockwise kernel")
     platform.LAUNCHES["dequantize_blockwise"] += 1
     return out
+
+
+def quantize_reordered(x: torch.Tensor, cfg: QuantConfig,
+                       u: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """qgZ step 1: read the (Y, X, L) gradient slices as (X, Y, L) and
+    quantize the trailing dim, the transpose folded into the kernel's load
+    index.  x: float32/bfloat16; u: optional (X, Y, L) float32 uniform
+    field.  Returns (payload int8 (X, Y, L or L//2), scales float32
+    (X, Y, L//block))."""
+    Y, X, L = x.shape
+    block = cfg.block_size
+    if L % block:
+        raise ValueError(f"slice length {L} not a multiple of block {block}")
+    if u is not None and tuple(u.shape) != (X, Y, L):
+        raise ValueError(f"u shape {tuple(u.shape)} != {(X, Y, L)}")
+    if x.device.type == "cpu":
+        return ref.quantize_reordered_ref(x, cfg, u)
+    _check_cuda(x, "x")
+    if x.dtype not in platform.DTYPE_CODES:
+        raise TypeError(f"quantize_reordered takes float32/bfloat16, got "
+                        f"{x.dtype}")
+    if block not in _QUANT_BLOCKS:
+        raise ValueError(f"kernel supports blocks {_QUANT_BLOCKS}, got {block}")
+    x = platform.aligned(x)
+    if u is not None:
+        _check_cuda(u, "u")
+        u = platform.aligned(u.to(torch.float32))
+    payload = torch.empty((X, Y, L // 2 if cfg.bits == 4 else L),
+                          dtype=torch.int8, device=x.device)
+    scales = torch.empty((X, Y, L // block), dtype=torch.float32,
+                         device=x.device)
+    lib = _lib()
+    err = lib.repro_quantize_reordered(
+        x.device.index or 0, x.data_ptr(), platform.DTYPE_CODES[x.dtype],
+        None if u is None else u.data_ptr(), payload.data_ptr(),
+        scales.data_ptr(), Y, X, L, block, cfg.bits, platform.stream_of(x))
+    platform.check(lib, err, "quantize_reordered kernel")
+    platform.LAUNCHES["quantize_reordered"] += 1
+    return payload, scales

@@ -1,11 +1,12 @@
-"""GQA attention for the serving path: prefill and decode.
+"""GQA attention: training, prefill and decode.
 
-Port of the reference's ``models/attention.py`` (``mha`` forward — dense
-and chunked online-softmax —, ``per_seq_pos``, ``decode_attend``,
-``cache_insert``) for one device: the KV cache is not sequence-sharded, so
-the reference's pmax/psum combines are identities and are left out.  The
-reference computes all of this outside any Pallas kernel on this path, so
-it is plain PyTorch here.
+Port of the reference's ``models/attention.py`` (``mha`` — dense, and the
+chunked online-softmax ``flash_attention`` with its hand-written VJP —,
+``per_seq_pos``, ``decode_attend``, ``cache_insert``) for one device: the
+sequence is not sharded, so the reference's KV gathers and pmax/psum
+combines are identities and are left out.  The reference computes all of
+this outside any Pallas kernel under its default ``attn_impl="xla"``, so
+it is plain PyTorch here; the dense path is differentiated by autograd.
 
 GQA: the reference repeats each KV head ``H // K`` times; here the query
 heads are grouped as (K, H // K) instead, which pairs every query head
@@ -46,16 +47,17 @@ def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal prefill attention, forward only.  q (B, Sq, H, hd); k, v
+    """Causal attention for training and prefill.  q (B, Sq, H, hd); k, v
     (B, S, K, hd).  Sequences longer than ``kv_chunk`` (and a multiple of
-    it) take the chunked online-softmax path, which keeps the working set
-    at O(Sq·kv_chunk) — the reference's rule and arithmetic."""
+    it) take the chunked online-softmax path with its hand-written VJP,
+    which keeps the working set at O(Sq·kv_chunk) — the reference's rule
+    and arithmetic."""
     B, Sq, H, hd = q.shape
     S = k.shape[1]
     scale = hd ** -0.5
     q_pos = torch.arange(Sq, device=q.device)
     if S > kv_chunk and S % kv_chunk == 0:
-        return _flash_forward(q, k, v, q_pos, scale, kv_chunk)
+        return flash_attention(q, k, v, q_pos, scale, kv_chunk)
     logits = _logits(q, k, scale)
     mask = _causal(q_pos, torch.arange(S, device=q.device))
     logits = torch.where(mask[None, None], logits, NEG_INF)
@@ -63,8 +65,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _pv(p, v)
 
 
+def _chunk_logits(q, kc, k0, q_pos, scale):
+    """(B, H, Sq, kc) masked fp32 logits for one KV chunk starting at k0."""
+    logits = _logits(q, kc, scale)
+    k_pos = k0 + torch.arange(kc.shape[1], device=q.device)
+    return torch.where(_causal(q_pos, k_pos)[None, None], logits, NEG_INF)
+
+
 def _flash_forward(q, k, v, q_pos, scale, kv_chunk):
-    """Chunked online-softmax forward (the reference's _flash_fwd_impl)."""
+    """Chunked online-softmax forward (the reference's _flash_fwd_impl):
+    returns out (B, Sq, H, hd) and the fp32 row stats m, l (B, H, Sq),
+    l clamped at 1e-30."""
     B, Sq, H, hd = q.shape
     S = k.shape[1]
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -72,10 +83,7 @@ def _flash_forward(q, k, v, q_pos, scale, kv_chunk):
     acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
     for k0 in range(0, S, kv_chunk):
         kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
-        logits = _logits(q, kc, scale)
-        k_pos = k0 + torch.arange(kv_chunk, device=q.device)
-        logits = torch.where(_causal(q_pos, k_pos)[None, None], logits,
-                             NEG_INF)
+        logits = _chunk_logits(q, kc, k0, q_pos, scale)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -83,8 +91,61 @@ def _flash_forward(q, k, v, q_pos, scale, kv_chunk):
         pv = _pv(p.to(q.dtype), vc).permute(0, 2, 1, 3)   # (B, H, Sq, hd)
         acc = acc * corr[..., None] + pv.to(torch.float32)
         m = m_new
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-    return out.permute(0, 2, 1, 3)                        # (B, Sq, H, hd)
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l[..., None]).to(q.dtype)
+    return out.permute(0, 2, 1, 3), m, l
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: the backward
+    rebuilds each chunk's probabilities from the saved row stats and
+    accumulates dq over the chunks, dk/dv per chunk, all in fp32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, scale, kv_chunk):
+        out, m, l = _flash_forward(q, k, v, q_pos, scale, kv_chunk)
+        ctx.save_for_backward(q, k, v, q_pos, out, m, l)
+        ctx.scale, ctx.kv_chunk = scale, kv_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, out, m, l = ctx.saved_tensors
+        scale, kv_chunk = ctx.scale, ctx.kv_chunk
+        B, Sq, H, hd = q.shape
+        S, K = k.shape[1], k.shape[2]
+        r = H // K
+        do = dout.permute(0, 2, 1, 3).to(torch.float32)   # (B, H, Sq, hd)
+        o = out.permute(0, 2, 1, 3).to(torch.float32)
+        D = torch.sum(do * o, dim=-1)                     # (B, H, Sq)
+        dog = do.reshape(B, K, r, Sq, hd)
+        qf = q.to(torch.float32).reshape(B, Sq, K, r, hd)
+        dq = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+        dk = torch.empty((B, S, K, hd), dtype=torch.float32, device=q.device)
+        dv = torch.empty_like(dk)
+        for k0 in range(0, S, kv_chunk):
+            sl = slice(k0, k0 + kv_chunk)
+            kc, vc = k[:, sl].to(torch.float32), v[:, sl].to(torch.float32)
+            logits = _chunk_logits(q, k[:, sl], k0, q_pos, scale)
+            p = torch.exp(logits - m[..., None]) / l[..., None]
+            dp = torch.einsum("bkrqd,bskd->bkrqs", dog, vc)
+            dl = p.reshape(B, K, r, Sq, -1) * (dp - D.reshape(B, K, r, Sq, 1))
+            dq = dq + torch.einsum("bkrqs,bskd->bkrqd", dl, kc).reshape(
+                B, H, Sq, hd) * scale
+            dk[:, sl] = torch.einsum("bkrqs,bqkrd->bskd", dl, qf) * scale
+            dv[:, sl] = torch.einsum("bkrqs,bkrqd->bskd",
+                                     p.reshape(B, K, r, Sq, -1), dog)
+        dq = dq.permute(0, 2, 1, 3).to(q.dtype)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, scale: float,
+                    kv_chunk: int) -> torch.Tensor:
+    """Causal chunked online-softmax attention with the reference's
+    hand-written VJP.  q (B, Sq, H, hd); k, v (B, S, K, hd) with S a
+    multiple of ``kv_chunk``; q_pos (Sq,) absolute query positions."""
+    return _FlashAttention.apply(q, k, v, q_pos, scale, kv_chunk)
 
 
 def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:

@@ -1,13 +1,17 @@
-"""The Model of the serving path: parameter groups, init, prefill, decode.
+"""The Model: parameter groups, init, training loss, prefill, decode.
 
 Port of the reference's ``models/model.py`` ``Model`` for dense ``attn``
 stacks (the reference's block pattern ``("attn",)``: one block per layer
-group, named ``0.*`` in the flat layout).  ``Model`` owns the flat ZeRO parameter groups — same specs,
-offsets and padding as the reference, so its buffers load unchanged
-(``repro_torch.convert``) — and drives the layer loop through the gather
-engine (``core/zeropp.py``): each group is qwZ-gathered right before the
-compute that uses it.  The head takes the fused INT8 route
-(``kernels.ops.dequant_matmul``) wherever ``qwz_gemm_eligible`` holds.
+group, named ``0.*`` in the flat layout).  ``Model`` owns the flat ZeRO
+parameter groups — same specs, offsets and padding as the reference, so
+its buffers load unchanged (``repro_torch.convert``) — and drives the
+layer loop through the ZeRO++ engine (``core/zeropp.py``,
+``core/schedule.py``): each group is qwZ-gathered right before the
+compute that uses it and, in training, re-gathered (hpZ) and its gradient
+reduced (qgZ) right around its backward.  The serving head takes the
+fused INT8 route (``kernels.ops.dequant_matmul``) wherever
+``qwz_gemm_eligible`` holds; the training loss streams the unembedding
+chunks through ``_streaming_xent``.
 
 Groups (flat buffers):
 
@@ -26,8 +30,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partition import ParamSpec
+from repro_torch.core.schedule import zero_apply_scan
 from repro_torch.core.zeropp import (ZeroConfig, fwd_gather_quant,
-                                     qwz_gemm_eligible, zero_apply_inference,
+                                     qwz_gemm_eligible, zero_apply,
+                                     zero_apply_inference,
                                      zero_scan_inference)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import platform
@@ -83,6 +89,11 @@ class Model:
                 "head": (self.head_spec.padded_size,),
                 "unemb": (self.unemb_chunks, self.unemb_spec.padded_size)}
 
+    def n_params(self) -> int:
+        """Parameters in the flat groups, padding excluded."""
+        return (self.embed_spec.size + self.period_spec.size * self.n_periods
+                + self.head_spec.size + self.unemb_spec.size * self.unemb_chunks)
+
     @staticmethod
     def _init_std(name: str, shape: Tuple[int, ...]) -> Optional[float]:
         """The reference's per-name init scale (None = zeros: norms)."""
@@ -110,8 +121,10 @@ class Model:
     def init_params(self, gen: torch.Generator,
                     dtype: Optional[torch.dtype] = None) -> Params:
         """GLOBAL flat buffers, normal draws from ``gen`` (a generator on
-        the model's device) at the reference's per-name scales.  The draws
-        are not the reference's: parity tests load its buffers through
+        the model's device) at the reference's per-name scales, in
+        ``dtype`` (default ``param_dtype``; training passes float32: the
+        master buffers ARE the trained parameters).  The draws are not the
+        reference's: parity tests load its buffers through
         ``repro_torch.convert`` instead."""
         dtype = dtype or self.zcfg.param_dtype
         out = {"embed": self._init_flat(self.embed_spec, gen, dtype)}
@@ -137,11 +150,80 @@ class Model:
             p = torch.arange(s_local, device=self.device)
         return nn.rope_table(p, cfg.d_head, cfg.rope_theta)
 
+    def _emb_lookup(self, W: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return self.embed_spec.unpack(W)["emb"][t].to(self.zcfg.compute_dtype)
+
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return zero_apply_inference(self._emb_lookup, self.zcfg)(
+            params["embed"], tokens)
+
+    # ------------------------------------------------------------- train
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                dp_world: int = 1) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Local training loss: sum-NLL over this rank's tokens / the global
+        token count (``dp_world`` ranks of equal batches), differentiable
+        with respect to the flat groups through the ZeRO++ engine.
+        ``params["blocks"]`` and ``params["unemb"]`` may be (n, P) tensors
+        or sequences of per-group (P,) shards.  Returns (loss, {"nll_sum",
+        "tokens"})."""
+        cfg, z = self.cfg, self.zcfg
+        rs = RunSpec(mode="train")
+        h = zero_apply(self._emb_lookup, z)(params["embed"], batch["tokens"])
+        B, S = h.shape[0], h.shape[1]
+        cos, sin = self._rope_tables(rs, S)
+
+        def period_fn(W, h, cos, sin):
+            p = _sub(self.period_spec.unpack(W.to(z.compute_dtype)), "0.")
+            return apply_block(cfg, p, h, rs, {"rope": (cos, sin)}, None)[0]
+
+        h = zero_apply_scan(period_fn, z)(params["blocks"], h, cos, sin)
+
+        def norm_fn(W, h):
+            p = self.head_spec.unpack(W.to(z.compute_dtype))
+            return nn.rms_norm(h, p["fnorm"])
+
+        hn = zero_apply(norm_fn, z)(params["head"], h)
+        nll_sum = self._streaming_xent(params["unemb"],
+                                       hn.reshape(-1, cfg.d_model),
+                                       batch["targets"].reshape(-1))
+        loss = nll_sum / float(B * S * dp_world)
+        return loss, {"nll_sum": nll_sum.detach(), "tokens": float(B * S)}
+
+    def _streaming_xent(self, unemb, hn2: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+        """Sum-NLL with the (V, d) unembedding gathered one vocab chunk at
+        a time; the log-sum-exp streams across chunks (exact).  The (T, V)
+        logits never exist: each chunk's ``zero_apply`` returns the
+        per-token max, the sum of exponentials relative to it and the gold
+        logit's contribution, all (T,), combined by the running-max rule.
+        Logits are fp32 (bf16 products are exact in fp32)."""
         z = self.zcfg
-        return zero_apply_inference(
-            lambda W, t: self.embed_spec.unpack(W)["emb"][t]
-            .to(z.compute_dtype), z)(params["embed"], tokens)
+        Vc = self.vchunk
+        T = hn2.shape[0]
+
+        def chunk_f(Wc, hn2, targets, c):
+            p = self.unemb_spec.unpack(Wc.to(z.compute_dtype))
+            logits = hn2.to(torch.float32) @ p["unemb"].to(torch.float32).T
+            m_c = logits.amax(dim=1)
+            s_c = torch.exp(logits - m_c[:, None]).sum(dim=1)
+            idx = targets - c * Vc
+            in_r = (idx >= 0) & (idx < Vc)
+            g = logits.gather(1, idx.clamp(0, Vc - 1)[:, None])[:, 0]
+            return m_c, s_c, torch.where(in_r, g, 0.0)
+
+        ap = zero_apply(chunk_f, z)
+        dev = hn2.device
+        m = torch.full((T,), -1e30, dtype=torch.float32, device=dev)
+        l = torch.zeros((T,), dtype=torch.float32, device=dev)
+        gold = torch.zeros((T,), dtype=torch.float32, device=dev)
+        for c in range(self.unemb_chunks):
+            m_c, s_c, g_c = ap(unemb[c], hn2, targets, c)
+            m_new = torch.maximum(m, m_c)
+            l = l * torch.exp(m - m_new) + s_c * torch.exp(m_c - m_new)
+            gold = gold + g_c
+            m = m_new
+        return torch.sum(m + torch.log(l) - gold)
 
     # -------------------------------------------------------------- head
 

@@ -1,9 +1,9 @@
-"""Decoder blocks of the serving path.
+"""Decoder blocks: training, prefill and decode.
 
 Port of the reference's ``models/transformer.py`` for dense ``attn``
 blocks: parameter entries (same names, shapes and order, so the flat
-layout matches), ``RunSpec``, the attention half in its prefill and decode
-branches, the MLP half, ``apply_block`` and
+layout matches), ``RunSpec``, the attention half in its train/prefill and
+decode branches, the MLP half, ``apply_block`` and
 ``select_positions``.  One device: no sequence or KV sharding, so the
 reference's ``_last_shard_value`` (replicate the last sequence shard's
 value) is the identity and has no counterpart here.
@@ -36,7 +36,7 @@ def block_entries(cfg: ArchConfig, pre: str
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
     """Static run-mode description."""
-    mode: str = "prefill"              # prefill | decode
+    mode: str = "prefill"              # train | prefill | decode
 
 
 def _sub(p: Dict[str, torch.Tensor], pre: str) -> Dict[str, torch.Tensor]:
@@ -68,7 +68,7 @@ def _attn_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
         new_cache = {"k": kc, "v": vc}
     else:
         o = attn.mha(q, k, v)
-        new_cache = {"k": k, "v": v}
+        new_cache = {"k": k, "v": v} if rs.mode == "prefill" else None
     o = o.reshape(B, S, H * hd) @ p["wo"]
     return o, new_cache
 

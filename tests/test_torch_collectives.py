@@ -6,16 +6,12 @@ on a one-device mesh.  With two gloo ranks on the CPU each rank quantizes
 its own shard and the gathered result must equal the blockwise round trip
 of the whole buffer (blocks never straddle shards), on every rank.
 """
-import socket
-import sys
-
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.core import collectives as cl
 from repro_torch.core import quant as tq
 from repro_torch.core.zeropp import ZeroConfig, fwd_gather, fwd_gather_quant
+from repro_torch.testing import multirank
 
 N = 4096
 
@@ -47,41 +43,17 @@ def test_world_one_gathers_the_shard_through_the_round_trip():
     assert torch.equal(fwd_gather(x, zl), x.float())
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank(rank, world, port):
-    """One gloo rank; exits 0 iff its gathered buffer is the round trip of
-    the whole buffer, bit for bit."""
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        full = _full()
-        per = N // world
-        shard = full[rank * per:(rank + 1) * per]
-        cfg = tq.QuantConfig()
-        assert cl.world_size() == world
-        got = cl.qwz_all_gather(shard, None, cfg, out_dtype=torch.float32)
-        ok = torch.equal(got, _roundtrip(full, cfg, torch.float32))
-    finally:
-        dist.destroy_process_group()
-    sys.exit(0 if ok else 1)
+def _rank(rank, world):
+    """True iff this rank's gathered buffer is the round trip of the whole
+    buffer, bit for bit."""
+    full = _full()
+    per = N // world
+    shard = full[rank * per:(rank + 1) * per]
+    cfg = tq.QuantConfig()
+    assert cl.world_size() == world
+    got = cl.qwz_all_gather(shard, None, cfg, out_dtype=torch.float32)
+    return bool(torch.equal(got, _roundtrip(full, cfg, torch.float32)))
 
 
 def test_two_rank_gloo_qwz_gather_matches_whole_buffer_round_trip():
-    ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_rank, args=(r, 2, port)) for r in range(2)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(timeout=120)
-    alive = [p.is_alive() for p in procs]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-    assert alive == [False, False]
-    assert [p.exitcode for p in procs] == [0, 0]
+    assert multirank.run(_rank, 2) == [True, True]
