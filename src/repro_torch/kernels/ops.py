@@ -2,11 +2,14 @@
 
 Counterpart of the reference's ``kernels/ops.py`` (its
 ``quantize_blockwise``, ``dequantize_blockwise``, ``quantize_reordered``,
-``dequant_reduce``, ``dequant_reduce_quant`` and ``dequant_matmul``):
-every quantized byte on the port's serving and training paths — the qwZ
-gathers and the qgZ reduce in ``core/collectives.py`` and the INT8 head in
-``models/model.py`` — goes through here, with the reference's shapes and
-dtypes.  N-D inputs are
+``dequant_reduce``, ``dequant_reduce_quant`` and ``dequant_matmul``),
+plus the flash-attention pair that the reference calls from
+``kernels/flash_ops.py``: every quantized byte on the port's serving and
+training paths — the qwZ gathers and the qgZ reduce in
+``core/collectives.py`` and the INT8 head in ``models/model.py`` — and the
+attention of the training step under ``attn_impl="pallas"``
+(``kernels/flash_ops.py``) go through here, with the reference's shapes
+and dtypes.  N-D inputs are
 flattened to 2-D rows (``_as2d``: a flat shard becomes ``(1, N)``), as the
 reference does before its Pallas calls.
 
@@ -17,7 +20,8 @@ way).
 
 This module only reshapes.  The route is taken one layer down, in the
 kernel wrappers (``kernels/quant_block.py``,
-``kernels/fused_dequant_reduce_quant.py``, ``kernels/dequant_matmul.py``):
+``kernels/fused_dequant_reduce_quant.py``, ``kernels/dequant_matmul.py``,
+``kernels/flash_attention.py``):
 a CUDA tensor launches the hand-written kernel, a CPU tensor takes the
 plain PyTorch version.  There is no backend switch and no fallback from a
 failed build or launch.
@@ -30,6 +34,7 @@ import torch
 
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import dequant_matmul as _dm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dequant_reduce_quant as _fq
 from repro_torch.kernels import quant_block as _qb
 
@@ -105,3 +110,24 @@ def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,
     before the product, accumulation is fp32; returns (T, N) float32.
     """
     return _dm.dequant_matmul(x, payload, scales, compute_dtype)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, causal: bool = True, window: int = 0,
+              softcap: float = 0.0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention forward: q (B, Sq, H, hd), k/v (B, S, K, hd) ->
+    (out (B, Sq, H, hd), m, l (B, H, Sq) float32)."""
+    return _fa.flash_fwd(q, k, v, scale=scale, causal=causal, window=window,
+                         softcap=softcap)
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+              dout: torch.Tensor, *, scale: float, causal: bool = True,
+              window: int = 0, softcap: float = 0.0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward from the forward's (out, m, l): (dq, dk,
+    dv)."""
+    return _fa.flash_bwd(q, k, v, out, m, l, dout, scale=scale,
+                         causal=causal, window=window, softcap=softcap)

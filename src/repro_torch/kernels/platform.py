@@ -33,7 +33,8 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("quant_block", "fused_dequant_reduce_quant", "dequant_matmul")
+SOURCES = ("quant_block", "fused_dequant_reduce_quant", "dequant_matmul",
+           "flash_attention")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,7 +45,9 @@ LAUNCHES: Dict[str, int] = {"quantize_blockwise": 0,
                             "quantize_reordered": 0,
                             "dequant_reduce_quant": 0,
                             "dequant_reduce": 0,
-                            "dequant_matmul": 0}
+                            "dequant_matmul": 0,
+                            "flash_fwd": 0,
+                            "flash_bwd": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -5,7 +5,8 @@ Port of the reference's ``launch/train.build_everything`` and
 no elastic runtime yet).  Runs on the card by default:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --batch 8 \\
-        --seq 2048 --steps 8 [--variant zeropp] [--device cuda|cpu]
+        --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
+        [--device cuda|cpu]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels and is
 meant for tests at ``--reduced`` size.
@@ -41,9 +42,11 @@ def build_everything(arch_name: str, variant: str = "zeropp",
                      reduced: bool = False, batch: int = 8, seq: int = 2048,
                      lr: float = 3e-4, accum: int = 1,
                      lr_schedule: str = "warmup_cosine",
-                     device="cuda") -> Built:
-    """Construct (arch, model, train step, data) for a run.  ``lr_schedule`` is the reference's ``warmup_cosine(lr, 10,
-    10_000)`` or ``constant``."""
+                     device="cuda", attn_impl: str = "xla") -> Built:
+    """Construct (arch, model, train step, data) for a run.
+    ``lr_schedule`` is the reference's ``warmup_cosine(lr, 10, 10_000)`` or
+    ``constant``; ``attn_impl`` the attention route ("pallas": the flash
+    kernels)."""
     arch = get_config(arch_name)
     if reduced:
         arch = arch.reduced()
@@ -56,7 +59,8 @@ def build_everything(arch_name: str, variant: str = "zeropp",
     else:
         raise ValueError(f"unknown lr schedule {lr_schedule!r}")
     opt_cfg = AdamWConfig(lr=sched)
-    step = build_train_step(model, opt_cfg, accum=accum, device=device)
+    step = build_train_step(model, opt_cfg, accum=accum, device=device,
+                            attn_impl=attn_impl)
     lm = SyntheticLM(vocab=arch.vocab, seq_len=seq, seed=7)
     return Built(arch, model, step, lm)
 
@@ -82,7 +86,7 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
     ``on_step(i, metrics)`` is called after each step."""
     built = build_everything(args.arch, args.variant, args.reduced,
                              args.batch, args.seq, args.lr, args.accum,
-                             args.lr_schedule, args.device)
+                             args.lr_schedule, args.device, args.attn)
     model = built.model
     dev = model.device
     gen = torch.Generator(device=dev)
@@ -130,6 +134,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr-schedule", default="warmup_cosine",
                     choices=("warmup_cosine", "constant"))
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--attn", default="xla", choices=("xla", "pallas"),
+                    help="attention route: plain, or the flash kernels")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--log-every", type=int, default=1)

@@ -4,9 +4,14 @@ Port of the reference's ``models/attention.py`` (``mha`` — dense, and the
 chunked online-softmax ``flash_attention`` with its hand-written VJP —,
 ``per_seq_pos``, ``decode_attend``, ``cache_insert``) for one device: the
 sequence is not sharded, so the reference's KV gathers and pmax/psum
-combines are identities and are left out.  The reference computes all of
-this outside any Pallas kernel under its default ``attn_impl="xla"``, so
-it is plain PyTorch here; the dense path is differentiated by autograd.
+combines are identities and are left out.  Under the default
+``impl="xla"`` all of it is plain PyTorch, as the reference computes it
+outside any Pallas kernel; the dense path is differentiated by autograd.
+Under ``impl="pallas"`` (the training step's ``RunSpec.attn_impl``),
+``mha`` takes the reference's rule: S >= 512 with S and Sq multiples of
+512 go through the hand-written flash kernels B6/B7
+(``kernels/flash_ops.flash_attention_kernel``); other shapes take the
+chunked or dense path as under ``"xla"``.  Serving never asks for it.
 
 GQA: the reference repeats each KV head ``H // K`` times; here the query
 heads are grouped as (K, H // K) instead, which pairs every query head
@@ -19,6 +24,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.flash_ops import flash_attention_kernel
 
 NEG_INF = -1e30
 
@@ -46,15 +53,21 @@ def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        kv_chunk: int = 1024) -> torch.Tensor:
+        kv_chunk: int = 1024, impl: str = "xla") -> torch.Tensor:
     """Causal attention for training and prefill.  q (B, Sq, H, hd); k, v
-    (B, S, K, hd).  Sequences longer than ``kv_chunk`` (and a multiple of
-    it) take the chunked online-softmax path with its hand-written VJP,
-    which keeps the working set at O(Sq·kv_chunk) — the reference's rule
-    and arithmetic."""
+    (B, S, K, hd).  With ``impl="pallas"``, S >= 512 and S, Sq multiples
+    of 512 run the flash kernels (the reference's ``attention.py:101``
+    rule).  Otherwise sequences longer than ``kv_chunk`` (and a multiple
+    of it) take the chunked online-softmax path with its hand-written VJP,
+    which keeps the working set at O(Sq·kv_chunk), and the rest the dense
+    path — the reference's rules and arithmetic."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl {impl!r}")
     B, Sq, H, hd = q.shape
     S = k.shape[1]
     scale = hd ** -0.5
+    if impl == "pallas" and S >= 512 and S % 512 == 0 and Sq % 512 == 0:
+        return flash_attention_kernel(q, k, v, scale, True, 0, 0.0)
     q_pos = torch.arange(Sq, device=q.device)
     if S > kv_chunk and S % kv_chunk == 0:
         return flash_attention(q, k, v, q_pos, scale, kv_chunk)

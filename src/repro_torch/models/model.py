@@ -160,15 +160,20 @@ class Model:
     # ------------------------------------------------------------- train
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
-                dp_world: int = 1) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                rs: RunSpec, dp_world: int = 1
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Local training loss: sum-NLL over this rank's tokens / the global
         token count (``dp_world`` ranks of equal batches), differentiable
-        with respect to the flat groups through the ZeRO++ engine.
+        with respect to the flat groups through the ZeRO++ engine.  ``rs``
+        is a train-mode RunSpec; its ``attn_impl`` picks the attention
+        route (the flash kernels run in the forward and again in each
+        layer's recompute).
         ``params["blocks"]`` and ``params["unemb"]`` may be (n, P) tensors
         or sequences of per-group (P,) shards.  Returns (loss, {"nll_sum",
         "tokens"})."""
         cfg, z = self.cfg, self.zcfg
-        rs = RunSpec(mode="train")
+        if rs.mode != "train":
+            raise ValueError(f"loss_fn needs a train RunSpec, got {rs}")
         h = zero_apply(self._emb_lookup, z)(params["embed"], batch["tokens"])
         B, S = h.shape[0], h.shape[1]
         cos, sin = self._rope_tables(rs, S)

@@ -37,6 +37,7 @@ def block_entries(cfg: ArchConfig, pre: str
 class RunSpec:
     """Static run-mode description."""
     mode: str = "prefill"              # train | prefill | decode
+    attn_impl: str = "xla"             # xla | pallas (flash kernels B6/B7)
 
 
 def _sub(p: Dict[str, torch.Tensor], pre: str) -> Dict[str, torch.Tensor]:
@@ -67,7 +68,7 @@ def _attn_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
         o = attn.decode_attend(q, kc, vc, t)
         new_cache = {"k": kc, "v": vc}
     else:
-        o = attn.mha(q, k, v)
+        o = attn.mha(q, k, v, impl=rs.attn_impl)
         new_cache = {"k": k, "v": v} if rs.mode == "prefill" else None
     o = o.reshape(B, S, H * hd) @ p["wo"]
     return o, new_cache

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import collectives as cl
 from repro_torch.kernels import platform
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import RunSpec
 from repro_torch.optim.adamw import AdamWConfig, apply_update
 
 Tensors = Dict[str, torch.Tensor]
@@ -54,12 +55,14 @@ def _leaves(params: Tensors) -> Dict[str, Any]:
 
 
 def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
-                     device="cuda") -> TrainStep:
+                     device="cuda", attn_impl: str = "xla") -> TrainStep:
     """Build the ZeRO++ train step of ``model`` (which must run on
     ``device``: "cuda" unless the caller asks for "cpu").  With ``accum >
     1`` every batch leaf carries a leading microbatch axis (accum, B, S)
     and the gradients of the microbatches are summed, then divided by
-    ``accum``, as in the reference."""
+    ``accum``, as in the reference.  ``attn_impl`` is the reference's
+    switch: "xla" (plain attention) or "pallas" (the flash kernels where
+    ``mha``'s rule allows)."""
     dev = platform.resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"step built for {dev} but the model runs on "
@@ -73,11 +76,12 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
             f"trains on a one-rank ('data', 'model') world")
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
+    rs = RunSpec(mode="train", attn_impl=attn_impl)
 
     def one(params: Tensors, batch: Tensors
             ) -> Tuple[torch.Tensor, Dict[str, Any], Tensors]:
         leaves = _leaves(params)
-        loss, mets = model.loss_fn(leaves, batch, world)
+        loss, mets = model.loss_fn(leaves, batch, rs, world)
         keys = sorted(leaves)
         flat: List[torch.Tensor] = []
         for k in keys:

@@ -3,7 +3,11 @@
 Skipped where ``torch.cuda.is_available()`` is false (the decision is
 made inside the fixture, never at import).  On the card: B1, B2, B3, B4
 and B5 must be bit-identical to the plain versions; B8 must agree within fp32
-rtol 1e-5, atol 1e-5·max|out| (summation order only).  Run on the card
+rtol 1e-5, atol 1e-5·max|out| (summation order only); the flash pair B6/B7
+within the reference's fp32 bars (2e-5 forward, 3e-5 backward: the
+plain version, tiled 64 x 64 as the kernels are, still sums within a
+tile in another order),
+and bit-identical from one launch to the next.  Run on the card
 with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_gpu.py``.
 """
 import pytest
@@ -12,6 +16,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import dequant_matmul as dm
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_dequant_reduce_quant as fq
 from repro_torch.kernels import platform, ref
 from repro_torch.kernels import quant_block as qb
@@ -107,3 +112,32 @@ def test_dequant_reduce_kernels_bit_identical(gen, N, C, block, bits_in,
         qp, sp = ref.dequant_reduce_quant_ref(p, s, cin, cout, field)
         assert torch.equal(q2, qp) and torch.equal(s2, sp)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,window,softcap", [
+    (1, 256, 4, 2, 64, 0, 0.0), (2, 192, 4, 1, 64, 70, 0.0),
+    (1, 128, 2, 2, 128, 0, 20.0), (1, 256, 8, 2, 16, 100, 30.0)])
+def test_flash_kernels_close_and_deterministic(gen, B, S, H, K, hd, window,
+                                               softcap):
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+    k = torch.randn(B, S, K, hd, generator=gen, device="cuda")
+    v = torch.randn(B, S, K, hd, generator=gen, device="cuda")
+    do = torch.randn(B, S, H, hd, generator=gen, device="cuda")
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=softcap)
+    tiles = dict(bq=64, bk=64)        # the plain version tiled as the kernel
+    before = dict(platform.LAUNCHES)
+    o, m, l = fa.flash_fwd(q, k, v, **kw)
+    grads = fa.flash_bwd(q, k, v, o, m, l, do, **kw)
+    assert platform.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert platform.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    want = ref.flash_fwd_ref(q, k, v, **kw, **tiles)
+    for got, w in zip((o, m, l), want):
+        torch.testing.assert_close(got, w, rtol=2e-5, atol=2e-5)
+    wgrads = ref.flash_bwd_ref(q, k, v, *want, do, **kw, **tiles)
+    for got, w in zip(grads, wgrads):
+        torch.testing.assert_close(got, w, rtol=3e-5, atol=3e-5)
+    o2, m2, l2 = fa.flash_fwd(q, k, v, **kw)
+    grads2 = fa.flash_bwd(q, k, v, o, m, l, do, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip((o, m, l, *grads), (o2, m2, l2, *grads2)):
+        assert torch.equal(a, b)

@@ -36,13 +36,21 @@ Tolerances (f32 compute, parameter and reduce dtypes):
   * each of the reference's variants (baseline, qwz, hpz, qgz) under
     ``make_policy(variant)``: the bar above that fits it (qgZ on: the
     INT4 bar, else the 1e-5 one);
-  * the flash VJP (S = 2·kv_chunk) at 1e-5, alone and inside the step.
+  * the flash VJP (S = 2·kv_chunk) at 1e-5, alone and inside the step;
+  * the step under ``attn_impl="pallas"`` at batch 1 × 512, where every
+    layer's attention runs the flash pair (the port's plain versions of
+    B6/B7 here, the reference's Pallas kernels in interpret mode): qgZ off
+    at the 1e-5 bars, full ZeRO++ under the INT4 bar.  The reference's
+    step is built with ``global_batch`` so that it keeps the sequence
+    unsharded (else it picks ``seq_axes=("model",)`` and its jnp flash
+    path); the test checks that its Pallas pair was traced.
 """
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import argparse                                              # noqa: E402
+import contextlib                                            # noqa: E402
 
 import jax                                                   # noqa: E402
 import jax.numpy as jnp                                      # noqa: E402
@@ -54,6 +62,7 @@ from jax.sharding import PartitionSpec as P                  # noqa: E402
 from repro.configs import get_config as jax_get_config       # noqa: E402
 from repro.core.compat import make_mesh, shard_map           # noqa: E402
 from repro.data import synthetic as jsyn                     # noqa: E402
+from repro.kernels import flash_ops as jflash_ops             # noqa: E402
 from repro.models.attention import flash_attention as jflash  # noqa: E402
 from repro.models.model import Model as JaxModel             # noqa: E402
 from repro.models.transformer import RunSpec as JaxRunSpec   # noqa: E402
@@ -67,6 +76,8 @@ from repro_torch.configs import get_config                   # noqa: E402
 from repro_torch.convert import (opt_from_numpy,             # noqa: E402
                                  params_from_numpy, to_numpy)
 from repro_torch.data import synthetic as tsyn               # noqa: E402
+from repro_torch.kernels import flash_ops as tflash_ops      # noqa: E402
+from repro_torch.kernels import ops as tops                  # noqa: E402
 from repro_torch.launch import train as tlaunch              # noqa: E402
 from repro_torch.models.attention import flash_attention     # noqa: E402
 from repro_torch.models.model import Model                   # noqa: E402
@@ -115,8 +126,8 @@ class _Pair:
             0, self.jarch.vocab, (B, S + 1)).astype(np.int32)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
-    def ref_grads(self, batch):
-        rs = JaxRunSpec(mode="train", seq_axes=())
+    def ref_grads(self, batch, attn_impl="xla"):
+        rs = JaxRunSpec(mode="train", seq_axes=(), attn_impl=attn_impl)
         specs = param_specs(self.jm, AXES)
         bspec = {k: P(AXES, None) for k in batch}
 
@@ -130,10 +141,11 @@ class _Pair:
         loss, g = f(self.jp, batch)
         return float(loss), {k: np.asarray(v) for k, v in g.items()}
 
-    def ref_step(self, batch, accum=1):
+    def ref_step(self, batch, accum=1, attn_impl="xla"):
         ts = jtrainer.build_train_step(self.jm, self.mesh, self.jopt_cfg,
                                        accum=accum, donate=False,
-                                       global_batch=2)
+                                       global_batch=batch["tokens"].shape[0],
+                                       attn_impl=attn_impl)
         if accum > 1:
             batch = {k: v.reshape((accum, -1) + v.shape[1:])
                      for k, v in batch.items()}
@@ -212,21 +224,22 @@ def test_synthetic_data_is_the_reference_draws():
         jsyn.SyntheticLM(128, 64, seed=7).entropy_bound
 
 
-def _step_exact(pair):
+def _step_exact(pair, batch=None, attn_impl="xla"):
     """Loss and gradients at 1e-5, then one AdamW step on both sides."""
-    batch = pair.batch()
-    j_loss, j_grads = pair.ref_grads(batch)
+    batch = pair.batch() if batch is None else batch
+    j_loss, j_grads = pair.ref_grads(batch, attn_impl)
     params, opt = pair.port_state()
-    st = build_train_step(pair.model, AdamWConfig(lr=LR), device="cpu")
+    st = build_train_step(pair.model, AdamWConfig(lr=LR), device="cpu",
+                          attn_impl=attn_impl)
     loss, mets, grads = st.loss_and_grads(params, _tbatch(batch))
     assert abs(float(loss) - j_loss) <= 1e-5
-    assert mets["tokens"] == 2 * 64
+    assert mets["tokens"] == batch["tokens"].size
     assert set(grads) == set(j_grads)
     for k in grads:
         assert grads[k].dtype == torch.float32
         _close(grads[k].numpy(), j_grads[k], f"grad {k}")
     # one AdamW step, on both sides from the same state
-    jp, jo, jm = pair.ref_step(batch)
+    jp, jo, jm = pair.ref_step(batch, attn_impl=attn_impl)
     m = st.fn(params, opt, _tbatch(batch))
     assert abs(float(m["loss"]) - jm["loss"]) <= 1e-5
     np.testing.assert_allclose(float(m["grad_norm"]), jm["grad_norm"],
@@ -251,14 +264,15 @@ def _within_int4_step(got, want, step, what):
     return int(far.sum()), got.size
 
 
-def _step_int4(pair):
+def _step_int4(pair, batch=None, attn_impl="xla"):
     """qgZ on: loss at 1e-5, gradients within one INT4 step, then one
     AdamW step on both sides (m, v, grad norm and parameters).  Returns
     the port's gradients."""
-    batch = pair.batch()
-    j_loss, j_grads = pair.ref_grads(batch)
+    batch = pair.batch() if batch is None else batch
+    j_loss, j_grads = pair.ref_grads(batch, attn_impl)
     params, opt = pair.port_state()
-    st = build_train_step(pair.model, AdamWConfig(lr=LR), device="cpu")
+    st = build_train_step(pair.model, AdamWConfig(lr=LR), device="cpu",
+                          attn_impl=attn_impl)
     loss, _, grads = st.loss_and_grads(params, _tbatch(batch))
     assert abs(float(loss) - j_loss) <= 1e-5
     n_far = n = 0
@@ -270,7 +284,7 @@ def _step_int4(pair):
         n_far, n = n_far + f, n + c
     assert n_far < n / 1000, (n_far, n)
     # one AdamW step, on both sides from the same state
-    jp, jo, jm = pair.ref_step(batch)
+    jp, jo, jm = pair.ref_step(batch, attn_impl=attn_impl)
     m = st.fn(params, opt, _tbatch(batch))
     assert abs(float(m["loss"]) - jm["loss"]) <= 1e-5
     gdiff = np.sqrt(sum(np.sum((grads[k].numpy().astype(np.float64)
@@ -450,3 +464,50 @@ def test_entry_points_run_on_the_card_unless_asked():
     with pytest.raises(ValueError, match="variant"):
         make_policy(arch, variant="zero3")
     assert isinstance(tlaunch.parser().parse_args([]), argparse.Namespace)
+
+
+@contextlib.contextmanager
+def _count_reference_flash(monkeypatch):
+    """Count the reference's traces of its Pallas flash pair."""
+    seen = {"fwd": 0, "bwd": 0}
+    fwd, bwd = jflash_ops.flash_fwd_pallas, jflash_ops.flash_bwd_pallas
+
+    def cfwd(*a, **kw):
+        seen["fwd"] += 1
+        return fwd(*a, **kw)
+
+    def cbwd(*a, **kw):
+        seen["bwd"] += 1
+        return bwd(*a, **kw)
+    monkeypatch.setattr(jflash_ops, "flash_fwd_pallas", cfwd)
+    monkeypatch.setattr(jflash_ops, "flash_bwd_pallas", cbwd)
+    yield seen
+
+
+@pytest.mark.parametrize("zeropp", [False, True], ids=["qgz_off", "zeropp"])
+def test_step_through_the_flash_kernels(zeropp, pair_off, pair_zeropp,
+                                        monkeypatch):
+    """attn_impl="pallas" at batch 1 × 512: the port's step (plain B6/B7)
+    against the reference's Pallas-routed loss_fn and train step."""
+    pair = pair_zeropp if zeropp else pair_off
+    batch = pair.batch(B=1, S=512)
+    with _count_reference_flash(monkeypatch) as seen:
+        (_step_int4 if zeropp else _step_exact)(pair, batch, "pallas")
+    assert seen["fwd"] > 0 and seen["bwd"] > 0, seen
+    # and the port's step went through its flash pair: 2 forwards (the
+    # forward and each layer's recompute) and 1 backward per layer
+    calls = {"fwd": 0, "bwd": 0}
+    real = {"fwd": tops.flash_fwd, "bwd": tops.flash_bwd}
+
+    def counted(name):
+        def f(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return f
+    monkeypatch.setattr(tflash_ops.ops, "flash_fwd", counted("fwd"))
+    monkeypatch.setattr(tflash_ops.ops, "flash_bwd", counted("bwd"))
+    st = build_train_step(pair.model, AdamWConfig(lr=LR), device="cpu",
+                          attn_impl="pallas")
+    st.loss_and_grads(pair.port_state()[0], _tbatch(batch))
+    n = pair.model.cfg.n_layers
+    assert calls == {"fwd": 2 * n, "bwd": n}, calls
