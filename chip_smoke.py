@@ -22,17 +22,20 @@ last line is printed.
    flushed before every launch, warm-up excluded), the plain version's time
    and the least time the card could take (bytes over 3.35 TB/s or
    operations over the type's peak, whichever is larger).  Then the flash
-   pair: B6 forward and B7 backward at the training path's shape (B 8,
-   S 2048, H 16, K 8, hd 128, bf16, causal) against the plain versions
-   (element by element, ``repro_torch.testing.flash_bars``: out within
-   2^-7 of its row's sum p|v|/l plus one bf16 ulp, m and l within 2e-5;
-   dq, dk, dv within one bf16 ulp plus 3e-5; and the out bar must be one
-   that a kv tile dropped or counted twice in the last q tile would
-   exceed), and at (B 1, S 1024) in fp32 at the reference's bars (2e-5
+   pair: B6 forward and B7 backward in bf16 (the tensor-core kernels) at
+   the training path's shape (B 8, S 2048, H 16, K 8, hd 128, causal)
+   and at five small shapes that reach what the path does not (window 300
+   with softcap 30, non-causal, Sq < S, hd 16 and 64, GQA groups 1, 2 and
+   4), against the plain versions (element by element,
+   ``repro_torch.testing.flash_bars``: out within 2^-7 of its row's sum
+   p|v|/l plus one bf16 ulp, m and l within 2e-5; dq, dk, dv within one
+   bf16 ulp plus 3e-5; and the out bar must be one that a kv tile dropped
+   or counted twice in the last q tile would exceed), and at (B 1, S
+   1024) in fp32 (the FFMA kernels) at the reference's bars (2e-5
    forward, 3e-5 backward), plain causal and with a window and a softcap;
    two launches on the same inputs must give the same bits.  Beside their
    times: SDPA's at the same shape (forward, and backward), a yardstick
-   that the port never calls.
+   that the port never calls, and both routes' times at (B 1, S 1024).
 3. Engine phase: qwen3-0.6b at full width (28 layers, d 1024, vocab
    151936), bf16 weights from a seeded generator, on
    ``ServeEngine(n_slots=4, kv_len=2048)``: six greedy requests (prompts
@@ -138,6 +141,15 @@ FLASH_SHAPE = (8, 2048, 16, 8, 128)
 # the fp32 checks of the flash pair, at the reference's own bars
 FLASH_F32_SHAPE = (1, 1024, 16, 8, 128)
 FLASH_WINDOW, FLASH_SOFTCAP = 300, 30.0
+# bf16 cases the path shape does not reach: (B, Sq, S, H, K, hd, causal,
+# window, softcap)
+FLASH_BF16_CASES = (
+    (1, 1024, 1024, 16, 8, 128, True, FLASH_WINDOW, FLASH_SOFTCAP),
+    (1, 1024, 1024, 16, 8, 128, False, 0, 0.0),     # non-causal
+    (1, 512, 1024, 16, 8, 128, True, 0, 0.0),       # Sq < S
+    (1, 1024, 1024, 16, 16, 16, True, 0, 0.0),      # hd 16, GQA 1
+    (1, 1024, 1024, 16, 4, 64, True, 0, 0.0),       # hd 64, GQA 4
+)
 FLASH_TILE = fa.TILE          # the kernels' q and kv tile
 # step-1 losses of the two attention routes: bf16 through 28 layers, with
 # kv tiles summed in other orders (64-wide vs 1024-wide chunks)
@@ -443,10 +455,11 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
 
 # ------------------------------------------------------------------ flash
 
-def _flash_inputs(g, shape, dtype):
+def _flash_inputs(g, shape, dtype, Sq=None):
+    """q, k, v, dO for (B, S, H, K, hd); q and dO of Sq rows (default S)."""
     B, S, H, K, hd = shape
-    return [torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
-            for n in (H, K, K, H)]
+    return [torch.randn(B, n_s, n, hd, generator=g, device="cuda").to(dtype)
+            for n_s, n in ((Sq or S, H), (S, K), (S, K), (Sq or S, H))]
 
 
 def _max_err(got, want) -> float:
@@ -484,10 +497,61 @@ def _dropped_tile_reading(q, k, v, want, bar, scale: float) -> tuple:
                  .item() for c in (-1.0, 1.0))
 
 
+def _hold_bf16(tag: str, q, k, v, do, kw: dict):
+    """B6/B7 in bf16 (the tensor-core kernels) against their plain
+    versions on the same inputs, element by element: out within what the
+    two sides' bf16 roundings of p and of out can account for
+    (testing/flash_bars.py: 2^-7 of the row's sum p|v|/l plus one ulp), m
+    and l within 2e-5 (fp32 sums in another order); dq/dk/dv from the
+    kernel's own saved (out, m, l), fp32 inside both (the reference's fp32
+    bar, 3e-5) plus one bf16 ulp for the rounding.  Two launches on the
+    same inputs must give the same bits (no atomics).  Returns ((out, m,
+    l), the plain out, its bar, the forward's and the backward's max abs
+    error)."""
+    out, m, l = fa.flash_fwd(q, k, v, **kw)
+    want = ref.flash_fwd_ref(q, k, v, **kw)
+    bar = flash_bars.out_bar(q, k, v, want[0], **kw)
+    r_out, e_out = flash_bars.worst(out, want[0], bar)
+    if not torch.isfinite(out).all() or r_out > 1:
+        fail(f"B6 {tag}: out differs from its plain version beyond its "
+             f"per-element bar ({r_out:.3f} x the bar, max abs err {e_out})")
+    for name, a, b in (("m", m, want[1]), ("l", l, want[2])):
+        if not torch.allclose(a, b, rtol=2e-5, atol=2e-5):
+            fail(f"B6 {tag}: {name} differs from its plain version beyond "
+                 f"2e-5 (max abs err {_max_err(a, b)})")
+    fwd_err = max(e_out, *(_max_err(a, b) for a, b in
+                           ((m, want[1]), (l, want[2]))))
+    grads = fa.flash_bwd(q, k, v, out, m, l, do, **kw)
+    wgrads = ref.flash_bwd_ref(q, k, v, out, m, l, do, **kw)
+    bwd_err, bwd_read = 0.0, []
+    for name, a, b in zip(("dq", "dk", "dv"), grads, wgrads):
+        r, e = flash_bars.worst(a, b, flash_bars.grad_bar(b))
+        bwd_err = max(bwd_err, e)
+        bwd_read.append(f"{name} {e:.3e} ({r:.3f} x bar)")
+        if not torch.isfinite(a).all() or r > 1:
+            fail(f"B7 {tag}: {name} differs from its plain version beyond "
+                 f"its per-element bar ({r:.3f} x the bar, max abs err {e})")
+    del wgrads
+    again = fa.flash_fwd(q, k, v, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(again, (out, m, l))):
+        fail(f"B6 {tag}: two launches on the same inputs differ")
+    again = fa.flash_bwd(q, k, v, out, m, l, do, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(again, grads)):
+        fail(f"B7 {tag}: two launches on the same inputs differ")
+    print(f"B6/B7 {tag} bf16: out max abs err {e_out:.3e} ({r_out:.3f} x "
+          f"its per-element bar), m/l within 2e-5; B7 max abs err "
+          f"{', '.join(bwd_read)}; both bit-identical across two launches",
+          flush=True)
+    return (out, m, l), want[0], bar, fwd_err, bwd_err
+
+
 def flash_kernel_phase(flush: torch.Tensor) -> dict:
-    """B6/B7 against their plain versions: bf16 at the training path's
-    shape, fp32 at a smaller one (plain causal, and with window and
-    softcap), two launches bit for bit; times against the bound and SDPA."""
+    """B6/B7 against their plain versions: bf16 (tensor cores) at the
+    training path's shape and at small shapes that reach window, softcap,
+    non-causal, Sq < S, hd 16/64 and GQA 1/2/4; fp32 (FFMA) at a smaller
+    shape (plain causal, and with window and softcap); two launches bit
+    for bit; times against the bound and SDPA, and both routes at (1,
+    1024)."""
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: the plain fp32 versions would not be fp32")
     g = torch.Generator(device="cuda")
@@ -496,57 +560,28 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
     B, S, H, K, hd = FLASH_SHAPE
     q, k, v, do = _flash_inputs(g, FLASH_SHAPE, torch.bfloat16)
     kw = dict(scale=hd ** -0.5, causal=True)
-    out, m, l = fa.flash_fwd(q, k, v, **kw)
-    want = ref.flash_fwd_ref(q, k, v, **kw)
-    # out: bf16, each element within what the two sides' bf16 roundings of
-    # p and of out can account for (testing/flash_bars.py: 2^-7 of the
-    # row's sum p|v|/l plus one ulp); m and l are fp32 sums in another order
-    bar = flash_bars.out_bar(q, k, v, want[0], **kw)
-    r_out, e_out = flash_bars.worst(out, want[0], bar)
-    if not torch.isfinite(out).all() or r_out > 1:
-        fail(f"B6 out differs from its plain version beyond its per-element "
-             f"bar ({r_out:.3f} x the bar, max abs err {e_out})")
-    for name, a, b in (("m", m, want[1]), ("l", l, want[2])):
-        if not torch.allclose(a, b, rtol=2e-5, atol=2e-5):
-            fail(f"B6 {name} differs from its plain version beyond 2e-5 "
-                 f"(max abs err {_max_err(a, b)})")
-    fwd_err = max(e_out, *(_max_err(a, b) for a, b in
-                           ((m, want[1]), (l, want[2]))))
-    fault = _dropped_tile_reading(q, k, v, want[0], bar, kw["scale"])
+    print("bars: out 2^-7 x (sum p|v|/l + |out|) x 1.01; dq/dk/dv 2^-7 x "
+          "1.01 x |grad| + 3e-5 x (1 + |grad|)", flush=True)
+    (out, m, l), want, bar, fwd_err, bwd_err = _hold_bf16(
+        f"{FLASH_SHAPE} causal", q, k, v, do, kw)
+    fault = _dropped_tile_reading(q, k, v, want, bar, kw["scale"])
     del want, bar
-    grads = fa.flash_bwd(q, k, v, out, m, l, do, **kw)
-    wgrads = ref.flash_bwd_ref(q, k, v, out, m, l, do, **kw)
-    bwd_err, bwd_read = 0.0, []
-    for name, a, b in zip(("dq", "dk", "dv"), grads, wgrads):
-        # fp32 inside both, summed in other orders (the reference's fp32
-        # bar, 3e-5), then one bf16 ulp of each element for the rounding
-        r, e = flash_bars.worst(a, b, flash_bars.grad_bar(b))
-        bwd_err = max(bwd_err, e)
-        bwd_read.append(f"{name} {e:.3e} ({r:.3f} x bar)")
-        if not torch.isfinite(a).all() or r > 1:
-            fail(f"B7 {name} differs from its plain version beyond its "
-                 f"per-element bar ({r:.3f} x the bar, max abs err {e})")
-    del wgrads
-    # the same inputs twice: the same bits (no atomics)
-    again = fa.flash_fwd(q, k, v, **kw)
-    if not all(torch.equal(a, b) for a, b in zip(again, (out, m, l))):
-        fail("B6: two launches on the same inputs differ")
-    again = fa.flash_bwd(q, k, v, out, m, l, do, **kw)
-    if not all(torch.equal(a, b) for a, b in zip(again, grads)):
-        fail("B7: two launches on the same inputs differ")
-    del again, grads
-    print(f"B6 flash_fwd {FLASH_SHAPE} bf16: out max abs err {e_out:.3e} "
-          f"({r_out:.3f} x its per-element bar, 2^-7 x (sum p|v|/l + "
-          f"|out|) x 1.01), m/l within 2e-5; B7 flash_bwd: max abs err "
-          f"{', '.join(bwd_read)} against 2^-7 x 1.01 x |grad| + 3e-5 x "
-          f"(1 + |grad|); both bit-identical across two launches",
-          flush=True)
     print(f"B6 bar's reach, plain fp32 rows {S - FLASH_TILE}..{S - 1}: the "
           f"diagonal kv tile dropped reads {fault[0]:.2f} x the bar, counted "
           f"twice {fault[1]:.2f} x", flush=True)
     if min(fault) <= 1:
         fail(f"B6's bar would not catch a dropped or doubled kv tile: "
              f"{fault}")
+    for Bc, Sq, Sc, Hc, Kc, hdc, causal, window, softcap in FLASH_BF16_CASES:
+        cq, ck, cv, cdo = _flash_inputs(g, (Bc, Sc, Hc, Kc, hdc),
+                                        torch.bfloat16, Sq=Sq)
+        ckw = dict(scale=hdc ** -0.5, causal=causal, window=window,
+                   softcap=softcap)
+        tag = (f"(B {Bc}, Sq {Sq}, S {Sc}, H {Hc}, K {Kc}, hd {hdc}) "
+               f"causal {causal} window {window} softcap {softcap}")
+        res = _hold_bf16(tag, cq, ck, cv, cdo, ckw)
+        fwd_err, bwd_err = max(fwd_err, res[3]), max(bwd_err, res[4])
+        del res, cq, ck, cv, cdo
 
     # times at the path shape
     pairs = B * H * _causal_pairs(S)
@@ -554,16 +589,28 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
     qb, kb = B * S * H * hd * 2, B * S * K * hd * 2
     b6 = bound_mixed(2 * qb + 2 * kb + 8 * B * H * S,
                      ((2 * prod, BF16_OPS_S),))
-    b7 = bound_mixed(4 * qb + 4 * kb + 8 * B * H * S,
-                     ((2 * prod, BF16_OPS_S), (3 * prod, F32_OPS_S)))
+    # B7: QK^T and dO.V^T on bf16 inputs, and dl.K, p^T.dO, dl^T.Q with p
+    # and dl as bf16 hi + lo pairs: 2 tensor-core products each
+    n_prod = 2 + 3 * 2
+    b7_bytes = 4 * qb + 4 * kb + 8 * B * H * S
+    b7 = bound_mixed(b7_bytes, ((n_prod * prod, BF16_OPS_S),))
+    print(f"B7 bound: max(bytes {b7_bytes:.4g} / {HBM_BYTES_S:.4g} B/s = "
+          f"{b7_bytes / HBM_BYTES_S * 1e3:.4f} ms, (2 + 3 x 2) = {n_prod} "
+          f"bf16 products x {prod:.4g} FLOP / {BF16_OPS_S:.4g} FLOP/s = "
+          f"{n_prod * prod / BF16_OPS_S * 1e3:.4f} ms) = {b7[0]:.4f} ms",
+          flush=True)
     f_ms = median_ms(lambda: fa.flash_fwd(q, k, v, **kw), flush)
     f_plain = median_ms(lambda: ref.flash_fwd_ref(q, k, v, **kw), flush, n=5)
     b_ms = median_ms(lambda: fa.flash_bwd(q, k, v, out, m, l, do, **kw),
                      flush)
     b_plain = median_ms(lambda: ref.flash_bwd_ref(q, k, v, out, m, l, do,
                                                   **kw), flush, n=5)
+    if f_ms < b6[0] or b_ms < b7[0]:
+        fail(f"a flash kernel reads faster than its bound: B6 {f_ms} < "
+             f"{b6[0]} or B7 {b_ms} < {b7[0]} ms")
     # the library's causal GQA attention, as a yardstick only: SDPA on
-    # (B, heads, S, hd) views; its backward runs in bf16, the pair's in fp32
+    # (B, heads, S, hd) views; its backward takes p and dS in bf16, the
+    # pair's as hi + lo pairs (fp32-level products)
     sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     sdo = do.transpose(1, 2)
@@ -579,13 +626,15 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
     lib_fb = median_ms(lambda: torch.autograd.grad(
         sdpa(), (sq, sk, sv), sdo), flush)
     del so, sq, sk, sv, sdo
-    print(f"B6 flash_fwd {FLASH_SHAPE} bf16 causal: kernel {f_ms:.4f} ms, "
-          f"plain {f_plain:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]}), SDPA "
-          f"{lib_f:.4f} ms", flush=True)
+    print(f"B6 flash_fwd {FLASH_SHAPE} bf16 causal: kernel {f_ms:.4f} ms "
+          f"({100 * b6[0] / f_ms:.1f} % of its bound), plain {f_plain:.4f} "
+          f"ms, bound {b6[0]:.4f} ms ({b6[1]}), SDPA {lib_f:.4f} ms",
+          flush=True)
     print(f"B7 flash_bwd {FLASH_SHAPE} bf16 causal: kernel {b_ms:.4f} ms "
-          f"(dsum reduction, dq kernel, dk/dv kernel), plain {b_plain:.4f} "
-          f"ms, bound {b7[0]:.4f} ms ({b7[1]}), SDPA backward {lib_b:.4f} "
-          f"ms (forward + backward {lib_fb:.4f} ms)", flush=True)
+          f"({100 * b7[0] / b_ms:.1f} % of its bound; dsum reduction, dq "
+          f"kernel, dk/dv kernel), plain {b_plain:.4f} ms, bound "
+          f"{b7[0]:.4f} ms ({b7[1]}), SDPA backward {lib_b:.4f} ms (forward "
+          f"+ backward {lib_fb:.4f} ms)", flush=True)
     rec["flash_fwd"] = dict(ms=f_ms, plain_ms=f_plain, bound=b6,
                             shape=FLASH_SHAPE, max_abs_err=fwd_err,
                             library_ms=lib_f)
@@ -593,6 +642,21 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
                             shape=FLASH_SHAPE, max_abs_err=bwd_err,
                             library_ms=lib_b)
     del q, k, v, do, out, m, l
+
+    # both routes at (1, 1024), causal: fp32 (FFMA) and bf16 (tensor cores)
+    kw = dict(scale=FLASH_F32_SHAPE[-1] ** -0.5, causal=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _flash_inputs(g, FLASH_F32_SHAPE, dtype)
+        out, m, l = fa.flash_fwd(q, k, v, **kw)
+        t_f = median_ms(lambda: fa.flash_fwd(q, k, v, **kw), flush)
+        t_b = median_ms(lambda: fa.flash_bwd(q, k, v, out, m, l, do, **kw),
+                        flush)
+        name = "f32" if dtype == torch.float32 else "bf16"
+        print(f"B6/B7 {FLASH_F32_SHAPE} {name} causal: forward {t_f:.4f} "
+              f"ms, backward {t_b:.4f} ms", flush=True)
+        rec["flash_fwd"][f"{name}_1024_ms"] = t_f
+        rec["flash_bwd"][f"{name}_1024_ms"] = t_b
+        del q, k, v, do, out, m, l
 
     # fp32 at the reference's bars: plain causal, then window + softcap
     for extra in ({}, dict(window=FLASH_WINDOW, softcap=FLASH_SOFTCAP)):
@@ -970,9 +1034,15 @@ def profile_step(step, what: str, n: int = 1) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    flash = {re.search(r"::(flash_\w+)", k).group(1): ms
+             for k, ms in by_name.items() if "::flash_" in k}
     print(f"profile ({what}): host wall {wall:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of the wall), "
           f"{len(dev) / n:.0f} device kernels/step", flush=True)
+    if flash:
+        print(f"  flash kernels {sum(flash.values()):.3f} ms/step: "
+              + ", ".join(f"{k} {ms:.3f}" for k, ms in flash.items()),
+              flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
 
@@ -991,13 +1061,17 @@ def main() -> None:
                      re.findall(r"(\d+) bytes spill stores", log))
         print(f"  {name}.cu: {len(regs)} kernels, at most {max(regs)} "
               f"registers per thread, {spills} bytes spilled", flush=True)
-    # per kernel of the flash source (the others report their maximum)
-    for fn, ty, hd, spill, regs in re.findall(
-            r"Compiling entry function '\S*?\d(flash_\w+?_kernel)I"
-            r"(13__nv_bfloat16|f)Li(\d+)E.*?(\d+) bytes spill stores.*?"
-            r"Used (\d+) registers", logs.get("flash_attention", ""), re.S):
-        print(f"    {fn}<{'bf16' if ty != 'f' else 'f32'}, hd {hd}>: {regs} "
-              f"registers, {spill} bytes spilled", flush=True)
+    # per kernel of the flash sources (the others report their maximum)
+    for src, dt in (("flash_attention", "f32"), ("flash_attention_tc", "bf16")):
+        smem = getattr(platform.library(src, {}), f"repro_flash_{dt}_smem")
+        for fn, hd, spill, regs in re.findall(
+                r"Compiling entry function '\S*?\d(flash_\w+?_kernel)ILi"
+                r"(\d+)E.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                logs.get(src, ""), re.S):
+            which = 0 if "fwd" in fn else 1 if "dq" in fn else 2
+            print(f"    {fn}<{dt}, hd {hd}>: {regs} registers, {spill} bytes "
+                  f"spilled, {smem(which, int(hd))} bytes of shared memory",
+                  flush=True)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = kernel_phase(flush)
     rec.update(qgz_kernel_phase(flush))
@@ -1048,9 +1122,9 @@ def main() -> None:
                 "src/repro/kernels/fused_dequant_reduce_quant.py:73"),
             "dequant_matmul": (cu + "dequant_matmul.cu",
                                "src/repro/kernels/dequant_matmul.py:58"),
-            "flash_fwd": (cu + "flash_attention.cu",
+            "flash_fwd": (cu + "flash_attention_tc.cu",
                           "src/repro/kernels/flash_attention.py:76"),
-            "flash_bwd": (cu + "flash_attention.cu",
+            "flash_bwd": (cu + "flash_attention_tc.cu",
                           "src/repro/kernels/flash_attention.py:194")}
     kernels = []
     for name, (src, replaces) in srcs.items():

@@ -1,30 +1,24 @@
-// Flash attention for Hopper (sm_90a): the tiled online-softmax forward
-// (B6) and its backward (B7), for the GQA layout q (B, Sq, H, hd), k and v
-// (B, S, K, hd), query head h reading KV head h / (H / K).
+// Flash attention in fp32 on the CUDA cores (sm_90a): the float32 route of
+// the forward (B6) and the backward (B7), for the GQA layout q (B, Sq, H,
+// hd), k and v (B, S, K, hd), query head h reading KV head h / (H / K).
+// bf16 calls, the training path's, take the tensor-core kernels of
+// flash_attention_tc.cu instead (the wrapper dispatches by dtype): with
+// arbitrary fp32 q and k, bf16 tensor-core products could not hold the
+// reference's fp32 bars (2e-5 forward, 3e-5 backward) without splitting
+// both operands, so fp32 stays here.
 //
 // Replaces the TPU kernels in src/repro/kernels/flash_attention.py:
 //   flash_fwd_pallas (_fwd_kernel, _masked_logits)  -> flash_fwd_kernel
 //   flash_bwd_pallas (_bwd_dq_kernel)               -> flash_bwd_dq_kernel
 //   flash_bwd_pallas (_bwd_dkv_kernel)              -> flash_bwd_dkv_kernel
 // with the same arithmetic: fp32 logits times scale, softcap tanh(x/c)*c,
-// -1e30 (not -inf) in masked places, m/l running stats, p cast to v's
-// dtype before the PV product, l clamped at 1e-30; a backward entirely in
-// fp32 with p = exp(logits - m) / l, dl = p * (dO.V^T - dsum) and the
-// softcap chain 1 - t^2 (zero where logits <= -1e30/2).
+// -1e30 (not -inf) in masked places, m/l running stats, l clamped at
+// 1e-30; a backward entirely in fp32 with p = exp(logits - m) / l, dl = p *
+// (dO.V^T - dsum) and the softcap chain 1 - t^2 (zero where logits <=
+// -1e30/2).
 //
-// What bounds them on this card: operations.  At the training shape (B 8,
-// S 2048, H 16, K 8, hd 128, causal) the forward does about 680 operations
-// per byte it must move, above the ~295 at which bf16 tensor cores stop
-// waiting on memory, and the backward more; the TPU kernels keep each
-// logit tile in VMEM so that device memory sees only q, k, v, o (and dO,
-// m, l).
-// These kernels do the same with shared memory, and every product runs
-// as fp32 FFMA on the CUDA cores.  For the forward (bf16 inputs, products
-// exact in fp32) that is far from the tensor cores' rate; the backward's
-// products with p and dl are fp32 values and must be fp32 (never TF32),
-// so its floor is the CUDA cores' 67 TFLOP/s.  Tensor cores for the
-// products with bf16-exact inputs (QK^T, dO.V^T, the forward's PV) and a
-// wgmma/TMA pipeline are the next step, not this one.
+// What bounds them on this card: operations, and every product is fp32
+// FFMA (never TF32), so the floor is the CUDA cores' 67 TFLOP/s.
 //
 // Design.  All three kernels tile by 64 query rows x 64 kv rows with 256
 // threads.  A tile of one head is staged in shared memory as fp32,
@@ -39,10 +33,9 @@
 //  * forward: grid (q tile, h, b).  The q tile stays in shared memory; the
 //    block walks its kv tiles, stages K and V, computes the 64 x 64 logits,
 //    updates (m, l) and rescales the fp32 accumulator held in registers,
-//    writes p (rounded to v's dtype) over K's slot and adds p.V.  The
-//    epilogue clamps l, divides, casts and writes out in (B, Sq, H, hd) and
-//    m, l in (B, H, Sq).  No transposes: the kernel reads q, k, v through
-//    their strides.
+//    writes p over K's slot and adds p.V.  The epilogue clamps l, divides
+//    and writes out in (B, Sq, H, hd) and m, l in (B, H, Sq).  No
+//    transposes: the kernel reads q, k, v through their strides.
 //  * dq: grid (q tile, h, b), q-major as in the reference.  q and dO stay
 //    in shared memory; per kv tile the block rebuilds p and dl and adds
 //    dl.K.  dsum = rowsum(dO * O) comes in from a plain reduction, as it is
@@ -62,10 +55,8 @@
 // Precision: fp32 accumulation in fmaf, expf/tanhf and IEEE division (the
 // library is built without --use_fast_math).  The kernels' 64-wide tiles
 // sum in another order than the reference's 512-wide ones, so they agree
-// with the plain version to fp32 rounding (bf16 rounding for bf16 outputs),
-// not bit for bit.
+// with the plain version to fp32 rounding, not bit for bit.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -75,17 +66,6 @@ constexpr int kTile = 64;                 // q rows and kv rows per tile
 constexpr int kLP = kTile + 1;            // row of a 64 x 64 p / dl tile
 constexpr float kNegInf = -1e30f;
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // Element strides of a (B, S, heads, hd) tensor; hd is contiguous.
 struct Strides {
   long long b, s, h;
@@ -94,19 +74,19 @@ struct Strides {
 // Stage rows [s0, s0 + 64) of head h of batch b as fp32 in dst[64][HD + 1].
 // Consecutive threads take consecutive rows, so the shared stores hit
 // distinct banks; each reads 16 bytes of its row.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           Strides st, int b, int s0, int h) {
-  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kVec = 4;
   constexpr int kVecs = HD / kVec;
-  const T* base = src + b * st.b + (long long)s0 * st.s + h * st.h;
+  const float* base = src + b * st.b + (long long)s0 * st.s + h * st.h;
   for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kThreads) {
     const int r = idx % kTile, c = (idx / kTile) * kVec;
     const uint4 raw = *reinterpret_cast<const uint4*>(base + r * st.s + c);
-    const T* e = reinterpret_cast<const T*>(&raw);
+    const float* e = reinterpret_cast<const float*>(&raw);
     float* d = dst + r * (HD + 1) + c;
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) d[i] = to_f32(e[i]);
+    for (int i = 0; i < kVec; ++i) d[i] = e[i];
   }
 }
 
@@ -185,15 +165,13 @@ __device__ __forceinline__ void tile_px(float (&acc)[4][HD / 16], const float* _
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
-
 // ---------------------------------------------------------------- forward
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
                  Strides sq, Strides sk, Strides sv, int Sq, int S, int H, int K, Mask mk) {
   constexpr int LD = HD + 1;
   constexpr int DC = HD / 16;
@@ -209,7 +187,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int g = h / (H / K);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, HD>(Qs, q, sq, b, q0, h);
+  load_tile<HD>(Qs, q, sq, b, q0, h);
   float acc[4][DC], m_i[4], l_i[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -222,8 +200,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int k0 = 0; k0 < S; k0 += kTile) {
     if (mk.skip(q0, k0)) continue;
     __syncthreads();                      // the last tile's p and V are read
-    load_tile<T, HD>(Ks, k, sk, b, k0, g);
-    load_tile<T, HD>(Vs, v, sv, b, k0, g);
+    load_tile<HD>(Ks, k, sk, b, k0, g);
+    load_tile<HD>(Vs, v, sv, b, k0, g);
     __syncthreads();
     float s[4][4] = {};
     tile_abt<HD, LD>(s, Qs, Ks, ty, tx);
@@ -254,7 +232,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLP + tx + 16 * j] = round_to<T>(p[i][j]);
+      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLP + tx + 16 * j] = p[i][j];
     __syncthreads();
     tile_px<HD>(acc, Ps, Vs, ty, tx);
   }
@@ -263,9 +241,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     const float l = fmaxf(l_i[i], 1e-30f);
-    T* o = out + (((long long)b * Sq + row) * H + h) * HD;
+    float* o = out + (((long long)b * Sq + row) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] / l;
     if (tx == 0) {
       const long long at = ((long long)b * H + h) * Sq + row;
       m_out[at] = m_i[i];
@@ -276,13 +254,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // -------------------------------------------------------------- backward
 
-// dq: q-major.  dsum is (B, Sq, H); dq is written (B, Sq, H, hd).
-template <typename T, int HD>
+// dq: q-major.  m, l and dsum are (B, H, Sq); dq is written (B, Sq, H, hd).
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ m,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ m,
                     const float* __restrict__ l, const float* __restrict__ dsum,
-                    T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
+                    float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
                     int Sq, int S, int H, int K, Mask mk) {
   constexpr int LD = HD + 1;
   constexpr int DC = HD / 16;
@@ -298,8 +277,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int g = h / (H / K);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, HD>(Qs, q, sq, b, q0, h);
-  load_tile<T, HD>(Ds, dout, sd, b, q0, h);
+  load_tile<HD>(Qs, q, sq, b, q0, h);
+  load_tile<HD>(Ds, dout, sd, b, q0, h);
   float mr[4], lr[4], dr[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -307,7 +286,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const long long at = ((long long)b * H + h) * Sq + row;
     mr[i] = m[at];
     lr[i] = l[at];
-    dr[i] = dsum[((long long)b * Sq + row) * H + h];
+    dr[i] = dsum[at];
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.0f;
   }
@@ -315,8 +294,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int k0 = 0; k0 < S; k0 += kTile) {
     if (mk.skip(q0, k0)) continue;
     __syncthreads();
-    load_tile<T, HD>(Ks, k, sk, b, k0, g);
-    load_tile<T, HD>(Vs, v, sv, b, k0, g);
+    load_tile<HD>(Ks, k, sk, b, k0, g);
+    load_tile<HD>(Vs, v, sv, b, k0, g);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     tile_abt<HD, LD>(s, Qs, Ks, ty, tx);
@@ -337,20 +316,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    T* o = dq + (((long long)b * Sq + q0 + ty + 16 * i) * H + h) * HD;
+    float* o = dq + (((long long)b * Sq + q0 + ty + 16 * i) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * mk.scale);
+    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] * mk.scale;
   }
 }
 
 // dk/dv: kv-major, summed over the H / K query heads of the group.  dk and
 // dv are written (B, S, K, hd).
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ m,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout, const float* __restrict__ m,
                      const float* __restrict__ l, const float* __restrict__ dsum,
-                     T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
+                     float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
                      Strides sv, Strides sd, int Sq, int S, int H, int K, Mask mk) {
   constexpr int LD = HD + 1;
   constexpr int DC = HD / 16;
@@ -368,8 +348,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int rep = H / K;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<T, HD>(Ks, k, sk, b, k0, g);
-  load_tile<T, HD>(Vs, v, sv, b, k0, g);
+  load_tile<HD>(Ks, k, sk, b, k0, g);
+  load_tile<HD>(Vs, v, sv, b, k0, g);
   float ak[4][DC], av[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -381,14 +361,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int q0 = 0; q0 < Sq; q0 += kTile) {
       if (mk.skip(q0, k0)) continue;
       __syncthreads();
-      load_tile<T, HD>(Qs, q, sq, b, q0, h);
-      load_tile<T, HD>(Ds, dout, sd, b, q0, h);
+      load_tile<HD>(Qs, q, sq, b, q0, h);
+      load_tile<HD>(Ds, dout, sd, b, q0, h);
       if (threadIdx.x < kTile) {
         const int row = q0 + threadIdx.x;
         const long long at = ((long long)b * H + h) * Sq + row;
         st[threadIdx.x] = m[at];
         st[kTile + threadIdx.x] = l[at];
-        st[2 * kTile + threadIdx.x] = dsum[((long long)b * Sq + row) * H + h];
+        st[2 * kTile + threadIdx.x] = dsum[at];
       }
       __syncthreads();
       // rows: kv (ty + 16 i), columns: q (tx + 16 j)
@@ -418,8 +398,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const long long at = (((long long)b * S + k0 + ty + 16 * i) * K + g) * HD;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
-      dk[at + tx + 16 * j] = from_f32<T>(ak[i][j] * mk.scale);
-      dv[at + tx + 16 * j] = from_f32<T>(av[i][j]);
+      dk[at + tx + 16 * j] = ak[i][j] * mk.scale;
+      dv[at + tx + 16 * j] = av[i][j];
     }
   }
 }
@@ -437,49 +417,55 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int HD>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* m, float* l,
-                const long long* st, Shape sh, Mask mk, cudaStream_t stream) {
+// Dynamic shared memory of each kernel (0 forward, 1 dq, 2 dk/dv).
+template <int HD> size_t smem_bytes(int which) {
   constexpr int LD = HD + 1;
   constexpr int KP = kTile * LD > kTile * kLP ? kTile * LD : kTile * kLP;
-  const size_t smem = sizeof(float) * (2 * kTile * LD + KP);
-  auto kern = flash_fwd_kernel<T, HD>;
+  return sizeof(float) * (which == 0   ? 2 * kTile * LD + KP
+                          : which == 1 ? 4 * kTile * LD + kTile * kLP
+                                       : 4 * kTile * LD + 2 * kTile * kLP + 3 * kTile);
+}
+
+template <int HD>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* m, float* l,
+                const long long* st, Shape sh, Mask mk, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HD>(0);
+  auto kern = flash_fwd_kernel<HD>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(sh.Sq / kTile, sh.H, sh.B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), m, l, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), m, l, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
       sh.Sq, sh.S, sh.H, sh.K, mk);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* dout, const float* m,
                 const float* l, const float* dsum, void* dq, void* dk, void* dv,
                 const long long* st, Shape sh, Mask mk, cudaStream_t stream) {
-  constexpr int LD = HD + 1;
   const Strides sq = strides_at(st, 0), sk = strides_at(st, 1), sv = strides_at(st, 2),
                 sd = strides_at(st, 3);
-  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
-          *vp = static_cast<const T*>(v), *dp = static_cast<const T*>(dout);
+  const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k),
+          *vp = static_cast<const float*>(v), *dp = static_cast<const float*>(dout);
 
-  const size_t smem_dq = sizeof(float) * (4 * kTile * LD + kTile * kLP);
-  auto kdq = flash_bwd_dq_kernel<T, HD>;
+  const size_t smem_dq = smem_bytes<HD>(1);
+  auto kdq = flash_bwd_dq_kernel<HD>;
   cudaError_t e = allow_smem(kdq, smem_dq);
   if (e != cudaSuccess) return e;
   kdq<<<dim3(sh.Sq / kTile, sh.H, sh.B), kThreads, smem_dq, stream>>>(
-      qp, kp, vp, dp, m, l, dsum, static_cast<T*>(dq), sq, sk, sv, sd, sh.Sq, sh.S, sh.H,
+      qp, kp, vp, dp, m, l, dsum, static_cast<float*>(dq), sq, sk, sv, sd, sh.Sq, sh.S, sh.H,
       sh.K, mk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const size_t smem_dkv = sizeof(float) * (4 * kTile * LD + 2 * kTile * kLP + 3 * kTile);
-  auto kdkv = flash_bwd_dkv_kernel<T, HD>;
+  const size_t smem_dkv = smem_bytes<HD>(2);
+  auto kdkv = flash_bwd_dkv_kernel<HD>;
   e = allow_smem(kdkv, smem_dkv);
   if (e != cudaSuccess) return e;
   kdkv<<<dim3(sh.S / kTile, sh.K, sh.B), kThreads, smem_dkv, stream>>>(
-      qp, kp, vp, dp, m, l, dsum, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, sv, sd,
+      qp, kp, vp, dp, m, l, dsum, static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, sv, sd,
       sh.Sq, sh.S, sh.H, sh.K, mk);
   return cudaGetLastError();
 }
@@ -490,63 +476,65 @@ bool valid(int hd, Shape sh) {
          sh.Sq <= sh.S;
 }
 
-#define REPRO_HD_DISPATCH(T, CALL)                 \
-  switch (hd) {                                    \
-    case 16: return CALL(T, 16);                   \
-    case 64: return CALL(T, 64);                   \
-    default: return CALL(T, 128);                  \
+#define REPRO_HD_DISPATCH(CALL) \
+  switch (hd) {                 \
+    case 16: return CALL(16);   \
+    case 64: return CALL(64);   \
+    default: return CALL(128);  \
   }
 
 }  // namespace
 
 extern "C" {
 
-// Forward.  q (B, Sq, H, hd), k and v (B, S, K, hd), float32 (dtype 0) or
-// bfloat16 (1), each with a contiguous hd and element strides (b, s, head)
-// in strides[0..8] (q, k, v); rows 16-byte aligned.  Writes out (B, Sq, H,
-// hd) contiguous in the input dtype, m and l (B, H, Sq) float32.
-// Requires hd in {16, 64, 128} (the port's configs: qwen3-0.6b, gpt-350m
-// and the reduced test shapes), H % K == 0, Sq and S multiples of 64,
-// Sq <= S.
-int repro_flash_fwd(int device, int dtype, int hd, const void* q, const void* k, const void* v,
-                    void* out, float* m, float* l, const long long* strides, int B, int Sq,
-                    int S, int H, int K, float scale, int causal, int window, float softcap,
-                    void* stream) {
+// Forward, float32.  q (B, Sq, H, hd), k and v (B, S, K, hd), each with a
+// contiguous hd and element strides (b, s, head) in strides[0..8] (q, k,
+// v); rows 16-byte aligned.  Writes out (B, Sq, H, hd) contiguous, m and l
+// (B, H, Sq).  Requires hd in {16, 64, 128} (the port's configs:
+// qwen3-0.6b, gpt-350m and the reduced test shapes), H % K == 0, Sq and S
+// multiples of 64, Sq <= S.
+int repro_flash_fwd_f32(int device, int hd, const void* q, const void* k, const void* v,
+                        void* out, float* m, float* l, const long long* strides, int B, int Sq,
+                        int S, int H, int K, float scale, int causal, int window, float softcap,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Shape sh{B, Sq, S, H, K};
   if (!valid(hd, sh) || window < 0) return (int)cudaErrorInvalidValue;
   const Mask mk{scale, softcap, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FWD(T, HD) (int)fwd<T, HD>(q, k, v, out, m, l, strides, sh, mk, s)
-  if (dtype == 0) { REPRO_HD_DISPATCH(float, REPRO_FWD) }
-  if (dtype == 1) { REPRO_HD_DISPATCH(__nv_bfloat16, REPRO_FWD) }
+#define REPRO_FWD(HD) (int)fwd<HD>(q, k, v, out, m, l, strides, sh, mk, s)
+  REPRO_HD_DISPATCH(REPRO_FWD)
 #undef REPRO_FWD
-  return (int)cudaErrorInvalidValue;
 }
 
-// Backward: the dq kernel, then the dk/dv kernel, on one stream.  As the
-// forward, plus dout (B, Sq, H, hd) with its strides in strides[9..11], m
-// and l from the forward, dsum = rowsum(dout * out) as (B, Sq, H) float32.
-// Writes dq (B, Sq, H, hd), dk and dv (B, S, K, hd), contiguous, in the
-// input dtype.
-int repro_flash_bwd(int device, int dtype, int hd, const void* q, const void* k, const void* v,
-                    const void* dout, const float* m, const float* l, const float* dsum,
-                    void* dq, void* dk, void* dv, const long long* strides, int B, int Sq,
-                    int S, int H, int K, float scale, int causal, int window, float softcap,
-                    void* stream) {
+// Backward, float32: the dq kernel, then the dk/dv kernel, on one stream.
+// As the forward, plus dout (B, Sq, H, hd) with its strides in
+// strides[9..11], m and l from the forward and dsum = rowsum(dout * out),
+// all three (B, H, Sq).  Writes dq (B, Sq, H, hd), dk and dv (B, S, K,
+// hd), contiguous.
+int repro_flash_bwd_f32(int device, int hd, const void* q, const void* k, const void* v,
+                        const void* dout, const float* m, const float* l, const float* dsum,
+                        void* dq, void* dk, void* dv, const long long* strides, int B, int Sq,
+                        int S, int H, int K, float scale, int causal, int window, float softcap,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Shape sh{B, Sq, S, H, K};
   if (!valid(hd, sh) || window < 0) return (int)cudaErrorInvalidValue;
   const Mask mk{scale, softcap, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_BWD(T, HD) \
-  (int)bwd<T, HD>(q, k, v, dout, m, l, dsum, dq, dk, dv, strides, sh, mk, s)
-  if (dtype == 0) { REPRO_HD_DISPATCH(float, REPRO_BWD) }
-  if (dtype == 1) { REPRO_HD_DISPATCH(__nv_bfloat16, REPRO_BWD) }
+#define REPRO_BWD(HD) (int)bwd<HD>(q, k, v, dout, m, l, dsum, dq, dk, dv, strides, sh, mk, s)
+  REPRO_HD_DISPATCH(REPRO_BWD)
 #undef REPRO_BWD
-  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory, in bytes, of the forward (which 0), dq (1) or
+// dk/dv (2) kernel at head dim hd.
+int repro_flash_f32_smem(int which, int hd) {
+#define REPRO_SMEM(HD) (int)smem_bytes<HD>(which)
+  REPRO_HD_DISPATCH(REPRO_SMEM)
+#undef REPRO_SMEM
 }
 
 const char* repro_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

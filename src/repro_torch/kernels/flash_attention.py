@@ -3,15 +3,22 @@
 Counterpart of the reference's ``kernels/flash_attention.py``
 (``flash_fwd_pallas``, ``flash_bwd_pallas``): the tiled online-softmax
 attention of the training step under ``attn_impl="pallas"``.  The CUDA
-kernels live in ``csrc/flash_attention.cu`` (its header note gives the
-design and what bounds them); their plain PyTorch versions are
-``ref.flash_fwd_ref`` and ``ref.flash_bwd_ref``.
+kernels are chosen by dtype:
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
-There is no other route: a failed build or launch raises, and so does a
-shape the kernel does not take.  The kernel tiles by 64 × 64 and the
-plain version by the reference's default 512 × 512, so the two agree to
-rounding, not bit for bit.
+  * bfloat16 (the training path): ``csrc/flash_attention_tc.cu``, every
+    product on the tensor cores (``mma.sync`` bf16, fp32 accumulate), the
+    backward's products with p and dl as bf16 hi + lo pairs;
+  * float32: ``csrc/flash_attention.cu``, fp32 FFMA on the CUDA cores,
+    which holds the reference's fp32 bars.
+
+Each source's header note gives its design and what bounds it; the plain
+PyTorch versions are ``ref.flash_fwd_ref`` and ``ref.flash_bwd_ref``.
+
+A CUDA tensor launches the kernel of its dtype; a CPU tensor takes the
+plain version.  There is no other route: a failed build or launch raises,
+and so does a shape the kernel does not take.  The kernels tile by 64 × 64
+and the plain version by the reference's default 512 × 512, so the two
+agree to rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -26,17 +33,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _TAIL = [_I, _I, _I, _I, _I, _F, _I, _I, _F, _P]   # B Sq S H K scale … stream
-_ARGTYPES = {
-    "repro_flash_fwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P] + _TAIL,
-    "repro_flash_bwd": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P] + _TAIL,
-}
+_FWD = [_I, _I] + [_P] * 7 + _TAIL                  # device hd q … strides
+_BWD = [_I, _I] + [_P] * 11 + _TAIL
+# dtype -> (library, suffix of its entry points)
+_ROUTES = {torch.bfloat16: ("flash_attention_tc", "bf16"),
+           torch.float32: ("flash_attention", "f32")}
 HEAD_DIMS = (16, 64, 128)      # qwen3-0.6b, gpt-350m, reduced configs
 TILE = 64
 
 
-def _lib() -> ctypes.CDLL:
-    return platform.library("flash_attention", _ARGTYPES)
+def _entry(dtype: torch.dtype, which: str):
+    """(library, its ``repro_flash_<which>_<suffix>`` function) of the
+    kernels for ``dtype``."""
+    name, sfx = _ROUTES[dtype]
+    lib = platform.library(name, {f"repro_flash_fwd_{sfx}": _FWD,
+                                  f"repro_flash_bwd_{sfx}": _BWD})
+    return lib, getattr(lib, f"repro_flash_{which}_{sfx}")
 
 
 def _shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -60,7 +72,7 @@ def _check_cuda(ts, Sq: int, S: int, hd: int) -> None:
             raise ValueError("flash attention: every tensor on one CUDA "
                              "device (or all on the CPU for the plain "
                              "version)")
-        if t.dtype != dtype or dtype not in platform.DTYPE_CODES:
+        if t.dtype != dtype or dtype not in _ROUTES:
             raise TypeError(f"flash attention takes float32 or bfloat16 "
                             f"tensors of one dtype, got {t.dtype}")
     if hd not in HEAD_DIMS or Sq % TILE or S % TILE or Sq > S:
@@ -99,12 +111,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    lib = _lib()
-    err = lib.repro_flash_fwd(
-        q.device.index or 0, platform.DTYPE_CODES[q.dtype], hd, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), out.data_ptr(), m.data_ptr(),
-        l.data_ptr(), _strides(q, k, v), B, Sq, S, H, K, scale, int(causal),
-        window, softcap, platform.stream_of(q))
+    lib, fn = _entry(q.dtype, "fwd")
+    err = fn(q.device.index or 0, hd, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+             _strides(q, k, v), B, Sq, S, H, K, scale, int(causal), window,
+             softcap, platform.stream_of(q))
     platform.check(lib, err, "flash_fwd kernel")
     platform.LAUNCHES["flash_fwd"] += 1
     return out, m, l
@@ -118,8 +129,8 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv) of :func:`flash_fwd`'s ``out`` against
     ``dout``, from its saved (out, m, l); dtypes of q, k, v.  On the card
     ``dsum = rowsum(dout·out)`` is a plain fp32 reduction (it is outside
-    the reference's kernels too), then one dq kernel and one dk/dv kernel
-    run."""
+    the reference's kernels too), laid out (B, H, Sq) as m and l are, then
+    one dq kernel and one dk/dv kernel run."""
     B, Sq, S, H, K, hd = _shape(q, k, v)
     if tuple(out.shape) != tuple(q.shape) or out.shape != dout.shape or \
             tuple(m.shape) != (B, H, Sq) or m.shape != l.shape:
@@ -132,18 +143,18 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if m.dtype != torch.float32 or l.dtype != torch.float32:
         raise TypeError("m and l must be float32")
     q, k, v, dout = _rows(q), _rows(k), _rows(v), _rows(dout)
-    m, l = m.contiguous(), l.contiguous()
-    dsum = torch.sum(dout.to(torch.float32) * out.to(torch.float32), dim=-1)
+    m, l = platform.aligned(m), platform.aligned(l)
+    dsum = torch.sum(dout.to(torch.float32) * out.to(torch.float32),
+                     dim=-1).transpose(1, 2).contiguous()
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, K, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lib = _lib()
-    err = lib.repro_flash_bwd(
-        q.device.index or 0, platform.DTYPE_CODES[q.dtype], hd, q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), dout.data_ptr(), m.data_ptr(),
-        l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, dout), B, Sq, S, H, K, scale,
-        int(causal), window, softcap, platform.stream_of(q))
+    lib, fn = _entry(q.dtype, "bwd")
+    err = fn(q.device.index or 0, hd, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
+             dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _strides(q, k, v, dout), B, Sq, S, H, K, scale, int(causal),
+             window, softcap, platform.stream_of(q))
     platform.check(lib, err, "flash_bwd kernels")
     platform.LAUNCHES["flash_bwd"] += 1
     return dq, dk, dv

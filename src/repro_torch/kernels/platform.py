@@ -34,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quant_block", "fused_dequant_reduce_quant", "dequant_matmul",
-           "flash_attention")
+           "flash_attention", "flash_attention_tc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -120,7 +120,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu`` (built on first
     use), with ``signatures`` ({function: argtypes}, each returning a CUDA
-    error code) declared.  Only a CUDA tensor's wrapper calls this."""
+    error code) declared, whoever loaded it first.  Only a CUDA tensor's
+    wrapper (and chip_smoke's build report) calls this."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -128,10 +129,10 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
-            for fn, args in signatures.items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
+        for fn, args in signatures.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
         return lib
 
 

@@ -19,6 +19,12 @@ Tolerances:
     own saved (out, m, l), since a one-ulp difference in out would move
     dsum; m and l stay fp32 at rtol 2e-5.
 
+``test_tensor_core_split_prices_the_backward`` emulates the precision of
+the card's bf16 backward (QKᵀ and dO·Vᵀ on bf16 operands into fp32; p and
+dl enter dl·K, pᵀ·dO and dlᵀ·Q as bf16 hi + lo pairs) in plain torch and
+holds it against the reference's fp32 ``flash_bwd_pallas`` at the
+per-element bf16 bars; p and dl as bf16 alone are printed beside it.
+
 ``mha(impl="pallas")`` must take the flash route exactly where the
 reference's rule does (S >= 512, S and Sq multiples of 512): at S = 256
 it takes the dense path and launches nothing of the pair, at S = 512 the
@@ -162,3 +168,68 @@ def test_wrappers_refuse_bad_shapes_and_impls():
                       scale=0.25)
     with pytest.raises(ValueError, match="impl"):
         tattn.mha(q, q, q, impl="triton")
+
+
+def _split(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """``x`` as the sum of ``terms`` bf16 values, each the bf16 rounding of
+    what the ones before it left over: the operand a bf16 tensor core sees
+    when x enters a product as hi (+ lo) fragments.  The sum is exact in
+    fp32, so an fp32 product of it equals the two bf16 products into one
+    fp32 accumulator up to summation order."""
+    out = torch.zeros_like(x)
+    for _ in range(terms):
+        out = out + (x - out).to(torch.bfloat16).float()
+    return out
+
+
+def _tc_backward(q, k, v, out, m, l, dout, *, scale, causal, window,
+                 softcap, terms):
+    """B7's tensor-core precision in plain torch: QKᵀ and dO·Vᵀ of the
+    bf16 inputs into fp32, p = exp(logit − m)·(1/l) and dl in fp32, then
+    dl·K, pᵀ·dO and dlᵀ·Q with p and dl split into ``terms`` bf16 parts."""
+    f32 = torch.float32
+    B, S, H, hd = q.shape
+    r = H // k.shape[2]
+    kf, vf = (t.float().repeat_interleave(r, dim=2) for t in (k, v))
+    qf, dof = q.float(), dout.float()
+    lg = ref._tile_logits(q, k, 0, 0, scale, causal, window, softcap)
+    lg = lg.reshape(B, H, S, S)
+    p = torch.exp(lg - m[..., None]) * (1.0 / l)[..., None]
+    dp = torch.einsum("bqhd,bshd->bhqs", dof, vf)
+    dsum = torch.sum(dof * out.float(), dim=-1).permute(0, 2, 1)
+    dl = p * (dp - dsum[..., None])
+    if softcap:
+        t = lg / softcap
+        dl = dl * torch.where(lg <= ref.NEG_INF / 2, 0.0, 1.0 - t * t)
+    ps, dls = _split(p, terms), _split(dl, terms)
+    dq = torch.einsum("bhqs,bshd->bqhd", dls, kf) * scale
+    dk = torch.einsum("bhqs,bqhd->bshd", dls, qf) * scale
+    dv = torch.einsum("bhqs,bqhd->bshd", ps, dof)
+    dk, dv = (t.reshape(B, S, H // r, r, hd).sum(3) for t in (dk, dv))
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (200, 30.0)],
+                         ids=["causal", "window_softcap"])
+def test_tensor_core_split_prices_the_backward(window, softcap):
+    """Before any card time: the tensor-core backward's precision (p and dl
+    as bf16 hi + lo pairs) against the reference's fp32 ``flash_bwd_pallas``
+    in interpret mode, at the per-element bf16 bars.  The one-term variant
+    (p and dl rounded to bf16 alone) is printed beside it, not asserted."""
+    B, S, H, K, hd = 1, 512, 4, 2, 64
+    q, k, v, g = _inputs(B, S, H, K, hd, seed=B * S + H)
+    kw = dict(scale=hd ** -0.5, causal=True, window=window, softcap=softcap)
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    jo, jm, jl = flash_fwd_pallas(jq, jk, jv, interpret=True, **kw)
+    want = flash_bwd_pallas(jq, jk, jv, jo, jm, jl, jg, interpret=True, **kw)
+    tq, tk, tv, tg, to = (_t(a).to(torch.bfloat16)
+                          for a in (jq, jk, jv, jg, jo))
+    tm, tl = _t(jm), _t(jl)
+    readings = {}
+    for terms in (1, 2):
+        got = _tc_backward(tq, tk, tv, to, tm, tl, tg, terms=terms, **kw)
+        readings[terms] = [flash_bars.worst(a, _t(b), flash_bars.grad_bar(
+            _t(b)))[0] for a, b in zip(got, want)]
+    print(f"dq/dk/dv in units of the per-element bar: one term (p, dl "
+          f"bf16) {readings[1]}, hi + lo {readings[2]}")
+    assert max(readings[2]) <= 1, readings

@@ -4,14 +4,16 @@ Skipped where ``torch.cuda.is_available()`` is false (the decision is
 made inside the fixture, never at import).  On the card: B1, B2, B3, B4
 and B5 must be bit-identical to the plain versions; B8 must agree within fp32
 rtol 1e-5, atol 1e-5·max|out| (summation order only); the flash pair B6/B7
-within the reference's fp32 bars (2e-5 forward, 3e-5 backward: the
-plain version, tiled 64 x 64 as the kernels are, still sums within a
-tile in another order),
-and bit-identical from one launch to the next.  Run on the card
-with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_gpu.py``.
+in fp32 (its FFMA kernels) within the reference's fp32 bars (2e-5 forward,
+3e-5 backward: the plain version, tiled 64 x 64 as the kernels are, still
+sums within a tile in another order), in bf16 (its tensor-core kernels)
+within the per-element bars of ``repro_torch.testing.flash_bars``, and
+bit-identical from one launch to the next.  Run on the card with
+``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_gpu.py``.
 """
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import quant
 from repro_torch.core.quant import QuantConfig
@@ -20,6 +22,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_dequant_reduce_quant as fq
 from repro_torch.kernels import platform, ref
 from repro_torch.kernels import quant_block as qb
+from repro_torch.testing import flash_bars
 
 
 @pytest.fixture
@@ -141,3 +144,71 @@ def test_flash_kernels_close_and_deterministic(gen, B, S, H, K, hd, window,
     torch.cuda.synchronize()
     for a, b in zip((o, m, l, *grads), (o2, m2, l2, *grads2)):
         assert torch.equal(a, b)
+
+
+# B, Sq, S, H, K, hd, causal, window, softcap
+BF16_CASES = [
+    (2, 256, 256, 4, 4, 128, True, 0, 0.0),      # GQA 1, the path's hd
+    (1, 256, 256, 4, 2, 64, False, 0, 0.0),      # non-causal, GQA 2
+    (1, 128, 384, 8, 2, 16, True, 0, 0.0),       # Sq < S, GQA 4
+    (1, 320, 320, 4, 1, 64, True, 100, 30.0),    # window + softcap, GQA 4
+    (1, 192, 448, 4, 2, 128, False, 70, 0.0),    # Sq < S, non-causal window
+    (2, 256, 256, 2, 2, 16, True, 0, 20.0),      # softcap, hd 16
+]
+
+
+@pytest.mark.parametrize("B,Sq,S,H,K,hd,causal,window,softcap", BF16_CASES)
+def test_flash_tensor_core_kernels_within_bars(gen, B, Sq, S, H, K, hd,
+                                               causal, window, softcap):
+    """The bf16 route: out within its per-element bar of the plain version,
+    m and l within 2e-5, dq/dk/dv within theirs from the kernel's own saved
+    (out, m, l); one launch counted per call; two launches, same bits."""
+    q, do = (torch.randn(B, Sq, H, hd, generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, S, K, hd, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    before = dict(platform.LAUNCHES)
+    o, m, l = fa.flash_fwd(q, k, v, **kw)
+    grads = fa.flash_bwd(q, k, v, o, m, l, do, **kw)
+    assert platform.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert platform.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    want = ref.flash_fwd_ref(q, k, v, **kw)
+    ratio, err = flash_bars.worst(o, want[0], flash_bars.out_bar(
+        q, k, v, want[0], **kw))
+    assert torch.isfinite(o).all() and ratio <= 1, ("out", ratio, err)
+    for got, w in zip((m, l), want[1:]):
+        torch.testing.assert_close(got, w, rtol=2e-5, atol=2e-5)
+    wgrads = ref.flash_bwd_ref(q, k, v, o, m, l, do, **kw)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, wgrads):
+        assert got.dtype == torch.bfloat16
+        ratio, err = flash_bars.worst(got, w, flash_bars.grad_bar(w))
+        assert torch.isfinite(got).all() and ratio <= 1, (name, ratio, err)
+    again = (*fa.flash_fwd(q, k, v, **kw),
+             *fa.flash_bwd(q, k, v, o, m, l, do, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip((o, m, l, *grads), again):
+        assert torch.equal(a, b)
+
+
+def test_flash_routes_by_dtype(gen):
+    """A bf16 call launches the tensor-core kernels (flash_attention_tc.cu)
+    and an fp32 call the FFMA kernels, as the profiler names them."""
+    tc = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+          "flash_bwd_dkv_tc_kernel")
+    ffma = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    for dtype, want, other in ((torch.bfloat16, tc, ffma),
+                               (torch.float32, ffma, tc)):
+        q, k, v, do = (torch.randn(1, 128, 2, 64, generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        kw = dict(scale=0.125, causal=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            o, m, l = fa.flash_fwd(q, k, v, **kw)
+            fa.flash_bwd(q, k, v, o, m, l, do, **kw)
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        assert all(f"::{n}<" in names for n in want), (dtype, names)
+        assert not any(f"::{n}<" in names for n in other), (dtype, names)
