@@ -10,7 +10,8 @@ last line is printed.
 
 1. Device and build: prints the card's name and power limit (nvidia-smi),
    then compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together), with registers, spills
+   and shared memory per kernel.
 2. Kernel phase: each kernel at the shapes its paths give it against its
    plain PyTorch version on the same inputs — B1 quantize (bf16 serving
    shards and the fp32 master shards of training), B2 dequantize, and the
@@ -21,7 +22,14 @@ last line is printed.
    1e-5·max|out| (summation order) — with its median time (CUDA events, L2
    flushed before every launch, warm-up excluded), the plain version's time
    and the least time the card could take (bytes over 3.35 TB/s or
-   operations over the type's peak, whichever is larger).  Then the flash
+   operations over the type's peak, whichever is larger); for B3 and B4
+   also the effective GB/s and the share of the bound, and the time of a
+   plain ``copy_`` that moves the kernel's payload bytes (B3: reads every
+   32-byte sector of its bf16 input and writes its INT4 payload; B4: its
+   payload in and out), then B3 and B4 at edge shapes (1, 3 and 4,097
+   quant blocks, every block size, N up to 11, INT4/INT8, fp32/bf16, u
+   fields, zero, half-way and raw-payload inputs), all bit-identical.
+   Then the flash
    pair: B6 forward and B7 backward in bf16 (the tensor-core kernels) at
    the training path's shape (B 8, S 2048, H 16, K 8, hd 128, causal)
    and at five small shapes that reach what the path does not (window 300
@@ -69,8 +77,8 @@ last line is printed.
    ``ROUTE_LOSS_ATOL``, and that every step launches each of B1–B5
    exactly once per flat group and, under pallas, B6 twice and B7 once
    per layer; prints step time (p50 of steps 2–8), tokens/s, peak memory
-   and one profiled step (device busy share, device kernels, top device
-   ops) of each run.
+   and one profiled step (device busy share, device kernels, the flash
+   kernels' and each of B1–B5's device ms, top device ops) of each run.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
@@ -80,6 +88,7 @@ plain version's, its bound and, for B6/B7, SDPA's); the last line is
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import re
 import statistics
@@ -107,6 +116,7 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.testing import flash_bars  # noqa: E402
+from repro_torch.testing.quant_edges import edge_rows  # noqa: E402
 from repro_torch.serve import ServeEngine, steps  # noqa: E402
 from repro_torch.train.policy import make_policy  # noqa: E402
 from repro_torch.train.trainer import build_train_step  # noqa: E402
@@ -157,6 +167,12 @@ ROUTE_LOSS_ATOL = 1e-2
 # the loss after 8 steps must lie this far below the first step's: half
 # the drop an H100 read over these 8 steps (0.2045)
 LOSS_DROP = 0.1
+# the quant kernels by their CUDA function names (profiles, build report)
+QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
+                 "dequantize_kernel": "B2 dequantize",
+                 "quantize_reordered_kernel": "B3 quantize_reordered",
+                 "dequant_reduce_quant_kernel": "B4 dequant_reduce_quant",
+                 "dequant_reduce_kernel": "B5 dequant_reduce"}
 
 
 def fail(msg: str) -> None:
@@ -349,8 +365,10 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
         ms = median_ms(fn, flush)
         plain_ms = median_ms(plain, flush, n=5)
         b = bound(nbytes, ops, F32_OPS_S)
-        print(f"{name} n={n}: bit-identical; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+        print(f"{name} n={n}: bit-identical; kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.1f} GB/s, {100 * b[0] / ms:.1f}% of the "
+              f"bound), plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]})", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, bound=b)
 
     for n in PATH_NS:
@@ -379,7 +397,16 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
                    lambda: qb.quantize_reordered(gr, c4),
                    lambda: ref.quantize_reordered_ref(gr, c4),
                    2 * n + n // 2 + 4 * nb, 5 * n)
-        del gr
+        # what the memory system gives B3's 4:1 stream with no arithmetic:
+        # one 8-byte word of every 32-byte sector of the input (so every
+        # input byte crosses from memory) into the payload's n/2 bytes
+        src = gr.view(torch.int64).reshape(-1)[::4]
+        dst = torch.empty(src.shape, dtype=torch.int64, device=dev)
+        cp = median_ms(lambda: dst.copy_(src), flush)
+        print(f"  copy_ of B3's {2 * n:,} input bytes into {n // 2:,} "
+              f"payload bytes: {cp:.4f} ms ({2.5 * n / cp / 1e6:.1f} GB/s), "
+              f"{100 * cp / r3['ms']:.1f}% of B3's time", flush=True)
+        del gr, src, dst
         # B4 then B5 on that payload, N = 1, as the 2-hop reduce runs them
         pay, sc = p3[0].reshape(1, -1), p3[1].reshape(1, -1)
         p4 = fq.dequant_reduce_quant(pay, sc, c4, c4)
@@ -391,6 +418,13 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
                    lambda: fq.dequant_reduce_quant(pay, sc, c4, c4),
                    lambda: ref.dequant_reduce_quant_ref(pay, sc, c4, c4),
                    2 * (n // 2 + 4 * nb), 8 * n)
+        # what the memory system gives the same bytes with no arithmetic
+        dst = torch.empty_like(pay)
+        cp = median_ms(lambda: dst.copy_(pay), flush)
+        print(f"  copy_ of B4's {n // 2:,} payload bytes in and out: {cp:.4f} "
+              f"ms ({n / cp / 1e6:.1f} GB/s), {100 * cp / r4['ms']:.1f}% of B4's "
+              f"time", flush=True)
+        del dst
         pay5, sc5 = p4[0].reshape(1, -1), p4[1].reshape(1, -1)
         out = fq.dequant_reduce(pay5, sc5, c4)
         errs["dequant_reduce"] = max(errs["dequant_reduce"], _same(
@@ -447,10 +481,75 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
           lambda: ref.dequant_reduce_ref(pay, sc, c4),
           N * (n // 2 + 4 * nb) + 4 * n, (2 * N + 1) * n)
     del pay, sc, u
+    for k, e in qgz_edge_holds(g).items():
+        errs[k] = max(errs[k], e)
     for k, e in errs.items():
         rec[k]["max_abs_err"] = e
     torch.cuda.synchronize()
     return rec
+
+
+def qgz_edge_holds(g) -> dict:
+    """B3 and B4 against their plain versions where the redesigned tiling
+    (1,024 elements a warp, 32 a lane) and arithmetic could slip: 1, 3 and
+    4,097 quant blocks (a warp or tile part full), every block size, INT4
+    and INT8 in and out, fp32 and bf16 inputs, (Y, X) = (1, 1) and (2, 3),
+    N in {1, 2, 3, 8, 11} (11 takes the generic loop), with and without a
+    u field, an all-zero block, half-way points and their neighbours, and
+    raw random payload bytes (nibble 0x8, byte -128).  Bit-identical."""
+    errs = {"quantize_reordered": 0.0, "dequant_reduce_quant": 0.0}
+    n_b3 = n_b4 = 0
+    for block in qb._QUANT_BLOCKS:
+        for nb in (1, 3, 4097):
+            L = nb * block
+            for (Y, X), bits, dtype in itertools.product(
+                    ((1, 1), (2, 3)), (4, 8), (torch.float32, torch.bfloat16)):
+                if nb == 4097 and (Y, X) != (1, 1):
+                    continue
+                cfg = QuantConfig(bits, block)
+                x = edge_rows(g, Y * X, L, block, bits, dtype).reshape(
+                    Y, X, L)
+                u = torch.rand(X, Y, L, generator=g, device="cuda")
+                for field in (None, u):
+                    errs["quantize_reordered"] = max(
+                        errs["quantize_reordered"],
+                        _same("B3 edge", (Y, X, L, block, bits, dtype,
+                                          field is not None),
+                              qb.quantize_reordered(x, cfg, field),
+                              ref.quantize_reordered_ref(x, cfg, field)))
+                    n_b3 += 1
+        for N, bits_in, bits_out in itertools.product(
+                (1, 2, 3, 8, 11), (4, 8), (4, 8)):
+            for nb in (1, 3, 4097):
+                if nb == 4097 and (bits_in, bits_out) != (4, 4):
+                    continue
+                C = nb * block
+                cin, cout = QuantConfig(bits_in, block), QuantConfig(
+                    bits_out, block)
+                quantized = quant.quantize_blockwise(
+                    edge_rows(g, N, C, block, bits_in, torch.float32), cin)
+                raw = (torch.randint(-128, 128, quantized[0].shape,
+                                     generator=g, device="cuda",
+                                     dtype=torch.int8),
+                       torch.rand(quantized[1].shape, generator=g,
+                                  device="cuda"))
+                u = torch.rand(C, generator=g, device="cuda")
+                for (p, sc), field in itertools.product((quantized, raw),
+                                                        (None, u)):
+                    errs["dequant_reduce_quant"] = max(
+                        errs["dequant_reduce_quant"],
+                        _same("B4 edge", (N, C, block, bits_in, bits_out,
+                                          field is not None),
+                              fq.dequant_reduce_quant(p, sc, cin, cout,
+                                                      field),
+                              ref.dequant_reduce_quant_ref(p, sc, cin, cout,
+                                                           field)))
+                    n_b4 += 1
+    print(f"B3/B4 edge holds: {n_b3} B3 and {n_b4} B4 launches "
+          f"bit-identical (1, 3 and 4097 blocks, blocks "
+          f"{qb._QUANT_BLOCKS}, N 1/2/3/8/11, INT4/INT8, fp32/bf16, u "
+          f"fields, zero, half-way and raw-payload inputs)", flush=True)
+    return errs
 
 
 # ------------------------------------------------------------------ flash
@@ -1043,8 +1142,24 @@ def profile_step(step, what: str, n: int = 1) -> None:
         print(f"  flash kernels {sum(flash.values()):.3f} ms/step: "
               + ", ".join(f"{k} {ms:.3f}" for k, ms in flash.items()),
               flush=True)
+    quant_ms = {b: 0.0 for b in QUANT_KERNELS.values()}
+    for k, ms in by_name.items():
+        m = re.search(r"::(\w+_kernel)<", k)
+        if m and m.group(1) in QUANT_KERNELS:
+            quant_ms[QUANT_KERNELS[m.group(1)]] += ms
+    if any(quant_ms.values()):
+        print(f"  quant kernels {sum(quant_ms.values()):.3f} ms/step: "
+              + ", ".join(f"{b} {ms:.3f}" for b, ms in quant_ms.items()),
+              flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
+
+
+def _template_args(mangled: str) -> str:
+    """'13__nv_bfloat16Li4E' -> 'bf16, 4'; 'Li4ELi4ELi1ELi2E' -> '4, 4, 1, 2'."""
+    out = mangled.replace("13__nv_bfloat16", "bf16,")
+    out = re.sub(r"^f(?=L|$)", "f32,", out)
+    return re.sub(r"Li(\d+)E", r" \1,", out).strip(" ,").replace(",,", ",")
 
 
 def main() -> None:
@@ -1072,6 +1187,17 @@ def main() -> None:
             print(f"    {fn}<{dt}, hd {hd}>: {regs} registers, {spill} bytes "
                   f"spilled, {smem(which, int(hd))} bytes of shared memory",
                   flush=True)
+    # per instantiation of the qgZ stream kernels B3 and B4
+    for src in ("quant_block", "fused_dequant_reduce_quant"):
+        for fn, targs, spill, regs, rest in re.findall(
+                r"Compiling entry function '\S*?\d(quantize_reordered_kernel|"
+                r"dequant_reduce_quant_kernel)I(\w+?)EEv.*?(\d+) bytes spill "
+                r"stores.*?Used (\d+) registers([^\n]*)", logs.get(src, ""),
+                re.S):
+            smem = re.search(r"(\d+) bytes smem", rest)
+            print(f"    {fn}<{_template_args(targs)}>: {regs} registers, "
+                  f"{spill} bytes spilled, {smem.group(1) if smem else 0} "
+                  f"bytes of static shared memory", flush=True)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = kernel_phase(flush)
     rec.update(qgz_kernel_phase(flush))

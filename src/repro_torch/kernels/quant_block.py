@@ -34,7 +34,9 @@ _ARGTYPES = {
                                  ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, _P],
 }
-_QUANT_BLOCKS = (64, 128, 256, 512, 1024)   # one warp per block: 2..32 per lane
+# B1: one warp per block (2..32 elements a lane); B3/B4: 32 elements a
+# lane, block/32 lanes a block
+_QUANT_BLOCKS = (64, 128, 256, 512, 1024)
 
 
 def _lib() -> ctypes.CDLL:

@@ -2,7 +2,9 @@
 
 Skipped where ``torch.cuda.is_available()`` is false (the decision is
 made inside the fixture, never at import).  On the card: B1, B2, B3, B4
-and B5 must be bit-identical to the plain versions; B8 must agree within fp32
+and B5 must be bit-identical to the plain versions (B3 and B4 also at
+quant-block counts that leave a warp tile part full, every block size,
+N in {1, 2, 3, 8, 11}, half-way inputs and raw payload bytes); B8 must agree within fp32
 rtol 1e-5, atol 1e-5·max|out| (summation order only); the flash pair B6/B7
 in fp32 (its FFMA kernels) within the reference's fp32 bars (2e-5 forward,
 3e-5 backward: the plain version, tiled 64 x 64 as the kernels are, still
@@ -23,6 +25,7 @@ from repro_torch.kernels import fused_dequant_reduce_quant as fq
 from repro_torch.kernels import platform, ref
 from repro_torch.kernels import quant_block as qb
 from repro_torch.testing import flash_bars
+from repro_torch.testing.quant_edges import edge_rows
 
 
 @pytest.fixture
@@ -77,14 +80,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                           torch.ones(2, 1, device="cuda"))
 
 
-@pytest.mark.parametrize("Y,X,L,block,bits,dtype", [
-    (1, 1, 8192, 256, 4, torch.bfloat16), (2, 4, 2048, 256, 4, torch.float32),
-    (2, 2, 1024, 128, 8, torch.bfloat16), (3, 1, 512, 64, 4, torch.float32)])
+# the redesigned B3/B4 tile 1,024 elements a warp, 32 a lane: block counts
+# that leave a warp or a tile part full, every block size, both widths
+EDGE_BLOCKS = (1, 3, 4097)
+B3_CASES = [(1, 1, 8192, 256, 4, torch.bfloat16),
+            (2, 4, 2048, 256, 4, torch.float32),
+            (2, 2, 1024, 128, 8, torch.bfloat16),
+            (3, 1, 512, 64, 4, torch.float32)] + [
+    (Y, X, nb * block, block, bits, dtype)
+    for (Y, X) in ((1, 1), (2, 3)) for nb in EDGE_BLOCKS
+    for block in qb._QUANT_BLOCKS for bits in (4, 8)
+    for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("Y,X,L,block,bits,dtype", B3_CASES)
 def test_quantize_reordered_kernel_bit_identical(gen, Y, X, L, block, bits,
                                                   dtype):
     cfg = QuantConfig(bits=bits, block_size=block)
-    x = (torch.randn(Y, X, L, generator=gen, device="cuda") * 3).to(dtype)
-    x[0, 0, :block] = 0
+    x = edge_rows(gen, Y * X, L, block, bits, dtype).reshape(Y, X, L)
     u = torch.rand(X, Y, L, generator=gen, device="cuda")
     for field in (None, u):
         before = platform.LAUNCHES["quantize_reordered"]
@@ -95,25 +108,39 @@ def test_quantize_reordered_kernel_bit_identical(gen, Y, X, L, block, bits,
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("N,C,block,bits_in,bits_out", [
-    (1, 8192, 256, 4, 4), (8, 4096, 256, 4, 4), (3, 2048, 128, 8, 8),
-    (2, 1024, 64, 8, 4), (4, 2048, 1024, 4, 8)])
+B4_CASES = [(1, 8192, 256, 4, 4), (8, 4096, 256, 4, 4), (3, 2048, 128, 8, 8),
+            (2, 1024, 64, 8, 4), (4, 2048, 1024, 4, 8)] + [
+    (N, 3 * block, block, bits_in, bits_out)
+    for N in (1, 2, 3, 8, 11) for block in qb._QUANT_BLOCKS
+    for bits_in in (4, 8) for bits_out in (4, 8)] + [
+    (N, nb * block, block, 4, 4) for N in (1, 2, 8, 11) for nb in (1, 4097)
+    for block in (64, 256, 1024)]
+
+
+@pytest.mark.parametrize("N,C,block,bits_in,bits_out", B4_CASES)
 def test_dequant_reduce_kernels_bit_identical(gen, N, C, block, bits_in,
                                               bits_out):
+    """B5 and B4 on quantizer output (a block of tiny values, an all-zero
+    block, half-way points) and on raw random payload bytes, so that the
+    nibble 0x8 (-8) and the byte -128 are decoded too."""
     cin = QuantConfig(bits=bits_in, block_size=block)
     cout = QuantConfig(bits=bits_out, block_size=block)
-    x = torch.randn(N, C, generator=gen, device="cuda") * 2
-    x[:, :block] *= 1e-6                      # a block of tiny values
-    p, s = quant.quantize_blockwise(x, cin)
-    out = fq.dequant_reduce(p, s, cin)
-    assert torch.equal(out, ref.dequant_reduce_ref(p, s, cin))
+    x = edge_rows(gen, N, C, block, bits_in, torch.float32)
+    x[:, -block:] *= 1e-6                     # a block of tiny values
+    quantized = quant.quantize_blockwise(x, cin)
+    raw = (torch.randint(-128, 128, quantized[0].shape, generator=gen,
+                         device="cuda", dtype=torch.int8),
+           torch.rand(quantized[1].shape, generator=gen, device="cuda"))
     u = torch.rand(C, generator=gen, device="cuda")
-    for field in (None, u):
-        before = platform.LAUNCHES["dequant_reduce_quant"]
-        q2, s2 = fq.dequant_reduce_quant(p, s, cin, cout, field)
-        assert platform.LAUNCHES["dequant_reduce_quant"] == before + 1
-        qp, sp = ref.dequant_reduce_quant_ref(p, s, cin, cout, field)
-        assert torch.equal(q2, qp) and torch.equal(s2, sp)
+    for p, s in (quantized, raw):
+        out = fq.dequant_reduce(p, s, cin)
+        assert torch.equal(out, ref.dequant_reduce_ref(p, s, cin))
+        for field in (None, u):
+            before = platform.LAUNCHES["dequant_reduce_quant"]
+            q2, s2 = fq.dequant_reduce_quant(p, s, cin, cout, field)
+            assert platform.LAUNCHES["dequant_reduce_quant"] == before + 1
+            qp, sp = ref.dequant_reduce_quant_ref(p, s, cin, cout, field)
+            assert torch.equal(q2, qp) and torch.equal(s2, sp)
     torch.cuda.synchronize()
 
 
