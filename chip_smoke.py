@@ -11,7 +11,8 @@ last line is printed.
 1. Device and build: prints the card's name and power limit (nvidia-smi),
    then compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together), with registers, spills
-   and shared memory per kernel.
+   and shared memory per kernel, and the SASS opcode census of B8's
+   tensor-core kernel (conversion instructions among them).
 2. Kernel phase: each kernel at the shapes its paths give it against its
    plain PyTorch version on the same inputs — B1 quantize (bf16 serving
    shards and the fp32 master shards of training), B2 dequantize, and the
@@ -19,7 +20,14 @@ last line is printed.
    dequant-reduce (every flat group of qwen3-0.6b with N = 1, the reorder
    shape (Y, X, L) = (2, 8, 1,966,336), and N = 8 at one layer group) all
    bit-identical; B8 dequant-GEMM within fp32 rtol 1e-5, atol
-   1e-5·max|out| (summation order) — with its median time (CUDA events, L2
+   1e-5·max|out| (summation order), at the head's decode (T = 4) and
+   prefill (T = 1) shapes, the broadcast layout (NB = 1) and edge inputs
+   (T 1-9 and 17, N 1, 31 and 4,097, (K, NB) (64, 1), (1024, 4) and (4096,
+   16); rows of all -128 and all +-127; scales +-0, subnormal, 3.4e38, inf
+   and NaN, with NaN and inf where the plain version has them; bf16 and
+   fp32 x, weights rounded to bf16 or not), two launches bit-identical, and
+   beside its time cuBLAS's bf16 product on the already-dequantized weights
+   (a yardstick the port never calls) — with its median time (CUDA events, L2
    flushed before every launch, warm-up excluded), the plain version's time
    and the least time the card could take (bytes over 3.35 TB/s or
    operations over the type's peak, whichever is larger); for B3 and B4
@@ -116,7 +124,9 @@ from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.testing import flash_bars  # noqa: E402
-from repro_torch.testing.quant_edges import edge_rows  # noqa: E402
+from repro_torch.testing.quant_edges import (  # noqa: E402
+    B8_EDGE_SCALES, dequant_matmul_close, dequant_matmul_edges, edge_rows,
+    same_bits)
 from repro_torch.serve import ServeEngine, steps  # noqa: E402
 from repro_torch.train.policy import make_policy  # noqa: E402
 from repro_torch.train.trainer import build_train_step  # noqa: E402
@@ -172,7 +182,19 @@ QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
                  "dequantize_kernel": "B2 dequantize",
                  "quantize_reordered_kernel": "B3 quantize_reordered",
                  "dequant_reduce_quant_kernel": "B4 dequant_reduce_quant",
-                 "dequant_reduce_kernel": "B5 dequant_reduce"}
+                 "dequant_reduce_kernel": "B5 dequant_reduce",
+                 "dequant_matmul_tc_kernel": "B8 dequant_matmul",
+                 "dequant_matmul_kernel": "B8 dequant_matmul"}
+# B8: the head's decode and prefill shapes (T rows, one vocab chunk, NB =
+# d/256 scale groups) and the broadcast layout (NB = 1); then edge shapes
+B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1))
+B8_EDGE_T = (*range(1, 10), 17)
+B8_EDGE_N = (1, 31, 4097)
+B8_EDGE_KNB = ((64, 1), (1024, 4), (4096, 16))
+# the SASS opcodes the census reports (conversions first)
+SASS_OPS = ("I2F", "I2FP", "F2F", "F2FP", "F2I", "FRND", "PRMT", "LOP3",
+            "IADD3", "SHF", "IMAD", "FADD", "FMUL", "FFMA", "HMMA", "LDS",
+            "LDG")
 
 
 def fail(msg: str) -> None:
@@ -294,11 +316,25 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     print("B1/B2 INT4, f32 input and u-field cases: bit-identical",
           flush=True)
 
-    # B8 at the head's decode shape (T = n_slots rows, one vocab chunk,
-    # NB = d/256 scale groups) and the broadcast layout (NB = 1)
-    errs = []
-    for T, N, K, NB in ((4, 37984, 1024, 4), (1, 37984, 1024, 4),
-                        (3, 4096, 64, 1)):
+    rec["dequant_matmul"] = b8_kernel_phase(g, flush)
+    rec["quantize_blockwise"]["max_abs_err"] = q_err
+    rec["dequantize_blockwise"]["max_abs_err"] = d_err
+    torch.cuda.synchronize()
+    return rec
+
+
+def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
+    """B8 at the serving head's shapes (B8_PATH), then at edge inputs
+    (``testing.quant_edges.dequant_matmul_edges``), against the plain
+    version; two launches must give the same bits.  Times the decode and
+    prefill shapes beside the plain version, the bound and cuBLAS's bf16
+    product on the already-dequantized weights."""
+    dev = "cuda"
+    rec, errs = {}, []
+    extra = {"library_call": "torch.matmul of bf16 x and the weights "
+                             "dequantized to bf16 beforehand (cuBLAS), a "
+                             "yardstick the port never calls"}
+    for T, N, K, NB in B8_PATH:
         x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
         w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
                           dtype=torch.int8)
@@ -311,25 +347,100 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         tol = 1e-5 * want.abs().max().item()
         if not torch.allclose(out, want, rtol=1e-5, atol=tol):
             fail(f"B8 T={T} N={N} K={K} NB={NB}: max err {err} > tol")
+        if not same_bits(dm.dequant_matmul(x, w, sc), out):
+            fail(f"B8 T={T} N={N} K={K} NB={NB}: two launches differ")
         errs.append(err)
         line = f"B8 dequant_matmul T={T} N={N} K={K} NB={NB}: max abs err " \
-               f"{err:.3e} (tol rtol 1e-5, atol {tol:.3e})"
-        if (T, NB) == (4, 4):
+               f"{err:.3e} (tol rtol 1e-5, atol {tol:.3e}), two launches " \
+               f"bit-identical"
+        if NB > 1:
             ms = median_ms(lambda: dm.dequant_matmul(x, w, sc), flush)
             plain = median_ms(lambda: ref.dequant_matmul_ref(x, w, sc),
                               flush, n=5)
             b8 = bound(N * K + 4 * N * NB + 2 * T * K + 4 * T * N,
                        2 * T * N * K, BF16_OPS_S)
-            rec["dequant_matmul"] = dict(ms=ms, plain_ms=plain, bound=b8,
-                                         shape=(T, N, K, NB))
-            line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, " \
-                    f"bound {b8[0]:.4f} ms ({b8[1]})"
+            # the yardstick: cuBLAS on weights already dequantized to bf16
+            # (it reads them at 2 bytes each, twice B8's weight bytes)
+            wbf = (w.reshape(N, NB, K // NB).float() * sc.unsqueeze(-1)
+                   ).reshape(N, K).to(torch.bfloat16)
+            lib = median_ms(lambda: x @ wbf.T, flush)
+            del wbf
+            line += f"; kernel {ms:.4f} ms ({100 * b8[0] / ms:.1f}% of the " \
+                    f"bound, {(N * K + 4 * N * NB) / ms / 1e6:.1f} GB/s of " \
+                    f"weights and scales), plain {plain:.4f} ms, bound " \
+                    f"{b8[0]:.4f} ms ({b8[1]}), cuBLAS bf16 x @ W_bf16.T on " \
+                    f"dequantized weights {lib:.4f} ms"
+            if T == 4:                # the decode step's: the record's
+                rec.update(ms=ms, plain_ms=plain, bound=b8,
+                           shape=(T, N, K, NB), library_ms=lib)
+                # one 16-row tile alone (one warp's dependent steps: the
+                # latency under every warp's tile) and a PyTorch read of
+                # W's bytes
+                one = median_ms(lambda: dm.dequant_matmul(x, w[:16], sc[:16]),
+                                flush)
+                read = median_ms(lambda: w.view(torch.float32).sum(), flush)
+                extra.update(one_tile_ms=one, read_w_ms=read)
+                line += f"; one 16-row tile {one:.4f} ms; torch sum over W's " \
+                        f"{N * K:,} bytes (read once) {read:.4f} ms"
+            else:                     # prefill's, beside it
+                extra["t1"] = dict(ms=ms, plain_ms=plain, bound_ms=b8[0],
+                                   library_ms=lib, shape=[T, N, K, NB])
         print(line, flush=True)
-    rec["dequant_matmul"]["max_abs_err"] = max(errs)
-    rec["quantize_blockwise"]["max_abs_err"] = q_err
-    rec["dequantize_blockwise"]["max_abs_err"] = d_err
-    torch.cuda.synchronize()
+        del x, w, sc, out, want
+    n_edge = 0
+    for T, N, (K, NB) in itertools.product(B8_EDGE_T, B8_EDGE_N,
+                                           B8_EDGE_KNB):
+        for x_dtype, compute in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.float32, torch.bfloat16),
+                                 (torch.float32, torch.float32)):
+            # unrounded, a 3.4e38 scale gives finite weights whose products
+            # overflow in an order-dependent way: left out there
+            scales = B8_EDGE_SCALES if compute == torch.bfloat16 else tuple(
+                v for v in B8_EDGE_SCALES if v != 3.4e38)
+            x, w, sc = dequant_matmul_edges(g, T, N, K, NB, x_dtype, scales)
+            out = dm.dequant_matmul(x, w, sc, compute)
+            want = ref.dequant_matmul_ref(x, w, sc, compute)
+            holds, err, atol = dequant_matmul_close(out, want)
+            if not holds:
+                fail(f"B8 edge T={T} N={N} K={K} NB={NB} x {x_dtype} compute "
+                     f"{compute}: differs from its plain version (max abs "
+                     f"err {err}, atol {atol}, NaN {int(out.isnan().sum())} "
+                     f"vs {int(want.isnan().sum())}, inf "
+                     f"{int(out.isinf().sum())} vs {int(want.isinf().sum())})")
+            if not same_bits(dm.dequant_matmul(x, w, sc, compute), out):
+                fail(f"B8 edge T={T} N={N} K={K} NB={NB}: two launches differ")
+            errs.append(err)
+            n_edge += 1
+    print(f"B8 edge holds: {n_edge} cases (T {B8_EDGE_T}, N {B8_EDGE_N}, "
+          f"(K, NB) {B8_EDGE_KNB}; bf16 x, fp32 x, weights rounded to bf16 or "
+          f"not; rows of all -128 and all +-127, scales {B8_EDGE_SCALES}): "
+          f"NaN and inf where the plain version has them, finite values "
+          f"within rtol 1e-5 / atol 1e-5·max|finite|, two launches "
+          f"bit-identical each", flush=True)
+    rec.update(max_abs_err=max(errs), extra=extra)
     return rec
+
+
+def sass_census(name: str, pattern: str) -> None:
+    """Print, for each kernel of ``csrc/<name>.cu`` whose mangled name
+    matches ``pattern``, its SASS instruction count and the counts of
+    SASS_OPS (``cuobjdump -sass`` of the built library)."""
+    exe = Path(platform.nvcc()).with_name("cuobjdump")
+    r = subprocess.run([str(exe), "-sass", str(platform._lib_path(name))],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass {name}: {r.stderr.strip()}")
+    for block in re.split(r"\n\s*Function : ", r.stdout)[1:]:
+        fn = block.split("\n", 1)[0].strip()
+        m = re.search(pattern, fn)
+        if not m:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                         r"([A-Z][A-Z0-9]*)", block)
+        counts = {op: ops.count(op) for op in SASS_OPS}
+        print(f"    SASS {fn[m.start():m.end()]}: {len(ops)} instructions; "
+              + ", ".join(f"{op} {n}" for op, n in counts.items()),
+              flush=True)
 
 
 def _err(a, b) -> float:
@@ -1144,7 +1255,7 @@ def profile_step(step, what: str, n: int = 1) -> None:
               flush=True)
     quant_ms = {b: 0.0 for b in QUANT_KERNELS.values()}
     for k, ms in by_name.items():
-        m = re.search(r"::(\w+_kernel)<", k)
+        m = re.search(r"::(\w+_kernel)[<(]", k)
         if m and m.group(1) in QUANT_KERNELS:
             quant_ms[QUANT_KERNELS[m.group(1)]] += ms
     if any(quant_ms.values()):
@@ -1159,6 +1270,9 @@ def _template_args(mangled: str) -> str:
     """'13__nv_bfloat16Li4E' -> 'bf16, 4'; 'Li4ELi4ELi1ELi2E' -> '4, 4, 1, 2'."""
     out = mangled.replace("13__nv_bfloat16", "bf16,")
     out = re.sub(r"^f(?=L|$)", "f32,", out)
+    out = re.sub(r"Lb([01])E?", lambda m: " round " + ("true" if m.group(1)
+                                                        == "1" else "false"),
+                 out)
     return re.sub(r"Li(\d+)E", r" \1,", out).strip(" ,").replace(",,", ",")
 
 
@@ -1198,6 +1312,20 @@ def main() -> None:
             print(f"    {fn}<{_template_args(targs)}>: {regs} registers, "
                   f"{spill} bytes spilled, {smem.group(1) if smem else 0} "
                   f"bytes of static shared memory", flush=True)
+    # B8: the tensor-core kernel (the serving path's) and each FFMA
+    # instantiation (x dtype, x rows a pass, bf16 round), then the
+    # tensor-core kernel's SASS (what it issues per weight)
+    for fn, spill, regs in re.findall(
+            r"Compiling entry function '\S*?(dequant_matmul_tc_kernel|"
+            r"dequant_matmul_kernelI\w+?EEv)"
+            r".*?(\d+) bytes spill stores.*?Used (\d+) registers",
+            logs.get("dequant_matmul", ""), re.S):
+        m = re.match(r"dequant_matmul_kernelI(\w+?)EEv", fn)
+        name = (f"dequant_matmul_kernel<{_template_args(m.group(1))}>"
+                if m else fn)
+        print(f"    {name}: {regs} registers, {spill} bytes spilled",
+              flush=True)
+    sass_census("dequant_matmul", r"dequant_matmul_tc_kernel")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = kernel_phase(flush)
     rec.update(qgz_kernel_phase(flush))
@@ -1264,7 +1392,7 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],
                         "library_ms": r.get("library_ms"),
-                        "shape": list(r["shape"])})
+                        "shape": list(r["shape"]), **r.get("extra", {})})
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "
           f"s", flush=True)
     print(json.dumps({"kernels": kernels}))

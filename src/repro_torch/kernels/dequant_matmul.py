@@ -3,14 +3,17 @@
 Counterpart of the reference's ``kernels/dequant_matmul.py``
 (``dequant_matmul_pallas``): ``x @ dequant(W).T`` with the blockwise
 scales applied inside the kernel, so the dequantized weight matrix is
-never written.  The CUDA kernel lives in ``csrc/dequant_matmul.cu`` (its
-header note gives the design and what bounds it); its plain PyTorch
-version is the staged ``ref.dequant_matmul_ref``.
+never written.  The CUDA kernels live in ``csrc/dequant_matmul.cu`` (its
+header note gives the design and what bounds it): bf16 x with weights
+rounded to bf16, the serving path, goes to the tensor cores; fp32 x or
+unrounded weights to an FFMA kernel.  The plain PyTorch version is the
+staged ``ref.dequant_matmul_ref``.
 
 Numerics: each weight is dequantized in fp32 and rounded through
-``compute_dtype`` (bf16) exactly as the staged path does, and products
-accumulate in fp32.  The only divergence from the plain version is the
-fp32 summation order, so the two agree within an allclose, not bitwise.
+``compute_dtype`` (bf16) exactly as the staged path does; products are
+exact (bf16 x bf16) or fp32, and sums are fp32 in another order (on the
+tensor cores, with their own internal rounding of a sum), so kernel and
+plain version agree within an allclose, not bitwise.
 """
 from __future__ import annotations
 

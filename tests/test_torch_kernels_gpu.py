@@ -5,7 +5,9 @@ made inside the fixture, never at import).  On the card: B1, B2, B3, B4
 and B5 must be bit-identical to the plain versions (B3 and B4 also at
 quant-block counts that leave a warp tile part full, every block size,
 N in {1, 2, 3, 8, 11}, half-way inputs and raw payload bytes); B8 must agree within fp32
-rtol 1e-5, atol 1e-5·max|out| (summation order only); the flash pair B6/B7
+rtol 1e-5, atol 1e-5·max|out| (summation order only), with NaN and inf
+where the plain version has them at edge inputs, and give the same bits
+from one launch to the next; the flash pair B6/B7
 in fp32 (its FFMA kernels) within the reference's fp32 bars (2e-5 forward,
 3e-5 backward: the plain version, tiled 64 x 64 as the kernels are, still
 sums within a tile in another order), in bf16 (its tensor-core kernels)
@@ -25,7 +27,10 @@ from repro_torch.kernels import fused_dequant_reduce_quant as fq
 from repro_torch.kernels import platform, ref
 from repro_torch.kernels import quant_block as qb
 from repro_torch.testing import flash_bars
-from repro_torch.testing.quant_edges import edge_rows
+from repro_torch.testing.quant_edges import (B8_EDGE_SCALES,
+                                             dequant_matmul_close,
+                                             dequant_matmul_edges, edge_rows,
+                                             same_bits)
 
 
 @pytest.fixture
@@ -69,6 +74,75 @@ def test_dequant_matmul_kernel_close(gen, T, N, K, NB):
     torch.cuda.synchronize()
     tol = 1e-5 * want.abs().max().item()
     torch.testing.assert_close(out, want, rtol=1e-5, atol=tol)
+
+
+# B8 where the redesign could slip: T 1-9 and 17 (x tiles of 1, 2, 4 and 8
+# rows, two launches past 8), N 1, 31 and 4,097 (a warp's run of rows part
+# full, most warps idle at N = 1), (K, NB) (64, 1) (lanes idle in a row),
+# (1024, 4) (the head's) and (4096, 16) (four k steps an item row); then
+# the serving path's two shapes, decode (T = 4) and prefill (T = 1)
+B8_EDGE_CASES = [(T, N, K, NB) for T in (*range(1, 10), 17)
+                 for N in (1, 31, 4097)
+                 for K, NB in ((64, 1), (1024, 4), (4096, 16))]
+B8_PATH_CASES = [(4, 37984, 1024, 4), (1, 37984, 1024, 4)]
+
+
+@pytest.mark.parametrize("T,N,K,NB", B8_PATH_CASES + B8_EDGE_CASES)
+def test_dequant_matmul_kernel_edges(gen, T, N, K, NB):
+    """B8 on rows of all -128, all +-127 and special scales (+-0,
+    subnormal, products overflowing to inf, inf, NaN): NaN and inf where
+    the plain version has them, finite values within rtol 1e-5, atol
+    1e-5·max|finite|; one launch counted; two launches, same bits."""
+    x, w, s = dequant_matmul_edges(gen, T, N, K, NB)
+    before = platform.LAUNCHES["dequant_matmul"]
+    out = dm.dequant_matmul(x, w, s)
+    assert platform.LAUNCHES["dequant_matmul"] == before + 1
+    want = ref.dequant_matmul_ref(x, w, s)
+    holds, err, atol = dequant_matmul_close(out, want)
+    assert out.shape == (T, N) and holds, (err, atol)
+    assert same_bits(dm.dequant_matmul(x, w, s), out)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,N,K,NB", [(4, 4097, 1024, 4), (9, 31, 4096, 16),
+                                      (1, 31, 64, 1)])
+def test_dequant_matmul_kernel_f32_x(gen, T, N, K, NB, compute):
+    """fp32 x, with the weights rounded to bf16 or (compute fp32) not.
+    Unrounded, a 3.4e38 scale gives finite weights whose products overflow
+    in an order-dependent way, so that scale is left out there."""
+    scales = B8_EDGE_SCALES if compute == torch.bfloat16 else tuple(
+        v for v in B8_EDGE_SCALES if v != 3.4e38)
+    x, w, s = dequant_matmul_edges(gen, T, N, K, NB, torch.float32, scales)
+    out = dm.dequant_matmul(x, w, s, compute)
+    want = ref.dequant_matmul_ref(x, w, s, compute)
+    holds, err, atol = dequant_matmul_close(out, want)
+    assert holds, (err, atol)
+    assert same_bits(dm.dequant_matmul(x, w, s, compute), out)
+    torch.cuda.synchronize()
+
+
+def test_dequant_matmul_routes_by_dtype(gen):
+    """bf16 x with weights rounded to bf16 (the serving path) launches the
+    tensor-core kernel; fp32 x, or weights left in fp32, the FFMA kernel."""
+    w = torch.randint(-128, 128, (64, 256), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(64, 2, generator=gen, device="cuda")
+    x = torch.randn(3, 256, generator=gen, device="cuda")
+    calls = ((torch.bfloat16, torch.bfloat16, "dequant_matmul_tc_kernel("),
+             (torch.float32, torch.bfloat16, "dequant_matmul_kernel<"),
+             (torch.bfloat16, torch.float32, "dequant_matmul_kernel<"))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x_dtype, compute, _ in calls:
+            dm.dequant_matmul(x.to(x_dtype), w, s, compute)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "dequant_matmul" in e.name]
+    assert len(names) == len(calls), names
+    for name, (_, _, want) in zip(names, calls):
+        assert f"::{want}" in name, names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

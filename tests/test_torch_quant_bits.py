@@ -1,4 +1,5 @@
-"""The exact arithmetic the qgZ stream kernels (B3, B4) rely on, in float32.
+"""The exact arithmetic the qgZ stream kernels (B3, B4) and the INT8
+dequant-GEMM (B8) rely on, in float32.
 
 ``src/repro_torch/kernels/csrc/qgz_stream.cuh`` decodes INT4 nibbles and
 INT8 bytes and rounds to integers with no conversion instruction: a
@@ -10,6 +11,11 @@ in numpy float32 on the CPU: the decodes for all 256 byte values, the
 rounding over a dense sweep, every half-way point and its float neighbours,
 and the claim that lets the kernels skip the clip (a block with a finite
 absmax and a zero or normal scale never rounds outside [-qmax, qmax]).
+B8's tensor-core route (``csrc/dequant_matmul.cu``) dequantizes a weight
+as ``decode_int8``, ``__fmul_rn`` by its group scale and a packed round to
+bf16 (``bf16_bits``); the tests below hold that recipe bit for bit against
+PyTorch's own ``(q.float() * s).to(torch.bfloat16)``, NaN included, and
+replay its mma fragment layout.
 The word-level helpers below mirror the header's ``decode_int4``,
 ``decode_int8``, ``pack_int4`` and ``pack_int8``, ``__byte_perm`` included.
 """
@@ -239,3 +245,144 @@ def test_edge_rows_reach_the_quantizer_edges(bits, dtype):
         y2 = xb[:, 2, 1:] * (F32(1.0) / s[:, 2:3])
         off = np.abs(y2 - y[:, 1:])
         assert (off > 0).all() and (off <= np.spacing(np.abs(y[:, 1:]))).all()
+
+
+# ------------------------------------------------------------------- B8
+
+# the card's result for any float operation whose result is NaN
+CANONICAL_NAN = np.uint32(0x7FFFFFFF)
+
+
+def bf16_bits(v) -> np.ndarray:
+    """cvt.rn.bf16x2.f32 (__floats2bfloat162_rn), the conversion B8's
+    tensor-core route rounds with: float32 -> the nearest bf16, ties to
+    even, NaN -> the canonical bf16 NaN 0x7FFF; returned as the float32
+    bits of the bf16 value."""
+    u = _as_u32(v)
+    r = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return np.where(np.isnan(np.asarray(v, F32)), np.uint32(0x7FFF0000), r)
+
+
+def b8_weight_bits(words, s) -> np.ndarray:
+    """B8's recipe for (..., 4) weights of int8 words ``words`` times scales
+    ``s`` (broadcast against the words): decode_int8, the float32 multiply
+    (a NaN product as the card returns it) and the round to bf16."""
+    q = decode_int8(words)
+    with np.errstate(invalid="ignore", over="ignore"):
+        v = q * np.asarray(s, F32)[..., None]
+    v = np.where(np.isnan(v), CANONICAL_NAN.view(F32), v).astype(F32)
+    return bf16_bits(v)
+
+
+def _torch_bf16_bits(q, s) -> np.ndarray:
+    """(q.float() * s).to(torch.bfloat16), as float32 bits: the staged
+    path's dequantized weight (kernels/ref.py dequant_matmul_ref)."""
+    import torch
+    w = (torch.from_numpy(np.asarray(q, np.int8)).float()
+         * torch.from_numpy(np.array(s, F32))).to(torch.bfloat16)
+    return w.view(torch.int16).numpy().astype(np.uint16).astype(
+        np.uint32) << np.uint32(16)
+
+
+def _scale_grid() -> np.ndarray:
+    """+-0, subnormals (the smallest, 2^-149 multiples, 1e-41, the largest),
+    2^-126 and its neighbour below, scales whose products overflow float32
+    (3.4e38, the largest float, 2^120, 1e37), +-inf, NaN, and random normal
+    scales of both signs over every exponent."""
+    rng = np.random.default_rng(16)
+    tiny = np.finfo(F32).tiny
+    special = np.array([0.0, -0.0, 2.0 ** -149, -(2.0 ** -149), 3 * 2.0 ** -149,
+                        1e-41, -1e-41, np.nextafter(tiny, F32(0)), tiny,
+                        -tiny, 3.4e38, -3.4e38, np.finfo(F32).max,
+                        2.0 ** 120, 1e37, 1.0, 0.5, 1 / 127, np.inf, -np.inf,
+                        np.nan], F32)
+    normal = (np.ldexp(rng.uniform(1, 2, 6000), rng.integers(-126, 128, 6000))
+              * rng.choice([-1.0, 1.0], 6000)).astype(F32)
+    return np.concatenate([special, normal])
+
+
+def _same_or_both_nan(got, want) -> np.ndarray:
+    return (got == want) | (np.isnan(got.view(F32)) & np.isnan(want.view(F32)))
+
+
+def test_b8_bf16_round_at_every_half_way_point():
+    """The round B8 relies on matches PyTorch's float32 -> bf16 cast (the
+    staged path's) at every bf16 half-way point (low 16 bits 0x8000, every
+    sign and exponent, subnormal and near-overflow ones included), at its
+    neighbours one float32 step either side and at every bf16 value itself,
+    NaN patterns included (as NaN): ties go to even, a tie above the
+    largest bf16 goes to inf, -0 stays -0."""
+    import torch
+    hi = np.arange(1 << 16, dtype=np.uint32) << np.uint32(16)
+    v = np.concatenate([hi | np.uint32(0x8000), hi | np.uint32(0x7FFF),
+                        hi | np.uint32(0x8001), hi]).view(F32)
+    want = torch.from_numpy(v.copy()).to(torch.bfloat16).view(
+        torch.int16).numpy().astype(np.uint16).astype(np.uint32) << 16
+    assert _same_or_both_nan(bf16_bits(v), want).all()
+    assert np.isnan(v).sum() > 0
+    # half to even: 1 + 2^-8 (a tie, even below) stays 1, 1 + 3 * 2^-8 goes up
+    assert bf16_bits(_as_f32(0x3F808000)) == 0x3F800000
+    assert bf16_bits(_as_f32(0x3F818000)) == 0x3F820000
+    assert bf16_bits(_as_f32(0x7F7F8000)) == 0x7F800000          # -> inf
+    assert bf16_bits(_as_f32(0x80000000)) == 0x80000000          # -0 stays
+
+
+def test_b8_dequantized_weight_bit_exact_on_the_scale_grid():
+    """decode_int8, the float32 multiply and the round to bf16 give the
+    staged path's bf16 weight bit for bit for all 256 bytes times every
+    scale of the grid: +-0, subnormal scales and products, normal scales of
+    both signs, products that overflow to +-inf, and the products that are
+    NaN (a NaN scale, an infinite one times q = 0), which stay NaN."""
+    grid = _scale_grid()
+    words = (np.arange(256, dtype=np.uint32) * np.uint32(0x01010101))
+    got = b8_weight_bits(words[:, None], grid[None, :])       # (256, S, 4)
+    q = np.arange(256, dtype=np.uint8).view(np.int8)[:, None] + np.zeros(
+        grid.size, np.int8)[None, :]
+    want = _torch_bf16_bits(q, np.broadcast_to(grid, q.shape))
+    for j in range(4):                        # the byte in each of 4 lanes
+        assert _same_or_both_nan(got[..., j], want).all()
+    # the grid reaches what it claims
+    w = want.view(F32)
+    assert np.isinf(w).any() and (w == 0).any() and np.isnan(w).any()
+    assert ((np.abs(w) < np.finfo(F32).tiny) & (w != 0)).any()
+    assert (want == np.uint32(0x80000000)).any()              # -0
+    nan_products = np.isnan(grid)[None, :] | (np.isinf(grid)[None, :]
+                                              & (q == 0))
+    np.testing.assert_array_equal(np.isnan(w), nan_products)
+
+
+def test_b8_tensor_core_fragments_sum_the_right_pairs():
+    """B8's tc_step, replayed in numpy for one 16-row tile and one 128-k
+    step: lane (g, q) holds 16-element chunks q and q + 4 of rows g and
+    g + 8, product j takes word j % 4 of chunk j / 4, its elements {0, 1}
+    at the mma's k columns 2q + {0, 1} and {2, 3} at 2q + {8, 9} (A and B
+    alike), and x's bf16 pairs are the B fragments as they lie in memory.
+    Placed by the PTX fragment layout of mma.m16n8k16 (A row-major 16 x 16,
+    B 16 x 8, D 16 x 8), the 8 products must sum to W . x^T, and the lane's
+    D values must land at out[2q + (e & 1), g + 8 (e >> 1)]."""
+    rng = np.random.default_rng(8)
+    W = rng.integers(-128, 128, (16, 128)).astype(np.float64)
+    X = rng.integers(-8, 9, (8, 128)).astype(np.float64)
+    D = np.zeros((16, 8))
+    for j in range(8):
+        h, i = divmod(j, 4)
+        A = np.zeros((16, 16))
+        B = np.zeros((16, 8))
+        for lane in range(32):
+            g, q = divmod(lane, 4)
+            k0 = 64 * h + 16 * q + 4 * i      # the word's first element
+            for row, rr in ((g, g), (g + 8, g + 8)):
+                A[rr, 2 * q:2 * q + 2] = W[row, k0:k0 + 2]
+                A[rr, 2 * q + 8:2 * q + 10] = W[row, k0 + 2:k0 + 4]
+            B[2 * q:2 * q + 2, g] = X[g, k0:k0 + 2]
+            B[2 * q + 8:2 * q + 10, g] = X[g, k0 + 2:k0 + 4]
+        D += A @ B
+    np.testing.assert_array_equal(D, W @ X.T)
+    out = np.zeros((8, 16))
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        for e in range(4):
+            row, col = g + 8 * (e >> 1), 2 * q + (e & 1)   # D's c0..c3
+            out[2 * q + (e & 1), g + 8 * (e >> 1)] = D[row, col]
+    np.testing.assert_array_equal(out, (W @ X.T).T)
