@@ -18,10 +18,12 @@ last line is printed.
    shards and the fp32 master shards of training), B2 dequantize, and the
    qgZ kernels B3 reorder-quantize, B4 dequant-reduce-requantize and B5
    dequant-reduce (every flat group of qwen3-0.6b with N = 1, the reorder
-   shape (Y, X, L) = (2, 8, 1,966,336), and N = 8 at one layer group) all
-   bit-identical; B8 dequant-GEMM within fp32 rtol 1e-5, atol
-   1e-5·max|out| (summation order), at the head's decode (T = 4) and
-   prefill (T = 1) shapes, the broadcast layout (NB = 1) and edge inputs
+   shape (Y, X, L) = (2, 8, 1,966,336), N = 8 at one layer group, and the
+   chain a rank of phase 6's 2 x 2 world runs at a layer group: B3 on (2,
+   2, 3,932,928), B4 and B5 at N = 2) all bit-identical; B8 dequant-GEMM
+   within fp32 rtol 1e-5, atol 1e-5·max|out| (summation order), at the
+   head's decode (T = 4) and prefill (T = 1) shapes, the broadcast layout
+   (NB = 1) and edge inputs
    (T 1-9 and 17, N 1, 31 and 4,097, (K, NB) (64, 1), (1024, 4) and (4096,
    16); rows of all -128 and all +-127; scales +-0, subnormal, 3.4e38, inf
    and NaN, with NaN and inf where the plain version has them; bf16 and
@@ -87,6 +89,20 @@ last line is printed.
    per layer; prints step time (p50 of steps 2–8), tokens/s, peak memory
    and one profiled step (device busy share, device kernels, the flash
    kernels' and each of B1–B5's device ms, top device ops) of each run.
+6. Multi-rank train phase: the same pallas run (seed, batches, lr) on a
+   2 x 2 ("data", "model") world, four rank processes sharing the card
+   over a gloo group (``repro_torch.launch.mesh.spawn``, kernels built
+   once before the ranks start), ``MR_STEPS`` steps: each rank holds its
+   shard of the same global parameters and reads 2 of the 8 rows, so hpZ
+   re-gathers over the intra pair and qgZ's B3/B4 run at N = X = 2, B5 at
+   N = Y = 2.  Checks that every rank agrees on the summed losses, the
+   step-1 loss is within ``MR_LOSS1_ATOL`` of phase 5's pallas run, every
+   loss is finite and within ``MR_REL`` of that run's at the same step,
+   the last below the first, and every rank launches each of B1–B5 once
+   per flat group, B6 twice and B7 once per layer each step; prints each
+   rank's step time (p50 of steps 2–4), peak memory and launches, and rank
+   0's profiled step: host wall, its device busy time and the host time
+   inside the gloo collectives.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
@@ -177,6 +193,18 @@ ROUTE_LOSS_ATOL = 1e-2
 # the loss after 8 steps must lie this far below the first step's: half
 # the drop an H100 read over these 8 steps (0.2045)
 LOSS_DROP = 0.1
+# the multi-rank train phase: (Y, X) world, steps; its step-1 loss against
+# the world-1 pallas run's (the same global parameters and batch: only the
+# per-rank GEMM shapes and the loss's four-way sum differ), and every later
+# step's within the reference's ZeRO++-vs-baseline bar (checks.py:361).
+# "Falling" is the last step's loss below the first's, as phase 5 reads
+# it: on these batches the world-1 loss rises at step 3 (12.4128 ->
+# 12.4308 on an H100)
+MR_MESH, MR_STEPS = (2, 2), 4
+MR_LOSS1_ATOL, MR_REL = 1e-3, 0.05
+MR_TIMEOUT_S = 600
+# its qgZ shapes: a layer group's shard at world 4 (15,731,712 / 4)
+MR_L = 3_932_928
 # the quant kernels by their CUDA function names (profiles, build report)
 QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
                  "dequantize_kernel": "B2 dequantize",
@@ -463,7 +491,9 @@ def _same(name, shape, got, want) -> float:
 def qgz_kernel_phase(flush: torch.Tensor) -> dict:
     """B1 on fp32 master shards and the qgZ kernels B3, B4, B5, each at
     every flat group of the training path (N = 1), B3 at a reordering
-    shape and B4/B5 at N = 8; bit-identical to the plain versions."""
+    shape, B4/B5 at N = 8, and the chain a rank of the 2 x 2 world runs at
+    a layer group (B3 on (2, 2, L), B4 and B5 at N = 2); bit-identical to
+    the plain versions."""
     dev = "cuda"
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -592,6 +622,42 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
           lambda: ref.dequant_reduce_ref(pay, sc, c4),
           N * (n // 2 + 4 * nb) + 4 * n, (2 * N + 1) * n)
     del pay, sc, u
+
+    # the 2 x 2 world's chain at a layer group, as a rank runs it: B3 on
+    # its (Y, X, L) gradient, B4 over the X = 2 contributions it receives,
+    # B5 over the Y = 2 of the second hop
+    y, x = MR_MESH
+    n, m = y * x * MR_L, y * MR_L
+    gr = (torch.randn(y, x, MR_L, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    p3 = qb.quantize_reordered(gr, c4)
+    errs["quantize_reordered"] = max(errs["quantize_reordered"], _same(
+        "B3 quantize_reordered", (y, x, MR_L), p3,
+        ref.quantize_reordered_ref(gr, c4)))
+    timed(f"B3 quantize_reordered {(y, x, MR_L)}", n,
+          lambda: qb.quantize_reordered(gr, c4),
+          lambda: ref.quantize_reordered_ref(gr, c4),
+          2 * n + n // 2 + 4 * (n // 256), 5 * n)
+    pay, sc = p3[0].reshape(x, -1), p3[1].reshape(x, -1)
+    p4 = fq.dequant_reduce_quant(pay, sc, c4, c4)
+    errs["dequant_reduce_quant"] = max(errs["dequant_reduce_quant"], _same(
+        "B4 dequant_reduce_quant", (x, m), p4,
+        ref.dequant_reduce_quant_ref(pay, sc, c4, c4)))
+    timed(f"B4 dequant_reduce_quant N={x}", m,
+          lambda: fq.dequant_reduce_quant(pay, sc, c4, c4),
+          lambda: ref.dequant_reduce_quant_ref(pay, sc, c4, c4),
+          x * (m // 2 + 4 * (m // 256)) + m // 2 + 4 * (m // 256),
+          (2 * x + 6) * m)
+    pay5, sc5 = p4[0].reshape(y, -1), p4[1].reshape(y, -1)
+    errs["dequant_reduce"] = max(errs["dequant_reduce"], _same(
+        "B5 dequant_reduce", (y, MR_L), (fq.dequant_reduce(pay5, sc5, c4),),
+        (ref.dequant_reduce_ref(pay5, sc5, c4),)))
+    timed(f"B5 dequant_reduce N={y}", MR_L,
+          lambda: fq.dequant_reduce(pay5, sc5, c4),
+          lambda: ref.dequant_reduce_ref(pay5, sc5, c4),
+          y * (MR_L // 2 + 4 * (MR_L // 256)) + 4 * MR_L,
+          (2 * y + 1) * MR_L)
+    del gr, p3, pay, sc, p4, pay5, sc5
     for k, e in qgz_edge_holds(g).items():
         errs[k] = max(errs[k], e)
     for k, e in errs.items():
@@ -1159,7 +1225,7 @@ def train_parity_phase() -> None:
 def train_phase(attn: str) -> tuple:
     """The full-width ZeRO++ training run through the launcher's loop, with
     the attention route ``attn``.  Returns (launches over the run, the
-    step-1 loss)."""
+    losses)."""
     args = train_launch.parser().parse_args([
         "--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
         str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
@@ -1205,7 +1271,100 @@ def train_phase(attn: str) -> tuple:
                                       TRAIN_BATCH, 1, model.device)
     profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
                  f"{tag} step")
-    return launches, losses[0]
+    return launches, losses
+
+
+def multirank_rank(rank: int, world: int, argv: list) -> dict:
+    """One rank of the multi-rank train phase (a spawned process on device
+    0): the launcher's loop, then one profiled step on rank 0 (the other
+    ranks make the same calls).  Returns what the host checks."""
+    args = train_launch.parser().parse_args(argv)
+    res = train_launch.train_loop(args)
+    built = res["built"]
+    batch = train_launch.device_batch(built.arch, built.lm, args.steps,
+                                      args.batch, 1, built.model.device)
+    prof = profile_step(
+        lambda: built.step.fn(res["params"], res["opt"], batch),
+        f"multi-rank train step, rank {rank} of {world}", show=rank == 0)
+    per_step = step_launches(built.arch, built.model, args.attn)
+    return {"losses": res["losses"], "step_s": res["step_s"],
+            "launches": res["launches"], "want": per_step,
+            "peak": res["peak_bytes"], "profile": prof,
+            "shard": built.model.param_shapes()["blocks"][1] // world}
+
+
+def multirank_phase(world1_losses: list) -> dict:
+    """qwen3-0.6b at full width on a Y x X = 2 x 2 world: four rank
+    processes sharing the card over a gloo group, full ZeRO++ under --attn
+    pallas, the world-1 pallas phase's seed, batches and lr, MR_STEPS
+    steps.  Holds its losses against that phase's (``world1_losses``) and
+    every rank's launches; returns the launches summed over the ranks."""
+    from repro_torch.launch import mesh as mesh_lib
+    y, x = MR_MESH
+    argv = ["--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(MR_STEPS), "--lr", str(TRAIN_LR),
+            "--lr-schedule", "constant", "--device", "cuda", "--attn",
+            "pallas", "--mesh", f"{y}x{x}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(multirank_rank, y * x, argv, device="cuda",
+                           timeout=MR_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    tag = f"train {y}x{x}"
+    lay = ZeroConfig().align(y * x) // (y * x)
+    for r, out in enumerate(ranks):
+        if out["shard"] % lay:
+            fail(f"{tag} rank {r}: layer shard {out['shard']} is not a "
+                 f"multiple of {lay} (ZeroConfig.align({y * x}))")
+        for i, c in enumerate(out["launches"]):
+            if c != out["want"]:
+                fail(f"{tag} rank {r} step {i}: launches {c}, expected "
+                     f"{out['want']}")
+    losses = ranks[0]["losses"]
+    if any(out["losses"] != losses for out in ranks):
+        fail(f"{tag}: ranks disagree on the summed losses "
+             f"{[out['losses'] for out in ranks]}")
+    ref = world1_losses[:MR_STEPS]
+    d1 = abs(losses[0] - ref[0])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    print(f"{tag}: {y * x} ranks (Y {y} inter x X {x} intra) sharing one "
+          f"card over gloo, qwen3-0.6b full width, full ZeRO++ (qwZ INT8, "
+          f"hpZ on the intra pair, qgZ INT4 2-hop: B3/B4 at N = {x}, B5 at "
+          f"N = {y}), --attn pallas, global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} ({TRAIN_BATCH // (y * x)} rows a rank), constant lr "
+          f"{TRAIN_LR}; layer shard {ranks[0]['shard']:,} a rank; spawn to "
+          f"exit {wall:.1f} s", flush=True)
+    print(f"{tag}: losses {[round(v, 4) for v in losses]} vs world 1 "
+          f"{[round(v, 4) for v in ref]}: step 1 |diff| {d1:.2e} (bar "
+          f"{MR_LOSS1_ATOL}), relative {[f'{v:.2e}' for v in rel]} (bar "
+          f"{MR_REL})", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: non-finite loss {losses}")
+    if not d1 <= MR_LOSS1_ATOL:
+        fail(f"{tag}: step-1 loss {losses[0]} vs world 1's {ref[0]}")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the loss did not fall over the run {losses}")
+    if not max(rel) < MR_REL:
+        fail(f"{tag}: losses beyond {MR_REL} of world 1's")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for r, out in enumerate(ranks):
+        p50 = statistics.median(out["step_s"][1:])
+        print(f"{tag} rank {r}: step p50 (steps 2-{MR_STEPS}) "
+              f"{p50 * 1e3:.1f} ms ({tokens / p50:,.0f} tokens/s for the "
+              f"world), first step {out['step_s'][0] * 1e3:.1f} ms; peak "
+              f"memory {out['peak'] / 2 ** 30:.2f} GiB (max_memory_allocated);"
+              f" launches per step {out['want']} x {MR_STEPS} steps",
+              flush=True)
+    prof = ranks[0]["profile"]
+    print(f"{tag}: rank 0's profiled step: host wall {prof['wall']:.1f} ms, "
+          f"its device busy {prof['busy']:.1f} ms "
+          f"({100 * prof['busy'] / prof['wall']:.1f}%), gloo collectives "
+          f"{prof['gloo']:.1f} ms of host time "
+          f"({100 * prof['gloo'] / prof['wall']:.1f}%)", flush=True)
+    total = {k: sum(sum(c[k] for c in out["launches"]) for out in ranks)
+             for k in platform.LAUNCHES}
+    return total
 
 
 def profile_decode(decode, params, caches, positions) -> None:
@@ -1218,10 +1377,14 @@ def profile_decode(decode, params, caches, positions) -> None:
                  n=3)
 
 
-def profile_step(step, what: str, n: int = 1) -> None:
+def profile_step(step, what: str, n: int = 1, show: bool = True):
     """Host wall per ``step()`` (synchronized, no profiler, after one
-    warm-up call), then device busy time, device kernels and the top
-    device ops per step from torch.profiler over n more calls."""
+    warm-up call), then device busy time, device kernels, the host time of
+    the gloo collectives (their ``gloo:*`` spans, copies to and from the
+    card included) and the top device ops per step from torch.profiler
+    over n more calls.  Returns {"wall", "busy", "gloo"} in ms per step.
+    With ``show`` False it only makes the same calls (a rank whose peers
+    are profiled must match their collectives) and returns None."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1231,24 +1394,40 @@ def profile_step(step, what: str, n: int = 1) -> None:
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
+    if not show:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
+    events = prof.events()
+    dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n
     by_name: dict = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / n
+    gloo: dict = {}
+    for e in events:
+        if e.name.startswith("gloo:"):
+            gloo[e.name] = gloo.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash = {re.search(r"::(flash_\w+)", k).group(1): ms
              for k, ms in by_name.items() if "::flash_" in k}
     print(f"profile ({what}): host wall {wall:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step ({100 * busy / wall:.1f}% of the wall), "
           f"{len(dev) / n:.0f} device kernels/step", flush=True)
+    if gloo:
+        print(f"  gloo collectives {sum(gloo.values()):.3f} ms/step of host "
+              f"time ({100 * sum(gloo.values()) / wall:.1f}% of the wall): "
+              + ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(gloo.items())),
+              flush=True)
     if flash:
         print(f"  flash kernels {sum(flash.values()):.3f} ms/step: "
               + ", ".join(f"{k} {ms:.3f}" for k, ms in flash.items()),
@@ -1264,6 +1443,7 @@ def profile_step(step, what: str, n: int = 1) -> None:
               flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
+    return {"wall": wall, "busy": busy, "gloo": sum(gloo.values())}
 
 
 def _template_args(mangled: str) -> str:
@@ -1338,25 +1518,28 @@ def main() -> None:
     train_parity_phase()
     # this slice's path, then the plain-attention run beside it (same seed
     # and batches) so that one call shows both step times
-    by_path["train"], loss_pallas = train_phase("pallas")
-    by_path["train_xla"], loss_xla = train_phase("xla")
+    by_path["train"], losses_pallas = train_phase("pallas")
+    by_path["train_xla"], losses_xla = train_phase("xla")
+    loss_pallas, loss_xla = losses_pallas[0], losses_xla[0]
     print(f"train: step-1 loss --attn pallas {loss_pallas:.6f} vs --attn "
           f"xla {loss_xla:.6f} (|diff| {abs(loss_pallas - loss_xla):.2e}, "
           f"bar {ROUTE_LOSS_ATOL})", flush=True)
     if not abs(loss_pallas - loss_xla) <= ROUTE_LOSS_ATOL:
         fail("the two attention routes' step-1 losses differ beyond "
              f"{ROUTE_LOSS_ATOL}")
+    # this slice's path: the same run on four ranks of a 2 x 2 world
+    by_path["train_2x2"] = multirank_phase(losses_pallas)
 
     # each kernel's path(s): it must have launched in every one of them
-    quant_train = ("train", "train_xla")
+    quant_train = ("train", "train_xla", "train_2x2")
     paths = {"quantize_blockwise": ("serve",) + quant_train,
              "dequantize_blockwise": ("serve",) + quant_train,
              "quantize_reordered": quant_train,
              "dequant_reduce_quant": quant_train,
              "dequant_reduce": quant_train,
              "dequant_matmul": ("serve",),
-             "flash_fwd": ("train",),
-             "flash_bwd": ("train",)}
+             "flash_fwd": ("train", "train_2x2"),
+             "flash_bwd": ("train", "train_2x2")}
     for name, ps in paths.items():
         for pth in ps:
             if by_path[pth][name] <= 0:

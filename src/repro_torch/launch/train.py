@@ -1,28 +1,34 @@
 """Training entry point: synthetic data -> ZeRO++ train step -> metrics.
 
 Port of the reference's ``launch/train.build_everything`` and
-``train_loop`` for a one-rank ``("data", "model")`` world (no checkpoints,
-no elastic runtime yet).  Runs on the card by default:
+``train_loop`` on a ``(Y, X)`` ``("data", "model")`` world, one process
+per rank (no checkpoints, no elastic runtime yet).  Runs on the card by
+default:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --batch 8 \\
         --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
-        [--device cuda|cpu]
+        [--mesh YxX] [--device cuda|cpu]
 
-``--device cpu`` runs the plain PyTorch versions of the kernels and is
-meant for tests at ``--reduced`` size.
+``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
+Y·X rank processes over a gloo group (``launch/mesh.py``; on the card all
+of them share device 0).  ``--device cpu`` runs the plain PyTorch
+versions of the kernels and is meant for tests at ``--reduced`` size.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import collectives as cl
+from repro_torch.core.partition import shard_of
 from repro_torch.data.synthetic import SyntheticLM, make_batch
 from repro_torch.kernels import platform
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.optim.schedule import constant, warmup_cosine
@@ -32,26 +38,30 @@ from repro_torch.train.trainer import build_train_step
 
 @dataclasses.dataclass
 class Built:
+    mesh: mesh_lib.Mesh
     arch: Any
     model: Model
     step: Any
     lm: SyntheticLM
 
 
-def build_everything(arch_name: str, variant: str = "zeropp",
-                     reduced: bool = False, batch: int = 8, seq: int = 2048,
-                     lr: float = 3e-4, accum: int = 1,
-                     lr_schedule: str = "warmup_cosine",
+def build_everything(arch_name: str, mesh_shape: Tuple[int, int] = (1, 1),
+                     variant: str = "zeropp", reduced: bool = False,
+                     batch: int = 8, seq: int = 2048, lr: float = 3e-4,
+                     accum: int = 1, lr_schedule: str = "warmup_cosine",
                      device="cuda", attn_impl: str = "xla") -> Built:
-    """Construct (arch, model, train step, data) for a run.
-    ``lr_schedule`` is the reference's ``warmup_cosine(lr, 10, 10_000)`` or
-    ``constant``; ``attn_impl`` the attention route ("pallas": the flash
-    kernels)."""
+    """Construct (mesh, arch, model, train step, data) for this rank of a
+    ``mesh_shape`` world (a process group of that size must exist beyond
+    1x1).  ``batch`` is the global batch (rows per microbatch);
+    ``lr_schedule`` is the reference's ``warmup_cosine(lr, 10, 10_000)``
+    or ``constant``; ``attn_impl`` the attention route ("pallas": the
+    flash kernels)."""
     arch = get_config(arch_name)
     if reduced:
         arch = arch.reduced()
-    pol = make_policy(arch, ("data", "model"), variant)
-    model = Model(arch, pol.zcfg, world=1, device=device)
+    mesh = mesh_lib.make_mesh(mesh_shape)
+    pol = make_policy(arch, mesh_lib.AXES, variant, mesh=mesh)
+    model = Model(arch, pol.zcfg, world=mesh.world, device=device)
     if lr_schedule == "warmup_cosine":
         sched = warmup_cosine(lr, 10, 10_000)
     elif lr_schedule == "constant":
@@ -60,9 +70,9 @@ def build_everything(arch_name: str, variant: str = "zeropp",
         raise ValueError(f"unknown lr schedule {lr_schedule!r}")
     opt_cfg = AdamWConfig(lr=sched)
     step = build_train_step(model, opt_cfg, accum=accum, device=device,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, global_batch=batch // accum)
     lm = SyntheticLM(vocab=arch.vocab, seq_len=seq, seed=7)
-    return Built(arch, model, step, lm)
+    return Built(mesh, arch, model, step, lm)
 
 
 def device_batch(arch, lm: SyntheticLM, step_i: int, batch: int,
@@ -79,20 +89,37 @@ def device_batch(arch, lm: SyntheticLM, step_i: int, batch: int,
     return out
 
 
+def init_shards(model: Model, seed: int) -> Dict[str, torch.Tensor]:
+    """This rank's fp32 master shards: the GLOBAL buffers drawn from a
+    generator seeded with ``seed`` (so every world starts from the same
+    global parameters), then this rank's primary shard of each, cut on
+    the trailing axis."""
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    params = model.init_params(gen, dtype=torch.float32)
+    if model.world == 1:
+        return params
+    rank = cl.flat_rank(model.zcfg.group)
+    return {k: shard_of(v, rank, model.world).clone()
+            for k, v in params.items()}
+
+
 def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
-    """Run ``args.steps`` steps from a seeded fp32 init.  Returns losses,
+    """Run ``args.steps`` steps from a seeded fp32 init on this rank of an
+    ``args.mesh`` world.  Returns the losses (summed over the world),
     per-step wall seconds (synchronized), per-step kernel launches, the
-    data's entropy bound, and the built run with its final params/opt.
-    ``on_step(i, metrics)`` is called after each step."""
-    built = build_everything(args.arch, args.variant, args.reduced,
-                             args.batch, args.seq, args.lr, args.accum,
-                             args.lr_schedule, args.device, args.attn)
+    peak device memory (0 on the CPU), the data's entropy bound, and the
+    built run with this rank's final params/opt.  ``on_step(i, metrics)``
+    is called after each step; only rank 0 prints."""
+    built = build_everything(args.arch, mesh_lib.parse_mesh(args.mesh),
+                             args.variant, args.reduced, args.batch,
+                             args.seq, args.lr, args.accum, args.lr_schedule,
+                             args.device, args.attn)
     model = built.model
     dev = model.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(args.seed)
-    params = model.init_params(gen, dtype=torch.float32)
+    params = init_shards(model, args.seed)
     opt = init_opt_state(params)
+    log = args.log_every and cl.flat_rank(model.zcfg.group) == 0
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     losses, step_s, launches = [], [], []
     for i in range(args.steps):
@@ -110,15 +137,35 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
         losses.append(loss)
         if on_step is not None:
             on_step(i, metrics)
-        if args.log_every and (i % args.log_every == 0
-                               or i == args.steps - 1):
+        if log and (i % args.log_every == 0 or i == args.steps - 1):
             print(f"[train] step {i} loss {loss:.4f} gnorm "
                   f"{float(metrics['grad_norm']):.3f} lr "
                   f"{float(metrics['lr']):.2e} {step_s[-1]:.3f} s "
                   f"{metrics['tokens'] / step_s[-1]:,.0f} tok/s", flush=True)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return {"losses": losses, "step_s": step_s, "launches": launches,
-            "entropy_bound": built.lm.entropy_bound, "built": built,
-            "params": params, "opt": opt}
+            "peak_bytes": peak, "entropy_bound": built.lm.entropy_bound,
+            "built": built, "params": params, "opt": opt}
+
+
+def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
+    """``train_loop`` in one rank of a spawned world: what a host process
+    can receive (the run's params stay in the rank)."""
+    out = train_loop(args)
+    return {k: out[k] for k in ("losses", "step_s", "launches", "peak_bytes",
+                                "entropy_bound")}
+
+
+def run(args):
+    """``train_loop(args)`` at ``--mesh 1x1``; beyond, one spawned rank
+    process per mesh position.  Returns rank 0's result and, at world > 1,
+    every rank's as ``ranks``."""
+    y, x = mesh_lib.parse_mesh(args.mesh)
+    if y * x == 1:
+        return train_loop(args)
+    ranks = mesh_lib.spawn(_rank_loop, y * x, args, device=args.device,
+                           timeout=None)
+    return dict(ranks[0], ranks=ranks)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -137,6 +184,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn", default="xla", choices=("xla", "pallas"),
                     help="attention route: plain, or the flash kernels")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="1x1",
+                    help="YxX world: Y 'data' rows of X 'model' ranks, one "
+                         "process each (gloo)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--log-every", type=int, default=1)
     return ap
@@ -144,7 +194,7 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    out = train_loop(args)
+    out = run(args)
     print(f"[train] losses {[round(x, 4) for x in out['losses']]}; entropy "
           f"bound {out['entropy_bound']:.4f}")
 

@@ -4,19 +4,23 @@ Port of the reference's ``train/policy.make_policy`` (its resolver
 ``tune/resolve.py`` in mode ``"off"``) for models under ``LARGE_PARAMS``
 on a ``("data", "model")`` mesh: full ZeRO++ with the secondary partition
 on the fast ``model`` axis (the paper's per-node group); Adam moments
-are fp32 (``optim/adamw.py``) and there is no gradient accumulation.  ``variant`` selects the paper's
-ablations (Fig. 13): "baseline" is plain ZeRO-3, "qwz"/"hpz"/"qgz" enable
-exactly one technique.  Keyword overrides of ``ZeroConfig`` fields win
+are fp32 (``optim/adamw.py``) and there is no gradient accumulation.
+``mesh`` (``repro_torch.launch.mesh.Mesh``) is the run's ``(Y, X)`` world:
+its tier groups become the config's ``intra_group`` and ``inter_group``
+(none at world 1); ``group``, the whole world, stays the default group.
+``variant`` selects the paper's ablations (Fig. 13): "baseline" is plain
+ZeRO-3, "qwz"/"hpz"/"qgz" enable exactly one technique.  Keyword overrides of ``ZeroConfig`` fields win
 (ablations, tests).  The reference's large-model rules (hpZ placement,
 bf16 moments, accumulation) and ``tune/`` are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.zeropp import ZeroConfig
+from repro_torch.launch.mesh import Mesh
 
 LARGE_PARAMS = 32e9
 VARIANTS = ("zeropp", "baseline", "qwz", "hpz", "qgz")
@@ -36,7 +40,8 @@ def count_params(arch: ArchConfig) -> int:
 
 def make_policy(arch: ArchConfig,
                 mesh_axes: Tuple[str, ...] = ("data", "model"),
-                variant: str = "zeropp", **overrides) -> Policy:
+                variant: str = "zeropp", mesh: Optional[Mesh] = None,
+                **overrides) -> Policy:
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
@@ -49,5 +54,7 @@ def make_policy(arch: ArchConfig,
               hpz=variant in ("zeropp", "hpz"),
               qgz=variant in ("zeropp", "qgz"),
               dp_axes=tuple(mesh_axes), intra_axis="model")
+    if mesh is not None:
+        kw.update(intra_group=mesh.intra, inter_group=mesh.inter)
     kw.update(overrides)
     return Policy(zcfg=ZeroConfig(**kw), n_params=n)

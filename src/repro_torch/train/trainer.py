@@ -2,24 +2,30 @@
 
 Port of the reference's ``train/trainer.build_train_step``.  The reference
 jits one ``shard_map`` over the mesh around loss, backward and optimizer;
-here the step runs eagerly on the model's device, and every ZeRO++
-collective (qwZ gathers, hpZ secondary gathers, qgZ reduce) happens inside
-the model's ``zero_apply`` groups, per layer group, exactly where the
-reference issues it.  The step is split in two so that tests can read the
-gradients: :func:`TrainStep.loss_and_grads` (forward and backward, with
-gradient accumulation over ``accum`` microbatches) and the AdamW update.
+here each rank runs the step eagerly on the model's device, and every
+ZeRO++ collective (qwZ gathers, hpZ secondary gathers, qgZ reduce)
+happens inside the model's ``zero_apply`` groups, per layer group, exactly
+where the reference issues it.  The step is split in two so that tests can
+read the gradients: :func:`TrainStep.loss_and_grads` (forward and
+backward, with gradient accumulation over ``accum`` microbatches) and the
+AdamW update.
 
-Training runs on a one-rank ``("data", "model")`` world for now: the
-collectives are held at 4 gloo ranks by the tests, but the multi-rank
-step (one process per rank, each on its own card) is ROADMAP Queue A
-item 7's remainder, and :func:`build_train_step` raises at world > 1.
+A rank holds its primary shard of every flat buffer (the trailing axis,
+the reference's ``param_specs``) and takes the GLOBAL batch, of which it
+reads its own rows: the pure data-parallel layout of the reference's
+``choose_batch_seq_axes``, batch over ``("data", "model")``, so rank r =
+d·X + m reads rows [r·B/W, (r+1)·B/W).  Where the batch does not cover
+the world the reference shards the sequence instead; that branch is
+ROADMAP A1b and raises here.  Loss, NLL and tokens are summed over the
+world after the update, as the reference's ``lax.psum``s do.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import collectives as cl
 from repro_torch.kernels import platform
@@ -54,29 +60,76 @@ def _leaves(params: Tensors) -> Dict[str, Any]:
     return out
 
 
+def choose_batch_seq_axes(global_batch: int, shape: Tuple[int, ...],
+                          axes: Tuple[str, ...] = ("data", "model")
+                          ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The reference's greedy activation layout: shard the batch over as
+    many (slowest-first) axes as it divides into; the remaining axes carry
+    the sequence.  Pure data parallel (no sequence axis) whenever the
+    global batch covers the world."""
+    batch_axes, rem = [], global_batch
+    for ax, n in zip(axes, shape):
+        if rem % n == 0 and rem >= n:
+            batch_axes.append(ax)
+            rem //= n
+        else:
+            break
+    return tuple(batch_axes), tuple(a for a in axes if a not in batch_axes)
+
+
+def _check_covers(global_batch: int, shape: Tuple[int, int]) -> None:
+    _, seq_axes = choose_batch_seq_axes(global_batch, shape)
+    if seq_axes:
+        raise NotImplementedError(
+            f"a global batch of {global_batch} rows does not cover the "
+            f"{shape[0]}x{shape[1]} world: the reference shards the sequence "
+            f"over {seq_axes}, the sequence-parallel branch (ROADMAP A1b), "
+            f"not ported; use a batch that {shape[0] * shape[1]} ranks "
+            f"divide")
+
+
 def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
-                     device="cuda", attn_impl: str = "xla") -> TrainStep:
+                     device="cuda", attn_impl: str = "xla",
+                     global_batch: Optional[int] = None) -> TrainStep:
     """Build the ZeRO++ train step of ``model`` (which must run on
-    ``device``: "cuda" unless the caller asks for "cpu").  With ``accum >
-    1`` every batch leaf carries a leading microbatch axis (accum, B, S)
-    and the gradients of the microbatches are summed, then divided by
-    ``accum``, as in the reference.  ``attn_impl`` is the reference's
-    switch: "xla" (plain attention) or "pallas" (the flash kernels where
-    ``mha``'s rule allows)."""
+    ``device``: "cuda" unless the caller asks for "cpu") for this rank of
+    the model's ZeRO world (``zcfg.group``, tiers ``intra_group`` and
+    ``inter_group``; world ``model.world``).  The step takes this rank's
+    primary shards and the GLOBAL batch; with ``accum > 1`` every batch
+    leaf carries a leading microbatch axis (accum, B, S), the rows are cut
+    on the second axis, and the gradients of the microbatches are summed,
+    then divided by ``accum``, as in the reference.  ``global_batch`` (rows
+    per microbatch) is checked here against the world; otherwise each
+    batch is, when it arrives.  ``attn_impl`` is the reference's switch:
+    "xla" (plain attention) or "pallas" (the flash kernels where ``mha``'s
+    rule allows)."""
     dev = platform.resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"step built for {dev} but the model runs on "
                          f"{model.device}")
     z = model.zcfg
     world = cl.world_size(z.group) if z.distributed else 1
-    if world > 1:
-        raise NotImplementedError(
-            f"training at world {world}: the multi-rank train step is "
-            f"ROADMAP Queue A item 7 (one process per rank); this slice "
-            f"trains on a one-rank ('data', 'model') world")
+    if world != model.world:
+        raise ValueError(f"the model's flat layout is for world "
+                         f"{model.world}, its ZeRO group holds {world} ranks")
+    rank = cl.flat_rank(z.group) if world > 1 else 0
+    x = cl.world_size(z.intra_group) if world > 1 else 1
+    shape = (world // x, x)
+    if global_batch is not None:
+        _check_covers(global_batch, shape)
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
     rs = RunSpec(mode="train", attn_impl=attn_impl)
+
+    def rows(batch: Tensors) -> Tensors:
+        """This rank's rows of the global batch (views)."""
+        if world == 1:
+            return batch
+        ax = 1 if accum > 1 else 0
+        b = batch["tokens"].shape[ax]
+        _check_covers(b, shape)
+        n = b // world
+        return {k: v.narrow(ax, rank * n, n) for k, v in batch.items()}
 
     def one(params: Tensors, batch: Tensors
             ) -> Tuple[torch.Tensor, Dict[str, Any], Tensors]:
@@ -99,6 +152,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         return loss.detach(), mets, grads
 
     def loss_and_grads(params: Tensors, batch: Tensors):
+        batch = rows(batch)
         if accum == 1:
             return one(params, batch)
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -121,8 +175,13 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     def fn(params: Tensors, opt: Dict, batch: Tensors) -> Dict[str, Any]:
         loss, mets, grads = loss_and_grads(params, batch)
         stats = apply_update(grads, params, opt, opt_cfg, z.group)
-        return {"loss": loss, "nll": mets["nll_sum"] / mets["tokens"],
-                "tokens": mets["tokens"], "grad_norm": stats["grad_norm"],
-                "lr": stats["lr"]}
+        nll, toks = mets["nll_sum"], mets["tokens"]
+        if world > 1:       # the reference's psums, as one message
+            tot = torch.stack([loss, nll, torch.tensor(
+                toks, dtype=torch.float32, device=loss.device)])
+            dist.all_reduce(tot, group=z.group)
+            loss, nll, toks = tot[0], tot[1], float(tot[2])
+        return {"loss": loss, "nll": nll / toks, "tokens": toks,
+                "grad_norm": stats["grad_norm"], "lr": stats["lr"]}
 
     return TrainStep(fn=fn, loss_and_grads=loss_and_grads)

@@ -82,6 +82,7 @@ from repro_torch.launch import train as tlaunch              # noqa: E402
 from repro_torch.models.attention import flash_attention     # noqa: E402
 from repro_torch.models.model import Model                   # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, apply_update  # noqa: E402
+from repro_torch.testing import step_bars                    # noqa: E402
 from repro_torch.train.policy import make_policy             # noqa: E402
 from repro_torch.train.trainer import build_train_step       # noqa: E402
 
@@ -173,42 +174,15 @@ def pair_zeropp():
     return _Pair()
 
 
-def _close(got, want, what):
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6, err_msg=what)
-
-
-def _first_step_dir(g, gnorm, clip=1.0, eps=1e-8):
-    """AdamW's first-step direction m̂/(√v̂ + eps) = g/(|g| + eps) on the
-    clipped gradient, in float64."""
-    gs = g.astype(np.float64) * (clip / (gnorm + 1e-12) if gnorm > clip
-                                 else 1.0)
-    return gs / (np.abs(gs) + eps)
+_close = step_bars.close
 
 
 def _params_after_first_step(tp, jp, tg, jg, t_norm, j_norm):
-    """Parameters after one step: rtol 1e-5 / atol 1e-6 plus what the two
-    sides' own gradients move apart through the first step's direction."""
-    _params_near(tp, jp, {k: _first_step_dir(tg[k], t_norm) for k in tp},
-                 {k: _first_step_dir(jg[k], j_norm) for k in tp})
-
-
-def _moment_dir(o, k, cfg=AdamWConfig()):
-    """A side's first-step direction m̂/(√v̂ + eps), read from its own
-    moments after the step, in float64."""
-    m = o["m"][k].astype(np.float64) / (1 - cfg.b1)
-    v = o["v"][k].astype(np.float64) / (1 - cfg.b2)
-    return m / (np.sqrt(v) + cfg.eps)
-
-
-def _params_near(tp, jp, t_dir, j_dir):
-    for k in tp:
-        amp = LR * np.abs(t_dir[k] - j_dir[k])
-        bar = 1e-6 + 1e-5 * np.abs(jp[k]) + amp
-        assert np.all(np.abs(tp[k] - jp[k]) <= bar), f"param {k}"
-        # where the direction is stable the tight bar holds on its own
-        stable = amp < 1e-7
-        assert stable.mean() > 0.999, k
-        _close(tp[k][stable], jp[k][stable], f"param {k} (stable)")
+    """Parameters after one step, each side's first-step direction read
+    from its own gradient."""
+    step_bars.params_near(
+        tp, jp, {k: step_bars.first_step_dir(tg[k], t_norm) for k in tp},
+        {k: step_bars.first_step_dir(jg[k], j_norm) for k in tp}, LR)
 
 
 def test_synthetic_data_is_the_reference_draws():
@@ -255,15 +229,6 @@ def _step_exact(pair, batch=None, attn_impl="xla"):
                              float(m["grad_norm"]), jm["grad_norm"])
 
 
-def _within_int4_step(got, want, step, what):
-    """Every element within one INT4 step (per block of 256) of the
-    reference's, and fewer than 1 in 1,000 beyond rtol 1e-5 / atol 1e-6.
-    Returns (elements beyond the tight bar, elements)."""
-    assert np.all(np.abs(got - want) <= step * (1 + 1e-5) + 1e-12), what
-    far = ~np.isclose(got, want, rtol=1e-5, atol=1e-6)
-    return int(far.sum()), got.size
-
-
 def _step_int4(pair, batch=None, attn_impl="xla"):
     """qgZ on: loss at 1e-5, gradients within one INT4 step, then one
     AdamW step on both sides (m, v, grad norm and parameters).  Returns
@@ -275,14 +240,7 @@ def _step_int4(pair, batch=None, attn_impl="xla"):
                           attn_impl=attn_impl)
     loss, _, grads = st.loss_and_grads(params, _tbatch(batch))
     assert abs(float(loss) - j_loss) <= 1e-5
-    n_far = n = 0
-    for k in grads:
-        got, want = grads[k].numpy().reshape(-1, 256), j_grads[k].reshape(
-            -1, 256)
-        f, c = _within_int4_step(got, want, np.abs(want).max(
-            axis=1, keepdims=True) / 7, f"grad {k}")
-        n_far, n = n_far + f, n + c
-    assert n_far < n / 1000, (n_far, n)
+    step_bars.grads_within_int4(to_numpy(grads), j_grads)
     # one AdamW step, on both sides from the same state
     jp, jo, jm = pair.ref_step(batch, attn_impl=attn_impl)
     m = st.fn(params, opt, _tbatch(batch))
@@ -292,24 +250,10 @@ def _step_int4(pair, batch=None, attn_impl="xla"):
     assert abs(float(m["grad_norm"]) - jm["grad_norm"]) <= \
         gdiff + 1e-5 * jm["grad_norm"]
     tp, to = to_numpy(params), to_numpy(opt)
-    cfg = AdamWConfig()
-    n_far = n = 0
-    for k in tp:
-        mt, mj = to["m"][k].reshape(-1, 256), jo["m"][k].reshape(-1, 256)
-        f, c = _within_int4_step(mt, mj, np.abs(mj).max(
-            axis=1, keepdims=True) / 7, f"m {k}")
-        n_far, n = n_far + f, n + c
-        vt, vj = to["v"][k].reshape(-1, 256), jo["v"][k].reshape(-1, 256)
-        gt, gj = (np.sqrt(a.astype(np.float64) / (1 - cfg.b2))
-                  for a in (vt, vj))
-        step = gj.max(axis=1, keepdims=True) / 7
-        f, c = _within_int4_step(vt, vj, (1 - cfg.b2) * step * (gt + gj),
-                                 f"v {k}")
-        n_far, n = n_far + f, n + c
-    assert n_far < n / 1000, (n_far, n)
+    step_bars.moments_within_int4(to, jo)
     assert int(to["count"]) == int(jo["count"]) == 1
-    _params_near(tp, jp, {k: _moment_dir(to, k) for k in tp},
-                 {k: _moment_dir(jo, k) for k in tp})
+    step_bars.params_near(tp, jp, {k: step_bars.moment_dir(to, k) for k in tp},
+                          {k: step_bars.moment_dir(jo, k) for k in tp}, LR)
     return grads
 
 
