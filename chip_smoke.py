@@ -36,7 +36,8 @@ last line is printed.
    also the effective GB/s and the share of the bound, and the time of a
    plain ``copy_`` that moves the kernel's payload bytes (B3: reads every
    32-byte sector of its bf16 input and writes its INT4 payload; B4: its
-   payload in and out), then B3 and B4 at edge shapes (1, 3 and 4,097
+   payload in and out; B5 at the 2 x 2 path's N = 2: as many bytes read
+   and written as it moves), then B3 and B4 at edge shapes (1, 3 and 4,097
    quant blocks, every block size, N up to 11, INT4/INT8, fp32/bf16, u
    fields, zero, half-way and raw-payload inputs), all bit-identical.
    Then the flash
@@ -92,17 +93,32 @@ last line is printed.
 6. Multi-rank train phase: the same pallas run (seed, batches, lr) on a
    2 x 2 ("data", "model") world, four rank processes sharing the card
    over a gloo group (``repro_torch.launch.mesh.spawn``, kernels built
-   once before the ranks start), ``MR_STEPS`` steps: each rank holds its
-   shard of the same global parameters and reads 2 of the 8 rows, so hpZ
-   re-gathers over the intra pair and qgZ's B3/B4 run at N = X = 2, B5 at
-   N = Y = 2.  Checks that every rank agrees on the summed losses, the
-   step-1 loss is within ``MR_LOSS1_ATOL`` of phase 5's pallas run, every
-   loss is finite and within ``MR_REL`` of that run's at the same step,
-   the last below the first, and every rank launches each of B1–B5 once
-   per flat group, B6 twice and B7 once per layer each step; prints each
-   rank's step time (p50 of steps 2–4), peak memory and launches, and rank
-   0's profiled step: host wall, its device busy time and the host time
-   inside the gloo collectives.
+   once before the ranks start), ``MR_STEPS`` steps at the default
+   prefetch ring (depth 1: layer i+1's gathers in flight under layer i's
+   compute), then ``MR_SYNC_STEPS`` steps of the synchronous schedule
+   (``--prefetch 0``) in the same ranks: each rank holds its shard of the
+   same global parameters and reads 2 of the 8 rows, so hpZ re-gathers
+   over the intra pair and qgZ's B3/B4 run at N = X = 2, B5 at N = Y = 2.
+   Checks that every rank agrees on the summed losses, the step-1 loss is
+   within ``MR_LOSS1_ATOL`` of phase 5's pallas run, every loss is finite
+   and within ``MR_REL`` of that run's at the same step, the last below
+   the first, the synchronous losses equal the ring's first ones bit for
+   bit, and every rank launches each of B1–B5 once per flat group, B6
+   twice and B7 once per layer each step at both depths; prints, per
+   depth, each rank's step time (p50 from step 2), peak memory and
+   launches, and rank 0's profiled step: host wall, its device busy time
+   and the host time inside the gloo collectives.
+7. Sequence-parallel phase: the 2 x 2 world at a global batch of
+   ``SP_BATCH`` x 2048, which covers only ``data``: each rank holds one
+   row's half of the sequence (1,024 tokens), ``mha`` all-gathers K/V
+   over the intra pair and reduce-scatters their cotangents, and the
+   flash kernels stay out (the reference's rule for a sharded sequence;
+   ``--attn pallas`` takes the chunked route), ``SP_STEPS`` steps at the
+   default ring.  Checks the step-1 loss within ``MR_LOSS1_ATOL`` of a
+   world-1 ``--attn xla`` step on the same rows from the same seed (run
+   first, in this process), losses finite and falling, every rank
+   launching each of B1–B5 once per flat group and no flash kernel each
+   step; prints what phase 6 prints.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
@@ -203,6 +219,12 @@ LOSS_DROP = 0.1
 MR_MESH, MR_STEPS = (2, 2), 4
 MR_LOSS1_ATOL, MR_REL = 1e-3, 0.05
 MR_TIMEOUT_S = 600
+# the same world's synchronous schedule (--prefetch 0), held bit for bit
+# against the ring's first steps
+MR_SYNC_STEPS = 2
+# the sequence-parallel phase: a global batch of 2 rows on 2 x 2 (the
+# sequence over "model", 1,024 tokens a rank), steps
+SP_BATCH, SP_STEPS = 2, 3
 # its qgZ shapes: a layer group's shard at world 4 (15,731,712 / 4)
 MR_L = 3_932_928
 # the quant kernels by their CUDA function names (profiles, build report)
@@ -652,12 +674,25 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
     errs["dequant_reduce"] = max(errs["dequant_reduce"], _same(
         "B5 dequant_reduce", (y, MR_L), (fq.dequant_reduce(pay5, sc5, c4),),
         (ref.dequant_reduce_ref(pay5, sc5, c4),)))
-    timed(f"B5 dequant_reduce N={y}", MR_L,
-          lambda: fq.dequant_reduce(pay5, sc5, c4),
-          lambda: ref.dequant_reduce_ref(pay5, sc5, c4),
-          y * (MR_L // 2 + 4 * (MR_L // 256)) + 4 * MR_L,
-          (2 * y + 1) * MR_L)
-    del gr, p3, pay, sc, p4, pay5, sc5
+    r5 = timed(f"B5 dequant_reduce N={y}", MR_L,
+               lambda: fq.dequant_reduce(pay5, sc5, c4),
+               lambda: ref.dequant_reduce_ref(pay5, sc5, c4),
+               y * (MR_L // 2 + 4 * (MR_L // 256)) + 4 * MR_L,
+               (2 * y + 1) * MR_L)
+    # what the memory system gives B5's bytes with no arithmetic: a copy_
+    # that reads and writes as many bytes as B5 does (its N payloads and
+    # scales in, its fp32 sums out), in one launch
+    nin = y * (MR_L // 2 + 4 * (MR_L // 256))
+    src = torch.empty((nin + 4 * MR_L) // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    cp = median_ms(lambda: dst.copy_(src), flush)
+    print(f"  copy_ of B5's N={y} bytes ({nin:,} read, {4 * MR_L:,} "
+          f"written: {src.numel():,} bytes in and out): {cp:.4f} ms "
+          f"({2 * src.numel() / cp / 1e6:.1f} GB/s), {100 * cp / r5['ms']:.1f}"
+          f"% of B5's time", flush=True)
+    rec["dequant_reduce"]["extra"] = {"n2_ms": r5["ms"], "n2_copy_ms": cp,
+                                      "n2_bound_ms": r5["bound"][0]}
+    del gr, p3, pay, sc, p4, pay5, sc5, src, dst
     for k, e in qgz_edge_holds(g).items():
         errs[k] = max(errs[k], e)
     for k, e in errs.items():
@@ -1274,71 +1309,138 @@ def train_phase(attn: str) -> tuple:
     return launches, losses
 
 
-def multirank_rank(rank: int, world: int, argv: list) -> dict:
-    """One rank of the multi-rank train phase (a spawned process on device
-    0): the launcher's loop, then one profiled step on rank 0 (the other
-    ranks make the same calls).  Returns what the host checks."""
-    args = train_launch.parser().parse_args(argv)
-    res = train_launch.train_loop(args)
-    built = res["built"]
-    batch = train_launch.device_batch(built.arch, built.lm, args.steps,
-                                      args.batch, 1, built.model.device)
-    prof = profile_step(
-        lambda: built.step.fn(res["params"], res["opt"], batch),
-        f"multi-rank train step, rank {rank} of {world}", show=rank == 0)
-    per_step = step_launches(built.arch, built.model, args.attn)
-    return {"losses": res["losses"], "step_s": res["step_s"],
-            "launches": res["launches"], "want": per_step,
-            "peak": res["peak_bytes"], "profile": prof,
-            "shard": built.model.param_shapes()["blocks"][1] // world}
+def multirank_rank(rank: int, world: int, runs: list) -> list:
+    """One rank of a multi-rank phase (a spawned process on device 0): for
+    each argv of ``runs`` in turn, the launcher's loop, then one profiled
+    step on rank 0 (the other ranks make the same calls).  Returns what
+    the host checks, one dict per run."""
+    outs = []
+    for argv in runs:
+        args = train_launch.parser().parse_args(argv)
+        torch.cuda.reset_peak_memory_stats()
+        res = train_launch.train_loop(args)
+        built = res["built"]
+        z, rs = built.model.zcfg, built.step.run_spec
+        batch = train_launch.device_batch(built.arch, built.lm, args.steps,
+                                          args.batch, 1, built.model.device)
+        prof = profile_step(
+            lambda: built.step.fn(res["params"], res["opt"], batch),
+            f"multi-rank train step, rank {rank} of {world}, batch "
+            f"{args.batch}, sequence over {rs.seq_axes}, prefetch "
+            f"{z.prefetch}", show=rank == 0)
+        # a sharded sequence keeps the flash kernels out (mha's rule)
+        per_step = step_launches(built.arch, built.model,
+                                 "xla" if rs.seq_axes else args.attn)
+        outs.append({"losses": res["losses"], "step_s": res["step_s"],
+                     "launches": res["launches"], "want": per_step,
+                     "peak": res["peak_bytes"], "profile": prof,
+                     "prefetch": z.prefetch, "seq_axes": rs.seq_axes,
+                     "shard": built.model.param_shapes()["blocks"][1]
+                     // world})
+        del res, built, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
 
 
-def multirank_phase(world1_losses: list) -> dict:
-    """qwen3-0.6b at full width on a Y x X = 2 x 2 world: four rank
-    processes sharing the card over a gloo group, full ZeRO++ under --attn
-    pallas, the world-1 pallas phase's seed, batches and lr, MR_STEPS
-    steps.  Holds its losses against that phase's (``world1_losses``) and
-    every rank's launches; returns the launches summed over the ranks."""
+def _mr_argv(batch: int, steps: int, *extra) -> list:
+    y, x = MR_MESH
+    return ["--arch", "qwen3-0.6b", "--batch", str(batch), "--seq",
+            str(TRAIN_SEQ), "--steps", str(steps), "--lr", str(TRAIN_LR),
+            "--lr-schedule", "constant", "--device", "cuda", "--attn",
+            "pallas", "--mesh", f"{y}x{x}", *extra]
+
+
+def _mr_spawn(runs: list, tag: str) -> list:
+    """Spawn the 2 x 2 world on ``runs``; check every rank's launches per
+    step and that the ranks agree on the losses; returns, per run, every
+    rank's result."""
     from repro_torch.launch import mesh as mesh_lib
     y, x = MR_MESH
-    argv = ["--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--steps", str(MR_STEPS), "--lr", str(TRAIN_LR),
-            "--lr-schedule", "constant", "--device", "cuda", "--attn",
-            "pallas", "--mesh", f"{y}x{x}"]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(multirank_rank, y * x, argv, device="cuda",
+    ranks = mesh_lib.spawn(multirank_rank, y * x, runs, device="cuda",
                            timeout=MR_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    tag = f"train {y}x{x}"
+    print(f"{tag}: spawn to exit {time.perf_counter() - t0:.1f} s",
+          flush=True)
     lay = ZeroConfig().align(y * x) // (y * x)
-    for r, out in enumerate(ranks):
-        if out["shard"] % lay:
-            fail(f"{tag} rank {r}: layer shard {out['shard']} is not a "
-                 f"multiple of {lay} (ZeroConfig.align({y * x}))")
-        for i, c in enumerate(out["launches"]):
-            if c != out["want"]:
-                fail(f"{tag} rank {r} step {i}: launches {c}, expected "
-                     f"{out['want']}")
-    losses = ranks[0]["losses"]
-    if any(out["losses"] != losses for out in ranks):
-        fail(f"{tag}: ranks disagree on the summed losses "
-             f"{[out['losses'] for out in ranks]}")
-    ref = world1_losses[:MR_STEPS]
-    d1 = abs(losses[0] - ref[0])
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    per_run = [[r[i] for r in ranks] for i in range(len(runs))]
+    for i, outs in enumerate(per_run):
+        for r, out in enumerate(outs):
+            if out["shard"] % lay:
+                fail(f"{tag} rank {r}: layer shard {out['shard']} is not a "
+                     f"multiple of {lay} (ZeroConfig.align({y * x}))")
+            for j, c in enumerate(out["launches"]):
+                if c != out["want"]:
+                    fail(f"{tag} run {i} rank {r} step {j}: launches {c}, "
+                         f"expected {out['want']}")
+        if any(out["losses"] != outs[0]["losses"] for out in outs):
+            fail(f"{tag}: ranks disagree on the summed losses "
+                 f"{[out['losses'] for out in outs]}")
+    return per_run
+
+
+def _mr_report(tag: str, outs: list, rows: int) -> dict:
+    """Print each rank's step p50, peak and launches and rank 0's profiled
+    step; returns the launches summed over the ranks and the run."""
+    tokens = rows * TRAIN_SEQ
+    n = len(outs[0]["losses"])
+    for r, out in enumerate(outs):
+        p50 = statistics.median(out["step_s"][1:])
+        print(f"{tag} rank {r}: step p50 (steps 2-{n}) {p50 * 1e3:.1f} ms "
+              f"({tokens / p50:,.0f} tokens/s for the world), first step "
+              f"{out['step_s'][0] * 1e3:.1f} ms; peak memory "
+              f"{out['peak'] / 2 ** 30:.2f} GiB (max_memory_allocated); "
+              f"launches per step {out['want']} x {n} steps", flush=True)
+    prof = outs[0]["profile"]
+    print(f"{tag}: rank 0's profiled step: host wall {prof['wall']:.1f} ms, "
+          f"its device busy {prof['busy']:.1f} ms "
+          f"({100 * prof['busy'] / prof['wall']:.1f}%), gloo collectives "
+          f"{prof['gloo']:.1f} ms of host time "
+          f"({100 * prof['gloo'] / prof['wall']:.1f}%)", flush=True)
+    return {k: sum(sum(c[k] for c in out["launches"]) for out in outs)
+            for k in platform.LAUNCHES}
+
+
+def multirank_phase(world1_losses: list) -> tuple:
+    """qwen3-0.6b at full width on a Y x X = 2 x 2 world: four rank
+    processes sharing the card over a gloo group, full ZeRO++ under --attn
+    pallas, the world-1 pallas phase's seed, batches and lr: MR_STEPS
+    steps at the default prefetch ring (depth 1), then MR_SYNC_STEPS at
+    --prefetch 0.  Holds the ring's losses against that phase's
+    (``world1_losses``), the synchronous run's against the ring's first
+    steps bit for bit, and every rank's launches; returns the launches
+    summed over the ranks, of the ring run and of the synchronous run."""
+    y, x = MR_MESH
+    tag = f"train {y}x{x}"
+    ring, sync = _mr_spawn([_mr_argv(TRAIN_BATCH, MR_STEPS),
+                            _mr_argv(TRAIN_BATCH, MR_SYNC_STEPS,
+                                     "--prefetch", "0")], tag)
+    if ring[0]["prefetch"] != 1 or sync[0]["prefetch"] != 0:
+        fail(f"{tag}: prefetch {ring[0]['prefetch']} / {sync[0]['prefetch']}"
+             f", expected 1 / 0")
     print(f"{tag}: {y * x} ranks (Y {y} inter x X {x} intra) sharing one "
           f"card over gloo, qwen3-0.6b full width, full ZeRO++ (qwZ INT8, "
           f"hpZ on the intra pair, qgZ INT4 2-hop: B3/B4 at N = {x}, B5 at "
           f"N = {y}), --attn pallas, global batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} ({TRAIN_BATCH // (y * x)} rows a rank), constant lr "
-          f"{TRAIN_LR}; layer shard {ranks[0]['shard']:,} a rank; spawn to "
-          f"exit {wall:.1f} s", flush=True)
+          f"{TRAIN_LR}; layer shard {ring[0]['shard']:,} a rank; the "
+          f"prefetch ring at depth 1, then {MR_SYNC_STEPS} steps of the "
+          f"synchronous schedule (--prefetch 0)", flush=True)
+    losses = ring[0]["losses"]
+    ref = world1_losses[:MR_STEPS]
+    d1 = abs(losses[0] - ref[0])
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
     print(f"{tag}: losses {[round(v, 4) for v in losses]} vs world 1 "
           f"{[round(v, 4) for v in ref]}: step 1 |diff| {d1:.2e} (bar "
           f"{MR_LOSS1_ATOL}), relative {[f'{v:.2e}' for v in rel]} (bar "
           f"{MR_REL})", flush=True)
+    sl = sync[0]["losses"]
+    print(f"{tag}: --prefetch 0 losses {sl!r} vs the ring's first "
+          f"{MR_SYNC_STEPS} {losses[:MR_SYNC_STEPS]!r}: "
+          f"{'bit-identical' if sl == losses[:MR_SYNC_STEPS] else 'DIFFER'}",
+          flush=True)
     if not all(np.isfinite(losses)):
         fail(f"{tag}: non-finite loss {losses}")
     if not d1 <= MR_LOSS1_ATOL:
@@ -1347,24 +1449,54 @@ def multirank_phase(world1_losses: list) -> dict:
         fail(f"{tag}: the loss did not fall over the run {losses}")
     if not max(rel) < MR_REL:
         fail(f"{tag}: losses beyond {MR_REL} of world 1's")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    for r, out in enumerate(ranks):
-        p50 = statistics.median(out["step_s"][1:])
-        print(f"{tag} rank {r}: step p50 (steps 2-{MR_STEPS}) "
-              f"{p50 * 1e3:.1f} ms ({tokens / p50:,.0f} tokens/s for the "
-              f"world), first step {out['step_s'][0] * 1e3:.1f} ms; peak "
-              f"memory {out['peak'] / 2 ** 30:.2f} GiB (max_memory_allocated);"
-              f" launches per step {out['want']} x {MR_STEPS} steps",
-              flush=True)
-    prof = ranks[0]["profile"]
-    print(f"{tag}: rank 0's profiled step: host wall {prof['wall']:.1f} ms, "
-          f"its device busy {prof['busy']:.1f} ms "
-          f"({100 * prof['busy'] / prof['wall']:.1f}%), gloo collectives "
-          f"{prof['gloo']:.1f} ms of host time "
-          f"({100 * prof['gloo'] / prof['wall']:.1f}%)", flush=True)
-    total = {k: sum(sum(c[k] for c in out["launches"]) for out in ranks)
-             for k in platform.LAUNCHES}
-    return total
+    if sl != losses[:MR_SYNC_STEPS]:
+        fail(f"{tag}: the synchronous schedule's losses {sl} are not the "
+             f"ring's {losses[:MR_SYNC_STEPS]}")
+    return (_mr_report(f"{tag} prefetch 1", ring, TRAIN_BATCH),
+            _mr_report(f"{tag} prefetch 0", sync, TRAIN_BATCH))
+
+
+def seq_parallel_phase() -> dict:
+    """The 2 x 2 world at a global batch of SP_BATCH rows: the batch covers
+    only ``data``, so every rank holds one row's half of the sequence
+    (1,024 tokens) and ``mha`` gathers K/V over the intra pair; --attn
+    pallas (which a sharded sequence keeps out of the flash kernels, the
+    reference's rule), SP_STEPS steps at the default ring.  Its step-1
+    loss is held against a world-1 --attn xla step on the same rows from
+    the same seed, run here first; returns the launches summed over the
+    ranks."""
+    y, x = MR_MESH
+    tag = f"train {y}x{x} sequence-parallel"
+    args = train_launch.parser().parse_args([
+        "--arch", "qwen3-0.6b", "--batch", str(SP_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", "1", "--lr", str(TRAIN_LR),
+        "--lr-schedule", "constant", "--device", "cuda", "--attn", "xla",
+        "--log-every", "0"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = train_launch.train_loop(args)["losses"][0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    (outs,) = _mr_spawn([_mr_argv(SP_BATCH, SP_STEPS)], tag)
+    if outs[0]["seq_axes"] != ("model",):
+        fail(f"{tag}: the sequence went over {outs[0]['seq_axes']}, "
+             f"expected ('model',)")
+    losses = outs[0]["losses"]
+    d1 = abs(losses[0] - one)
+    print(f"{tag}: 4 ranks, qwen3-0.6b full width, full ZeRO++, --attn "
+          f"pallas, global batch {SP_BATCH} x {TRAIN_SEQ}: rows over data, "
+          f"the sequence over {outs[0]['seq_axes']} (1 row x "
+          f"{TRAIN_SEQ // x} tokens a rank), prefetch {outs[0]['prefetch']}"
+          f"; losses {[round(v, 4) for v in losses]}; step 1 vs world 1 "
+          f"--attn xla on the same rows {one:.6f}: |diff| {d1:.2e} (bar "
+          f"{MR_LOSS1_ATOL})", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: non-finite loss {losses}")
+    if not d1 <= MR_LOSS1_ATOL:
+        fail(f"{tag}: step-1 loss {losses[0]} vs world 1's {one}")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the loss did not fall over the run {losses}")
+    return _mr_report(tag, outs, SP_BATCH)
 
 
 def profile_decode(decode, params, caches, positions) -> None:
@@ -1527,19 +1659,24 @@ def main() -> None:
     if not abs(loss_pallas - loss_xla) <= ROUTE_LOSS_ATOL:
         fail("the two attention routes' step-1 losses differ beyond "
              f"{ROUTE_LOSS_ATOL}")
-    # this slice's path: the same run on four ranks of a 2 x 2 world
-    by_path["train_2x2"] = multirank_phase(losses_pallas)
+    # the same run on four ranks of a 2 x 2 world, at the default ring
+    # depth and at the synchronous schedule
+    by_path["train_2x2"], by_path["train_2x2_sync"] = multirank_phase(
+        losses_pallas)
+    # this slice's path: the 2 x 2 world with the sequence sharded
+    by_path["train_2x2_seq"] = seq_parallel_phase()
 
     # each kernel's path(s): it must have launched in every one of them
-    quant_train = ("train", "train_xla", "train_2x2")
+    quant_train = ("train", "train_xla", "train_2x2", "train_2x2_sync",
+                   "train_2x2_seq")
     paths = {"quantize_blockwise": ("serve",) + quant_train,
              "dequantize_blockwise": ("serve",) + quant_train,
              "quantize_reordered": quant_train,
              "dequant_reduce_quant": quant_train,
              "dequant_reduce": quant_train,
              "dequant_matmul": ("serve",),
-             "flash_fwd": ("train", "train_2x2"),
-             "flash_bwd": ("train", "train_2x2")}
+             "flash_fwd": ("train", "train_2x2", "train_2x2_sync"),
+             "flash_bwd": ("train", "train_2x2", "train_2x2_sync")}
     for name, ps in paths.items():
         for pth in ps:
             if by_path[pth][name] <= 0:

@@ -25,10 +25,18 @@ semantics on a one-device mesh, not a fallback — while the quantize,
 reduce and dequantize still run, as in the reference.  The reference's
 non-blocked ablation and its 1-hop and ring qgZ variants serve benchmarks
 only and are not ported.
+
+The collectives that the prefetch ring (``core/schedule.py``) keeps in
+flight also come split at their wire hops (``*_hops``): a generator whose
+each step runs up to issuing the next hop (``async_op=True``) and returns
+before anything waits on it; the step after ``Work.wait()``s for that hop
+before reading what it brought.  :func:`begin` runs the first step,
+:func:`advance` the next, :func:`finish` the rest, returning the result.
+The synchronous functions are ``finish`` of their hops.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Generator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,14 +58,58 @@ def flat_rank(group=None) -> int:
     return 0
 
 
-def _gather(shard: torch.Tensor, group=None) -> torch.Tensor:
-    """Tiled all-gather of a 1-D shard along dim 0."""
+# A collective split at its wire hops: each step issues the next hop and
+# returns; the generator's return value is the result.
+Hops = Generator[None, None, torch.Tensor]
+
+
+def begin(hops: Hops) -> Hops:
+    """Run ``hops`` up to its first hop in flight; returns it."""
+    next(hops)
+    return hops
+
+
+def advance(hops: Hops) -> Optional[torch.Tensor]:
+    """Wait for the hop in flight and run up to issuing the next one: the
+    result when no hop is left, else None."""
+    try:
+        next(hops)
+    except StopIteration as stop:
+        return stop.value
+    return None
+
+
+def finish(hops: Hops) -> torch.Tensor:
+    """Run the rest of ``hops`` (begun or not) and return its result."""
+    while True:
+        out = advance(hops)
+        if out is not None:
+            return out
+
+
+def _wait(*works) -> None:
+    for w in works:
+        if w is not None:
+            w.wait()
+
+
+def _gather_start(shard: torch.Tensor, group=None):
+    """Issue the tiled all-gather of a 1-D shard along dim 0: (out, work),
+    ``out`` not to be read before ``work`` is waited on (None: world 1,
+    ``out`` is the shard)."""
     world = world_size(group)
     if world == 1:
-        return shard
+        return shard, None
     out = torch.empty((world * shard.shape[0],), dtype=shard.dtype,
                       device=shard.device)
-    dist.all_gather_into_tensor(out, shard.contiguous(), group=group)
+    return out, dist.all_gather_into_tensor(out, shard.contiguous(),
+                                            group=group, async_op=True)
+
+
+def _gather(shard: torch.Tensor, group=None) -> torch.Tensor:
+    """Tiled all-gather of a 1-D shard along dim 0."""
+    out, work = _gather_start(shard, group)
+    _wait(work)
     return out
 
 
@@ -77,42 +129,79 @@ def tier_groups(intra_size: int):
     return intra, inter
 
 
-def gather_bf16(shard: torch.Tensor, group=None) -> torch.Tensor:
+def gather_bf16_hops(shard: torch.Tensor, group=None) -> Hops:
     """All-gather that moves 2-byte lanes: bf16 crosses as its raw bytes
     (an int8 view, bit-level identity, which every backend takes), other
-    dtypes as themselves."""
-    if shard.dtype != torch.bfloat16:
-        return _gather(shard, group)
-    return _gather(shard.contiguous().view(torch.int8), group).view(
-        torch.bfloat16)
+    dtypes as themselves.  One hop."""
+    bf16 = shard.dtype == torch.bfloat16
+    out, work = _gather_start(
+        shard.contiguous().view(torch.int8) if bf16 else shard, group)
+    yield
+    _wait(work)
+    return out.view(torch.bfloat16) if bf16 else out
+
+
+def gather_bf16(shard: torch.Tensor, group=None) -> torch.Tensor:
+    return finish(gather_bf16_hops(shard, group))
+
+
+def baseline_all_gather_hops(shard: torch.Tensor, group=None,
+                             out_dtype: Optional[torch.dtype] = None
+                             ) -> Hops:
+    """Full-precision all-gather of a flat parameter shard (ZeRO-3)."""
+    full = yield from gather_bf16_hops(shard, group)
+    return full if out_dtype is None else full.to(out_dtype)
 
 
 def baseline_all_gather(shard: torch.Tensor, group=None,
                         out_dtype: Optional[torch.dtype] = None
                         ) -> torch.Tensor:
-    """Full-precision all-gather of a flat parameter shard (ZeRO-3)."""
-    full = gather_bf16(shard, group)
-    return full if out_dtype is None else full.to(out_dtype)
+    return finish(baseline_all_gather_hops(shard, group, out_dtype))
+
+
+def baseline_reduce_scatter_hops(grad: torch.Tensor, group=None) -> Hops:
+    """Full-precision reduce-scatter of a flat local gradient (ZeRO-3):
+    this rank's shard of the sum over the group.  One hop."""
+    world = world_size(group)
+    out, work = grad, None
+    if world > 1:
+        out = torch.empty((grad.shape[0] // world,), dtype=grad.dtype,
+                          device=grad.device)
+        work = dist.reduce_scatter_tensor(out, grad.contiguous(), group=group,
+                                          async_op=True)
+    yield
+    _wait(work)
+    return out
 
 
 def baseline_reduce_scatter(grad: torch.Tensor, group=None) -> torch.Tensor:
-    """Full-precision reduce-scatter of a flat local gradient (ZeRO-3):
-    this rank's shard of the sum over the group."""
-    world = world_size(group)
-    if world == 1:
-        return grad
-    out = torch.empty((grad.shape[0] // world,), dtype=grad.dtype,
-                      device=grad.device)
-    dist.reduce_scatter_tensor(out, grad.contiguous(), group=group)
-    return out
+    return finish(baseline_reduce_scatter_hops(grad, group))
+
+
+def _quantize_shard(shard: torch.Tensor, cfg: QuantConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = shard.shape[0]
+    if n % cfg.block_size:
+        raise ValueError(f"shard len {n} % block {cfg.block_size} != 0")
+    return _kops.quantize_blockwise(shard, cfg)
+
+
+def qwz_all_gather_hops(shard: torch.Tensor, group, cfg: QuantConfig,
+                        out_dtype: torch.dtype = torch.bfloat16) -> Hops:
+    """All-gather a flat weight shard with in-flight blockwise
+    quantization: 0.5·M payload + scales on the wire instead of M (bf16).
+    One hop: B1, the payload's and the scales' gathers issued; then B2."""
+    payload, scales = _quantize_shard(shard, cfg)
+    payload_g, w1 = _gather_start(payload, group)
+    scales_g, w2 = _gather_start(scales, group)
+    yield
+    _wait(w1, w2)
+    return _kops.dequantize_blockwise(payload_g, scales_g, cfg, out_dtype)
 
 
 def qwz_all_gather(shard: torch.Tensor, group, cfg: QuantConfig,
                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """All-gather a flat weight shard with in-flight blockwise
-    quantization: 0.5·M payload + scales on the wire instead of M (bf16)."""
-    payload_g, scales_g = qwz_all_gather_quant(shard, group, cfg)
-    return _kops.dequantize_blockwise(payload_g, scales_g, cfg, out_dtype)
+    return finish(qwz_all_gather_hops(shard, group, cfg, out_dtype))
 
 
 def qwz_all_gather_quant(shard: torch.Tensor, group, cfg: QuantConfig
@@ -120,10 +209,7 @@ def qwz_all_gather_quant(shard: torch.Tensor, group, cfg: QuantConfig
     """qwZ all-gather that STAYS quantized: (payload_g, scales_g).  Same
     wire traffic as :func:`qwz_all_gather`; the consumer applies the
     scales itself, so the gathered bf16 weights never exist."""
-    n = shard.shape[0]
-    if n % cfg.block_size:
-        raise ValueError(f"shard len {n} % block {cfg.block_size} != 0")
-    payload, scales = _kops.quantize_blockwise(shard, cfg)
+    payload, scales = _quantize_shard(shard, cfg)
     return _gather(payload, group), _gather(scales, group)
 
 
@@ -145,11 +231,15 @@ def slice_secondary(full: torch.Tensor, group=None) -> torch.Tensor:
     return full[i * n:(i + 1) * n].clone()
 
 
-def hpz_all_gather(secondary: torch.Tensor, group=None) -> torch.Tensor:
+def hpz_all_gather_hops(secondary: torch.Tensor, group=None) -> Hops:
     """Backward all-gather over the fast intra-node group only: the
     secondary partition replicates the full weights within each intra
     group, so no byte crosses the slow tier."""
-    return gather_bf16(secondary, group)
+    return gather_bf16_hops(secondary, group)
+
+
+def hpz_all_gather(secondary: torch.Tensor, group=None) -> torch.Tensor:
+    return finish(hpz_all_gather_hops(secondary, group))
 
 
 # ---------------------------------------------------------------------------
@@ -173,21 +263,28 @@ def _unpack_scales(msg: torch.Tensor, payload_len: int
     return payload, scales
 
 
-def _all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
-    """All-to-all along dim 0: chunk j goes to group rank j, and the
-    received chunks are concatenated in source-rank order (the
-    reference's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+def _all_to_all_start(x: torch.Tensor, group=None):
+    """Issue the all-to-all along dim 0: chunk j goes to group rank j, and
+    the received chunks are concatenated in source-rank order (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0)``).  Returns
+    (out, work) as :func:`_gather_start`."""
     if world_size(group) == 1:
-        return x
+        return x, None
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out, dist.all_to_all_single(out, x.contiguous(), group=group,
+                                       async_op=True)
+
+
+def _all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    out, work = _all_to_all_start(x, group)
+    _wait(work)
     return out
 
 
-def qgz_reduce_scatter(grad: torch.Tensor, intra_group, inter_group,
-                       cfg: QuantConfig, two_tier: bool = True,
-                       u1: Optional[torch.Tensor] = None,
-                       u2: Optional[torch.Tensor] = None) -> torch.Tensor:
+def qgz_reduce_scatter_hops(grad: torch.Tensor, intra_group, inter_group,
+                            cfg: QuantConfig, two_tier: bool = True,
+                            u1: Optional[torch.Tensor] = None,
+                            u2: Optional[torch.Tensor] = None) -> Hops:
     """Replacement for the gradient reduce-scatter (paper §3.3, Figs. 5-9).
 
     For a world of Y (inter) × X (intra) ranks and a flat local gradient
@@ -208,7 +305,8 @@ def qgz_reduce_scatter(grad: torch.Tensor, intra_group, inter_group,
     ``u1`` ((X, Y, L)) and ``u2`` ((Y·L,)) are optional uniform fields
     for stochastic rounding of the two quantizations.  Returns this rank's
     fully reduced gradient shard, float32 of length L, summed (not
-    averaged) over the world.
+    averaged) over the world.  Two hops (one without ``two_tier``): B3 and
+    the first all-to-all issued; then B4 and the second; then B5.
     """
     X = world_size(intra_group)
     Y = world_size(inter_group) if two_tier else 1
@@ -219,7 +317,10 @@ def qgz_reduce_scatter(grad: torch.Tensor, intra_group, inter_group,
                          f"({world}*{cfg.block_size})")
     L = n // world
     payload, scales = _kops.quantize_reordered(grad.reshape(Y, X, L), cfg, u1)
-    msg = _all_to_all(_pack_scales(payload, scales), intra_group)
+    del grad
+    msg, work = _all_to_all_start(_pack_scales(payload, scales), intra_group)
+    yield
+    _wait(work)
     payload, scales = _unpack_scales(msg, payload.shape[-1])
     # payload[x'] is peer x''s contribution to this rank's (Y, L) slices
     if not two_tier:
@@ -230,6 +331,17 @@ def qgz_reduce_scatter(grad: torch.Tensor, intra_group, inter_group,
         payload.reshape(X, -1), scales.reshape(X, -1), cfg, cfg, u2)
     payload2 = payload2.reshape(Y, -1)
     scales2 = scales2.reshape(Y, -1)
-    msg2 = _all_to_all(_pack_scales(payload2, scales2), inter_group)
+    msg2, work = _all_to_all_start(_pack_scales(payload2, scales2),
+                                   inter_group)
+    yield
+    _wait(work)
     payload2, scales2 = _unpack_scales(msg2, payload2.shape[-1])
     return _kops.dequant_reduce(payload2, scales2, cfg)
+
+
+def qgz_reduce_scatter(grad: torch.Tensor, intra_group, inter_group,
+                       cfg: QuantConfig, two_tier: bool = True,
+                       u1: Optional[torch.Tensor] = None,
+                       u2: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return finish(qgz_reduce_scatter_hops(grad, intra_group, inter_group,
+                                          cfg, two_tier, u1, u2))

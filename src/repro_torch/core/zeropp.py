@@ -2,8 +2,9 @@
 
 Port of the reference's ``core/zeropp.py``: ``ZeroConfig``, ``fwd_gather``,
 ``fwd_gather_quant``, ``qwz_gemm_eligible``, ``grad_reduce``, the training
-primitive ``zero_apply`` and the serving ``zero_apply_inference``, plus the
-synchronous body of ``core/schedule.py``'s ``zero_scan_inference``.
+primitive ``zero_apply`` and the serving ``zero_apply_inference``, plus
+the serving layer loop ``zero_scan_inference`` of the reference's
+``core/schedule.py``, with its depth-k prefetch ring (:func:`ring`).
 
 ``zero_apply`` wraps each layer group's apply function ``f(W_full, *args)``
 as a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
@@ -19,14 +20,18 @@ as a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
                   (or the bf16 reduce-scatter baseline)
 
 The secondary copy is a slice of this iteration's forward gather, so hpZ's
-temporal consistency (§3.2.1) holds by construction.  The reference's
-depth-k prefetch ring is bit-exact with the synchronous schedule at every
-depth, so the port runs the synchronous loops (``core/schedule.py``).
+temporal consistency (§3.2.1) holds by construction.  The layer loops run
+the reference's depth-k prefetch ring (``ZeroConfig.prefetch``, default
+1; ``core/schedule.py`` for training, :func:`zero_scan_inference` for
+serving): layer i+k's gather is in flight under layer i's compute.  The
+ring issues the same collectives on the same values as the synchronous
+schedule (``prefetch=0``), so every depth gives the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Sequence, Tuple
+from collections import deque
+from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,6 +82,26 @@ class ZeroConfig:
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     reduce_dtype: torch.dtype = torch.bfloat16  # baseline reduce wire dtype
+    # layer-loop schedule: 0 = synchronous (each collective on the
+    # critical path); k >= 1 = a ring of k gathers in flight, layer i+k's
+    # gather issued under layer i's compute, backward gathers mirrored and
+    # each qgZ hop retired k layers behind.  Every depth gives the same
+    # bits; depths beyond a loop's length clamp (effective_prefetch).
+    prefetch: int = 1
+
+    def __post_init__(self):
+        if self.prefetch < 0:
+            raise ValueError(
+                f"ZeroConfig.prefetch must be >= 0 (ring depth), got "
+                f"{self.prefetch}")
+
+    def effective_prefetch(self, n: int) -> int:
+        """Usable ring depth for an ``n``-step loop: at most n-1 (a deeper
+        ring would gather a layer twice); 0 in local mode and for loops
+        of one step."""
+        if not self.distributed or n < 2:
+            return 0
+        return min(self.prefetch, n - 1)
 
     @property
     def distributed(self) -> bool:
@@ -111,17 +136,56 @@ class ZeroConfig:
         return cls(**kw)
 
 
-def fwd_gather(primary: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
+def fwd_gather_hops(primary: torch.Tensor, z: ZeroConfig) -> cl.Hops:
     """Forward weights all-gather over the full ZeRO world, returned in
     ``compute_dtype``: qwZ quantizes whatever it gets; the baseline casts
-    to the wire dtype (param_dtype) before gathering."""
+    to the wire dtype (param_dtype) before gathering.  One hop
+    (``collectives.begin`` / ``finish``)."""
     if not z.distributed:
+        yield
         return primary.to(z.compute_dtype)
     if z.qwz:
-        return cl.qwz_all_gather(primary, z.group, z.qwz_cfg,
-                                 out_dtype=z.compute_dtype)
-    return cl.baseline_all_gather(primary.to(z.param_dtype), z.group,
-                                  out_dtype=z.compute_dtype)
+        return (yield from cl.qwz_all_gather_hops(
+            primary, z.group, z.qwz_cfg, out_dtype=z.compute_dtype))
+    return (yield from cl.baseline_all_gather_hops(
+        primary.to(z.param_dtype), z.group, out_dtype=z.compute_dtype))
+
+
+def fwd_gather(primary: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
+    return cl.finish(fwd_gather_hops(primary, z))
+
+
+def bwd_gather_hops(res: torch.Tensor, z: ZeroConfig) -> cl.Hops:
+    """The backward pass's re-gather of a layer's full weights from what
+    its forward saved (:func:`saved_for_bwd`): hpZ's intra-group gather of
+    the secondary shard, or the forward gather of the primary again."""
+    if z.distributed and z.hpz:
+        return cl.hpz_all_gather_hops(res, z.intra_group)  # fast tier only
+    return fwd_gather_hops(res, z)
+
+
+def saved_for_bwd(W: torch.Tensor, primary: torch.Tensor,
+                  z: ZeroConfig) -> torch.Tensor:
+    """What a layer's forward keeps for :func:`bwd_gather_hops`: this
+    rank's secondary shard of the gathered weights under hpZ (a slice, no
+    communication), else the primary shard."""
+    if z.distributed and z.hpz:
+        return cl.slice_secondary(W, z.intra_group)
+    return primary
+
+
+def ring(srcs: Sequence, start: Callable[[Any], cl.Hops], k: int
+         ) -> Iterator[torch.Tensor]:
+    """The depth-k prefetch ring: yields ``finish(start(srcs[i]))`` for
+    i = 0, 1, …, with item i+k's collective begun before item i's is
+    finished (so it is in flight while the consumer computes with item
+    i).  k = 0 is the synchronous schedule."""
+    pending = deque(cl.begin(start(srcs[j]))
+                    for j in range(min(k, len(srcs))))
+    for i in range(len(srcs)):
+        if i + k < len(srcs):
+            pending.append(cl.begin(start(srcs[i + k])))
+        yield cl.finish(pending.popleft())
 
 
 def fwd_gather_quant(primary: torch.Tensor, z: ZeroConfig
@@ -145,10 +209,12 @@ def qwz_gemm_eligible(z: ZeroConfig, rows: int, d: int) -> bool:
     return d % b == 0 or (b % d == 0 and rows % (b // d) == 0)
 
 
-def grad_reduce(dW: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
+def grad_reduce_hops(dW: torch.Tensor, z: ZeroConfig) -> cl.Hops:
     """Gradient reduce-scatter over the whole ZeRO world (sums, not
-    means), returned in float32 for the optimizer."""
+    means), returned in float32 for the optimizer.  qgZ takes two hops
+    (one on a single tier), the baseline one."""
     if not z.distributed:
+        yield
         return dW.to(torch.float32)
     if z.qgz:
         two_tier = bool(z.inter_axes)
@@ -157,10 +223,15 @@ def grad_reduce(dW: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
         if tiers != cl.world_size(z.group):
             raise ValueError(f"intra x inter groups hold {tiers} ranks, the "
                              f"ZeRO world {cl.world_size(z.group)}")
-        return cl.qgz_reduce_scatter(dW, z.intra_group, z.inter_group,
-                                     z.qgz_cfg, two_tier=two_tier)
-    red = cl.baseline_reduce_scatter(dW.to(z.reduce_dtype), z.group)
+        return (yield from cl.qgz_reduce_scatter_hops(
+            dW, z.intra_group, z.inter_group, z.qgz_cfg, two_tier=two_tier))
+    red = yield from cl.baseline_reduce_scatter_hops(dW.to(z.reduce_dtype),
+                                                     z.group)
     return red.to(torch.float32)
+
+
+def grad_reduce(dW: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
+    return cl.finish(grad_reduce_hops(dW, z))
 
 
 class _ZeroApply(torch.autograd.Function):
@@ -172,10 +243,7 @@ class _ZeroApply(torch.autograd.Function):
     def forward(ctx, f, z, primary, *args):
         W = fwd_gather(primary, z)
         out = f(W, *args)
-        if z.distributed and z.hpz:
-            res = cl.slice_secondary(W, z.intra_group)
-        else:
-            res = primary
+        res = saved_for_bwd(W, primary, z)
         ctx.f, ctx.z = f, z
         ctx.is_tensor = [torch.is_tensor(a) for a in args]
         ctx.others = [a for a in args if not torch.is_tensor(a)]
@@ -186,11 +254,7 @@ class _ZeroApply(torch.autograd.Function):
     def backward(ctx, *gouts):
         z = ctx.z
         res, *tensors = ctx.saved_tensors
-        if z.distributed and z.hpz:
-            W = cl.hpz_all_gather(res, z.intra_group)   # fast tier only
-        else:
-            W = fwd_gather(res, z)   # the forward gather again
-        W = W.detach().requires_grad_(True)
+        W = cl.finish(bwd_gather_hops(res, z)).detach().requires_grad_(True)
         want = [W]
         args, it_t, it_o = [], iter(tensors), iter(ctx.others)
         for i, is_t in enumerate(ctx.is_tensor):
@@ -237,17 +301,21 @@ def zero_apply_inference(f: Callable, z: ZeroConfig) -> Callable:
 
 
 def zero_scan_inference(f: Callable, z: ZeroConfig) -> Callable:
-    """The layer loop of the serving path, synchronous schedule.
+    """The layer loop of the serving path, with the depth-k prefetch ring
+    (the reference's ``core/schedule.py`` ``zero_scan_inference``).
 
     ``f(W_full, h, x) -> (h_next, y)``; returns ``run(stacked, h0, xs) ->
     (h_final, ys)`` where ``stacked`` is (n, P) flat layer groups, ``xs``
     a sequence of n per-layer inputs (or None) and ``ys`` the list of the
-    n per-layer outputs.  Each group is gathered right before its layer.
+    n per-layer outputs.  Layer i+k's gather is issued before layer i's
+    compute (k = ``z.effective_prefetch(n)``; 0: each group gathered right
+    before its layer).
     """
     def run(stacked: torch.Tensor, h0, xs: Optional[Sequence] = None):
         h, ys = h0, []
-        for i in range(stacked.shape[0]):
-            W = fwd_gather(stacked[i], z)
+        k = z.effective_prefetch(stacked.shape[0])
+        for i, W in enumerate(ring(stacked, lambda p: fwd_gather_hops(p, z),
+                                   k)):
             h, y = f(W, h, None if xs is None else xs[i])
             ys.append(y)
         return h, ys

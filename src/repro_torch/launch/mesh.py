@@ -110,12 +110,12 @@ def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
     queue.put(out)
 
 
-def spawn(fn: Callable, world: int, *args, device: str = "cpu",
+def spawn(fn: Callable, world: int, *args, device: str = "cuda",
           backend: str = "gloo", timeout: Optional[float] = 240.0
           ) -> List[Any]:
     """``[fn(0, world, *args), …, fn(world-1, world, *args)]``, each
     computed in its own rank process of a ``backend`` group, on
-    ``device`` ("cpu", or "cuda": every rank on device 0).  ``fn`` must be
+    ``device`` ("cuda": every rank on device 0; or "cpu").  ``fn`` must be
     importable by the new processes (a module-level function).  A rank
     that raises or dies fails the whole run with its traceback; so does a
     run that outlasts ``timeout`` seconds (None: no limit)."""

@@ -7,17 +7,21 @@ default:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --batch 8 \\
         --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
-        [--mesh YxX] [--device cuda|cpu]
+        [--mesh YxX] [--prefetch K] [--device cuda|cpu]
 
 ``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
 Y·X rank processes over a gloo group (``launch/mesh.py``; on the card all
-of them share device 0).  ``--device cpu`` runs the plain PyTorch
+of them share device 0).  A ``--batch`` that does not cover the world
+shards the sequence over the axes it leaves (``trainer.build_train_step``).
+``--prefetch`` is the layer loop's ring depth (default: the policy's, 1;
+0 is the synchronous schedule).  ``--device cpu`` runs the plain PyTorch
 versions of the kernels and is meant for tests at ``--reduced`` size.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import statistics
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -49,18 +53,20 @@ def build_everything(arch_name: str, mesh_shape: Tuple[int, int] = (1, 1),
                      variant: str = "zeropp", reduced: bool = False,
                      batch: int = 8, seq: int = 2048, lr: float = 3e-4,
                      accum: int = 1, lr_schedule: str = "warmup_cosine",
-                     device="cuda", attn_impl: str = "xla") -> Built:
+                     device="cuda", attn_impl: str = "xla",
+                     prefetch: Optional[int] = None) -> Built:
     """Construct (mesh, arch, model, train step, data) for this rank of a
     ``mesh_shape`` world (a process group of that size must exist beyond
     1x1).  ``batch`` is the global batch (rows per microbatch);
     ``lr_schedule`` is the reference's ``warmup_cosine(lr, 10, 10_000)``
     or ``constant``; ``attn_impl`` the attention route ("pallas": the
-    flash kernels)."""
+    flash kernels); ``prefetch`` the ring depth (None: the policy's)."""
     arch = get_config(arch_name)
     if reduced:
         arch = arch.reduced()
     mesh = mesh_lib.make_mesh(mesh_shape)
-    pol = make_policy(arch, mesh_lib.AXES, variant, mesh=mesh)
+    over = {} if prefetch is None else {"prefetch": prefetch}
+    pol = make_policy(arch, mesh_lib.AXES, variant, mesh=mesh, **over)
     model = Model(arch, pol.zcfg, world=mesh.world, device=device)
     if lr_schedule == "warmup_cosine":
         sched = warmup_cosine(lr, 10, 10_000)
@@ -114,7 +120,7 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
     built = build_everything(args.arch, mesh_lib.parse_mesh(args.mesh),
                              args.variant, args.reduced, args.batch,
                              args.seq, args.lr, args.accum, args.lr_schedule,
-                             args.device, args.attn)
+                             args.device, args.attn, args.prefetch)
     model = built.model
     dev = model.device
     params = init_shards(model, args.seed)
@@ -187,6 +193,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="1x1",
                     help="YxX world: Y 'data' rows of X 'model' ranks, one "
                          "process each (gloo)")
+    ap.add_argument("--prefetch", type=int, default=None,
+                    help="layer-loop ring depth (default: the policy's, 1; "
+                         "0: synchronous)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--log-every", type=int, default=1)
     return ap
@@ -197,6 +206,11 @@ def main(argv=None) -> None:
     out = run(args)
     print(f"[train] losses {[round(x, 4) for x in out['losses']]}; entropy "
           f"bound {out['entropy_bound']:.4f}")
+    if len(out["step_s"]) > 1:
+        p50 = statistics.median(out["step_s"][1:])
+        print(f"[train] rank 0: step p50 (steps 2-{len(out['step_s'])}) "
+              f"{p50 * 1e3:.1f} ms, peak memory "
+              f"{out['peak_bytes'] / 2 ** 30:.2f} GiB")
 
 
 if __name__ == "__main__":

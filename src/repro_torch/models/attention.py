@@ -2,16 +2,21 @@
 
 Port of the reference's ``models/attention.py`` (``mha`` — dense, and the
 chunked online-softmax ``flash_attention`` with its hand-written VJP —,
-``per_seq_pos``, ``decode_attend``, ``cache_insert``) for one device: the
-sequence is not sharded, so the reference's KV gathers and pmax/psum
-combines are identities and are left out.  Under the default
-``impl="xla"`` all of it is plain PyTorch, as the reference computes it
-outside any Pallas kernel; the dense path is differentiated by autograd.
-Under ``impl="pallas"`` (the training step's ``RunSpec.attn_impl``),
-``mha`` takes the reference's rule: S >= 512 with S and Sq multiples of
-512 go through the hand-written flash kernels B6/B7
-(``kernels/flash_ops.flash_attention_kernel``); other shapes take the
-chunked or dense path as under ``"xla"``.  Serving never asks for it.
+its sequence-parallel KV gather ``_gather_seq`` and ``seq_shard_offset``,
+``per_seq_pos``, ``decode_attend``, ``cache_insert``).  Training may shard
+the sequence over ``seq_axes`` (``RunSpec.seq_axes``, the ranks of
+``seq_group``): queries stay local, K/V are all-gathered in global shard
+order, and the backward reduce-scatters their cotangents.  Decode is not
+sharded, so the reference's pmax/psum combines are left out.  Under the
+default ``impl="xla"`` all of it is plain PyTorch, as the reference
+computes it outside any Pallas kernel; the dense path is differentiated by
+autograd.  Under ``impl="pallas"`` (the training step's
+``RunSpec.attn_impl``), ``mha`` takes the reference's rule: an unsharded
+sequence with S >= 512 and S, Sq multiples of 512 goes through the
+hand-written flash kernels B6/B7
+(``kernels/flash_ops.flash_attention_kernel``); other shapes and every
+sharded sequence take the chunked or dense path as under ``"xla"``.
+Serving never asks for it.
 
 GQA: the reference repeats each KV head ``H // K`` times; here the query
 heads are grouped as (K, H // K) instead, which pairs every query head
@@ -21,13 +26,59 @@ dtype before the value product, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import collectives as cl
 from repro_torch.kernels.flash_ops import flash_attention_kernel
 
 NEG_INF = -1e30
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather (B, S_loc, ...) along dim 1 over ``group`` in rank order
+    (the global shard order); the backward reduce-scatters the cotangent
+    along dim 1, summed in its own dtype (the reference's
+    ``psum_scatter``).  bf16 crosses as 2-byte lanes both ways: the gather
+    as ``collectives.gather_bf16``'s int8 pairs, the reduce-scatter as
+    bf16 itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        w = cl.world_size(group)
+        xt = x.movedim(1, 0).contiguous()                 # (S_loc, B, ...)
+        full = cl.gather_bf16(xt.reshape(-1), group)
+        return full.reshape((w * xt.shape[0],) + xt.shape[1:]).movedim(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = cl.world_size(ctx.group)
+        gt = g.movedim(1, 0).contiguous()                 # (S, B, ...)
+        out = torch.empty((gt.numel() // w,), dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, gt.reshape(-1), group=ctx.group)
+        out = out.reshape((gt.shape[0] // w,) + gt.shape[1:])
+        return out.movedim(0, 1), None
+
+
+def _gather_seq(x: torch.Tensor, seq_axes: Sequence[str],
+                group: Any = None) -> torch.Tensor:
+    """All-gather a (B, S_loc, ...) tensor along dim 1 over the sequence
+    ranks (``seq_axes``, carried by ``group``), in global shard order.
+    The reference gathers axis by axis, which puts the shards of a
+    two-axis sequence in m·Y + d order; the port gathers the group at once
+    in rank order d·X + m, the order of ``seq_shard_offset``."""
+    if not seq_axes or cl.world_size(group) == 1:
+        return x
+    return _GatherSeq.apply(x, group)
+
+
+def seq_shard_offset(s_local: int, seq_axes: Sequence[str],
+                     group: Any = None) -> int:
+    """Global position of this rank's first sequence element."""
+    return cl.flat_rank(group) * s_local if seq_axes else 0
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -53,22 +104,31 @@ def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        seq_axes: Sequence[str] = (), seq_group: Any = None,
         kv_chunk: int = 1024, impl: str = "xla") -> torch.Tensor:
-    """Causal attention for training and prefill.  q (B, Sq, H, hd); k, v
-    (B, S, K, hd).  With ``impl="pallas"``, S >= 512 and S, Sq multiples
-    of 512 run the flash kernels (the reference's ``attention.py:101``
-    rule).  Otherwise sequences longer than ``kv_chunk`` (and a multiple
-    of it) take the chunked online-softmax path with its hand-written VJP,
-    which keeps the working set at O(Sq·kv_chunk), and the rest the dense
-    path — the reference's rules and arithmetic."""
+    """Causal attention for training and prefill.  q (B, Sq, H, hd) and k,
+    v (B, Sq, K, hd) are this rank's shards of a sequence sharded over
+    ``seq_axes`` (the ranks of ``seq_group``; none: the whole sequence):
+    K/V are gathered to (B, S, K, hd) and the queries sit at
+    ``seq_shard_offset`` + [0, Sq).  With ``impl="pallas"`` an unsharded
+    sequence with S >= 512 and S, Sq multiples of 512 runs the flash
+    kernels (the reference's ``attention.py:101`` rule).  Otherwise
+    sequences longer than ``kv_chunk`` (and a multiple of it) take the
+    chunked online-softmax path with its hand-written VJP, which keeps the
+    working set at O(Sq·kv_chunk), and the rest the dense path — the
+    reference's rules and arithmetic."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
     B, Sq, H, hd = q.shape
-    S = k.shape[1]
     scale = hd ** -0.5
-    if impl == "pallas" and S >= 512 and S % 512 == 0 and Sq % 512 == 0:
+    k = _gather_seq(k, seq_axes, seq_group)
+    v = _gather_seq(v, seq_axes, seq_group)
+    S = k.shape[1]
+    if impl == "pallas" and not seq_axes and S >= 512 and S % 512 == 0 \
+            and Sq % 512 == 0:
         return flash_attention_kernel(q, k, v, scale, True, 0, 0.0)
-    q_pos = torch.arange(Sq, device=q.device)
+    q_pos = seq_shard_offset(Sq, seq_axes, seq_group) + torch.arange(
+        Sq, device=q.device)
     if S > kv_chunk and S % kv_chunk == 0:
         return flash_attention(q, k, v, q_pos, scale, kv_chunk)
     logits = _logits(q, k, scale)

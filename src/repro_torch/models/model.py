@@ -147,7 +147,9 @@ class Model:
         if rs.mode == "decode":
             p = cache_pos[:, None]            # per-sequence: (B, 1)
         else:
-            p = torch.arange(s_local, device=self.device)
+            p = attn_lib.seq_shard_offset(s_local, rs.seq_axes,
+                                          rs.seq_group) + torch.arange(
+                s_local, device=self.device)
         return nn.rope_table(p, cfg.d_head, cfg.rope_theta)
 
     def _emb_lookup(self, W: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -163,11 +165,13 @@ class Model:
                 rs: RunSpec, dp_world: int = 1
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Local training loss: sum-NLL over this rank's tokens / the global
-        token count (``dp_world`` ranks of equal batches), differentiable
-        with respect to the flat groups through the ZeRO++ engine.  ``rs``
-        is a train-mode RunSpec; its ``attn_impl`` picks the attention
-        route (the flash kernels run in the forward and again in each
-        layer's recompute).
+        token count (``dp_world`` ranks of equal (rows, sequence slice)
+        tiles), differentiable with respect to the flat groups through the
+        ZeRO++ engine.  ``rs`` is a train-mode RunSpec; its ``seq_axes``
+        say whether ``batch`` is a slice of the sequence (rope and the
+        causal mask then start at ``seq_shard_offset``) and its
+        ``attn_impl`` picks the attention route (the flash kernels run in
+        the forward and again in each layer's recompute).
         ``params["blocks"]`` and ``params["unemb"]`` may be (n, P) tensors
         or sequences of per-group (P,) shards.  Returns (loss, {"nll_sum",
         "tokens"})."""

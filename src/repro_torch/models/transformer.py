@@ -4,14 +4,15 @@ Port of the reference's ``models/transformer.py`` for dense ``attn``
 blocks: parameter entries (same names, shapes and order, so the flat
 layout matches), ``RunSpec``, the attention half in its train/prefill and
 decode branches, the MLP half, ``apply_block`` and
-``select_positions``.  One device: no sequence or KV sharding, so the
+``select_positions``.  Training may shard the sequence
+(``RunSpec.seq_axes``, ``mha``'s KV gather); serving does not, so the
 reference's ``_last_shard_value`` (replicate the last sequence shard's
 value) is the identity and has no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -37,6 +38,8 @@ def block_entries(cfg: ArchConfig, pre: str
 class RunSpec:
     """Static run-mode description."""
     mode: str = "prefill"              # train | prefill | decode
+    seq_axes: Tuple[str, ...] = ()     # activation sequence sharding
+    seq_group: Any = None              # the process group of seq_axes
     attn_impl: str = "xla"             # xla | pallas (flash kernels B6/B7)
 
 
@@ -68,7 +71,8 @@ def _attn_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
         o = attn.decode_attend(q, kc, vc, t)
         new_cache = {"k": kc, "v": vc}
     else:
-        o = attn.mha(q, k, v, impl=rs.attn_impl)
+        o = attn.mha(q, k, v, seq_axes=rs.seq_axes, seq_group=rs.seq_group,
+                     impl=rs.attn_impl)
         new_cache = {"k": k, "v": v} if rs.mode == "prefill" else None
     o = o.reshape(B, S, H * hd) @ p["wo"]
     return o, new_cache

@@ -23,10 +23,18 @@ rank's shard alike.
     float bits, so a value on a rounding boundary may land on either side:
     the share of such elements grows with the quantizations an element
     passes through, :func:`far_share` (1 in 1,000 at world 1).
+    "One INT4 step of its block" is the step of the final block, which B4
+    quantized, only where the world has one row (Y = 1).  At Y > 1 the
+    final gradient is the fp32 sum of Y requantized contributions, each of
+    the X contributions to them quantized at its own rank, so a rounding
+    flip moves an element by one step of the block that flipped, not of
+    the final sum: :func:`qgz_path_steps` bounds what the flips on an
+    element's path can move it by, from the scales the ranks' B4 and B5
+    read, and the bars take it in place of the final block's step.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -94,30 +102,61 @@ def _steps(a):
     return np.abs(a).max(axis=1, keepdims=True) / 7
 
 
-def grads_within_int4(tg: Mapping, jg: Mapping, far: float = 1e-3) -> None:
-    """qgZ on: every gradient within one INT4 step of its block, fewer
-    than a share ``far`` of the elements beyond the tight bar."""
+def qgz_path_steps(b4_scales: Sequence, b5_scales: Sequence,
+                   shape) -> np.ndarray:
+    """What rounding flips can move each block of one qgZ reduce by on a
+    ``(Y, X)`` world, (W·NB,) in global block order: for the shard of rank
+    (d, m), the sum over the Y contributions of one step of the block B4
+    requantized (the scales rank (d, m)'s B5 reads, ``b5_scales[r]`` (Y,
+    NB)) plus one step of each of the X blocks B3 quantized into it (the
+    scales rank (y, m)'s B4 reads for slice d, ``b4_scales[r]`` (X, Y·NB)).
+    A flip of one of B3's roundings moves B4's input by its step, and B4's
+    rounding moves its output by at most that plus one of its own steps."""
+    y, x = shape
+    out = []
+    for r in range(y * x):
+        d, m = divmod(r, x)
+        bar = np.asarray(b5_scales[r], np.float64).sum(axis=0)
+        for yy in range(y):
+            b4 = np.asarray(b4_scales[yy * x + m], np.float64)
+            bar = bar + b4.reshape(x, y, -1)[:, d].sum(axis=0)
+        out.append(bar)
+    return np.concatenate(out)
+
+
+def grads_within_int4(tg: Mapping, jg: Mapping, far: float = 1e-3,
+                      steps: Optional[Mapping] = None) -> None:
+    """qgZ on: every gradient within one INT4 step of its block (or of
+    ``steps[k]``, one per block, from :func:`qgz_path_steps`), fewer than
+    a share ``far`` of the elements beyond the tight bar."""
     n_far = n = 0
     for k in tg:
         got, want = tg[k].reshape(-1, BLOCK), jg[k].reshape(-1, BLOCK)
-        f, c = within_int4_step(got, want, _steps(want), f"grad {k}")
+        step = _steps(want) if steps is None else steps[k].reshape(-1, 1)
+        f, c = within_int4_step(got, want, step, f"grad {k}")
         n_far, n = n_far + f, n + c
     assert n_far < n * far, (n_far, n)
 
 
 def moments_within_int4(to: Mapping, jo: Mapping, far: float = 1e-3,
-                        cfg: AdamWConfig = AdamWConfig()) -> None:
+                        cfg: AdamWConfig = AdamWConfig(),
+                        g_steps: Optional[Mapping] = None) -> None:
     """m and v after one step from gradients held by
-    :func:`grads_within_int4`."""
+    :func:`grads_within_int4` (``g_steps``: its ``steps``, scaled by the
+    step's clip factor)."""
     n_far = n = 0
     for k in to["m"]:
         mt, mj = to["m"][k].reshape(-1, BLOCK), jo["m"][k].reshape(-1, BLOCK)
-        f, c = within_int4_step(mt, mj, _steps(mj), f"m {k}")
-        n_far, n = n_far + f, n + c
         vt, vj = to["v"][k].reshape(-1, BLOCK), jo["v"][k].reshape(-1, BLOCK)
         gt, gj = (np.sqrt(a.astype(np.float64) / (1 - cfg.b2))
                   for a in (vt, vj))
-        step = gj.max(axis=1, keepdims=True) / 7
+        if g_steps is None:
+            m_step, step = _steps(mj), gj.max(axis=1, keepdims=True) / 7
+        else:
+            step = g_steps[k].reshape(-1, 1)
+            m_step = (1 - cfg.b1) * step
+        f, c = within_int4_step(mt, mj, m_step, f"m {k}")
+        n_far, n = n_far + f, n + c
         f, c = within_int4_step(vt, vj, (1 - cfg.b2) * step * (gt + gj),
                                 f"v {k}")
         n_far, n = n_far + f, n + c

@@ -9,8 +9,9 @@ are fp32 (``optim/adamw.py``) and there is no gradient accumulation.
 its tier groups become the config's ``intra_group`` and ``inter_group``
 (none at world 1); ``group``, the whole world, stays the default group.
 ``variant`` selects the paper's ablations (Fig. 13): "baseline" is plain
-ZeRO-3, "qwz"/"hpz"/"qgz" enable exactly one technique.  Keyword overrides of ``ZeroConfig`` fields win
-(ablations, tests).  The reference's large-model rules (hpZ placement,
+ZeRO-3, "qwz"/"hpz"/"qgz" enable exactly one technique.  Keyword
+overrides of ``ZeroConfig`` fields win (ablations, tests, the ring depth
+``prefetch``: ``ZeroConfig``'s default 1 otherwise).  The reference's large-model rules (hpZ placement,
 bf16 moments, accumulation) and ``tune/`` are not ported.
 """
 from __future__ import annotations

@@ -12,12 +12,17 @@ AdamW update.
 
 A rank holds its primary shard of every flat buffer (the trailing axis,
 the reference's ``param_specs``) and takes the GLOBAL batch, of which it
-reads its own rows: the pure data-parallel layout of the reference's
-``choose_batch_seq_axes``, batch over ``("data", "model")``, so rank r =
-d·X + m reads rows [r·B/W, (r+1)·B/W).  Where the batch does not cover
-the world the reference shards the sequence instead; that branch is
-ROADMAP A1b and raises here.  Loss, NLL and tokens are summed over the
-world after the update, as the reference's ``lax.psum``s do.
+reads its own tile, in the reference's activation layout: the batch over
+the axes ``choose_batch_seq_axes`` gives it (a prefix of ``("data",
+"model")``), the sequence over the rest, where ``mha`` gathers K/V
+(``RunSpec.seq_axes``).  Pure data parallel whenever the global batch
+covers the world: rank r = d·X + m reads rows [r·B/W, (r+1)·B/W).  With
+no ``global_batch`` the reference always shards the sequence over
+``model``, and so does the port; unlike the reference, an axis of size 1
+carries no sequence, so the flash kernels stay in at world 1.  The layer
+loop's schedule is the model's ``ZeroConfig.prefetch`` ring
+(``core/schedule.py``).  Loss, NLL and tokens are summed over the world
+after the update, as the reference's ``lax.psum``s do.
 """
 from __future__ import annotations
 
@@ -35,15 +40,18 @@ from repro_torch.optim.adamw import AdamWConfig, apply_update
 
 Tensors = Dict[str, torch.Tensor]
 _ROWS = ("blocks", "unemb")    # buffers stacked over layer groups / chunks
+AXES = ("data", "model")       # the world's axes, slowest first
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainStep:
     """A built train step.  ``fn(params, opt, batch) -> metrics`` updates
     ``params`` and ``opt`` in place; ``loss_and_grads(params, batch) ->
-    (loss, {"nll_sum", "tokens"}, grads)`` is its first half."""
+    (loss, {"nll_sum", "tokens"}, grads)`` is its first half.
+    ``run_spec.seq_axes`` are the axes that carry the sequence."""
     fn: Callable
     loss_and_grads: Callable
+    run_spec: RunSpec
 
 
 def _leaves(params: Tensors) -> Dict[str, Any]:
@@ -61,7 +69,7 @@ def _leaves(params: Tensors) -> Dict[str, Any]:
 
 
 def choose_batch_seq_axes(global_batch: int, shape: Tuple[int, ...],
-                          axes: Tuple[str, ...] = ("data", "model")
+                          axes: Tuple[str, ...] = AXES
                           ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
     """The reference's greedy activation layout: shard the batch over as
     many (slowest-first) axes as it divides into; the remaining axes carry
@@ -77,17 +85,6 @@ def choose_batch_seq_axes(global_batch: int, shape: Tuple[int, ...],
     return tuple(batch_axes), tuple(a for a in axes if a not in batch_axes)
 
 
-def _check_covers(global_batch: int, shape: Tuple[int, int]) -> None:
-    _, seq_axes = choose_batch_seq_axes(global_batch, shape)
-    if seq_axes:
-        raise NotImplementedError(
-            f"a global batch of {global_batch} rows does not cover the "
-            f"{shape[0]}x{shape[1]} world: the reference shards the sequence "
-            f"over {seq_axes}, the sequence-parallel branch (ROADMAP A1b), "
-            f"not ported; use a batch that {shape[0] * shape[1]} ranks "
-            f"divide")
-
-
 def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
                      device="cuda", attn_impl: str = "xla",
                      global_batch: Optional[int] = None) -> TrainStep:
@@ -96,13 +93,16 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     the model's ZeRO world (``zcfg.group``, tiers ``intra_group`` and
     ``inter_group``; world ``model.world``).  The step takes this rank's
     primary shards and the GLOBAL batch; with ``accum > 1`` every batch
-    leaf carries a leading microbatch axis (accum, B, S), the rows are cut
-    on the second axis, and the gradients of the microbatches are summed,
-    then divided by ``accum``, as in the reference.  ``global_batch`` (rows
-    per microbatch) is checked here against the world; otherwise each
-    batch is, when it arrives.  ``attn_impl`` is the reference's switch:
-    "xla" (plain attention) or "pallas" (the flash kernels where ``mha``'s
-    rule allows)."""
+    leaf carries a leading microbatch axis (accum, B, S), the tiles are
+    cut on the next two axes, and the gradients of the microbatches are
+    summed, then divided by ``accum``, as in the reference.  The layout is
+    the reference's: ``global_batch`` (rows per microbatch) takes
+    ``choose_batch_seq_axes``; without it the batch goes over ``data`` and
+    the sequence over ``model``.  A sequence axis of size 1 is left out
+    (the reference keeps it, and its ``mha`` then drops the flash
+    kernels).  ``attn_impl`` is the reference's switch: "xla" (plain
+    attention) or "pallas" (the flash kernels where ``mha``'s rule
+    allows: no sequence axis)."""
     dev = platform.resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"step built for {dev} but the model runs on "
@@ -112,24 +112,44 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     if world != model.world:
         raise ValueError(f"the model's flat layout is for world "
                          f"{model.world}, its ZeRO group holds {world} ranks")
-    rank = cl.flat_rank(z.group) if world > 1 else 0
-    x = cl.world_size(z.intra_group) if world > 1 else 1
-    shape = (world // x, x)
-    if global_batch is not None:
-        _check_covers(global_batch, shape)
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
-    rs = RunSpec(mode="train", attn_impl=attn_impl)
+    rank = cl.flat_rank(z.group) if world > 1 else 0
+    x = cl.world_size(z.intra_group) if world > 1 else 1
+    sizes = dict(zip(AXES, (world // x, x)))
+    if global_batch is not None:
+        batch_axes, seq_axes = choose_batch_seq_axes(
+            global_batch, tuple(sizes.values()))
+    else:
+        batch_axes, seq_axes = AXES[:1], AXES[1:]
+    seq_axes = tuple(a for a in seq_axes if sizes[a] > 1)
+    # the batch axes are a prefix of AXES, so rank r's tile is row block
+    # r // ns of nb and sequence block r % ns of ns; the sequence ranks
+    # are the intra group (model) or the whole world, in rank order (also
+    # for ("data",), which is left only where model has size 1)
+    nb = 1
+    for a in batch_axes:
+        nb *= sizes[a]
+    ns = world // nb
+    seq_group = z.intra_group if seq_axes == AXES[1:] else z.group
+    rs = RunSpec(mode="train", seq_axes=seq_axes,
+                 seq_group=seq_group if seq_axes else None,
+                 attn_impl=attn_impl)
 
-    def rows(batch: Tensors) -> Tensors:
-        """This rank's rows of the global batch (views)."""
+    def tile(batch: Tensors) -> Tensors:
+        """This rank's rows and sequence slice of the global batch (views)."""
         if world == 1:
             return batch
         ax = 1 if accum > 1 else 0
-        b = batch["tokens"].shape[ax]
-        _check_covers(b, shape)
-        n = b // world
-        return {k: v.narrow(ax, rank * n, n) for k, v in batch.items()}
+        b, s = batch["tokens"].shape[ax:ax + 2]
+        if b % nb or s % ns:
+            raise ValueError(
+                f"a batch of {b} x {s} does not tile the {sizes['data']}x"
+                f"{sizes['model']} world as rows over {batch_axes} and the "
+                f"sequence over {seq_axes}")
+        rb, sb = b // nb, s // ns
+        return {k: v.narrow(ax, rank // ns * rb, rb).narrow(
+            ax + 1, rank % ns * sb, sb) for k, v in batch.items()}
 
     def one(params: Tensors, batch: Tensors
             ) -> Tuple[torch.Tensor, Dict[str, Any], Tensors]:
@@ -152,7 +172,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         return loss.detach(), mets, grads
 
     def loss_and_grads(params: Tensors, batch: Tensors):
-        batch = rows(batch)
+        batch = tile(batch)
         if accum == 1:
             return one(params, batch)
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -184,4 +204,4 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         return {"loss": loss, "nll": nll / toks, "tokens": toks,
                 "grad_norm": stats["grad_norm"], "lr": stats["lr"]}
 
-    return TrainStep(fn=fn, loss_and_grads=loss_and_grads)
+    return TrainStep(fn=fn, loss_and_grads=loss_and_grads, run_spec=rs)

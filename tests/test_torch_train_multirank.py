@@ -30,9 +30,9 @@ and reads its rows of the same global ``SyntheticLM`` batch.
   (c) at world 4 with qgZ off the port's step-1 loss equals its own world-1
       loss on the same global parameters within 1e-5 (qwZ blocks never
       straddle a shard, so the gathered weights are the same bits);
-  (d) a global batch that does not cover the world raises the sequence-
-      parallel (ROADMAP A1b) error, and ``choose_batch_seq_axes`` and the
-      flat layout at W ranks are the reference's.
+  (d) ``choose_batch_seq_axes`` and the flat layout at W ranks are the
+      reference's (the batches that do not cover the world, which shard
+      the sequence, are ``tests/test_torch_seq_parallel.py``'s).
 
 Every rank runs all of its variants in one spawn (one for world 4, one for
 world 8), while the reference's subprocess runs beside them.  The module
@@ -60,6 +60,7 @@ from repro_torch.core.zeropp import ZeroConfig               # noqa: E402
 from repro_torch.data import synthetic as tsyn               # noqa: E402
 from repro_torch.launch import mesh as mesh_lib              # noqa: E402
 from repro_torch.launch import train as tlaunch              # noqa: E402
+from repro_torch.models import attention as tattn           # noqa: E402
 from repro_torch.models.model import Model                   # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.testing import step_bars                    # noqa: E402
@@ -194,9 +195,9 @@ np.savez(sys.argv[2], **out)
 
 
 def _step_rank(rank, world, p4, batch):
-    """(a), (c), (d) at world 4: each variant's loss and gradient shards
-    from ``loss_and_grads``, then one step's metrics, parameter and moment
-    shards; and the A1b errors."""
+    """(a), (c) at world 4: each variant's loss and gradient shards from
+    ``loss_and_grads``, then one step's metrics, parameter and moment
+    shards."""
     out = {}
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
     arch = get_config(ARCH).reduced()
@@ -215,17 +216,6 @@ def _step_rank(rank, world, p4, batch):
                          grads=to_numpy(grads), params=to_numpy(params),
                          opt=to_numpy(opt),
                          met={k: float(v) for k, v in m.items()})
-    errs = []
-    for call in (lambda: trainer.build_train_step(model, AdamWConfig(),
-                                                  device="cpu",
-                                                  global_batch=2),
-                 lambda: step.fn(params, opt,
-                                 {k: v[:2] for k, v in tb.items()})):
-        try:
-            call()
-        except NotImplementedError as e:
-            errs.append(str(e))
-    out["a1b"] = errs
     return out
 
 
@@ -263,8 +253,8 @@ def runs(tmp_path_factory):
                                 str(d / "in.npz"), str(d / "out.npz")],
                                env=env, stdout=log, stderr=subprocess.STDOUT)
         try:
-            step = mesh_lib.spawn(_step_rank, 4, p4, batch)
-            curve = mesh_lib.spawn(_curve_rank, 8, p8)
+            step = mesh_lib.spawn(_step_rank, 4, p4, batch, device="cpu")
+            curve = mesh_lib.spawn(_curve_rank, 8, p8, device="cpu")
             ref.wait(timeout=300)
         finally:
             if ref.poll() is None:
@@ -403,14 +393,6 @@ def test_trainer_grad_accumulation_on_8_ranks(runs):
         (port["accum2"], ref["accum2"])
 
 
-def test_batch_that_does_not_cover_the_world_raises(runs):
-    """(d): a batch of 2 on 2 × 2 leaves the ``model`` axis to the
-    sequence, at build time and when such a batch arrives."""
-    for r in runs["step"]:
-        assert len(r["a1b"]) == 2, r["a1b"]
-        assert all("A1b" in e and "('model',)" in e for e in r["a1b"])
-
-
 @pytest.mark.parametrize("batch,shape", [
     (16, (4, 2)), (8, (4, 2)), (4, (4, 2)), (6, (4, 2)), (2, (2, 2)),
     (1, (1, 1)), (3, (1, 3)), (12, (2, 4))])
@@ -473,9 +455,10 @@ def test_launcher_spawns_the_mesh():
 
 
 def _card_rank(rank, world):
-    """The four gloo calls the port makes, on the card's tensors: the
-    gathers' and all-to-alls' int8 lanes, the baseline reduce-scatter and
-    AdamW's norm all-reduce in fp32."""
+    """The gloo calls the port makes, on the card's tensors: the gathers'
+    and all-to-alls' int8 lanes, the baseline reduce-scatter and AdamW's
+    norm all-reduce in fp32, and the sequence gather's backward: a bf16
+    reduce-scatter (returned as fp32 with its dtype)."""
     dev = "cuda"
     g = cl._gather(torch.full((4,), rank + 1, dtype=torch.int8, device=dev))
     a = cl._all_to_all(torch.arange(2 * world, dtype=torch.int8,
@@ -484,8 +467,14 @@ def _card_rank(rank, world):
                                                 device=dev) * (rank + 1))
     t = torch.tensor(rank + 1.0, device=dev)
     dist.all_reduce(t)
-    assert all(v.is_cuda for v in (g, a, r, t))
-    return g.cpu().numpy(), a.cpu().numpy(), r.cpu().numpy(), float(t)
+    x = torch.zeros(1, 2, 1, 2, dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    kv = tattn._gather_seq(x, ("data", "model"), None)
+    kv.backward(torch.arange(4 * world, dtype=torch.bfloat16, device=dev
+                             ).reshape(kv.shape) * (rank + 1))
+    assert all(v.is_cuda for v in (g, a, r, t, x.grad))
+    return (g.cpu().numpy(), a.cpu().numpy(), r.cpu().numpy(), float(t),
+            str(x.grad.dtype), x.grad.float().cpu().numpy().ravel())
 
 
 def test_gloo_takes_card_tensors():
@@ -496,11 +485,15 @@ def test_gloo_takes_card_tensors():
         pytest.skip("needs a CUDA device (gloo with the card's tensors)")
     world = 4
     out = mesh_lib.spawn(_card_rank, world, device="cuda")
-    for rank, (g, a, r, t) in enumerate(out):
+    tot = sum(range(1, world + 1))
+    for rank, (g, a, r, t, sdt, sg) in enumerate(out):
         np.testing.assert_array_equal(g, np.repeat(np.arange(1, world + 1),
                                                    4))
         np.testing.assert_array_equal(
             a, [2 * rank + j % 2 + 10 * (j // 2) for j in range(2 * world)])
         np.testing.assert_array_equal(
             r, np.arange(2 * rank, 2 * rank + 2) * sum(range(1, world + 1)))
-        assert t == sum(range(1, world + 1))
+        assert t == tot
+        assert sdt == "torch.bfloat16"
+        np.testing.assert_array_equal(
+            sg, np.arange(4 * rank, 4 * rank + 4) * tot)
