@@ -90,6 +90,14 @@ last line is printed.
    per layer; prints step time (p50 of steps 2–8), tokens/s, peak memory
    and one profiled step (device busy share, device kernels, the flash
    kernels' and each of B1–B5's device ms, top device ops) of each run.
+   The pallas run has its telemetry on (``--metrics-dir`` into a
+   temporary directory, ``--obs-gate``): its ``BENCH_runtime.json`` must
+   be written with a passing comm gate and no byte counted (world 1);
+   then ``OVERHEAD_STEPS`` steps with telemetry on (a registry installed,
+   the step's span, counters and histogram, a flush with fsync) alternate
+   with as many steps with it off, and ``overhead_gate``'s reading of
+   what telemetry costs when on is printed (not gated: a wall-clock bar
+   would fail on noise).
 6. Multi-rank train phase: the same pallas run (seed, batches, lr) on a
    2 x 2 ("data", "model") world, four rank processes sharing the card
    over a gloo group (``repro_torch.launch.mesh.spawn``, kernels built
@@ -107,7 +115,15 @@ last line is printed.
    twice and B7 once per layer each step at both depths; prints, per
    depth, each rank's step time (p50 from step 2), peak memory and
    launches, and rank 0's profiled step: host wall, its device busy time
-   and the host time inside the gloo collectives.
+   and the host time inside the gloo collectives, and that time split by
+   collective label (the ``zero.*``/``other`` ranges around each issue
+   and each ``.wait``).  Both runs have the launcher's telemetry on
+   (``--metrics-dir``, ``--obs-gate``): every rank gates its wire bytes
+   per label at every step (the ``comm.<label>.bytes`` counters) against
+   the port's projection at 1 % and checks that the ranks agree, and a
+   miss fails the rank; prints them in MiB a rank a step beside the
+   projection, and the paper's Table-1 volumes of qwen3-0.6b
+   (``zeropp.comm_volume_per_step``) with their cut.
 7. Sequence-parallel phase: the 2 x 2 world at a global batch of
    ``SP_BATCH`` x 2048, which covers only ``data``: each rank holds one
    row's half of the sequence (1,024 tokens), ``mha`` all-gathers K/V
@@ -118,7 +134,8 @@ last line is printed.
    world-1 ``--attn xla`` step on the same rows from the same seed (run
    first, in this process), losses finite and falling, every rank
    launching each of B1–B5 once per flat group and no flash kernel each
-   step; prints what phase 6 prints.
+   step, and the wire bytes as phase 6 (``other`` now carries the K/V
+   gathers and reduce-scatters); prints what phase 6 prints.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
@@ -131,9 +148,11 @@ import gc
 import itertools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -146,7 +165,8 @@ import torch  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.core.quant import QuantConfig  # noqa: E402
-from repro_torch.core.zeropp import ZeroConfig  # noqa: E402
+from repro_torch.core.zeropp import (ZeroConfig,  # noqa: E402
+                                     comm_volume_per_step)
 from repro_torch.kernels import dequant_matmul as dm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_dequant_reduce_quant as fq  # noqa: E402
@@ -154,6 +174,9 @@ from repro_torch.kernels import platform, ref  # noqa: E402
 from repro_torch.kernels import quant_block as qb  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.obs.metrics import Registry, set_registry  # noqa: E402
+from repro_torch.obs.report import overhead_gate  # noqa: E402
+from repro_torch.obs.trace import Tracer, annotate, get_tracer  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.testing import flash_bars  # noqa: E402
 from repro_torch.testing.quant_edges import (  # noqa: E402
@@ -227,6 +250,10 @@ MR_SYNC_STEPS = 2
 SP_BATCH, SP_STEPS = 2, 3
 # its qgZ shapes: a layer group's shard at world 4 (15,731,712 / 4)
 MR_L = 3_932_928
+# phase 5's telemetry-overhead reading: steps with telemetry on
+# alternating with as many with it off (printed, not gated: a wall-clock
+# bar would fail on noise)
+OVERHEAD_STEPS = 4
 # the quant kernels by their CUDA function names (profiles, build report)
 QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
                  "dequantize_kernel": "B2 dequantize",
@@ -1261,10 +1288,14 @@ def train_phase(attn: str) -> tuple:
     """The full-width ZeRO++ training run through the launcher's loop, with
     the attention route ``attn``.  Returns (launches over the run, the
     losses)."""
+    metrics_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_") \
+        if attn == "pallas" else None
     args = train_launch.parser().parse_args([
         "--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
         str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--lr", str(TRAIN_LR),
-        "--lr-schedule", "constant", "--device", "cuda", "--attn", attn])
+        "--lr-schedule", "constant", "--device", "cuda", "--attn", attn]
+        + (["--metrics-dir", metrics_dir, "--obs-gate"] if metrics_dir
+           else []))
     # earlier phases' tensors (the engine holds itself in a cycle) must not
     # count in this run's peak
     gc.collect()
@@ -1306,7 +1337,74 @@ def train_phase(attn: str) -> tuple:
                                       TRAIN_BATCH, 1, model.device)
     profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
                  f"{tag} step")
+    if metrics_dir:
+        telemetry_check(tag, metrics_dir, res)
+        shutil.rmtree(metrics_dir)
+        overhead_reading(tag, built.step.fn, res["params"], res["opt"],
+                         batch)
     return launches, losses
+
+
+def telemetry_check(tag: str, metrics_dir: str, res: dict) -> None:
+    """The run's ``--metrics-dir`` output: ``BENCH_runtime.json`` written,
+    its comm gate passed, no byte counted at world 1, a step count and a
+    wall histogram of the run's length."""
+    path = Path(metrics_dir) / "BENCH_runtime.json"
+    if not path.exists():
+        fail(f"{tag}: --metrics-dir wrote no {path.name}")
+    doc = json.loads(path.read_text())["runtime"]
+    m = doc["metrics"]
+    sent = {k: v for k, v in m.items() if k.startswith("comm.")}
+    if not (doc["gate"]["ok"] and doc["ranks_agree"]) or sent \
+            or m.get("train.steps") != TRAIN_STEPS \
+            or res["comm_steps"] != [{}] * TRAIN_STEPS:
+        fail(f"{tag}: telemetry {doc['gate']}, comm counters {sent}, steps "
+             f"{m.get('train.steps')}")
+    w = m["train.step.wall_ms"]
+    print(f"{tag}: --metrics-dir: {path.name} written, gate "
+          f"{'PASS' if doc['gate']['ok'] else 'FAIL'} (labels "
+          f"{sorted(doc['gate']['comm']['labels'])}, 0 bytes at world 1), "
+          f"{m['train.steps']} steps, step wall p50 {w['p50']:.1f} ms",
+          flush=True)
+
+
+def overhead_reading(tag: str, fn, params, opt, batch) -> None:
+    """What telemetry costs when it is on: OVERHEAD_STEPS steps as
+    ``--metrics-dir`` runs them (a registry installed, so the kernel seam
+    counts every call's route; the step's tracer span; then
+    ``train.record_step``: counters, histogram and a flush with fsync to a
+    temporary log) alternating with as many steps with telemetry off (the
+    process registry, the disabled tracer), and ``overhead_gate`` on their
+    medians: printed, not gated (the comm gate is the gate)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_overhead_")
+    reg, tracer = Registry(), Tracer(str(Path(d) / "events.jsonl"))
+    on_s, off_s = [], []
+    try:
+        for i in range(2 * OVERHEAD_STEPS):
+            on = i % 2 == 1
+            old = set_registry(reg) if on else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with annotate("train.step"), \
+                    (tracer if on else get_tracer()).span("train.step",
+                                                          step=i):
+                metrics = fn(params, opt, batch)
+                torch.cuda.synchronize()
+            if on:
+                train_launch.record_step(reg, tracer, i,
+                                         time.perf_counter() - t0, metrics,
+                                         {})
+                set_registry(old)
+            (on_s if on else off_s).append(time.perf_counter() - t0)
+    finally:
+        tracer.close()
+        shutil.rmtree(d)
+    g = overhead_gate(off_s, on_s)
+    print(f"{tag}: telemetry on vs off, {OVERHEAD_STEPS} alternating steps "
+          f"each: median {g['median_disabled_s'] * 1e3:.1f} vs "
+          f"{g['median_enabled_s'] * 1e3:.1f} ms ({100 * g['rel_overhead']:+.2f}"
+          f" %; overhead_gate at 2 %: {'pass' if g['ok'] else 'over'}, not "
+          f"gated)", flush=True)
 
 
 def multirank_rank(rank: int, world: int, runs: list) -> list:
@@ -1333,6 +1431,8 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
                                  "xla" if rs.seq_axes else args.attn)
         outs.append({"losses": res["losses"], "step_s": res["step_s"],
                      "launches": res["launches"], "want": per_step,
+                     "comm": res["comm_steps"], "gate": res["gate"],
+                     "agree": res["ranks_agree"],
                      "peak": res["peak_bytes"], "profile": prof,
                      "prefetch": z.prefetch, "seq_axes": rs.seq_axes,
                      "shard": built.model.param_shapes()["blocks"][1]
@@ -1344,11 +1444,16 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
 
 
 def _mr_argv(batch: int, steps: int, *extra) -> list:
+    """A multi-rank run's argv, with the launcher's telemetry and its
+    strict gate on (``--metrics-dir`` a temporary directory that
+    ``_mr_spawn`` removes)."""
     y, x = MR_MESH
     return ["--arch", "qwen3-0.6b", "--batch", str(batch), "--seq",
             str(TRAIN_SEQ), "--steps", str(steps), "--lr", str(TRAIN_LR),
             "--lr-schedule", "constant", "--device", "cuda", "--attn",
-            "pallas", "--mesh", f"{y}x{x}", *extra]
+            "pallas", "--mesh", f"{y}x{x}", "--metrics-dir",
+            tempfile.mkdtemp(prefix="chip_smoke_obs_"), "--obs-gate",
+            *extra]
 
 
 def _mr_spawn(runs: list, tag: str) -> list:
@@ -1360,8 +1465,16 @@ def _mr_spawn(runs: list, tag: str) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = mesh_lib.spawn(multirank_rank, y * x, runs, device="cuda",
-                           timeout=MR_TIMEOUT_S)
+    try:
+        ranks = mesh_lib.spawn(multirank_rank, y * x, runs, device="cuda",
+                               timeout=MR_TIMEOUT_S)
+        for argv in runs:
+            d = Path(argv[argv.index("--metrics-dir") + 1])
+            if not (d / "BENCH_runtime.json").exists():
+                fail(f"{tag}: rank 0 wrote no BENCH_runtime.json in {d}")
+    finally:
+        for argv in runs:
+            shutil.rmtree(argv[argv.index("--metrics-dir") + 1])
     print(f"{tag}: spawn to exit {time.perf_counter() - t0:.1f} s",
           flush=True)
     lay = ZeroConfig().align(y * x) // (y * x)
@@ -1379,6 +1492,32 @@ def _mr_spawn(runs: list, tag: str) -> list:
             fail(f"{tag}: ranks disagree on the summed losses "
                  f"{[out['losses'] for out in outs]}")
     return per_run
+
+
+def wire_report(tag: str, outs: list) -> None:
+    """The launcher's comm gate as every rank reports it (``--obs-gate``:
+    each step's wire bytes per label within 1 % of the port's projection
+    for this world, ``other`` reported and not projected, and the ranks
+    agreeing; a miss has already failed the rank): checked once more
+    here, then printed in MiB a rank a step, measured / projected."""
+    for r, out in enumerate(outs):
+        if not (out["gate"]["ok"] and out["agree"]):
+            fail(f"{tag} rank {r}: comm gate {out['gate']}, ranks agree "
+                 f"{out['agree']}")
+    rows = outs[0]["gate"]["comm"]["labels"]
+    projected = {k: row["projected"] for k, row in rows.items()
+                 if k != "other"}
+    exact = all(s.get(k, 0) == b for out in outs for s in out["comm"]
+                for k, b in projected.items())
+    c = outs[0]["comm"][0]
+    print(f"{tag}: wire MiB a rank a step, measured / projected: " + ", ".join(
+        f"{k} {c.get(k, 0) / 2 ** 20:.3f} / {b / 2 ** 20:.3f}"
+        for k, b in sorted(projected.items()))
+        + f", other {c.get('other', 0):,.0f} B (not projected); the "
+        + f"launcher's gate passed on all {len(outs)} ranks, which agree "
+        + "at every step, "
+        + ("equal to the projection to the byte" if exact
+           else "within 1 % of the projection"), flush=True)
 
 
 def _mr_report(tag: str, outs: list, rows: int) -> dict:
@@ -1452,6 +1591,17 @@ def multirank_phase(world1_losses: list) -> tuple:
     if sl != losses[:MR_SYNC_STEPS]:
         fail(f"{tag}: the synchronous schedule's losses {sl} are not the "
              f"ring's {losses[:MR_SYNC_STEPS]}")
+    wire_report(f"{tag} prefetch 1", ring)
+    wire_report(f"{tag} prefetch 0", sync)
+    cfg = get_config("qwen3-0.6b")
+    n = Model(cfg, ZeroConfig.local(), device="cpu").n_params()
+    v = comm_volume_per_step(n, ZeroConfig())
+    print(f"{tag}: Table 1 for qwen3-0.6b ({n:,} params): ZeRO-3 "
+          f"{v['baseline_total'] / 2 ** 20:.3f} MiB a step (3M), ZeRO++ "
+          f"{v['total'] / 2 ** 20:.3f} MiB (qwZ {v['fwd_allgather'] / 2 ** 20:.3f}"
+          f" + hpZ {v['bwd_allgather']} + qgZ "
+          f"{v['grad_reduce'] / 2 ** 20:.3f}): a {v['reduction_factor']:.3f}x "
+          f"cut", flush=True)
     return (_mr_report(f"{tag} prefetch 1", ring, TRAIN_BATCH),
             _mr_report(f"{tag} prefetch 0", sync, TRAIN_BATCH))
 
@@ -1496,6 +1646,7 @@ def seq_parallel_phase() -> dict:
         fail(f"{tag}: step-1 loss {losses[0]} vs world 1's {one}")
     if not losses[-1] < losses[0]:
         fail(f"{tag}: the loss did not fall over the run {losses}")
+    wire_report(tag, outs)
     return _mr_report(tag, outs, SP_BATCH)
 
 
@@ -1545,10 +1696,13 @@ def profile_step(step, what: str, n: int = 1, show: bool = True):
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / n
     gloo: dict = {}
+    labels: dict = {}       # the collectives' issue and .wait ranges
     for e in events:
+        ms = e.time_range.elapsed_us() / 1e3 / n
         if e.name.startswith("gloo:"):
-            gloo[e.name] = gloo.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / n
+            gloo[e.name] = gloo.get(e.name, 0.0) + ms
+        elif e.name.startswith(("zero.", "other")):
+            labels[e.name] = labels.get(e.name, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash = {re.search(r"::(flash_\w+)", k).group(1): ms
              for k, ms in by_name.items() if "::flash_" in k}
@@ -1560,6 +1714,11 @@ def profile_step(step, what: str, n: int = 1, show: bool = True):
               f"time ({100 * sum(gloo.values()) / wall:.1f}% of the wall): "
               + ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(gloo.items())),
               flush=True)
+        names = sorted({k[:-len(".wait")] if k.endswith(".wait") else k
+                        for k in labels})
+        print("  by label, host ms/step in issue / in .wait: " + ", ".join(
+            f"{k} {labels.get(k, 0.0):.3f} / {labels.get(k + '.wait', 0.0):.3f}"
+            for k in names), flush=True)
     if flash:
         print(f"  flash kernels {sum(flash.values()):.3f} ms/step: "
               + ", ".join(f"{k} {ms:.3f}" for k, ms in flash.items()),
@@ -1575,7 +1734,8 @@ def profile_step(step, what: str, n: int = 1, show: bool = True):
               flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
-    return {"wall": wall, "busy": busy, "gloo": sum(gloo.values())}
+    return {"wall": wall, "busy": busy, "gloo": sum(gloo.values()),
+            "labels": labels}
 
 
 def _template_args(mangled: str) -> str:

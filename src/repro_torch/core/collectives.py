@@ -33,6 +33,20 @@ before anything waits on it; the step after ``Work.wait()``s for that hop
 before reading what it brought.  :func:`begin` runs the first step,
 :func:`advance` the next, :func:`finish` the rest, returning the result.
 The synchronous functions are ``finish`` of their hops.
+
+Every collective is counted where it is issued: its wire bytes per rank
+(all-gather out − in, reduce-scatter in − out, all-to-all in·(g−1)/g,
+all-reduce 2·in·(g−1)/g — the reference's ``launch/jaxpr_analysis.py``
+rules) go to the metrics registry as ``comm.<label>.bytes``, and its
+issue and its wait run under the profiler ranges ``<label>`` and
+``<label>.wait`` (``obs.trace.annotate``).  Each ``*_hops`` function
+passes its label down explicitly — ``zero.qwz_gather``,
+``zero.baseline_gather``, ``zero.hpz_gather``, ``zero.qgz_reduce``,
+``zero.baseline_reduce`` (``zeropp.WIRE_LABELS``) — because the ring
+advances a collective's hops while other collectives are in flight: no
+label can be "current" then.  Collectives outside the ZeRO engine (the
+sequence gather, the metric and norm all-reduces) take :data:`OTHER`.
+A world of 1 issues nothing and counts nothing.
 """
 from __future__ import annotations
 
@@ -43,6 +57,18 @@ import torch.distributed as dist
 
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as _kops
+from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.trace import annotate
+
+# The labels the collectives count under (``zeropp.wire_label`` projects
+# by the same names): the ZeRO engine's five, and every collective
+# outside the engine.
+QWZ = "zero.qwz_gather"
+BASELINE_GATHER = "zero.baseline_gather"
+HPZ = "zero.hpz_gather"
+QGZ = "zero.qgz_reduce"
+BASELINE_REDUCE = "zero.baseline_reduce"
+OTHER = "other"
 
 
 def world_size(group=None) -> int:
@@ -87,30 +113,55 @@ def finish(hops: Hops) -> torch.Tensor:
             return out
 
 
-def _wait(*works) -> None:
-    for w in works:
-        if w is not None:
-            w.wait()
+def _count(label: str, nbytes) -> None:
+    """Add a collective's wire bytes per rank to ``comm.<label>.bytes``."""
+    get_registry().counter(f"comm.{label}.bytes").inc(nbytes)
 
 
-def _gather_start(shard: torch.Tensor, group=None):
+def _wait(label: str, *works) -> None:
+    """Wait for ``works`` (None: nothing was issued) under the profiler
+    range ``<label>.wait``."""
+    works = [w for w in works if w is not None]
+    if works:
+        with annotate(label + ".wait"):
+            for w in works:
+                w.wait()
+
+
+def _gather_start(shard: torch.Tensor, group, label: str):
     """Issue the tiled all-gather of a 1-D shard along dim 0: (out, work),
     ``out`` not to be read before ``work`` is waited on (None: world 1,
-    ``out`` is the shard)."""
+    ``out`` is the shard).  Counts out − in bytes under ``label``."""
     world = world_size(group)
     if world == 1:
         return shard, None
+    shard = shard.contiguous()
     out = torch.empty((world * shard.shape[0],), dtype=shard.dtype,
                       device=shard.device)
-    return out, dist.all_gather_into_tensor(out, shard.contiguous(),
-                                            group=group, async_op=True)
+    with annotate(label):
+        work = dist.all_gather_into_tensor(out, shard, group=group,
+                                           async_op=True)
+    _count(label, out.nbytes - shard.nbytes)
+    return out, work
 
 
-def _gather(shard: torch.Tensor, group=None) -> torch.Tensor:
+def _gather(shard: torch.Tensor, group=None, label: str = OTHER
+            ) -> torch.Tensor:
     """Tiled all-gather of a 1-D shard along dim 0."""
-    out, work = _gather_start(shard, group)
-    _wait(work)
+    out, work = _gather_start(shard, group, label)
+    _wait(label, work)
     return out
+
+
+def all_reduce(x: torch.Tensor, group=None, label: str = OTHER) -> None:
+    """In-place sum of ``x`` over ``group``, counted as 2·in·(g−1)/g
+    bytes (a ring all-reduce; the reference's psum rule)."""
+    world = world_size(group)
+    if world == 1:
+        return
+    with annotate(label):
+        dist.all_reduce(x, group=group)
+    _count(label, 2 * x.nbytes * (world - 1) / world)
 
 
 def tier_groups(intra_size: int):
@@ -129,27 +180,28 @@ def tier_groups(intra_size: int):
     return intra, inter
 
 
-def gather_bf16_hops(shard: torch.Tensor, group=None) -> Hops:
+def gather_bf16_hops(shard: torch.Tensor, group, label: str) -> Hops:
     """All-gather that moves 2-byte lanes: bf16 crosses as its raw bytes
     (an int8 view, bit-level identity, which every backend takes), other
-    dtypes as themselves.  One hop."""
+    dtypes as themselves.  One hop, counted under the caller's
+    ``label``."""
     bf16 = shard.dtype == torch.bfloat16
     out, work = _gather_start(
-        shard.contiguous().view(torch.int8) if bf16 else shard, group)
+        shard.contiguous().view(torch.int8) if bf16 else shard, group, label)
     yield
-    _wait(work)
+    _wait(label, work)
     return out.view(torch.bfloat16) if bf16 else out
 
 
-def gather_bf16(shard: torch.Tensor, group=None) -> torch.Tensor:
-    return finish(gather_bf16_hops(shard, group))
+def gather_bf16(shard: torch.Tensor, group, label: str) -> torch.Tensor:
+    return finish(gather_bf16_hops(shard, group, label))
 
 
 def baseline_all_gather_hops(shard: torch.Tensor, group=None,
-                             out_dtype: Optional[torch.dtype] = None
-                             ) -> Hops:
+                             out_dtype: Optional[torch.dtype] = None,
+                             label: str = BASELINE_GATHER) -> Hops:
     """Full-precision all-gather of a flat parameter shard (ZeRO-3)."""
-    full = yield from gather_bf16_hops(shard, group)
+    full = yield from gather_bf16_hops(shard, group, label)
     return full if out_dtype is None else full.to(out_dtype)
 
 
@@ -159,23 +211,29 @@ def baseline_all_gather(shard: torch.Tensor, group=None,
     return finish(baseline_all_gather_hops(shard, group, out_dtype))
 
 
-def baseline_reduce_scatter_hops(grad: torch.Tensor, group=None) -> Hops:
+def baseline_reduce_scatter_hops(grad: torch.Tensor, group=None,
+                                 label: str = BASELINE_REDUCE) -> Hops:
     """Full-precision reduce-scatter of a flat local gradient (ZeRO-3):
-    this rank's shard of the sum over the group.  One hop."""
+    this rank's shard of the sum over the group, counted in − out bytes
+    under ``label``.  One hop."""
     world = world_size(group)
     out, work = grad, None
     if world > 1:
+        grad = grad.contiguous()
         out = torch.empty((grad.shape[0] // world,), dtype=grad.dtype,
                           device=grad.device)
-        work = dist.reduce_scatter_tensor(out, grad.contiguous(), group=group,
-                                          async_op=True)
+        with annotate(label):
+            work = dist.reduce_scatter_tensor(out, grad, group=group,
+                                              async_op=True)
+        _count(label, grad.nbytes - out.nbytes)
     yield
-    _wait(work)
+    _wait(label, work)
     return out
 
 
-def baseline_reduce_scatter(grad: torch.Tensor, group=None) -> torch.Tensor:
-    return finish(baseline_reduce_scatter_hops(grad, group))
+def baseline_reduce_scatter(grad: torch.Tensor, group=None,
+                            label: str = BASELINE_REDUCE) -> torch.Tensor:
+    return finish(baseline_reduce_scatter_hops(grad, group, label))
 
 
 def _quantize_shard(shard: torch.Tensor, cfg: QuantConfig
@@ -192,10 +250,10 @@ def qwz_all_gather_hops(shard: torch.Tensor, group, cfg: QuantConfig,
     quantization: 0.5·M payload + scales on the wire instead of M (bf16).
     One hop: B1, the payload's and the scales' gathers issued; then B2."""
     payload, scales = _quantize_shard(shard, cfg)
-    payload_g, w1 = _gather_start(payload, group)
-    scales_g, w2 = _gather_start(scales, group)
+    payload_g, w1 = _gather_start(payload, group, QWZ)
+    scales_g, w2 = _gather_start(scales, group, QWZ)
     yield
-    _wait(w1, w2)
+    _wait(QWZ, w1, w2)
     return _kops.dequantize_blockwise(payload_g, scales_g, cfg, out_dtype)
 
 
@@ -210,7 +268,7 @@ def qwz_all_gather_quant(shard: torch.Tensor, group, cfg: QuantConfig
     wire traffic as :func:`qwz_all_gather`; the consumer applies the
     scales itself, so the gathered bf16 weights never exist."""
     payload, scales = _quantize_shard(shard, cfg)
-    return _gather(payload, group), _gather(scales, group)
+    return _gather(payload, group, QWZ), _gather(scales, group, QWZ)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +293,7 @@ def hpz_all_gather_hops(secondary: torch.Tensor, group=None) -> Hops:
     """Backward all-gather over the fast intra-node group only: the
     secondary partition replicates the full weights within each intra
     group, so no byte crosses the slow tier."""
-    return gather_bf16_hops(secondary, group)
+    return gather_bf16_hops(secondary, group, HPZ)
 
 
 def hpz_all_gather(secondary: torch.Tensor, group=None) -> torch.Tensor:
@@ -263,21 +321,27 @@ def _unpack_scales(msg: torch.Tensor, payload_len: int
     return payload, scales
 
 
-def _all_to_all_start(x: torch.Tensor, group=None):
+def _all_to_all_start(x: torch.Tensor, group, label: str):
     """Issue the all-to-all along dim 0: chunk j goes to group rank j, and
     the received chunks are concatenated in source-rank order (the
     reference's ``all_to_all(split_axis=0, concat_axis=0)``).  Returns
-    (out, work) as :func:`_gather_start`."""
-    if world_size(group) == 1:
+    (out, work) as :func:`_gather_start`; counts in·(g−1)/g bytes (the
+    chunk that stays is not sent)."""
+    world = world_size(group)
+    if world == 1:
         return x, None
+    x = x.contiguous()
     out = torch.empty_like(x)
-    return out, dist.all_to_all_single(out, x.contiguous(), group=group,
-                                       async_op=True)
+    with annotate(label):
+        work = dist.all_to_all_single(out, x, group=group, async_op=True)
+    _count(label, x.nbytes * (world - 1) // world)
+    return out, work
 
 
-def _all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
-    out, work = _all_to_all_start(x, group)
-    _wait(work)
+def _all_to_all(x: torch.Tensor, group=None, label: str = OTHER
+                ) -> torch.Tensor:
+    out, work = _all_to_all_start(x, group, label)
+    _wait(label, work)
     return out
 
 
@@ -318,9 +382,10 @@ def qgz_reduce_scatter_hops(grad: torch.Tensor, intra_group, inter_group,
     L = n // world
     payload, scales = _kops.quantize_reordered(grad.reshape(Y, X, L), cfg, u1)
     del grad
-    msg, work = _all_to_all_start(_pack_scales(payload, scales), intra_group)
+    msg, work = _all_to_all_start(_pack_scales(payload, scales), intra_group,
+                                  QGZ)
     yield
-    _wait(work)
+    _wait(QGZ, work)
     payload, scales = _unpack_scales(msg, payload.shape[-1])
     # payload[x'] is peer x''s contribution to this rank's (Y, L) slices
     if not two_tier:
@@ -332,9 +397,9 @@ def qgz_reduce_scatter_hops(grad: torch.Tensor, intra_group, inter_group,
     payload2 = payload2.reshape(Y, -1)
     scales2 = scales2.reshape(Y, -1)
     msg2, work = _all_to_all_start(_pack_scales(payload2, scales2),
-                                   inter_group)
+                                   inter_group, QGZ)
     yield
-    _wait(work)
+    _wait(QGZ, work)
     payload2, scales2 = _unpack_scales(msg2, payload2.shape[-1])
     return _kops.dequant_reduce(payload2, scales2, cfg)
 

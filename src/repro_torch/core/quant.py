@@ -43,6 +43,18 @@ class QuantConfig:
     def qmax(self) -> float:
         return _QMAX[self.bits]
 
+    def payload_bytes(self, n: int) -> int:
+        """Wire payload (the quantized values only) of n elements: INT4
+        packs two a byte, an odd last element taking a whole byte."""
+        return n if self.bits == 8 else (n + 1) // 2
+
+    def wire_bytes(self, n: int, scale_bytes: int = 4) -> int:
+        """Payload plus the fp32 block scales that travel with it (qwZ
+        gathers them beside the payload, qgZ packs them into its
+        message)."""
+        nblocks = -(-n // self.block_size)
+        return self.payload_bytes(n) + nblocks * scale_bytes
+
 
 def quantize_blockwise(x: torch.Tensor, cfg: QuantConfig,
                        u: Optional[torch.Tensor] = None

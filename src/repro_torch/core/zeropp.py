@@ -4,7 +4,10 @@ Port of the reference's ``core/zeropp.py``: ``ZeroConfig``, ``fwd_gather``,
 ``fwd_gather_quant``, ``qwz_gemm_eligible``, ``grad_reduce``, the training
 primitive ``zero_apply`` and the serving ``zero_apply_inference``, plus
 the serving layer loop ``zero_scan_inference`` of the reference's
-``core/schedule.py``, with its depth-k prefetch ring (:func:`ring`).
+``core/schedule.py``, with its depth-k prefetch ring (:func:`ring`), and
+the communication accounting (:func:`comm_volume_per_step`, the paper's
+Table 1; :func:`step_wire_by_label`, the per-rank bytes that the
+collectives count).
 
 ``zero_apply`` wraps each layer group's apply function ``f(W_full, *args)``
 as a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
@@ -30,6 +33,7 @@ schedule (``prefetch=0``), so every depth gives the same bits.
 from __future__ import annotations
 
 import dataclasses
+import math
 from collections import deque
 from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
@@ -320,3 +324,108 @@ def zero_scan_inference(f: Callable, z: ZeroConfig) -> Callable:
             ys.append(y)
         return h, ys
     return run
+
+
+# ---------------------------------------------------------------------------
+# communication-volume accounting (paper Table 1)
+# ---------------------------------------------------------------------------
+
+def comm_volume_per_step(n_params: int, z: ZeroConfig,
+                         elem_bytes: int = 2) -> dict:
+    """Analytic slow-tier bytes per training step of a model with
+    ``n_params`` parameters (the paper's Table 1).
+
+    Baseline ZeRO-3: M (fwd AG) + M (bwd AG) + M (grad RS) = 3M.
+    ZeRO++       : 0.5M        + 0          + 0.25M        = 0.75M.
+    """
+    M = n_params * elem_bytes
+    qw = z.qwz_cfg.wire_bytes(n_params)
+    fwd = qw if z.qwz else M
+    bwd = 0 if z.hpz else fwd
+    rs = z.qgz_cfg.wire_bytes(n_params) if z.qgz else M
+    return {"fwd_allgather": fwd, "bwd_allgather": bwd, "grad_reduce": rs,
+            "total": fwd + bwd + rs, "baseline_total": 3 * M,
+            "reduction_factor": 3 * M / max(fwd + bwd + rs, 1)}
+
+
+# ---------------------------------------------------------------------------
+# per-rank wire accounting (the runtime counters' projection)
+# ---------------------------------------------------------------------------
+# The bytes one rank puts on the wire for one collective, by the rules
+# ``core/collectives.py`` counts them with (all-gather out − in,
+# reduce-scatter in − out, all-to-all in·(g−1)/g), fp32 scales included:
+# qwZ gathers them beside its payload, qgZ packs them into its message.
+# The labels are the ones the collectives count under.  The knobs are the
+# port's: blocked qwZ and 2-hop qgZ only (the reference's non-blocked qwZ
+# and 1-hop qgZ, with the zero.qgz_reduce1hop label, come with their
+# collectives).
+
+WIRE_LABELS = (cl.QWZ, cl.BASELINE_GATHER, cl.HPZ, cl.QGZ,
+               cl.BASELINE_REDUCE)
+
+EVENT_KINDS = ("fwd_gather", "bwd_gather", "grad_reduce")
+
+
+def _group(sizes: dict, axes) -> int:
+    return math.prod(int(sizes[a]) for a in axes)
+
+
+def wire_label(kind: str, z: ZeroConfig) -> str:
+    """The label the collective for ``kind`` is counted under."""
+    if kind == "fwd_gather":
+        return cl.QWZ if z.qwz else cl.BASELINE_GATHER
+    if kind == "bwd_gather":
+        return cl.HPZ if z.hpz else wire_label("fwd_gather", z)
+    if kind == "grad_reduce":
+        return cl.QGZ if z.qgz else cl.BASELINE_REDUCE
+    raise ValueError(f"unknown comm event kind {kind!r}")
+
+
+def event_wire_bytes(kind: str, n_elems: int, z: ZeroConfig,
+                     sizes: dict) -> float:
+    """Per-rank wire bytes of ONE collective over a global flat buffer of
+    ``n_elems`` elements; ``sizes`` maps each mesh axis to its size.  A
+    world of 1 sends nothing (0 for every kind)."""
+    if not z.distributed:
+        return 0.0
+    n = int(n_elems)
+    if kind == "fwd_gather":
+        w = _group(sizes, z.dp_axes)
+        if z.qwz:
+            pb, b = z.qwz_cfg.payload_bytes, z.qwz_block
+            return float(pb(n) - pb(n // w)
+                         + 4.0 * (n // b - (n // w) // b))
+        eb = z.param_dtype.itemsize
+        return float(eb * n - eb * (n // w))
+    if kind == "bwd_gather":
+        if z.hpz:
+            xs = _group(sizes, (z.intra_axis,))
+            eb = z.compute_dtype.itemsize
+            return float(eb * n - eb * (n // xs))
+        return event_wire_bytes("fwd_gather", n, z, sizes)
+    if kind == "grad_reduce":
+        if z.qgz:
+            pb, b = z.qgz_cfg.payload_bytes, z.qgz_block
+            X = _group(sizes, (z.intra_axis,))
+            Y = _group(sizes, z.inter_axes) if z.inter_axes else 1
+            wire = (pb(n) + 4.0 * (n // b)) * (X - 1) / X
+            if Y > 1:
+                m = n // X
+                wire += (pb(m) + 4.0 * (m // b)) * (Y - 1) / Y
+            return float(wire)
+        w = _group(sizes, z.dp_axes)
+        eb = z.reduce_dtype.itemsize
+        return float(eb * n - eb * (n // w))
+    raise ValueError(f"unknown comm event kind {kind!r}")
+
+
+def step_wire_by_label(events, z: ZeroConfig, sizes: dict) -> dict:
+    """Fold a comm-event list (``Model.comm_events()``) into per-label,
+    per-rank wire bytes: the projection the measured counters are gated
+    against (``obs.report.runtime_gate``)."""
+    out: dict = {}
+    for ev in events:
+        lbl = wire_label(ev["kind"], z)
+        wire = event_wire_bytes(ev["kind"], ev["elems"], z, sizes)
+        out[lbl] = out.get(lbl, 0.0) + wire * ev.get("count", 1)
+    return out

@@ -24,7 +24,9 @@ kernel wrappers (``kernels/quant_block.py``,
 ``kernels/flash_attention.py``):
 a CUDA tensor launches the hand-written kernel, a CPU tensor takes the
 plain PyTorch version.  There is no backend switch and no fallback from a
-failed build or launch.
+failed build or launch.  With telemetry on, each call counts its route
+once, as the reference's seam does: ``kernels.dispatch.<op>.cuda`` or
+``.torch`` (``obs.metrics.count_dispatch``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ from repro_torch.kernels import dequant_matmul as _dm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dequant_reduce_quant as _fq
 from repro_torch.kernels import quant_block as _qb
+from repro_torch.obs.metrics import count_dispatch
+
+
+def _dispatch(op: str, x: torch.Tensor) -> None:
+    """Count ``op``'s route: the wrapper launches the kernel for a CUDA
+    tensor and takes the plain version for a CPU one."""
+    count_dispatch(op, "cuda" if x.is_cuda else "torch")
 
 
 def _as2d(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -56,6 +65,7 @@ def quantize_blockwise(x: torch.Tensor, cfg: QuantConfig,
     stochastic rounding — the reference draws it from a JAX key
     (``core.quant.stochastic_uniform``); the port takes the field itself.
     """
+    _dispatch("quantize_blockwise", x)
     x2, lead = _as2d(x)
     u2 = None if u is None else u.reshape(x2.shape)
     p, s = _qb.quantize(x2, cfg, u2)
@@ -68,6 +78,7 @@ def dequantize_blockwise(payload: torch.Tensor, scales: torch.Tensor,
                          ) -> torch.Tensor:
     """Inverse of :func:`quantize_blockwise`; writes ``out_dtype`` (the qwZ
     gather passes bf16) directly."""
+    _dispatch("dequantize_blockwise", payload)
     p2, lead = _as2d(payload)
     s2, _ = _as2d(scales)
     x = _qb.dequantize(p2, s2, cfg, out_dtype)
@@ -80,6 +91,7 @@ def quantize_reordered(x: torch.Tensor, cfg: QuantConfig,
     """(Y, X, L) -> transpose to (X, Y, L), quantize the trailing dim — qgZ
     step 1, the remap folded into the kernel's load index.  ``u``: the
     uniform field on the transposed (X, Y, L) layout."""
+    _dispatch("quantize_reordered", x)
     return _qb.quantize_reordered(x, cfg, u)
 
 
@@ -87,6 +99,7 @@ def dequant_reduce(payload: torch.Tensor, scales: torch.Tensor,
                    cfg: QuantConfig) -> torch.Tensor:
     """Sum N quantized contributions in fp32: (N, P), (N, NB) -> (C,)
     float32."""
+    _dispatch("dequant_reduce", payload)
     return _fq.dequant_reduce(payload, scales, cfg)
 
 
@@ -96,6 +109,7 @@ def dequant_reduce_quant(payload: torch.Tensor, scales: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused dequant -> fp32 reduce -> requant (qgZ intra hop, §4.2).
     ``u``: optional (C,) uniform field for the requantization."""
+    _dispatch("dequant_reduce_quant", payload)
     return _fq.dequant_reduce_quant(payload, scales, cfg_in, cfg_out, u)
 
 
@@ -109,6 +123,7 @@ def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,
     K % NB == 0.  Dequantized weights round through ``compute_dtype``
     before the product, accumulation is fp32; returns (T, N) float32.
     """
+    _dispatch("dequant_matmul", x)
     return _dm.dequant_matmul(x, payload, scales, compute_dtype)
 
 
@@ -118,6 +133,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention forward: q (B, Sq, H, hd), k/v (B, S, K, hd) ->
     (out (B, Sq, H, hd), m, l (B, H, Sq) float32)."""
+    _dispatch("flash_fwd", q)
     return _fa.flash_fwd(q, k, v, scale=scale, causal=causal, window=window,
                          softcap=softcap)
 
@@ -129,5 +145,6 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-attention backward from the forward's (out, m, l): (dq, dk,
     dv)."""
+    _dispatch("flash_bwd", q)
     return _fa.flash_bwd(q, k, v, out, m, l, dout, scale=scale,
                          causal=causal, window=window, softcap=softcap)

@@ -15,7 +15,8 @@ torch.distributed runs one process per rank, so a mesh here is a shape
     (``collectives.tier_groups``).
 
 :func:`spawn` starts one process per rank, gives each an initialised
-process group (``tcp://localhost:<free port>``, ranks 0 … N-1), calls
+process group (ranks 0 … N-1, meeting at a ``TCPStore`` that the
+launching process holds on localhost), calls
 ``fn(rank, world, *args)`` and returns every rank's result in rank order.
 On the card every rank shares device 0 (NCCL puts no two ranks on one
 device, so the card's world is gloo) and the kernels are built once, in
@@ -27,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import queue as queue_lib
-import socket
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Tuple
@@ -85,12 +85,6 @@ def make_mesh(shape: Tuple[int, int]) -> Mesh:
 
 # ---------------------------------------------------------------- spawner
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
                fn: Callable, args, queue) -> None:
     try:
@@ -98,9 +92,9 @@ def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
             torch.cuda.set_device(0)
         else:           # the ranks share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-        dist.init_process_group(backend,
-                                init_method=f"tcp://localhost:{port}",
-                                rank=rank, world_size=world)
+        store = dist.TCPStore("localhost", port, is_master=False)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world)
         try:
             out = (rank, True, fn(rank, world, *args))
         finally:
@@ -124,7 +118,11 @@ def spawn(fn: Callable, world: int, *args, device: str = "cuda",
         platform.build()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    port = _free_port()
+    # the rendezvous store binds its port here and holds it for the run: a
+    # port found free and released for rank 0 to bind could be taken first
+    # by another world's sockets (a parallel test run opens many)
+    store = dist.TCPStore("localhost", 0, is_master=True)
+    port = store.port
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, port, backend, device, fn, args,
                                queue))
@@ -165,6 +163,7 @@ def spawn(fn: Callable, world: int, *args, device: str = "cuda",
             if p.is_alive():
                 p.kill()
                 p.join()
+        del store
     if errors:
         raise AssertionError("\n".join(errors))
     return [results[r] for r in range(world)]

@@ -16,11 +16,25 @@ shards the sequence over the axes it leaves (``trainer.build_train_step``).
 ``--prefetch`` is the layer loop's ring depth (default: the policy's, 1;
 0 is the synchronous schedule).  ``--device cpu`` runs the plain PyTorch
 versions of the kernels and is meant for tests at ``--reduced`` size.
+
+Telemetry (the reference's ``--metrics-dir``/``--obs-gate``):
+``--metrics-dir D`` records the run's knobs (``tune.*`` gauges), a
+``train.step`` span, the ``train.steps``/``train.tokens`` counters and a
+``train.step.wall_ms`` histogram, and each step's wire bytes per
+collective label — the delta of the ``comm.<label>.bytes`` counters that
+``core/collectives.py`` bumps where it issues each collective — and gates
+them against ``obs.report.projected_wire_by_label`` (1 %; every rank its
+own bytes, the projection is per rank); rank 0 writes ``D/events.jsonl``
+and ``D/BENCH_runtime.json``.  ``--obs-gate`` makes a failing gate raise.
+Without ``--metrics-dir`` the tracer is the disabled no-op.  Every step
+runs in a ``train.step`` profiler range (``obs.trace.annotate``, free
+unless a profiler records), as every collective's issue and wait do.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import statistics
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -34,6 +48,10 @@ from repro_torch.data.synthetic import SyntheticLM, make_batch
 from repro_torch.kernels import platform
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import Model
+from repro_torch.obs.metrics import Registry, get_registry, set_registry
+from repro_torch.obs.report import (export_snapshot, projected_wire_by_label,
+                                    runtime_gate)
+from repro_torch.obs.trace import Tracer, annotate, get_tracer
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.optim.schedule import constant, warmup_cosine
 from repro_torch.train.policy import VARIANTS, make_policy
@@ -110,56 +128,169 @@ def init_shards(model: Model, seed: int) -> Dict[str, torch.Tensor]:
             for k, v in params.items()}
 
 
+def comm_bytes() -> Dict[str, float]:
+    """{label: wire bytes counted so far} from the ``comm.<label>.bytes``
+    counters."""
+    return {k[len("comm."):-len(".bytes")]: v
+            for k, v in get_registry().snapshot().items()
+            if k.startswith("comm.") and k.endswith(".bytes")}
+
+
+def comm_since(sent: Dict[str, float]) -> Dict[str, float]:
+    """The labels' bytes counted since ``sent`` (a :func:`comm_bytes`),
+    the labels that sent nothing left out."""
+    now = comm_bytes()
+    return {lbl: b - sent.get(lbl, 0) for lbl, b in now.items()
+            if b != sent.get(lbl, 0)}
+
+
+def _ranks_agree(comm_steps, labels, group, dev) -> bool:
+    """Whether every rank of ``group`` counted the same bytes per label at
+    every step (one all-gather, counted under ``other``)."""
+    if cl.world_size(group) == 1:
+        return True
+    mine = torch.tensor([[c.get(lbl, 0.0) for lbl in labels]
+                         for c in comm_steps], dtype=torch.float64,
+                        device=dev).reshape(-1)
+    every = cl._gather(mine, group).reshape(-1, mine.shape[0])
+    return bool((every == every[0]).all())
+
+
+def record_step(reg: Registry, tracer: Tracer, i: int, wall_s: float,
+                metrics: Dict[str, Any], comm: Dict[str, float]) -> None:
+    """What ``--metrics-dir`` records of step ``i``: its wall time in the
+    ``train.step.wall_ms`` histogram, the ``train.steps``/``train.tokens``
+    counters (in the registry and as replayable tracer records, with each
+    label's wire bytes ``comm``), then one flush of the tracer."""
+    tokens = float(metrics["tokens"])
+    reg.histogram("train.step.wall_ms").observe(wall_s * 1e3)
+    reg.counter("train.steps").inc()
+    reg.counter("train.tokens").inc(tokens)
+    tracer.counter("train.steps", 1, step=i)
+    tracer.counter("train.tokens", tokens, step=i)
+    for lbl, b in comm.items():
+        tracer.counter(f"comm.{lbl}.bytes", b, step=i)
+    tracer.flush()
+
+
 def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
     """Run ``args.steps`` steps from a seeded fp32 init on this rank of an
     ``args.mesh`` world.  Returns the losses (summed over the world),
-    per-step wall seconds (synchronized), per-step kernel launches, the
-    peak device memory (0 on the CPU), the data's entropy bound, and the
-    built run with this rank's final params/opt.  ``on_step(i, metrics)``
-    is called after each step; only rank 0 prints."""
+    per-step wall seconds (synchronized), per-step kernel launches, each
+    step's wire bytes per collective label on this rank (``comm_steps``),
+    the peak device memory (0 on the CPU), the data's entropy bound, the
+    gate report and whether every rank counted the same bytes
+    (``gate``/``ranks_agree``, None without ``--metrics-dir``), and the
+    built run with this rank's final params/opt.  ``on_step(i, metrics)`` is called after
+    each step; only rank 0 prints and writes telemetry."""
     built = build_everything(args.arch, mesh_lib.parse_mesh(args.mesh),
                              args.variant, args.reduced, args.batch,
                              args.seq, args.lr, args.accum, args.lr_schedule,
                              args.device, args.attn, args.prefetch)
     model = built.model
+    z = model.zcfg
     dev = model.device
     params = init_shards(model, args.seed)
     opt = init_opt_state(params)
-    log = args.log_every and cl.flat_rank(model.zcfg.group) == 0
+    rank0 = cl.flat_rank(z.group) == 0
+    log = args.log_every and rank0
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    losses, step_s, launches = [], [], []
-    for i in range(args.steps):
-        batch = device_batch(built.arch, built.lm, i, args.batch, args.accum,
-                             dev)
-        sync()
-        before = dict(platform.LAUNCHES)
-        t0 = time.perf_counter()
-        metrics = built.step.fn(params, opt, batch)
-        loss = float(metrics["loss"])
-        sync()
-        step_s.append(time.perf_counter() - t0)
-        launches.append({k: platform.LAUNCHES[k] - before[k]
-                         for k in before})
-        losses.append(loss)
-        if on_step is not None:
-            on_step(i, metrics)
-        if log and (i % args.log_every == 0 or i == args.steps - 1):
-            print(f"[train] step {i} loss {loss:.4f} gnorm "
-                  f"{float(metrics['grad_norm']):.3f} lr "
-                  f"{float(metrics['lr']):.2e} {step_s[-1]:.3f} s "
-                  f"{metrics['tokens'] / step_s[-1]:,.0f} tok/s", flush=True)
+    telemetry = bool(args.metrics_dir)
+    old_reg = set_registry(Registry()) if telemetry else None
+    reg = get_registry()
+    tracer = get_tracer()
+    if telemetry and rank0:
+        tracer = Tracer(os.path.join(args.metrics_dir, "events.jsonl"))
+    if telemetry:
+        for knob in ("prefetch", "qwz", "hpz", "qgz", "qwz_block",
+                     "qgz_block"):
+            reg.gauge(f"tune.{knob}").set(int(getattr(z, knob)))
+    losses, step_s, launches, comm_steps = [], [], [], []
+    try:
+        for i in range(args.steps):
+            batch = device_batch(built.arch, built.lm, i, args.batch,
+                                 args.accum, dev)
+            sync()
+            before = dict(platform.LAUNCHES)
+            sent = comm_bytes()
+            t0 = time.perf_counter()
+            with annotate("train.step"), tracer.span("train.step", step=i):
+                metrics = built.step.fn(params, opt, batch)
+                loss = float(metrics["loss"])
+                sync()
+            step_s.append(time.perf_counter() - t0)
+            launches.append({k: platform.LAUNCHES[k] - before[k]
+                             for k in before})
+            comm_steps.append(comm_since(sent))
+            losses.append(loss)
+            if telemetry:
+                record_step(reg, tracer, i, step_s[-1], metrics,
+                            comm_steps[-1])
+            if on_step is not None:
+                on_step(i, metrics)
+            if log and (i % args.log_every == 0 or i == args.steps - 1):
+                print(f"[train] step {i} loss {loss:.4f} gnorm "
+                      f"{float(metrics['grad_norm']):.3f} lr "
+                      f"{float(metrics['lr']):.2e} {step_s[-1]:.3f} s "
+                      f"{metrics['tokens'] / step_s[-1]:,.0f} tok/s",
+                      flush=True)
+        gate = agree = None
+        if telemetry:
+            gate, agree = _obs_gate(args, built, comm_steps, rank0)
+    finally:
+        if telemetry:
+            tracer.close()
+            set_registry(old_reg)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return {"losses": losses, "step_s": step_s, "launches": launches,
-            "peak_bytes": peak, "entropy_bound": built.lm.entropy_bound,
-            "built": built, "params": params, "opt": opt}
+            "comm_steps": comm_steps, "peak_bytes": peak,
+            "entropy_bound": built.lm.entropy_bound, "gate": gate,
+            "ranks_agree": agree, "built": built, "params": params, "opt": opt}
+
+
+def _obs_gate(args, built: Built, comm_steps, rank0: bool
+              ) -> Tuple[Dict[str, Any], bool]:
+    """Gate every step's measured bytes per label against the projection
+    (strict under ``--obs-gate``: a failing rank raises), check that the
+    ranks agree, and on rank 0 export ``BENCH_runtime.json``.  Returns the
+    gate report of the first failing step, else of the last, and whether
+    the ranks agree."""
+    model, mesh = built.model, built.mesh
+    sizes = dict(zip(mesh_lib.AXES, mesh.shape))
+    projected = projected_wire_by_label(model, sizes, accum=args.accum)
+    reports = [runtime_gate(measured=c, projected=projected,
+                            strict=args.obs_gate) for c in comm_steps]
+    gate = next((r for r in reports if not r["ok"]), reports[-1])
+    labels = sorted(set(projected).union(*comm_steps))
+    agree = _ranks_agree(comm_steps, labels, model.zcfg.group, model.device)
+    if args.obs_gate and not agree:
+        raise AssertionError("the ranks counted different wire bytes")
+    if rank0:
+        export_snapshot(
+            os.path.join(args.metrics_dir, "BENCH_runtime.json"),
+            extra={"gate": gate, "ranks_agree": agree,
+                   "comm_per_step": comm_steps,
+                   "config": {"arch": built.arch.name,
+                              "variant": args.variant,
+                              "mesh": list(mesh.shape),
+                              "prefetch": model.zcfg.prefetch,
+                              "steps": args.steps, "batch": args.batch,
+                              "seq": args.seq, "accum": args.accum,
+                              "attn": args.attn, "device": args.device}})
+        print(f"[train] obs gate {'PASS' if gate['ok'] else 'FAIL'} on "
+              f"every step, ranks {'agree' if agree else 'DISAGREE'}: "
+              f"labels {labels} vs the analytic projection (BENCH -> "
+              f"{args.metrics_dir}/BENCH_runtime.json)", flush=True)
+    return gate, agree
 
 
 def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
     """``train_loop`` in one rank of a spawned world: what a host process
     can receive (the run's params stay in the rank)."""
     out = train_loop(args)
-    return {k: out[k] for k in ("losses", "step_s", "launches", "peak_bytes",
-                                "entropy_bound")}
+    return {k: out[k] for k in ("losses", "step_s", "launches", "comm_steps",
+                                "peak_bytes", "entropy_bound", "gate",
+                                "ranks_agree")}
 
 
 def run(args):
@@ -198,6 +329,14 @@ def parser() -> argparse.ArgumentParser:
                          "0: synchronous)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--metrics-dir", default=None,
+                    help="enable telemetry: rank 0 writes events.jsonl and "
+                         "BENCH_runtime.json here (default: the disabled "
+                         "no-op tracer)")
+    ap.add_argument("--obs-gate", action="store_true",
+                    help="raise when a step's wire bytes per label miss "
+                         "the analytic projection by more than 1%% (with "
+                         "--metrics-dir)")
     return ap
 
 

@@ -29,7 +29,6 @@ from __future__ import annotations
 from typing import Any, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import collectives as cl
 from repro_torch.kernels.flash_ops import flash_attention_kernel
@@ -43,22 +42,23 @@ class _GatherSeq(torch.autograd.Function):
     along dim 1, summed in its own dtype (the reference's
     ``psum_scatter``).  bf16 crosses as 2-byte lanes both ways: the gather
     as ``collectives.gather_bf16``'s int8 pairs, the reduce-scatter as
-    bf16 itself."""
+    bf16 itself.  Both are counted under ``collectives.OTHER``: they carry
+    activations, not ZeRO parameter traffic."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
         w = cl.world_size(group)
         xt = x.movedim(1, 0).contiguous()                 # (S_loc, B, ...)
-        full = cl.gather_bf16(xt.reshape(-1), group)
+        full = cl.gather_bf16(xt.reshape(-1), group, cl.OTHER)
         return full.reshape((w * xt.shape[0],) + xt.shape[1:]).movedim(0, 1)
 
     @staticmethod
     def backward(ctx, g):
         w = cl.world_size(ctx.group)
         gt = g.movedim(1, 0).contiguous()                 # (S, B, ...)
-        out = torch.empty((gt.numel() // w,), dtype=g.dtype, device=g.device)
-        dist.reduce_scatter_tensor(out, gt.reshape(-1), group=ctx.group)
+        out = cl.baseline_reduce_scatter(gt.reshape(-1), ctx.group,
+                                         label=cl.OTHER)
         out = out.reshape((gt.shape[0] // w,) + gt.shape[1:])
         return out.movedim(0, 1), None
 

@@ -94,6 +94,42 @@ class Model:
         return (self.embed_spec.size + self.period_spec.size * self.n_periods
                 + self.head_spec.size + self.unemb_spec.size * self.unemb_chunks)
 
+    def comm_events(self, accum: int = 1) -> list:
+        """Every ZeRO engine collective one training step issues:
+        ``[{"kind", "elems", "count", "site"}, ...]``, kind fwd_gather /
+        bwd_gather / grad_reduce, elems the GLOBAL flat buffer length,
+        count the times it runs a step.  ``zeropp.step_wire_by_label``
+        folds it into the per-label projection that the collectives'
+        counters are gated against (``obs.report``).
+
+        Each ``zero_apply`` site (the embedding, the head norm, each
+        unembedding chunk) issues one of each kind; the layer loop issues
+        n of each per step at every ring depth.  The reference's scan ring
+        issues n + k (k wrap-around gathers and k reduces of zero
+        gradients); the port's ring (``core/schedule.py``) issues neither,
+        so its bytes at every depth are the reference's at depth 0.  Each
+        of ``accum`` microbatches runs the whole forward, backward and
+        reduce, so every count is multiplied by it."""
+        ev: list = []
+        if not self.zcfg.distributed:
+            return ev
+
+        def add(kind, elems, count, site):
+            ev.append({"kind": kind, "elems": int(elems),
+                       "count": float(count) * accum, "site": site})
+
+        for site, e, c in (("embed", self.embed_spec.padded_size, 1),
+                           ("head", self.head_spec.padded_size, 1),
+                           ("unemb", self.unemb_spec.padded_size,
+                            self.unemb_chunks)):
+            for kind in ("fwd_gather", "bwd_gather", "grad_reduce"):
+                add(kind, e, c, site)
+        n, P = self.n_periods, self.period_spec.padded_size
+        add("fwd_gather", P, n, "blocks.fwd")
+        add("bwd_gather", P, n, "blocks.bwd")
+        add("grad_reduce", P, n, "blocks.reduce")
+        return ev
+
     @staticmethod
     def _init_std(name: str, shape: Tuple[int, ...]) -> Optional[float]:
         """The reference's per-name init scale (None = zeros: norms)."""

@@ -19,7 +19,6 @@ import dataclasses
 from typing import Callable, Dict, Mapping, Union
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import collectives as cl
 
@@ -54,8 +53,7 @@ def global_grad_norm(grads: Mapping[str, torch.Tensor],
     (the shards are disjoint, so the sum is the global one)."""
     local = sum(torch.sum(grads[k].to(torch.float32) ** 2)
                 for k in sorted(grads))
-    if cl.world_size(group) > 1:
-        dist.all_reduce(local, group=group)
+    cl.all_reduce(local, group)
     return torch.sqrt(local)
 
 

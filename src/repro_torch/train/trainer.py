@@ -30,7 +30,6 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import collectives as cl
 from repro_torch.kernels import platform
@@ -199,7 +198,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         if world > 1:       # the reference's psums, as one message
             tot = torch.stack([loss, nll, torch.tensor(
                 toks, dtype=torch.float32, device=loss.device)])
-            dist.all_reduce(tot, group=z.group)
+            cl.all_reduce(tot, z.group)
             loss, nll, toks = tot[0], tot[1], float(tot[2])
         return {"loss": loss, "nll": nll / toks, "tokens": toks,
                 "grad_norm": stats["grad_norm"], "lr": stats["lr"]}

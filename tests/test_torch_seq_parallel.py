@@ -99,6 +99,7 @@ for name, chunk in (("dense", 1024), ("chunked", 16)):
     res = f(*(jnp.asarray(d["a." + x]) for x in ("q", "k", "v", "ct")))
     for x, r in zip(("out", "dq", "dk", "dv"), res):
         out[f"a.{name}.{x}"] = np.asarray(r)
+out["a.cpus"] = np.int64(len(os.sched_getaffinity(0)))
 # (b) one step at 2 x 2, batch 2; (d) batch 4 with no global_batch
 arch = get_config("gpt-350m").reduced()
 mesh = make_mesh((2, 2), AXES, devices=jax.devices()[:4])
@@ -163,7 +164,39 @@ def _mha_rank(rank, world, inputs):
         o.backward(loc["ct"])
         out[name] = {"out": o.detach().numpy(), "dq": q.grad.numpy(),
                      "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+    out["env"] = {"threads": torch.get_num_threads(),
+                  "cpus": len(os.sched_getaffinity(0)),
+                  "isa": torch.backends.cpu.get_cpu_capability()}
     return out
+
+
+def _attn64(a):
+    """Causal GQA attention's output and q/k/v gradients in float64 on the
+    whole sequence: the oracle that says which side moved when the port
+    and the reference disagree."""
+    q, k, v = (torch.from_numpy(a[x]).double().requires_grad_(True)
+               for x in "qkv")
+    rep = q.shape[2] // k.shape[2]
+    kk, vv = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    S = q.shape[1]
+    lg = torch.einsum("bqhd,bshd->bhqs", q, kk) * q.shape[-1] ** -0.5
+    lg = lg.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(),
+                        float("-inf"))
+    o = torch.einsum("bhqs,bshd->bqhd", lg.softmax(-1), vv)
+    o.backward(torch.from_numpy(a["ct"]).double())
+    return {"out": o.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+
+
+def _cpu_model() -> str:
+    try:
+        with open("/proc/cpuinfo") as fh:
+            info = {k.strip(): v.strip() for k, v in
+                    (line.split(":", 1) for line in fh if ":" in line)}
+    except OSError:
+        return "unknown"
+    return (f"{info.get('model name')}, family {info.get('cpu family')} "
+            f"model {info.get('model')}")
 
 
 def _step(model, params, batch, scales=None, **kw):
@@ -267,10 +300,36 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("route", sorted(CHUNKS))
 def test_mha_with_the_sequence_on_two_ranks_matches_reference(runs, route):
     ref = runs["ref"]
-    for x in ("out", "dq", "dk", "dv"):
-        got = np.concatenate([r[route][x] for r in runs["attn"]], axis=1)
-        np.testing.assert_allclose(got, ref[f"a.{route}.{x}"], rtol=1e-5,
-                                   atol=1e-5, err_msg=f"{route} {x}")
+    got = {x: np.concatenate([r[route][x] for r in runs["attn"]], axis=1)
+           for x in ("out", "dq", "dk", "dv")}
+    why = _diagnosis(got, ref, route, runs["attn"])
+    for x, g in got.items():
+        np.testing.assert_allclose(g, ref[f"a.{route}.{x}"], rtol=1e-5,
+                                   atol=1e-5, err_msg=f"{route} {x}\n{why}")
+
+
+def _diagnosis(got, ref, route, ranks) -> str:
+    """What a failure of the test above needs to name its cause: for each
+    tensor the elements over the bar, the largest |port − reference| and
+    where it lies (a 16-key chunk boundary or not), each side's distance
+    from the float64 oracle, and the machine both sides ran on."""
+    exact = _attn64(_attn_inputs())
+    lines = []
+    for x, g in got.items():
+        want = ref[f"a.{route}.{x}"]
+        diff = np.abs(g - want)
+        over = ~(diff <= 1e-5 + 1e-5 * np.abs(want))
+        worst = np.unravel_index(np.nanargmax(diff), diff.shape)
+        lines.append(
+            f"  {x}: {int(over.sum())} of {diff.size} over the bar; max "
+            f"|port - ref| {np.nanmax(diff):.4e} at (b, s, h, d) "
+            f"{tuple(int(i) for i in worst)}; max |port - f64| "
+            f"{np.nanmax(np.abs(g - exact[x])):.4e}, |ref - f64| "
+            f"{np.nanmax(np.abs(want - exact[x])):.4e}")
+    envs = [r["env"] for r in ranks]
+    lines.append(f"  port ranks {envs}; reference CPUs {int(ref['a.cpus'])}"
+                 f"; host {_cpu_model()}")
+    return "\n".join(lines)
 
 
 def _hold_metrics(ranks, ref, name, rows):
