@@ -136,6 +136,33 @@ last line is printed.
    launching each of B1–B5 once per flat group and no flash kernel each
    step, and the wire bytes as phase 6 (``other`` now carries the K/V
    gathers and reduce-scatters); prints what phase 6 prints.
+8. Knob phase: the paper's ablation knobs on the 2 x 2 world (qwen3-0.6b
+   full width, --attn pallas, batch 8, phase 6's seed, batches and lr),
+   ``KNOB_STEPS`` steps of each in one spawn of four ranks, passed to
+   ``train_loop`` as ``ZeroConfig`` overrides: ``qgz_2hop=False`` (the
+   1-hop all-to-all: B1 and B5 at N = 4, no B3/B4), ``qgz_bits=8`` (B3/B4/
+   B5 at INT8), ``qwz_blocked=False`` (one scale a shard, plain PyTorch:
+   no B1/B2) and ``hpz_axes=("data", "model")`` (hpZ over the world).
+   Each run's gate passes on every rank with the reference projection's
+   MiB a rank a step (``KNOB_MIB``) to the byte; losses are finite; the
+   step-1 and step-2 losses hold phase 6's as the note at ``KNOBS`` says;
+   every rank's launches per step are what its config issues.
+9. Multi-pod phase: the 2 x 2 x 2 ("pod", "data", "model") world, eight
+   rank processes of qwen3-0.6b at full width on the one card, batch 8
+   (one row a rank), --attn pallas: ``MP_STEPS`` steps at the default
+   config (qgZ's inter hop over ("pod", "data"): B5 at N = 4), then
+   ``MP_HPZ_STEPS`` with ``hpz_axes=("data", "model")`` (one pod), in one
+   spawn.  The gate on every rank (``MP_MIB``, ``MP_HPZ_MIB``), finite
+   losses, the step-1 loss within ``MR_LOSS1_ATOL`` of phase 5's on the
+   same rows and the hpZ run's equal to the default's; prints each rank's
+   step times and peak, and rank 0's profiled step (host wall, device
+   busy share, gloo host time by label).
+
+The kernel phase also holds B1-B5 at the knobs' shapes and widths
+(``knob_kernel_phase``): the INT8 qgZ chain of a 2 x 2 rank at a layer
+group, B5 at N = 4 (the 2 x 2 x 2 inter hop), the 1-hop's B1 on (4, L)
+INT4 slices and its B5 over 4 contributions, and B5 with ``init`` (the
+quantized ring's dequantize-and-add), each bit-identical and timed.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
@@ -250,6 +277,38 @@ MR_SYNC_STEPS = 2
 SP_BATCH, SP_STEPS = 2, 3
 # its qgZ shapes: a layer group's shard at world 4 (15,731,712 / 4)
 MR_L = 3_932_928
+# the knob phase: the paper's ablation knobs (ZeroConfig overrides, as
+# make_policy keywords) at 2 x 2, KNOB_STEPS steps each in one spawn, each
+# held to the reference projection's MiB a rank a step (qwen3-0.6b at
+# prefetch 0).  Their step-1 losses: the three knobs that change only the
+# backward (qgZ's format and hops, hpZ's group) run the same forward as
+# phase 6, so their step-1 loss must equal phase 6's bit for bit; the
+# non-blocked qwZ gather changes the forward's weights, so its step-1 loss
+# is held to MR_REL of phase 6's (the reference's bar for one quantized
+# variant's loss against another's, checks.py:361), and every knob's
+# step 2 to MR_REL of phase 6's step 2.
+KNOB_STEPS = 2
+KNOBS = {"qgz_1hop": dict(qgz_2hop=False), "qgz_int8": dict(qgz_bits=8),
+         "qwz_nonblocked": dict(qwz_blocked=False),
+         "hpz_world": dict(hpz_axes=("data", "model"))}
+KNOB_MIB = {
+    "qgz_1hop": {"zero.qwz_gather": 546.025, "zero.hpz_gather": 716.833,
+                 "zero.qgz_reduce1hop": 277.213},
+    "qgz_int8": {"zero.qwz_gather": 546.025, "zero.hpz_gather": 716.833,
+                 "zero.qgz_reduce": 546.025},
+    "qwz_nonblocked": {"zero.qwz_gather": 537.625,
+                       "zero.hpz_gather": 716.833,
+                       "zero.qgz_reduce": 277.213},
+    "hpz_world": {"zero.qwz_gather": 546.025, "zero.hpz_gather": 1075.25,
+                  "zero.qgz_reduce": 277.213}}
+# the 2 x 2 x 2 ("pod", "data", "model") world: eight ranks on the one
+# card, one row each, MP_STEPS at the default config, then MP_HPZ_STEPS
+# with the secondary group widened to a pod; the MiB a rank a step of the
+# reference projection
+MP_MESH, MP_STEPS, MP_HPZ_STEPS = (2, 2, 2), 3, 2
+MP_MIB = {"zero.qwz_gather": 637.055, "zero.hpz_gather": 716.861,
+          "zero.qgz_reduce": 323.428}
+MP_HPZ_MIB = dict(MP_MIB, **{"zero.hpz_gather": 1075.292})
 # phase 5's telemetry-overhead reading: steps with telemetry on
 # alternating with as many with it off (printed, not gated: a wall-clock
 # bar would fail on noise)
@@ -791,6 +850,147 @@ def qgz_edge_holds(g) -> dict:
     return errs
 
 
+def knob_kernel_phase(flush: torch.Tensor) -> dict:
+    """B1-B5 at the shapes and bit widths the knobs and the 2 x 2 x 2
+    world give them, each bit-identical to its plain version and timed
+    (median of 15, L2 flushed) beside its bound: the INT8 qgZ chain of a
+    2 x 2 rank at a layer group (B3 on (2, 2, L) INT8, B4 and B5 at N =
+    2); B5 at N = 4, the 2 x 2 x 2 world's inter hop at a layer group;
+    the 1-hop at 2 x 2 (B1 on its (4, L) INT4 slices of the bf16
+    gradient, B5 over the 4 contributions: the reference's sum compiles
+    to B5's FMA chain); and B5 with ``init``, the quantized ring's
+    dequantize-and-add, at the edge shapes and a layer group.  Returns
+    {kernel: extra record keys}."""
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    c8, c4 = QuantConfig(8, 256), QuantConfig(4, 256)
+    out = {k: {} for k in ("quantize_blockwise", "quantize_reordered",
+                           "dequant_reduce_quant", "dequant_reduce")}
+    errs = {k: 0.0 for k in out}
+
+    def hold(name, key, shape, got, want, fn, plain, nbytes, ops):
+        errs[name] = max(errs[name], _same(key, shape, got, want))
+        ms = median_ms(fn, flush)
+        plain_ms = median_ms(plain, flush, n=5)
+        b = bound(nbytes, ops, F32_OPS_S)
+        print(f"{key} {shape}: bit-identical; kernel {ms:.4f} ms "
+              f"({100 * b[0] / ms:.1f}% of the bound), plain {plain_ms:.4f} "
+              f"ms, bound {b[0]:.4f} ms ({b[1]})", flush=True)
+        return ms, b[0]
+
+    def record(name, tag, ms_bound):
+        out[name][f"{tag}_ms"], out[name][f"{tag}_bound_ms"] = ms_bound
+
+    # the INT8 chain at the 2 x 2 world's layer group
+    y, x = MR_MESH
+    n, m = y * x * MR_L, y * MR_L
+    gr = (torch.randn(y, x, MR_L, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    p3 = qb.quantize_reordered(gr, c8)
+    record("quantize_reordered", "int8_2x2", hold(
+        "quantize_reordered", "B3 quantize_reordered INT8", (y, x, MR_L), p3,
+        ref.quantize_reordered_ref(gr, c8),
+        lambda: qb.quantize_reordered(gr, c8),
+        lambda: ref.quantize_reordered_ref(gr, c8),
+        2 * n + n + 4 * (n // 256), 5 * n))
+    pay, sc = p3[0].reshape(x, -1), p3[1].reshape(x, -1)
+    p4 = fq.dequant_reduce_quant(pay, sc, c8, c8)
+    record("dequant_reduce_quant", "int8_n2", hold(
+        "dequant_reduce_quant", "B4 dequant_reduce_quant INT8", (x, m), p4,
+        ref.dequant_reduce_quant_ref(pay, sc, c8, c8),
+        lambda: fq.dequant_reduce_quant(pay, sc, c8, c8),
+        lambda: ref.dequant_reduce_quant_ref(pay, sc, c8, c8),
+        x * (m + 4 * (m // 256)) + m + 4 * (m // 256), (2 * x + 6) * m))
+    pay5, sc5 = p4[0].reshape(y, -1), p4[1].reshape(y, -1)
+    record("dequant_reduce", "int8_n2", hold(
+        "dequant_reduce", "B5 dequant_reduce INT8", (y, MR_L),
+        (fq.dequant_reduce(pay5, sc5, c8),),
+        (ref.dequant_reduce_ref(pay5, sc5, c8),),
+        lambda: fq.dequant_reduce(pay5, sc5, c8),
+        lambda: ref.dequant_reduce_ref(pay5, sc5, c8),
+        y * (MR_L + 4 * (MR_L // 256)) + 4 * MR_L, (2 * y + 1) * MR_L))
+    # the same B5 on freshly quantized INT8 inputs of the same shape
+    pay5, sc5 = quant.quantize_blockwise(
+        torch.randn(y, MR_L, generator=g, device=dev) * 1e-3, c8)
+    record("dequant_reduce", "int8_n2_fresh", hold(
+        "dequant_reduce", "B5 dequant_reduce INT8, quantized inputs",
+        (y, MR_L), (fq.dequant_reduce(pay5, sc5, c8),),
+        (ref.dequant_reduce_ref(pay5, sc5, c8),),
+        lambda: fq.dequant_reduce(pay5, sc5, c8),
+        lambda: ref.dequant_reduce_ref(pay5, sc5, c8),
+        y * (MR_L + 4 * (MR_L // 256)) + 4 * MR_L, (2 * y + 1) * MR_L))
+    del gr, p3, pay, sc, p4, pay5, sc5
+    # B5 at N = 4: the 2 x 2 x 2 world's inter hop at a layer group
+    world = int(np.prod(MP_MESH))
+    L8 = Model(get_config("qwen3-0.6b"), ZeroConfig(), world=world,
+               device="cpu").param_shapes()["blocks"][1] // world
+    N = world // MP_MESH[-1]
+    pay, sc = quant.quantize_blockwise(
+        torch.randn(N, L8, generator=g, device=dev) * 1e-3, c4)
+    record("dequant_reduce", "n4_2x2x2", hold(
+        "dequant_reduce", "B5 dequant_reduce N=4", (N, L8),
+        (fq.dequant_reduce(pay, sc, c4),), (ref.dequant_reduce_ref(
+            pay, sc, c4),),
+        lambda: fq.dequant_reduce(pay, sc, c4),
+        lambda: ref.dequant_reduce_ref(pay, sc, c4),
+        N * (L8 // 2 + 4 * (L8 // 256)) + 4 * L8, (2 * N + 1) * L8))
+    del pay, sc
+    # the 1-hop at 2 x 2: B1 on the (W, L) slices, B5 over W contributions
+    W = y * x
+    gr = (torch.randn(W, MR_L, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    p1 = qb.quantize(gr, c4)
+    record("quantize_blockwise", "onehop_4xL", hold(
+        "quantize_blockwise", "B1 quantize 1-hop bf16->int4", (W, MR_L), p1,
+        quant.quantize_blockwise(gr, c4), lambda: qb.quantize(gr, c4),
+        lambda: quant.quantize_blockwise(gr, c4),
+        2 * W * MR_L + W * MR_L // 2 + 4 * (W * MR_L // 256),
+        5 * W * MR_L))
+    pay, sc = p1
+    record("dequant_reduce", "onehop_n4", hold(
+        "dequant_reduce", "B5 dequant_reduce 1-hop N=4", (W, MR_L),
+        (fq.dequant_reduce(pay, sc, c4),), (ref.dequant_reduce_ref(
+            pay, sc, c4),),
+        lambda: fq.dequant_reduce(pay, sc, c4),
+        lambda: ref.dequant_reduce_ref(pay, sc, c4),
+        W * (MR_L // 2 + 4 * (MR_L // 256)) + 4 * MR_L,
+        (2 * W + 1) * MR_L))
+    del gr, p1, pay, sc
+    # B5 with init (the ring's hop: one contribution added to an fp32
+    # slice in one FMA), every block size, INT4 and INT8, edge rows
+    n_init = 0
+    for block in qb._QUANT_BLOCKS:
+        for nb, bits, N in itertools.product((1, 3, 4097), (4, 8), (1, 3)):
+            cfg = QuantConfig(bits, block)
+            C = nb * block
+            p, sc = quant.quantize_blockwise(
+                edge_rows(g, N, C, block, bits, torch.float32), cfg)
+            init = torch.randn(C, generator=g, device=dev)
+            errs["dequant_reduce"] = max(errs["dequant_reduce"], _same(
+                "B5 dequant_reduce init", (N, C, block, bits),
+                (fq.dequant_reduce(p, sc, cfg, init),),
+                (ref.dequant_reduce_ref(p, sc, cfg, init),)))
+            n_init += 1
+    pay, sc = quant.quantize_blockwise(
+        torch.randn(1, MR_L, generator=g, device=dev) * 1e-3, c4)
+    init = torch.randn(MR_L, generator=g, device=dev) * 1e-3
+    record("dequant_reduce", "ring_hop", hold(
+        "dequant_reduce", "B5 dequant_reduce init (ring hop)", (1, MR_L),
+        (fq.dequant_reduce(pay, sc, c4, init),),
+        (ref.dequant_reduce_ref(pay, sc, c4, init),),
+        lambda: fq.dequant_reduce(pay, sc, c4, init),
+        lambda: ref.dequant_reduce_ref(pay, sc, c4, init),
+        MR_L // 2 + 4 * (MR_L // 256) + 8 * MR_L, 3 * MR_L))
+    print(f"B5 with init: {n_init} edge launches bit-identical (1, 3 and "
+          f"4097 blocks, blocks {qb._QUANT_BLOCKS}, INT4/INT8, N 1 and 3)",
+          flush=True)
+    for k, e in errs.items():
+        out[k]["knob_max_abs_err"] = e
+    torch.cuda.synchronize()
+    return out
+
+
 # ------------------------------------------------------------------ flash
 
 def _flash_inputs(g, shape, dtype, Sq=None):
@@ -1225,9 +1425,21 @@ def step_launches(cfg, model, attn: str) -> dict:
     """Kernel launches one training step issues: each of B1-B5 once per
     flat group (embedding, layers, head norm, unembedding chunks), none of
     B8, and under --attn pallas B6 twice per layer (the forward and the
-    layer's recompute) and B7 once."""
+    layer's recompute) and B7 once.  The knobs move B1-B5: non-blocked
+    qwZ quantizes in plain PyTorch (no B1, no B2, as the reference
+    computes it outside its kernels); the 1-hop qgZ runs B1 and B5 once
+    per group and no B3 or B4."""
     groups = 1 + cfg.n_layers + 1 + model.unemb_chunks
+    z = model.zcfg
+    qwz = int(z.qwz and z.qwz_blocked)
+    two_hop = int(z.qgz and z.qgz_2hop)
     want = {k: groups for k in platform.LAUNCHES}
+    want["quantize_blockwise"] = groups * (qwz + int(z.qgz and not
+                                                     z.qgz_2hop))
+    want["dequantize_blockwise"] = groups * qwz
+    want["quantize_reordered"] = want["dequant_reduce_quant"] = \
+        groups * two_hop
+    want["dequant_reduce"] = groups * int(z.qgz)
     want["dequant_matmul"] = 0
     flash = attn == "pallas"
     want["flash_fwd"] = 2 * cfg.n_layers if flash else 0
@@ -1407,25 +1619,36 @@ def overhead_reading(tag: str, fn, params, opt, batch) -> None:
           f"gated)", flush=True)
 
 
+def _run_spec(run) -> dict:
+    """A multi-rank run: an argv list, or {"argv", "zero": ZeroConfig
+    overrides (the paper's knobs), "profile": whether rank 0 profiles a
+    step after the run (default True)}."""
+    return run if isinstance(run, dict) else {"argv": run}
+
+
 def multirank_rank(rank: int, world: int, runs: list) -> list:
     """One rank of a multi-rank phase (a spawned process on device 0): for
-    each argv of ``runs`` in turn, the launcher's loop, then one profiled
-    step on rank 0 (the other ranks make the same calls).  Returns what
-    the host checks, one dict per run."""
+    each run of ``runs`` in turn (:func:`_run_spec`), the launcher's loop,
+    then one profiled step on rank 0 (the other ranks make the same
+    calls).  Returns what the host checks, one dict per run."""
     outs = []
-    for argv in runs:
-        args = train_launch.parser().parse_args(argv)
+    for run in runs:
+        spec = _run_spec(run)
+        args = train_launch.parser().parse_args(spec["argv"])
         torch.cuda.reset_peak_memory_stats()
-        res = train_launch.train_loop(args)
+        res = train_launch.train_loop(args, overrides=spec.get("zero"))
         built = res["built"]
         z, rs = built.model.zcfg, built.step.run_spec
         batch = train_launch.device_batch(built.arch, built.lm, args.steps,
                                           args.batch, 1, built.model.device)
-        prof = profile_step(
-            lambda: built.step.fn(res["params"], res["opt"], batch),
-            f"multi-rank train step, rank {rank} of {world}, batch "
-            f"{args.batch}, sequence over {rs.seq_axes}, prefetch "
-            f"{z.prefetch}", show=rank == 0)
+        prof = None
+        if spec.get("profile", True):
+            prof = profile_step(
+                lambda: built.step.fn(res["params"], res["opt"], batch),
+                f"multi-rank train step, rank {rank} of {world}, mesh "
+                f"{args.mesh}, batch {args.batch}, sequence over "
+                f"{rs.seq_axes}, prefetch {z.prefetch}, overrides "
+                f"{spec.get('zero') or {}}", show=rank == 0)
         # a sharded sequence keeps the flash kernels out (mha's rule)
         per_step = step_launches(built.arch, built.model,
                                  "xla" if rs.seq_axes else args.attn)
@@ -1443,40 +1666,45 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
     return outs
 
 
-def _mr_argv(batch: int, steps: int, *extra) -> list:
+def _mr_argv(batch: int, steps: int, *extra, mesh=MR_MESH) -> list:
     """A multi-rank run's argv, with the launcher's telemetry and its
     strict gate on (``--metrics-dir`` a temporary directory that
     ``_mr_spawn`` removes)."""
-    y, x = MR_MESH
     return ["--arch", "qwen3-0.6b", "--batch", str(batch), "--seq",
             str(TRAIN_SEQ), "--steps", str(steps), "--lr", str(TRAIN_LR),
             "--lr-schedule", "constant", "--device", "cuda", "--attn",
-            "pallas", "--mesh", f"{y}x{x}", "--metrics-dir",
+            "pallas", "--mesh", "x".join(map(str, mesh)), "--metrics-dir",
             tempfile.mkdtemp(prefix="chip_smoke_obs_"), "--obs-gate",
             *extra]
 
 
-def _mr_spawn(runs: list, tag: str) -> list:
-    """Spawn the 2 x 2 world on ``runs``; check every rank's launches per
-    step and that the ranks agree on the losses; returns, per run, every
-    rank's result."""
+def _metrics_dir(run) -> str:
+    argv = _run_spec(run)["argv"]
+    return argv[argv.index("--metrics-dir") + 1]
+
+
+def _mr_spawn(runs: list, tag: str, mesh=MR_MESH) -> list:
+    """Spawn the ``mesh`` world (default 2 x 2) on ``runs``; check every
+    rank's launches per step and that the ranks agree on the losses;
+    returns, per run, every rank's result."""
     from repro_torch.launch import mesh as mesh_lib
-    y, x = MR_MESH
+    world = int(np.prod(mesh))
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
-        ranks = mesh_lib.spawn(multirank_rank, y * x, runs, device="cuda",
+        ranks = mesh_lib.spawn(multirank_rank, world, runs, device="cuda",
                                timeout=MR_TIMEOUT_S)
-        for argv in runs:
-            d = Path(argv[argv.index("--metrics-dir") + 1])
+        for run in runs:
+            d = Path(_metrics_dir(run))
             if not (d / "BENCH_runtime.json").exists():
                 fail(f"{tag}: rank 0 wrote no BENCH_runtime.json in {d}")
     finally:
-        for argv in runs:
-            shutil.rmtree(argv[argv.index("--metrics-dir") + 1])
+        for run in runs:
+            shutil.rmtree(_metrics_dir(run))
     print(f"{tag}: spawn to exit {time.perf_counter() - t0:.1f} s",
           flush=True)
+    y, x = world // mesh[-1], mesh[-1]
     lay = ZeroConfig().align(y * x) // (y * x)
     per_run = [[r[i] for r in ranks] for i in range(len(runs))]
     for i, outs in enumerate(per_run):
@@ -1494,12 +1722,15 @@ def _mr_spawn(runs: list, tag: str) -> list:
     return per_run
 
 
-def wire_report(tag: str, outs: list) -> None:
+def wire_report(tag: str, outs: list, want_mib: dict = None) -> None:
     """The launcher's comm gate as every rank reports it (``--obs-gate``:
     each step's wire bytes per label within 1 % of the port's projection
     for this world, ``other`` reported and not projected, and the ranks
     agreeing; a miss has already failed the rank): checked once more
-    here, then printed in MiB a rank a step, measured / projected."""
+    here, then printed in MiB a rank a step, measured / projected.  With
+    ``want_mib`` ({label: MiB, 3 decimals}, the reference projection's)
+    every rank's bytes must equal the projection to the byte and the
+    projection must read those MiB."""
     for r, out in enumerate(outs):
         if not (out["gate"]["ok"] and out["agree"]):
             fail(f"{tag} rank {r}: comm gate {out['gate']}, ranks agree "
@@ -1509,6 +1740,11 @@ def wire_report(tag: str, outs: list) -> None:
                  if k != "other"}
     exact = all(s.get(k, 0) == b for out in outs for s in out["comm"]
                 for k, b in projected.items())
+    if want_mib is not None:
+        mib = {k: round(b / 2 ** 20, 3) for k, b in projected.items()}
+        if not exact or mib != want_mib:
+            fail(f"{tag}: projection {mib} MiB (want {want_mib}), every "
+                 f"rank equal to it to the byte: {exact}")
     c = outs[0]["comm"][0]
     print(f"{tag}: wire MiB a rank a step, measured / projected: " + ", ".join(
         f"{k} {c.get(k, 0) / 2 ** 20:.3f} / {b / 2 ** 20:.3f}"
@@ -1533,6 +1769,9 @@ def _mr_report(tag: str, outs: list, rows: int) -> dict:
               f"{out['peak'] / 2 ** 30:.2f} GiB (max_memory_allocated); "
               f"launches per step {out['want']} x {n} steps", flush=True)
     prof = outs[0]["profile"]
+    if prof is None:
+        return {k: sum(sum(c[k] for c in out["launches"]) for out in outs)
+                for k in platform.LAUNCHES}
     print(f"{tag}: rank 0's profiled step: host wall {prof['wall']:.1f} ms, "
           f"its device busy {prof['busy']:.1f} ms "
           f"({100 * prof['busy'] / prof['wall']:.1f}%), gloo collectives "
@@ -1603,7 +1842,7 @@ def multirank_phase(world1_losses: list) -> tuple:
           f"{v['grad_reduce'] / 2 ** 20:.3f}): a {v['reduction_factor']:.3f}x "
           f"cut", flush=True)
     return (_mr_report(f"{tag} prefetch 1", ring, TRAIN_BATCH),
-            _mr_report(f"{tag} prefetch 0", sync, TRAIN_BATCH))
+            _mr_report(f"{tag} prefetch 0", sync, TRAIN_BATCH), losses)
 
 
 def seq_parallel_phase() -> dict:
@@ -1648,6 +1887,93 @@ def seq_parallel_phase() -> dict:
         fail(f"{tag}: the loss did not fall over the run {losses}")
     wire_report(tag, outs)
     return _mr_report(tag, outs, SP_BATCH)
+
+
+def knob_phase(losses_2x2: list) -> dict:
+    """The paper's ablation knobs on the 2 x 2 world: qwen3-0.6b at full
+    width, --attn pallas, batch 8, phase 6's seed, batches and lr, in one
+    spawn of four ranks, KNOB_STEPS steps of each of KNOBS (ZeroConfig
+    overrides through ``train_loop(overrides=)``, as the reference's
+    convergence benchmark passes them to make_policy).  Each run's
+    launcher gate must pass on every rank with the reference projection's
+    MiB (KNOB_MIB) to the byte, its losses be finite, and its step-1 and
+    step-2 losses hold phase 6's (``losses_2x2``) as the KNOBS note says.
+    Returns {path: launches summed over the ranks}."""
+    y, x = MR_MESH
+    tag = f"train {y}x{x} knobs"
+    runs = [{"argv": _mr_argv(TRAIN_BATCH, KNOB_STEPS), "zero": over,
+             "profile": False} for over in KNOBS.values()]
+    per_run = _mr_spawn(runs, tag)
+    out = {}
+    for (name, over), outs in zip(KNOBS.items(), per_run):
+        losses = outs[0]["losses"]
+        t = f"{tag} {name} {over}"
+        grad_side = name != "qwz_nonblocked"
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses_2x2)]
+        print(f"{t}: losses {losses!r} vs phase 6's {losses_2x2[:KNOB_STEPS]!r}"
+              f": step 1 {'bit-identical' if losses[0] == losses_2x2[0] else 'differs'}"
+              f" (bar: {'bit-identical' if grad_side else f'{MR_REL} relative'}"
+              f"), relative {[f'{v:.2e}' for v in rel]} (bar {MR_REL})",
+              flush=True)
+        if not all(np.isfinite(losses)):
+            fail(f"{t}: non-finite loss {losses}")
+        if grad_side and losses[0] != losses_2x2[0]:
+            fail(f"{t}: step-1 loss {losses[0]!r} is not phase 6's "
+                 f"{losses_2x2[0]!r}: the knob moved the forward")
+        if not max(rel) < MR_REL:
+            fail(f"{t}: losses beyond {MR_REL} of phase 6's")
+        wire_report(t, outs, KNOB_MIB[name])
+        out[f"train_{y}x{x}_{name}"] = _mr_report(t, outs, TRAIN_BATCH)
+    return out
+
+
+def multipod_phase(world1_losses: list) -> tuple:
+    """The 2 x 2 x 2 ("pod", "data", "model") world: eight rank processes
+    of qwen3-0.6b at full width sharing the card over gloo, --attn
+    pallas, batch 8 (one row a rank), phase 5's seed, batches and lr:
+    MP_STEPS steps at the default config (hpZ on the intra pair, qgZ's
+    inter hop over ("pod", "data"): B5 at N = 4), then MP_HPZ_STEPS with
+    ``hpz_axes=("data", "model")`` (the secondary group one pod), in one
+    spawn.  The gate on every rank (MP_MIB, MP_HPZ_MIB), finite losses,
+    the step-1 loss within MR_LOSS1_ATOL of world 1's on the same rows
+    (``world1_losses``) and the hpZ run's equal to the default's bit for
+    bit (the same forward); prints each rank's steps and peak and rank 0's
+    profiled step (wall, busy share, gloo time by label).  Returns the
+    launches summed over the ranks of both runs."""
+    tag = "train " + "x".join(map(str, MP_MESH))
+    base, hpz = _mr_spawn(
+        [_mr_argv(TRAIN_BATCH, MP_STEPS, mesh=MP_MESH),
+         {"argv": _mr_argv(TRAIN_BATCH, MP_HPZ_STEPS, mesh=MP_MESH),
+          "zero": {"hpz_axes": ("data", "model")}, "profile": False}],
+        tag, mesh=MP_MESH)
+    losses, hl = base[0]["losses"], hpz[0]["losses"]
+    d1 = abs(losses[0] - world1_losses[0])
+    print(f"{tag}: 8 ranks (pod 2 x data 2 x model 2) sharing one card over "
+          f"gloo, qwen3-0.6b full width, full ZeRO++ (hpZ on the model "
+          f"pair, qgZ's inter hop over (pod, data): B5 at N = 4), --attn "
+          f"pallas, global batch {TRAIN_BATCH} x {TRAIN_SEQ} (1 row a "
+          f"rank); losses {[round(v, 4) for v in losses]}, step 1 vs world "
+          f"1 {world1_losses[0]:.6f}: |diff| {d1:.2e} (bar "
+          f"{MR_LOSS1_ATOL}); hpz_axes=('data', 'model') losses {hl!r}",
+          flush=True)
+    if not all(np.isfinite(losses + hl)):
+        fail(f"{tag}: non-finite loss {losses} {hl}")
+    if not d1 <= MR_LOSS1_ATOL:
+        fail(f"{tag}: step-1 loss {losses[0]} vs world 1's "
+             f"{world1_losses[0]}")
+    if hl[0] != losses[0]:
+        fail(f"{tag}: the pod-wide hpZ run's step-1 loss {hl[0]!r} is not "
+             f"the default's {losses[0]!r}")
+    wire_report(tag, base, MP_MIB)
+    wire_report(f"{tag} hpz_axes=('data', 'model')", hpz, MP_HPZ_MIB)
+    report = _mr_report(tag, base, TRAIN_BATCH)
+    labels = base[0]["profile"]["labels"]
+    print(f"{tag}: rank 0's gloo host time by label (issue + wait, ms): "
+          + ", ".join(f"{k} {labels.get(k, 0.0) + labels.get(k + '.wait', 0.0):.1f}"
+                      for k in sorted({k.removesuffix('.wait')
+                                       for k in labels})), flush=True)
+    return report, _mr_report(f"{tag} hpz_axes=('data', 'model')", hpz,
+                              TRAIN_BATCH)
 
 
 def profile_decode(decode, params, caches, positions) -> None:
@@ -1801,6 +2127,8 @@ def main() -> None:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = kernel_phase(flush)
     rec.update(qgz_kernel_phase(flush))
+    for name, extra in knob_kernel_phase(flush).items():
+        rec[name].setdefault("extra", {}).update(extra)
     rec["quantize_blockwise"]["max_abs_err"] = max(
         rec["quantize_blockwise"]["max_abs_err"],
         rec["quantize_blockwise_f32"]["max_abs_err"])
@@ -1821,22 +2149,35 @@ def main() -> None:
              f"{ROUTE_LOSS_ATOL}")
     # the same run on four ranks of a 2 x 2 world, at the default ring
     # depth and at the synchronous schedule
-    by_path["train_2x2"], by_path["train_2x2_sync"] = multirank_phase(
-        losses_pallas)
-    # this slice's path: the 2 x 2 world with the sequence sharded
+    by_path["train_2x2"], by_path["train_2x2_sync"], losses_2x2 = \
+        multirank_phase(losses_pallas)
+    # the 2 x 2 world with the sequence sharded
     by_path["train_2x2_seq"] = seq_parallel_phase()
+    # this slice's paths: the paper's knobs at 2 x 2, and the 2 x 2 x 2
+    # world
+    by_path.update(knob_phase(losses_2x2))
+    by_path["train_2x2x2"], by_path["train_2x2x2_hpz"] = multipod_phase(
+        losses_pallas)
 
     # each kernel's path(s): it must have launched in every one of them
     quant_train = ("train", "train_xla", "train_2x2", "train_2x2_sync",
-                   "train_2x2_seq")
-    paths = {"quantize_blockwise": ("serve",) + quant_train,
-             "dequantize_blockwise": ("serve",) + quant_train,
-             "quantize_reordered": quant_train,
-             "dequant_reduce_quant": quant_train,
-             "dequant_reduce": quant_train,
+                   "train_2x2_seq", "train_2x2_qgz_int8",
+                   "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
+    flash = ("train", "train_2x2", "train_2x2_sync") + tuple(
+        f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
+                                                "train_2x2x2_hpz")
+    paths = {"quantize_blockwise": ("serve", "train_2x2_qgz_1hop")
+             + quant_train,
+             "dequantize_blockwise": ("serve", "train_2x2_qgz_1hop")
+             + quant_train,
+             "quantize_reordered": quant_train + ("train_2x2_qwz_nonblocked",),
+             "dequant_reduce_quant": quant_train
+             + ("train_2x2_qwz_nonblocked",),
+             "dequant_reduce": quant_train + tuple(
+                 f"train_2x2_{k}" for k in KNOB_MIB),
              "dequant_matmul": ("serve",),
-             "flash_fwd": ("train", "train_2x2", "train_2x2_sync"),
-             "flash_bwd": ("train", "train_2x2", "train_2x2_sync")}
+             "flash_fwd": flash,
+             "flash_bwd": flash}
     for name, ps in paths.items():
         for pth in ps:
             if by_path[pth][name] <= 0:

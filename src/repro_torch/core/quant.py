@@ -7,6 +7,10 @@ int8 byte (low nibble from the even element).
 
 These are the plain PyTorch definitions; the CUDA kernels in
 ``repro_torch.kernels`` compute the same bits and are held against them.
+:func:`quantize_global` / :func:`dequantize_global` are the paper's
+non-blocked scheme (one scale for the whole tensor, Fig. 2), which the
+reference computes outside any kernel and the port in plain PyTorch on
+either device: the qwZ ablation ``ZeroConfig(qwz_blocked=False)``.
 
 Op order, kept exactly: fp32 upcast, absmax over the block,
 ``scale = absmax * fl(1/qmax)``, ``inv = 1/scale`` (0 where scale is 0),
@@ -118,3 +122,33 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
     hi = p >> 4
     out = torch.stack([lo, hi], dim=-1)
     return out.reshape(*p.shape[:-1], p.shape[-1] * 2)
+
+
+def quantize_global(x: torch.Tensor, bits: int = 8
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Non-blocked (single-scale) quantization, the paper's Fig. 2
+    baseline: (payload int8, scale f32 of shape ()).  The op order is the
+    blockwise one over the whole tensor; the scale is ``absmax *
+    fl(1/qmax)`` in fp32 whatever ``x``'s dtype, which is what the
+    reference's ``quantize_global`` computes under ``jit`` (its bf16
+    ``absmax / qmax`` keeps fp32 precision there)."""
+    qmax = _QMAX[bits]
+    xf = x.to(torch.float32)
+    rq = torch.tensor(1.0 / qmax, dtype=torch.float32, device=x.device)
+    scale = xf.abs().amax() * rq
+    pos = scale > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, scale, 1.0), 0.0)
+    q = torch.round(xf * inv).clamp(-qmax, qmax).to(torch.int8)
+    if bits == 4:
+        q = pack_int4(q)
+    return q, scale
+
+
+def dequantize_global(q: torch.Tensor, scale: torch.Tensor, bits: int = 8,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """Inverse of :func:`quantize_global`: ``float(q) * scale`` (``scale``
+    broadcasts: one per row of a stack of shards), cast to ``out_dtype``."""
+    if bits == 4:
+        q = unpack_int4(q)
+    return (q.to(torch.float32) * scale).to(out_dtype)

@@ -7,7 +7,7 @@ the serving layer loop ``zero_scan_inference`` of the reference's
 ``core/schedule.py``, with its depth-k prefetch ring (:func:`ring`), and
 the communication accounting (:func:`comm_volume_per_step`, the paper's
 Table 1; :func:`step_wire_by_label`, the per-rank bytes that the
-collectives count).
+collectives count), with every knob of the reference's ``ZeroConfig``.
 
 ``zero_apply`` wraps each layer group's apply function ``f(W_full, *args)``
 as a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
@@ -15,12 +15,14 @@ as a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
   forward  : W = fwd-gather(primary shard)        [qwZ INT8 if enabled]
              out = f(W, *args), without autograd
              saved = (secondary shard of W if hpZ else primary, args)
-  backward : W' = hpZ intra-node gather of the secondary shard
+  backward : W' = hpZ gather of the secondary shard over the secondary
+                  group (intra-node unless ``hpz_axes`` widens it)
                   (or the forward gather again when hpZ is off)
              dW, dargs = autograd of f recomputed on W' [activation
                   checkpointing: f runs twice]
              dprimary = qgZ INT4 2-hop all-to-all reduce-scatter
-                  (or the bf16 reduce-scatter baseline)
+                  (``qgz_bits``, ``qgz_2hop``; or the bf16 reduce-scatter
+                  baseline), cast to ``grad_dtype``
 
 The secondary copy is a slice of this iteration's forward gather, so hpZ's
 temporal consistency (§3.2.1) holds by construction.  The layer loops run
@@ -55,36 +57,52 @@ class ZeroConfig:
     the gathers and all-to-alls are identities but every quantize, reduce
     and dequantize still runs — exactly the reference on a one-device
     mesh.  The axis names pick the branch (``inter_axes`` non-empty: qgZ
-    takes its two hops); the process groups carry the traffic: ``group``
-    the whole ZeRO world, ``intra_group`` the fast tier (``intra_axis``:
-    hpZ's secondary group and qgZ's first hop), ``inter_group`` the slow
-    tier (qgZ's second hop).  None is torch.distributed's default group,
-    or a world of 1 when no process group is initialised; at world > 1
-    the caller passes the tiers (``collectives.tier_groups``), and
-    :func:`grad_reduce` checks that they tile the world.
+    takes its two hops) and size the wire accounting; the process groups
+    carry the traffic: ``group`` the whole ZeRO world, ``intra_group`` the
+    fast tier (``intra_axis``: qgZ's first hop), ``inter_group`` the
+    slower tiers (``inter_axes``, one axis or several: qgZ's second hop),
+    ``secondary_group`` hpZ's secondary group (``secondary_axes``; None:
+    the intra group).  None is torch.distributed's default group, or a
+    world of 1 when no process group is initialised; at world > 1 the
+    caller passes the groups (``launch.mesh.Mesh.group``), and
+    :func:`grad_reduce` checks that the tiers tile the world.
+
+    The paper's ablation knobs are the reference's: ``qwz_blocked=False``
+    (one scale a shard, Fig. 2 / Fig. 14), ``hpz_axes`` (a wider
+    secondary group, e.g. ``("data", "model")``: one pod), ``qgz_bits``
+    (INT4 or INT8), ``qgz_2hop=False`` (the 1-hop all-to-all of §3.3.2)
+    and ``grad_dtype`` (the optimizer-side gradients).
     """
 
     # qwZ (§3.1)
     qwz: bool = True
     qwz_bits: int = 8
     qwz_block: int = 256
+    qwz_blocked: bool = True   # False: the paper's non-blocked ablation
     # serving head: feed the gathered INT8 payload straight to the fused
     # dequant-GEMM where the layout allows (see qwz_gemm_eligible)
     qwz_gemm: bool = True
-    # hpZ (§3.2): the secondary partition lives on the intra group
+    # hpZ (§3.2): the secondary partition lives on the intra group, or on
+    # the group of ``hpz_axes`` where given (the paper's "multiple compute
+    # nodes" secondary group)
     hpz: bool = True
+    hpz_axes: Optional[Tuple[str, ...]] = None
     # qgZ (§3.3): INT4 blockwise gradients over the 2-hop all-to-all
     qgz: bool = True
+    qgz_bits: int = 4
     qgz_block: int = 256
+    qgz_2hop: bool = True      # False: the 1-hop all-to-all (§3.3.2)
     # ZeRO world
     dp_axes: Tuple[str, ...] = ("data", "model")
     intra_axis: str = "model"
     group: Any = None
     intra_group: Any = None
     inter_group: Any = None
+    secondary_group: Any = None    # None: the intra group
     # numerics
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    grad_dtype: torch.dtype = torch.float32    # optimizer-side gradients
     reduce_dtype: torch.dtype = torch.bfloat16  # baseline reduce wire dtype
     # layer-loop schedule: 0 = synchronous (each collective on the
     # critical path); k >= 1 = a ring of k gathers in flight, layer i+k's
@@ -116,12 +134,23 @@ class ZeroConfig:
         return tuple(a for a in self.dp_axes if a != self.intra_axis)
 
     @property
+    def secondary_axes(self) -> Tuple[str, ...]:
+        """hpZ's secondary-partition axes."""
+        return self.hpz_axes if self.hpz_axes else (self.intra_axis,)
+
+    @property
+    def hpz_group(self) -> Any:
+        """The process group of ``secondary_axes``."""
+        return (self.secondary_group if self.secondary_group is not None
+                else self.intra_group)
+
+    @property
     def qwz_cfg(self) -> QuantConfig:
         return QuantConfig(bits=self.qwz_bits, block_size=self.qwz_block)
 
     @property
     def qgz_cfg(self) -> QuantConfig:
-        return QuantConfig(bits=4, block_size=self.qgz_block)
+        return QuantConfig(bits=self.qgz_bits, block_size=self.qgz_block)
 
     def align(self, world: int) -> int:
         return alignment(world, self.qwz_block, self.qgz_block,
@@ -150,7 +179,8 @@ def fwd_gather_hops(primary: torch.Tensor, z: ZeroConfig) -> cl.Hops:
         return primary.to(z.compute_dtype)
     if z.qwz:
         return (yield from cl.qwz_all_gather_hops(
-            primary, z.group, z.qwz_cfg, out_dtype=z.compute_dtype))
+            primary, z.group, z.qwz_cfg, out_dtype=z.compute_dtype,
+            blocked=z.qwz_blocked))
     return (yield from cl.baseline_all_gather_hops(
         primary.to(z.param_dtype), z.group, out_dtype=z.compute_dtype))
 
@@ -161,10 +191,11 @@ def fwd_gather(primary: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
 
 def bwd_gather_hops(res: torch.Tensor, z: ZeroConfig) -> cl.Hops:
     """The backward pass's re-gather of a layer's full weights from what
-    its forward saved (:func:`saved_for_bwd`): hpZ's intra-group gather of
-    the secondary shard, or the forward gather of the primary again."""
+    its forward saved (:func:`saved_for_bwd`): hpZ's gather of the
+    secondary shard over the secondary group, or the forward gather of the
+    primary again."""
     if z.distributed and z.hpz:
-        return cl.hpz_all_gather_hops(res, z.intra_group)  # fast tier only
+        return cl.hpz_all_gather_hops(res, z.hpz_group)  # no slow tier
     return fwd_gather_hops(res, z)
 
 
@@ -174,7 +205,7 @@ def saved_for_bwd(W: torch.Tensor, primary: torch.Tensor,
     rank's secondary shard of the gathered weights under hpZ (a slice, no
     communication), else the primary shard."""
     if z.distributed and z.hpz:
-        return cl.slice_secondary(W, z.intra_group)
+        return cl.slice_secondary(W, z.hpz_group)
     return primary
 
 
@@ -202,10 +233,12 @@ def fwd_gather_quant(primary: torch.Tensor, z: ZeroConfig
 def qwz_gemm_eligible(z: ZeroConfig, rows: int, d: int) -> bool:
     """Can a (rows, d) weight chunk at flat offset 0 feed the fused INT8
     dequant-GEMM straight from its gathered qwZ payload?  Needs INT8 qwZ
-    and a scale layout that maps onto per-row groups: each row holds whole
-    blocks (d % block == 0) or each block holds whole rows (block % d ==
-    0, rows % (block/d) == 0: the row's scale is a broadcast)."""
-    if not (z.distributed and z.qwz and z.qwz_gemm and z.qwz_bits == 8):
+    blocked qwZ and a scale layout that maps onto per-row groups: each row
+    holds whole blocks (d % block == 0) or each block holds whole rows
+    (block % d == 0, rows % (block/d) == 0: the row's scale is a
+    broadcast)."""
+    if not (z.distributed and z.qwz and z.qwz_blocked and z.qwz_gemm
+            and z.qwz_bits == 8):
         return False
     b = z.qwz_block
     if (rows * d) % b:
@@ -215,11 +248,16 @@ def qwz_gemm_eligible(z: ZeroConfig, rows: int, d: int) -> bool:
 
 def grad_reduce_hops(dW: torch.Tensor, z: ZeroConfig) -> cl.Hops:
     """Gradient reduce-scatter over the whole ZeRO world (sums, not
-    means), returned in float32 for the optimizer.  qgZ takes two hops
-    (one on a single tier), the baseline one."""
+    means), returned in ``grad_dtype`` for the optimizer.  qgZ takes two
+    hops (one on a single tier; one with ``qgz_2hop=False``, the flat
+    all-to-all), the baseline one."""
     if not z.distributed:
         yield
-        return dW.to(torch.float32)
+        return dW.to(z.grad_dtype)
+    if z.qgz and not z.qgz_2hop:
+        red = yield from cl.qgz_reduce_scatter_1hop_hops(dW, z.group,
+                                                         z.qgz_cfg)
+        return red.to(z.grad_dtype)
     if z.qgz:
         two_tier = bool(z.inter_axes)
         tiers = cl.world_size(z.intra_group) * (
@@ -227,11 +265,12 @@ def grad_reduce_hops(dW: torch.Tensor, z: ZeroConfig) -> cl.Hops:
         if tiers != cl.world_size(z.group):
             raise ValueError(f"intra x inter groups hold {tiers} ranks, the "
                              f"ZeRO world {cl.world_size(z.group)}")
-        return (yield from cl.qgz_reduce_scatter_hops(
-            dW, z.intra_group, z.inter_group, z.qgz_cfg, two_tier=two_tier))
+        red = yield from cl.qgz_reduce_scatter_hops(
+            dW, z.intra_group, z.inter_group, z.qgz_cfg, two_tier=two_tier)
+        return red.to(z.grad_dtype)
     red = yield from cl.baseline_reduce_scatter_hops(dW.to(z.reduce_dtype),
                                                      z.group)
-    return red.to(torch.float32)
+    return red.to(z.grad_dtype)
 
 
 def grad_reduce(dW: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
@@ -355,12 +394,16 @@ def comm_volume_per_step(n_params: int, z: ZeroConfig,
 # ``core/collectives.py`` counts them with (all-gather out − in,
 # reduce-scatter in − out, all-to-all in·(g−1)/g), fp32 scales included:
 # qwZ gathers them beside its payload, qgZ packs them into its message.
-# The labels are the ones the collectives count under.  The knobs are the
-# port's: blocked qwZ and 2-hop qgZ only (the reference's non-blocked qwZ
-# and 1-hop qgZ, with the zero.qgz_reduce1hop label, come with their
-# collectives).
+# The labels are the ones the collectives count under; every knob of the
+# reference's is here (non-blocked qwZ: one fp32 scale a shard; hpZ over
+# ``secondary_axes``; qgZ at ``qgz_bits``, 1-hop under its own label),
+# and every axis of the mesh: ``sizes`` may hold ("data", "model") or
+# ("pod", "data", "model").  These are bytes a rank, summed over tiers:
+# the 1-hop's total equals the 2-hop's at 2 x 2 and 2 x 2 x 2 (3n/4 and
+# 7n/8 a rank), and what differs, the bytes that cross the slow tier, is
+# not split here.
 
-WIRE_LABELS = (cl.QWZ, cl.BASELINE_GATHER, cl.HPZ, cl.QGZ,
+WIRE_LABELS = (cl.QWZ, cl.BASELINE_GATHER, cl.HPZ, cl.QGZ, cl.QGZ_1HOP,
                cl.BASELINE_REDUCE)
 
 EVENT_KINDS = ("fwd_gather", "bwd_gather", "grad_reduce")
@@ -377,7 +420,9 @@ def wire_label(kind: str, z: ZeroConfig) -> str:
     if kind == "bwd_gather":
         return cl.HPZ if z.hpz else wire_label("fwd_gather", z)
     if kind == "grad_reduce":
-        return cl.QGZ if z.qgz else cl.BASELINE_REDUCE
+        if z.qgz:
+            return cl.QGZ if z.qgz_2hop else cl.QGZ_1HOP
+        return cl.BASELINE_REDUCE
     raise ValueError(f"unknown comm event kind {kind!r}")
 
 
@@ -393,19 +438,26 @@ def event_wire_bytes(kind: str, n_elems: int, z: ZeroConfig,
         w = _group(sizes, z.dp_axes)
         if z.qwz:
             pb, b = z.qwz_cfg.payload_bytes, z.qwz_block
-            return float(pb(n) - pb(n // w)
-                         + 4.0 * (n // b - (n // w) // b))
+            wire = float(pb(n) - pb(n // w))
+            if z.qwz_blocked:
+                wire += 4.0 * (n // b - (n // w) // b)
+            else:
+                wire += 4.0 * (w - 1)       # one fp32 scale a shard
+            return wire
         eb = z.param_dtype.itemsize
         return float(eb * n - eb * (n // w))
     if kind == "bwd_gather":
         if z.hpz:
-            xs = _group(sizes, (z.intra_axis,))
+            xs = _group(sizes, z.secondary_axes)
             eb = z.compute_dtype.itemsize
             return float(eb * n - eb * (n // xs))
         return event_wire_bytes("fwd_gather", n, z, sizes)
     if kind == "grad_reduce":
         if z.qgz:
             pb, b = z.qgz_cfg.payload_bytes, z.qgz_block
+            if not z.qgz_2hop:
+                w = _group(sizes, z.dp_axes)
+                return float((pb(n) + 4.0 * (n // b)) * (w - 1) / w)
             X = _group(sizes, (z.intra_axis,))
             Y = _group(sizes, z.inter_axes) if z.inter_axes else 1
             wire = (pb(n) + 4.0 * (n // b)) * (X - 1) / X

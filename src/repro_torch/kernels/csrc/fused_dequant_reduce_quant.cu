@@ -11,7 +11,8 @@
 // Input: N contributions, payload (N, P) int8 (INT4 packed two per byte
 // or INT8) and scales (N, NB) f32, NB quant blocks of `block` elements
 // each.  Every contribution is dequantized in fp32 and the N values of an
-// element are summed in index order as a fused multiply-add chain from +0,
+// element are summed in index order as a fused multiply-add chain from +0
+// (B5: or from an fp32 `init`, the quantized ring's addend),
 // acc = fma(q_n, scale_n, acc): what the reference computes under XLA,
 // which contracts its `sum(q * scale, axis=0)` into FMAs, and what the
 // plain version computes, so the three agree bit for bit.  B5 writes the
@@ -71,17 +72,19 @@ __device__ __forceinline__ void load_bytes(const int8_t* __restrict__ p, int8_t 
 }
 
 // acc[i] = fma chain over n of q_n[i] * scale_n, for this lane's EPL
-// elements of quant block blk.  Payload rows are P bytes apart, scale
-// rows NB floats.
+// elements of quant block blk, from init[i] (null: +0).  Payload rows
+// are P bytes apart, scale rows NB floats.
 template <int EPL, int BITS>
 __device__ __forceinline__ void dequant_sum(const int8_t* __restrict__ payload,
-                                            const float* __restrict__ scales, int N,
+                                            const float* __restrict__ scales,
+                                            const float* __restrict__ init, int N,
                                             long long P, long long NB, long long blk,
                                             int lane, float (&acc)[EPL]) {
   constexpr int kBytes = BITS == 8 ? EPL : EPL / 2;
   const long long off = blk * (kBytes * kWarp) + (long long)lane * kBytes;
+  const long long el = blk * (EPL * kWarp) + (long long)lane * EPL;
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < EPL; ++i) acc[i] = init ? init[el + i] : 0.0f;
   for (int n = 0; n < N; ++n) {
     __align__(16) int8_t b[kBytes];
     load_bytes<kBytes>(payload + n * P + off, b);
@@ -105,13 +108,14 @@ __device__ __forceinline__ void dequant_sum(const int8_t* __restrict__ payload,
 template <int EPL, int BITS>
 __global__ void __launch_bounds__(kThreads)
 dequant_reduce_kernel(const int8_t* __restrict__ payload, const float* __restrict__ scales,
-                      float* __restrict__ out, int N, long long n_blocks) {
+                      const float* __restrict__ init, float* __restrict__ out, int N,
+                      long long n_blocks) {
   const long long blk = (long long)blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp;
   if (blk >= n_blocks) return;
   const int lane = threadIdx.x % kWarp;
   const long long P = n_blocks * (BITS == 8 ? EPL : EPL / 2) * kWarp;
   __align__(16) float acc[EPL];
-  dequant_sum<EPL, BITS>(payload, scales, N, P, n_blocks, blk, lane, acc);
+  dequant_sum<EPL, BITS>(payload, scales, init, N, P, n_blocks, blk, lane, acc);
   float* dst = out + blk * (EPL * kWarp) + (long long)lane * EPL;
   if constexpr (EPL % 4 == 0) {
 #pragma unroll
@@ -283,14 +287,15 @@ long long grid_of(long long n_blocks) {
 }
 
 template <int BITS>
-cudaError_t launch_reduce(const int8_t* payload, const float* scales, float* out, int N,
-                          long long n_blocks, int block, cudaStream_t stream) {
+cudaError_t launch_reduce(const int8_t* payload, const float* scales, const float* init,
+                          float* out, int N, long long n_blocks, int block,
+                          cudaStream_t stream) {
   const unsigned grid = (unsigned)grid_of(n_blocks);
   switch (block) {
 #define REPRO_R_CASE(B)                                                          \
   case B:                                                                        \
     dequant_reduce_kernel<B / kWarp, BITS><<<grid, kThreads, 0, stream>>>(       \
-        payload, scales, out, N, n_blocks);                                      \
+        payload, scales, init, out, N, n_blocks);                                \
     break;
     REPRO_R_CASE(64)
     REPRO_R_CASE(128)
@@ -343,15 +348,16 @@ extern "C" {
 
 // Every pointer is 16-byte aligned and contiguous (checked by the wrapper).
 // payload (N, n_blocks*block[/2]) int8, scales (N, n_blocks) f32,
-// out (n_blocks*block,) f32.
-int repro_dequant_reduce(int device, const int8_t* payload, const float* scales, float* out,
-                         int N, long long n_blocks, int block, int bits, void* stream) {
+// init (n_blocks*block,) f32 or null (+0), out (n_blocks*block,) f32.
+int repro_dequant_reduce(int device, const int8_t* payload, const float* scales,
+                         const float* init, float* out, int N, long long n_blocks,
+                         int block, int bits, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_blocks == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 8) err = launch_reduce<8>(payload, scales, out, N, n_blocks, block, s);
-  else if (bits == 4) err = launch_reduce<4>(payload, scales, out, N, n_blocks, block, s);
+  if (bits == 8) err = launch_reduce<8>(payload, scales, init, out, N, n_blocks, block, s);
+  else if (bits == 4) err = launch_reduce<4>(payload, scales, init, out, N, n_blocks, block, s);
   else err = cudaErrorInvalidValue;
   return (int)err;
 }

@@ -24,7 +24,7 @@ from repro_torch.kernels.quant_block import _QUANT_BLOCKS, _check_cuda
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "repro_dequant_reduce": [ctypes.c_int, _P, _P, _P, ctypes.c_int,
+    "repro_dequant_reduce": [ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              _P],
     "repro_dequant_reduce_quant": [ctypes.c_int, _P, _P, _P, _P, _P,
@@ -62,18 +62,28 @@ def _cuda_inputs(payload, scales, cfg):
 
 
 def dequant_reduce(payload: torch.Tensor, scales: torch.Tensor,
-                   cfg: QuantConfig) -> torch.Tensor:
+                   cfg: QuantConfig,
+                   init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum N quantized contributions in fp32: (N, P) int8, (N, NB) f32 ->
-    (C,) float32 (the qgZ output)."""
+    (C,) float32 (the qgZ output).  ``init`` ((C,) float32) starts each
+    element's chain in place of +0."""
     C = _contributions(payload, scales, cfg)
+    if init is not None and (tuple(init.shape) != (C,)
+                             or init.dtype != torch.float32):
+        raise ValueError(f"init must be ({C},) float32, got "
+                         f"{tuple(init.shape)} {init.dtype}")
     if payload.device.type == "cpu":
-        return ref.dequant_reduce_ref(payload, scales, cfg)
+        return ref.dequant_reduce_ref(payload, scales, cfg, init)
     payload, scales = _cuda_inputs(payload, scales, cfg)
+    if init is not None:
+        _check_cuda(init, "init")
+        init = platform.aligned(init)
     out = torch.empty((C,), dtype=torch.float32, device=payload.device)
     lib = _lib()
     err = lib.repro_dequant_reduce(
         payload.device.index or 0, payload.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), payload.shape[0], C // cfg.block_size,
+        None if init is None else init.data_ptr(), out.data_ptr(),
+        payload.shape[0], C // cfg.block_size,
         cfg.block_size, cfg.bits, platform.stream_of(payload))
     platform.check(lib, err, "dequant_reduce kernel")
     platform.LAUNCHES["dequant_reduce"] += 1

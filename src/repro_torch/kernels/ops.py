@@ -96,11 +96,13 @@ def quantize_reordered(x: torch.Tensor, cfg: QuantConfig,
 
 
 def dequant_reduce(payload: torch.Tensor, scales: torch.Tensor,
-                   cfg: QuantConfig) -> torch.Tensor:
+                   cfg: QuantConfig,
+                   init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum N quantized contributions in fp32: (N, P), (N, NB) -> (C,)
-    float32."""
+    float32; ``init`` ((C,) float32) starts the sum in place of +0 (the
+    quantized ring's dequantize-and-add)."""
     _dispatch("dequant_reduce", payload)
-    return _fq.dequant_reduce(payload, scales, cfg)
+    return _fq.dequant_reduce(payload, scales, cfg, init)
 
 
 def dequant_reduce_quant(payload: torch.Tensor, scales: torch.Tensor,

@@ -77,19 +77,22 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
 
 
 def dequant_reduce_ref(payload: torch.Tensor, scales: torch.Tensor,
-                       cfg: QuantConfig) -> torch.Tensor:
+                       cfg: QuantConfig,
+                       init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dequantize N contributions (leading dim) and sum them in fp32:
     (N, P), (N, NB) -> (C,) float32.
 
     The sum is the fused multiply-add chain ``acc = fma(q_n, scale_n,
-    acc)`` from +0 in index order n = 0 … N-1.  That is what the
-    reference computes for ``sum(q * scale, axis=0)`` under XLA (the
-    multiply and the add contract into one FMA), and what the kernel
+    acc)`` from +0 (or from ``init``, (C,) float32) in index order n = 0
+    … N-1.  That is what the reference computes for ``sum(q * scale,
+    axis=0)`` and for its ring's ``dequantize(q, s) + mine`` under XLA
+    (the multiply and the add contract into one FMA), and what the kernel
     computes with ``__fmaf_rn``, so all three agree bit for bit."""
     q = unpack_int4(payload) if cfg.bits == 4 else payload
     N, C = q.shape
     sb = scales.repeat_interleave(cfg.block_size, dim=-1)
-    acc = torch.zeros((C,), dtype=torch.float32, device=q.device)
+    acc = (torch.zeros((C,), dtype=torch.float32, device=q.device)
+           if init is None else init.to(torch.float32).reshape(C))
     for n in range(N):
         acc = fma_f32(q[n].to(torch.float32), sb[n], acc)
     return acc

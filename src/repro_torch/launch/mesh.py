@@ -1,18 +1,22 @@
-"""The ("data", "model") world of a run: its shape, groups and ranks.
+"""The world of a run: its axes, shape, groups and ranks.
 
 Counterpart of the reference's ``launch/mesh.py``.  The reference builds a
 ``jax.sharding.Mesh`` over simulated or real devices in one process;
 torch.distributed runs one process per rank, so a mesh here is a shape
-``(Y, X)`` over an initialised process group plus its two tiers:
+over an initialised process group plus the groups of its axes:
 
-  * ranks are row-major over ``("data", "model")`` with ``model`` fastest,
-    so rank r sits at (d, m) = divmod(r, X) and its flat shard and batch
-    rows are the r-th of the world (the reference's ``P(("data",
-    "model"))``);
-  * the intra group (the fast tier: hpZ's secondary partition, qgZ's
-    first hop) holds the X ranks of one ``data`` row, the inter group (qgZ's
-    second hop) the Y ranks of one ``model`` column
-    (``collectives.tier_groups``).
+  * ``(Y, X)`` over ``("data", "model")``, or ``(P, Y, X)`` over
+    ``("pod", "data", "model")`` (the reference's multi-pod mesh); ranks
+    are row-major with ``model`` fastest, so rank r's flat shard and batch
+    rows are the r-th of the world (the reference's ``P(dp_axes)``);
+  * :meth:`Mesh.group` gives this rank's group over any tuple of axes
+    (``collectives.axis_group``): the intra group ``("model",)`` (qgZ's
+    first hop, hpZ's default secondary group: X consecutive ranks), the
+    inter group (every axis but ``model``: qgZ's second hop, its ranks
+    row-major over ``("pod", "data")``), one pod ``("data", "model")``
+    (a wider hpZ secondary group), the sequence axes of a layout.  Every
+    group is created when the mesh is, so every rank creates them in the
+    same order.
 
 :func:`spawn` starts one process per rank, gives each an initialised
 process group (ranks 0 … N-1, meeting at a ``TCPStore`` that the
@@ -26,11 +30,12 @@ the launching process, before any rank starts: ranks that met a cold
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import queue as queue_lib
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,47 +45,99 @@ from repro_torch.core import collectives as cl
 from repro_torch.kernels import platform
 
 AXES = ("data", "model")
+AXES3 = ("pod", "data", "model")
+
+
+def axes_of(shape: Tuple[int, ...]) -> Tuple[str, ...]:
+    """The axis names of a mesh shape: ``AXES`` or ``AXES3``."""
+    if len(shape) not in (2, 3):
+        raise ValueError(f"mesh shape {tuple(shape)}: two or three axes")
+    return AXES if len(shape) == 2 else AXES3
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``(Y, X)`` world over ``AXES``: the whole ZeRO world is
-    torch.distributed's default group (none at world 1), ``intra`` and
-    ``inter`` its tiers (None at world 1)."""
-    shape: Tuple[int, int]
-    intra: Any = None
-    inter: Any = None
+    """A world of ``shape`` over ``axes_of(shape)``: the whole ZeRO world
+    is torch.distributed's default group (none at world 1); ``groups``
+    maps each proper, non-empty tuple of axes (in mesh order) to this
+    rank's group over it (None at world 1)."""
+    shape: Tuple[int, ...]
+    groups: Optional[Dict[Tuple[str, ...], Any]] = None
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return axes_of(self.shape)
+
+    @property
+    def intra(self) -> Any:
+        """The fast tier, ``("model",)``: qgZ's first hop, hpZ's default
+        secondary group."""
+        return self.group(("model",))
+
+    @property
+    def inter(self) -> Any:
+        """Every other axis: qgZ's second hop."""
+        return self.group(self.axes[:-1])
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axes, self.shape))
 
     @property
     def world(self) -> int:
-        return self.shape[0] * self.shape[1]
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def group(self, axes: Tuple[str, ...]) -> Any:
+        """This rank's group over ``axes`` (a tuple in mesh order): the
+        default group object for every axis, None at world 1."""
+        axes = tuple(axes)
+        if [a for a in self.axes if a in axes] != list(axes) or not axes:
+            raise ValueError(f"axes {axes}: a non-empty tuple of {self.axes} "
+                             f"in mesh order")
+        if self.world == 1:
+            return None
+        if axes == self.axes:
+            return dist.group.WORLD
+        return self.groups[axes]
 
 
-def parse_mesh(spec: str) -> Tuple[int, int]:
-    """``"4x2"`` -> (4, 2): Y ``data`` rows of X ``model`` ranks."""
+def parse_mesh(spec: str) -> Tuple[int, ...]:
+    """``"4x2"`` -> (4, 2): Y ``data`` rows of X ``model`` ranks;
+    ``"2x2x2"`` -> (2, 2, 2): P pods of Y x X."""
     try:
-        y, x = (int(s) for s in spec.lower().split("x"))
+        shape = tuple(int(s) for s in spec.lower().split("x"))
     except ValueError:
-        raise ValueError(f"mesh must read YxX, got {spec!r}") from None
-    if y < 1 or x < 1:
-        raise ValueError(f"mesh {spec!r}: both sizes must be >= 1")
-    return y, x
+        shape = ()
+    if len(shape) not in (2, 3):
+        raise ValueError(f"mesh must read YxX or PxYxX, got {spec!r}")
+    if min(shape) < 1:
+        raise ValueError(f"mesh {spec!r}: every size must be >= 1")
+    return shape
 
 
-def make_mesh(shape: Tuple[int, int]) -> Mesh:
-    """The mesh of shape ``(Y, X)`` over the default process group, its
-    tier groups created (every rank must call this, in the same order).
-    A world of 1 needs no process group."""
-    y, x = shape
-    if y * x == 1:
-        return Mesh((1, 1))
+def make_mesh(shape: Tuple[int, ...]) -> Mesh:
+    """The mesh of ``shape`` over the default process group, the group of
+    every proper tuple of its axes created (every rank must call this, in
+    the same order).  A world of 1 needs no process group."""
+    shape = tuple(int(s) for s in shape)
+    axes = axes_of(shape)
+    world = 1
+    for s in shape:
+        world *= s
+    if world == 1:
+        return Mesh(shape)
     have = cl.world_size()
-    if have != y * x:
+    if have != world:
         raise RuntimeError(
-            f"mesh {y}x{x} needs a process group of {y * x} ranks, found "
-            f"{have}: start the ranks with repro_torch.launch.mesh.spawn")
-    intra, inter = cl.tier_groups(x)
-    return Mesh((y, x), intra, inter)
+            f"mesh {'x'.join(map(str, shape))} needs a process group of "
+            f"{world} ranks, found {have}: start the ranks with "
+            f"repro_torch.launch.mesh.spawn")
+    return Mesh(shape, {sub: cl.axis_group(shape, axes, sub)
+                        for k in range(1, len(axes))
+                        for sub in itertools.combinations(axes, k)})
 
 
 # ---------------------------------------------------------------- spawner

@@ -1,17 +1,20 @@
 """Training entry point: synthetic data -> ZeRO++ train step -> metrics.
 
 Port of the reference's ``launch/train.build_everything`` and
-``train_loop`` on a ``(Y, X)`` ``("data", "model")`` world, one process
-per rank (no checkpoints, no elastic runtime yet).  Runs on the card by
-default:
+``train_loop`` on a ``(Y, X)`` ``("data", "model")`` or ``(P, Y, X)``
+``("pod", "data", "model")`` world, one process per rank (no checkpoints,
+no elastic runtime yet).  Runs on the card by default:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --batch 8 \\
         --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
-        [--mesh YxX] [--prefetch K] [--device cuda|cpu]
+        [--mesh YxX|PxYxX] [--prefetch K] [--device cuda|cpu]
 
 ``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
-Y·X rank processes over a gloo group (``launch/mesh.py``; on the card all
-of them share device 0).  A ``--batch`` that does not cover the world
+one rank process per position over a gloo group (``launch/mesh.py``; on
+the card all of them share device 0).  The paper's ablation knobs
+(``qwz_blocked``, ``hpz_axes``, ``qgz_bits``, ``qgz_2hop``) have no flag,
+as in the reference: ``build_everything`` and ``train_loop`` take them
+as ``ZeroConfig`` overrides.  A ``--batch`` that does not cover the world
 shards the sequence over the axes it leaves (``trainer.build_train_step``).
 ``--prefetch`` is the layer loop's ring depth (default: the policy's, 1;
 0 is the synchronous schedule).  ``--device cpu`` runs the plain PyTorch
@@ -67,24 +70,28 @@ class Built:
     lm: SyntheticLM
 
 
-def build_everything(arch_name: str, mesh_shape: Tuple[int, int] = (1, 1),
+def build_everything(arch_name: str, mesh_shape: Tuple[int, ...] = (1, 1),
                      variant: str = "zeropp", reduced: bool = False,
                      batch: int = 8, seq: int = 2048, lr: float = 3e-4,
                      accum: int = 1, lr_schedule: str = "warmup_cosine",
                      device="cuda", attn_impl: str = "xla",
-                     prefetch: Optional[int] = None) -> Built:
+                     prefetch: Optional[int] = None, **overrides) -> Built:
     """Construct (mesh, arch, model, train step, data) for this rank of a
-    ``mesh_shape`` world (a process group of that size must exist beyond
-    1x1).  ``batch`` is the global batch (rows per microbatch);
-    ``lr_schedule`` is the reference's ``warmup_cosine(lr, 10, 10_000)``
-    or ``constant``; ``attn_impl`` the attention route ("pallas": the
-    flash kernels); ``prefetch`` the ring depth (None: the policy's)."""
+    ``mesh_shape`` world, ``(Y, X)`` or ``(P, Y, X)`` (a process group of
+    that size must exist beyond one rank).  ``batch`` is the global batch
+    (rows per microbatch); ``lr_schedule`` is the reference's
+    ``warmup_cosine(lr, 10, 10_000)`` or ``constant``; ``attn_impl`` the
+    attention route ("pallas": the flash kernels); ``prefetch`` the ring
+    depth (None: the policy's); ``overrides`` further ``ZeroConfig``
+    fields (the paper's knobs)."""
     arch = get_config(arch_name)
     if reduced:
         arch = arch.reduced()
     mesh = mesh_lib.make_mesh(mesh_shape)
-    over = {} if prefetch is None else {"prefetch": prefetch}
-    pol = make_policy(arch, mesh_lib.AXES, variant, mesh=mesh, **over)
+    over = dict(overrides)
+    if prefetch is not None:
+        over["prefetch"] = prefetch
+    pol = make_policy(arch, mesh.axes, variant, mesh=mesh, **over)
     model = Model(arch, pol.zcfg, world=mesh.world, device=device)
     if lr_schedule == "warmup_cosine":
         sched = warmup_cosine(lr, 10, 10_000)
@@ -94,7 +101,8 @@ def build_everything(arch_name: str, mesh_shape: Tuple[int, int] = (1, 1),
         raise ValueError(f"unknown lr schedule {lr_schedule!r}")
     opt_cfg = AdamWConfig(lr=sched)
     step = build_train_step(model, opt_cfg, accum=accum, device=device,
-                            attn_impl=attn_impl, global_batch=batch // accum)
+                            attn_impl=attn_impl, global_batch=batch // accum,
+                            mesh=mesh)
     lm = SyntheticLM(vocab=arch.vocab, seq_len=seq, seed=7)
     return Built(mesh, arch, model, step, lm)
 
@@ -173,9 +181,11 @@ def record_step(reg: Registry, tracer: Tracer, i: int, wall_s: float,
     tracer.flush()
 
 
-def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
+def train_loop(args, on_step: Optional[Callable] = None,
+               overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Run ``args.steps`` steps from a seeded fp32 init on this rank of an
-    ``args.mesh`` world.  Returns the losses (summed over the world),
+    ``args.mesh`` world (``overrides``: ``ZeroConfig`` fields, the paper's
+    knobs).  Returns the losses (summed over the world),
     per-step wall seconds (synchronized), per-step kernel launches, each
     step's wire bytes per collective label on this rank (``comm_steps``),
     the peak device memory (0 on the CPU), the data's entropy bound, the
@@ -186,7 +196,8 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
     built = build_everything(args.arch, mesh_lib.parse_mesh(args.mesh),
                              args.variant, args.reduced, args.batch,
                              args.seq, args.lr, args.accum, args.lr_schedule,
-                             args.device, args.attn, args.prefetch)
+                             args.device, args.attn, args.prefetch,
+                             **(overrides or {}))
     model = built.model
     z = model.zcfg
     dev = model.device
@@ -203,7 +214,7 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
         tracer = Tracer(os.path.join(args.metrics_dir, "events.jsonl"))
     if telemetry:
         for knob in ("prefetch", "qwz", "hpz", "qgz", "qwz_block",
-                     "qgz_block"):
+                     "qgz_block", "qwz_blocked", "qgz_bits", "qgz_2hop"):
             reg.gauge(f"tune.{knob}").set(int(getattr(z, knob)))
     losses, step_s, launches, comm_steps = [], [], [], []
     try:
@@ -236,7 +247,8 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
                       flush=True)
         gate = agree = None
         if telemetry:
-            gate, agree = _obs_gate(args, built, comm_steps, rank0)
+            gate, agree = _obs_gate(args, built, comm_steps, rank0,
+                                    overrides or {})
     finally:
         if telemetry:
             tracer.close()
@@ -248,16 +260,15 @@ def train_loop(args, on_step: Optional[Callable] = None) -> Dict[str, Any]:
             "ranks_agree": agree, "built": built, "params": params, "opt": opt}
 
 
-def _obs_gate(args, built: Built, comm_steps, rank0: bool
-              ) -> Tuple[Dict[str, Any], bool]:
+def _obs_gate(args, built: Built, comm_steps, rank0: bool,
+              overrides: Dict[str, Any]) -> Tuple[Dict[str, Any], bool]:
     """Gate every step's measured bytes per label against the projection
     (strict under ``--obs-gate``: a failing rank raises), check that the
     ranks agree, and on rank 0 export ``BENCH_runtime.json``.  Returns the
     gate report of the first failing step, else of the last, and whether
     the ranks agree."""
     model, mesh = built.model, built.mesh
-    sizes = dict(zip(mesh_lib.AXES, mesh.shape))
-    projected = projected_wire_by_label(model, sizes, accum=args.accum)
+    projected = projected_wire_by_label(model, mesh.sizes, accum=args.accum)
     reports = [runtime_gate(measured=c, projected=projected,
                             strict=args.obs_gate) for c in comm_steps]
     gate = next((r for r in reports if not r["ok"]), reports[-1])
@@ -272,6 +283,8 @@ def _obs_gate(args, built: Built, comm_steps, rank0: bool
                    "comm_per_step": comm_steps,
                    "config": {"arch": built.arch.name,
                               "variant": args.variant,
+                              "overrides": {k: repr(v) for k, v in
+                                            overrides.items()},
                               "mesh": list(mesh.shape),
                               "prefetch": model.zcfg.prefetch,
                               "steps": args.steps, "batch": args.batch,
@@ -294,13 +307,13 @@ def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
 
 
 def run(args):
-    """``train_loop(args)`` at ``--mesh 1x1``; beyond, one spawned rank
-    process per mesh position.  Returns rank 0's result and, at world > 1,
-    every rank's as ``ranks``."""
-    y, x = mesh_lib.parse_mesh(args.mesh)
-    if y * x == 1:
+    """``train_loop(args)`` on a world of one; beyond, one spawned rank
+    process per mesh position.  Returns rank 0's result and, at world >
+    1, every rank's as ``ranks``."""
+    world = mesh_lib.Mesh(mesh_lib.parse_mesh(args.mesh)).world
+    if world == 1:
         return train_loop(args)
-    ranks = mesh_lib.spawn(_rank_loop, y * x, args, device=args.device,
+    ranks = mesh_lib.spawn(_rank_loop, world, args, device=args.device,
                            timeout=None)
     return dict(ranks[0], ranks=ranks)
 
@@ -322,8 +335,9 @@ def parser() -> argparse.ArgumentParser:
                     help="attention route: plain, or the flash kernels")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1x1",
-                    help="YxX world: Y 'data' rows of X 'model' ranks, one "
-                         "process each (gloo)")
+                    help="YxX world: Y 'data' rows of X 'model' ranks, or "
+                         "PxYxX: P 'pod's of those; one process a rank "
+                         "(gloo)")
     ap.add_argument("--prefetch", type=int, default=None,
                     help="layer-loop ring depth (default: the policy's, 1; "
                          "0: synchronous)")

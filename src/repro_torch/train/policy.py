@@ -2,17 +2,23 @@
 
 Port of the reference's ``train/policy.make_policy`` (its resolver
 ``tune/resolve.py`` in mode ``"off"``) for models under ``LARGE_PARAMS``
-on a ``("data", "model")`` mesh: full ZeRO++ with the secondary partition
-on the fast ``model`` axis (the paper's per-node group); Adam moments
-are fp32 (``optim/adamw.py``) and there is no gradient accumulation.
-``mesh`` (``repro_torch.launch.mesh.Mesh``) is the run's ``(Y, X)`` world:
-its tier groups become the config's ``intra_group`` and ``inter_group``
-(none at world 1); ``group``, the whole world, stays the default group.
+on a ``("data", "model")`` or ``("pod", "data", "model")`` mesh: full
+ZeRO++ over every axis, with the secondary partition on the fast
+``model`` axis (the paper's per-node group; the reference widens it to a
+pod only for large models); Adam moments are fp32 (``optim/adamw.py``)
+and there is no gradient accumulation.  ``mesh``
+(``repro_torch.launch.mesh.Mesh``) is the run's world: its groups become
+the config's ``intra_group`` (``model``), ``inter_group`` (every other
+axis) and, where ``hpz_axes`` is given, ``secondary_group`` (none at
+world 1); ``group``, the whole world, stays the default group.
 ``variant`` selects the paper's ablations (Fig. 13): "baseline" is plain
 ZeRO-3, "qwz"/"hpz"/"qgz" enable exactly one technique.  Keyword
-overrides of ``ZeroConfig`` fields win (ablations, tests, the ring depth
-``prefetch``: ``ZeroConfig``'s default 1 otherwise).  The reference's large-model rules (hpZ placement,
-bf16 moments, accumulation) and ``tune/`` are not ported.
+overrides of ``ZeroConfig`` fields win (the paper's knobs
+``qwz_blocked``, ``hpz_axes``, ``qgz_bits``, ``qgz_2hop``, tests, the
+ring depth ``prefetch``: ``ZeroConfig``'s default 1 otherwise), as the
+reference's convergence benchmark passes them.  The reference's
+large-model rules (hpZ placement, bf16 moments, accumulation) and
+``tune/`` are not ported.
 """
 from __future__ import annotations
 
@@ -58,4 +64,7 @@ def make_policy(arch: ArchConfig,
     if mesh is not None:
         kw.update(intra_group=mesh.intra, inter_group=mesh.inter)
     kw.update(overrides)
+    if mesh is not None and kw.get("hpz_axes") \
+            and "secondary_group" not in overrides:
+        kw["secondary_group"] = mesh.group(tuple(kw["hpz_axes"]))
     return Policy(zcfg=ZeroConfig(**kw), n_params=n)

@@ -13,13 +13,15 @@ AdamW update.
 A rank holds its primary shard of every flat buffer (the trailing axis,
 the reference's ``param_specs``) and takes the GLOBAL batch, of which it
 reads its own tile, in the reference's activation layout: the batch over
-the axes ``choose_batch_seq_axes`` gives it (a prefix of ``("data",
-"model")``), the sequence over the rest, where ``mha`` gathers K/V
-(``RunSpec.seq_axes``).  Pure data parallel whenever the global batch
-covers the world: rank r = d·X + m reads rows [r·B/W, (r+1)·B/W).  With
-no ``global_batch`` the reference always shards the sequence over
-``model``, and so does the port; unlike the reference, an axis of size 1
-carries no sequence, so the flash kernels stay in at world 1.  The layer
+the axes ``choose_batch_seq_axes`` gives it (a prefix of the mesh's axes,
+``("data", "model")`` or ``("pod", "data", "model")``), the sequence over
+the rest, where ``mha`` gathers K/V (``RunSpec.seq_axes``, over the
+mesh's group of those axes).  Pure data parallel whenever the global
+batch covers the world: rank r (row-major, ``model`` fastest) reads rows
+[r·B/W, (r+1)·B/W).  With no ``global_batch`` the reference always
+shards the sequence over ``model``, and so does the port; unlike the
+reference, an axis of size 1 carries no sequence, so the flash kernels
+stay in at world 1.  The layer
 loop's schedule is the model's ``ZeroConfig.prefetch`` ring
 (``core/schedule.py``).  Loss, NLL and tokens are summed over the world
 after the update, as the reference's ``lax.psum``s do.
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.core import collectives as cl
 from repro_torch.kernels import platform
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import RunSpec
 from repro_torch.optim.adamw import AdamWConfig, apply_update
@@ -84,9 +87,27 @@ def choose_batch_seq_axes(global_batch: int, shape: Tuple[int, ...],
     return tuple(batch_axes), tuple(a for a in axes if a not in batch_axes)
 
 
+def _layout(z, world: int, mesh: Optional[Mesh]):
+    """(axes, {axis: size}, group of a tuple of axes) of the step's world:
+    the mesh's, or at world > 1 without one the two-axis world of the
+    config's tiers (a three-axis world needs its mesh)."""
+    if mesh is not None:
+        if mesh.world != world:
+            raise ValueError(f"mesh {mesh.shape} for a ZeRO world of "
+                             f"{world}")
+        return mesh.axes, mesh.sizes, mesh.group
+    if len(z.dp_axes) > 2 and world > 1:
+        raise ValueError(f"a world over {z.dp_axes} needs its mesh "
+                         f"(build_train_step(mesh=))")
+    x = cl.world_size(z.intra_group) if world > 1 else 1
+    groups = {AXES[1:]: z.intra_group, AXES: z.group}
+    return AXES, dict(zip(AXES, (world // x, x))), groups.get
+
+
 def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
                      device="cuda", attn_impl: str = "xla",
-                     global_batch: Optional[int] = None) -> TrainStep:
+                     global_batch: Optional[int] = None,
+                     mesh: Optional[Mesh] = None) -> TrainStep:
     """Build the ZeRO++ train step of ``model`` (which must run on
     ``device``: "cuda" unless the caller asks for "cpu") for this rank of
     the model's ZeRO world (``zcfg.group``, tiers ``intra_group`` and
@@ -101,7 +122,10 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     (the reference keeps it, and its ``mha`` then drops the flash
     kernels).  ``attn_impl`` is the reference's switch: "xla" (plain
     attention) or "pallas" (the flash kernels where ``mha``'s rule
-    allows: no sequence axis)."""
+    allows: no sequence axis).  ``mesh`` is the world's
+    ``launch.mesh.Mesh`` (its axes, sizes and groups); without it a world
+    of more than one rank is read as ``(Y, X)`` from the config's tier
+    groups."""
     dev = platform.resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"step built for {dev} but the model runs on "
@@ -114,23 +138,21 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
     rank = cl.flat_rank(z.group) if world > 1 else 0
-    x = cl.world_size(z.intra_group) if world > 1 else 1
-    sizes = dict(zip(AXES, (world // x, x)))
+    axes, sizes, group_of = _layout(z, world, mesh)
     if global_batch is not None:
         batch_axes, seq_axes = choose_batch_seq_axes(
-            global_batch, tuple(sizes.values()))
+            global_batch, tuple(sizes[a] for a in axes), axes)
     else:
-        batch_axes, seq_axes = AXES[:1], AXES[1:]
-    seq_axes = tuple(a for a in seq_axes if sizes[a] > 1)
-    # the batch axes are a prefix of AXES, so rank r's tile is row block
-    # r // ns of nb and sequence block r % ns of ns; the sequence ranks
-    # are the intra group (model) or the whole world, in rank order (also
-    # for ("data",), which is left only where model has size 1)
+        batch_axes, seq_axes = axes[:-1], axes[-1:]
+    # the batch axes are a prefix of the mesh's axes, so rank r's tile is
+    # row block r // ns of nb and sequence block r % ns of ns; the
+    # sequence ranks are the group of the remaining axes, in rank order
     nb = 1
     for a in batch_axes:
         nb *= sizes[a]
     ns = world // nb
-    seq_group = z.intra_group if seq_axes == AXES[1:] else z.group
+    seq_group = group_of(axes[len(batch_axes):]) if ns > 1 else None
+    seq_axes = tuple(a for a in seq_axes if sizes[a] > 1)
     rs = RunSpec(mode="train", seq_axes=seq_axes,
                  seq_group=seq_group if seq_axes else None,
                  attn_impl=attn_impl)
@@ -143,9 +165,9 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         b, s = batch["tokens"].shape[ax:ax + 2]
         if b % nb or s % ns:
             raise ValueError(
-                f"a batch of {b} x {s} does not tile the {sizes['data']}x"
-                f"{sizes['model']} world as rows over {batch_axes} and the "
-                f"sequence over {seq_axes}")
+                f"a batch of {b} x {s} does not tile the "
+                f"{'x'.join(str(sizes[a]) for a in axes)} world as rows "
+                f"over {batch_axes} and the sequence over {seq_axes}")
         rb, sb = b // nb, s // ns
         return {k: v.narrow(ax, rank // ns * rb, rb).narrow(
             ax + 1, rank % ns * sb, sb) for k, v in batch.items()}

@@ -44,7 +44,6 @@ import torch                                                 # noqa: E402
 
 from repro_torch.configs import get_config                   # noqa: E402
 from repro_torch.convert import params_from_numpy, to_numpy  # noqa: E402
-from repro_torch.kernels import ops as tops                  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib              # noqa: E402
 from repro_torch.models import attention as tattn            # noqa: E402
 from repro_torch.models.model import Model                   # noqa: E402
@@ -208,34 +207,13 @@ def _step(model, params, batch, scales=None, **kw):
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
     with contextlib.ExitStack() as stack:
         if scales is not None:
-            stack.enter_context(_recording(scales))
+            stack.enter_context(step_bars.recording(scales))
         loss, mets, grads = step.loss_and_grads(params, tb)
     m = step.fn(params, opt, tb)
     return dict(loss=float(loss), tokens=mets["tokens"],
                 grads=to_numpy(grads), params=to_numpy(params),
                 opt=to_numpy(opt), met={k: float(v) for k, v in m.items()},
                 seq_axes=step.run_spec.seq_axes, scales=scales)
-
-
-@contextlib.contextmanager
-def _recording(scales):
-    """Record the scales B4 (``dequant_reduce_quant``) and B5
-    (``dequant_reduce``) read, per call, into ``scales["b4"]``/``["b5"]``."""
-    real = {"b4": tops.dequant_reduce_quant, "b5": tops.dequant_reduce}
-    names = {"b4": "dequant_reduce_quant", "b5": "dequant_reduce"}
-
-    def rec(key):
-        def f(payload, sc, *a, **kw):
-            scales.setdefault(key, []).append(sc.numpy().copy())
-            return real[key](payload, sc, *a, **kw)
-        return f
-    for key, name in names.items():
-        setattr(tops, name, rec(key))
-    try:
-        yield
-    finally:
-        for key, name in names.items():
-            setattr(tops, name, real[key])
 
 
 def _world4_rank(rank, world, p4, b1, b2, b4):
@@ -368,27 +346,6 @@ def test_batch2_step_at_2x2_matches_reference_with_qgz_off(runs):
         {k: step_bars.first_step_dir(jg[k], jn) for k in tp}, LR)
 
 
-def _path_steps(tiles, grads):
-    """Each gradient block's bar (``step_bars.qgz_path_steps``) from the
-    scales every rank's B4 and B5 read, (rows, blocks) per buffer.  The
-    reduces run in the backward's order: the groups stacked in rows (the
-    layers, the unembedding chunks) last row first."""
-    by_nb = {}
-    for b4, b5 in zip(zip(*(t["scales"]["b4"] for t in tiles)),
-                      zip(*(t["scales"]["b5"] for t in tiles))):
-        by_nb.setdefault(b5[0].shape[-1], []).append(
-            step_bars.qgz_path_steps(b4, b5, MESH))
-    out = {}
-    for k, g in grads.items():
-        rows = g.reshape(-1, g.shape[-1])
-        nb = rows.shape[1] // 4 // step_bars.BLOCK
-        got = by_nb.pop(nb)
-        assert len(got) == rows.shape[0], (k, len(got))
-        out[k] = np.stack(got[::-1])
-    assert not by_nb, sorted(by_nb)
-    return out
-
-
 def test_batch2_step_at_2x2_matches_reference_with_full_zeropp(runs):
     ref = runs["ref"]
     tiles, met = _hold_metrics(runs["w4"], ref, "zeropp", 2)
@@ -396,7 +353,7 @@ def test_batch2_step_at_2x2_matches_reference_with_full_zeropp(runs):
         <= 1e-5
     tg, jg = _glued([t["grads"] for t in tiles]), _ref_tree(ref, "zeropp.g.")
     far = step_bars.far_share(MESH)
-    steps = _path_steps(tiles, jg)
+    steps = step_bars.path_steps([t["scales"] for t in tiles], jg, MESH)
     step_bars.grads_within_int4(tg, jg, far, steps)
     gdiff = np.sqrt(sum(np.sum((tg[k].astype(np.float64) - jg[k]) ** 2)
                         for k in tg))

@@ -81,25 +81,9 @@ CURVES = (("baseline", "baseline", 1, 8), ("zeropp", "zeropp", 1, 8),
           ("accum2", "baseline", 2, 4))
 
 
-def _init(model: Model, seed: int):
-    """GLOBAL fp32 buffers of ``model``'s layout, numpy normal draws at the
-    reference's per-name scales (norms and padding zero)."""
-    rng = np.random.default_rng(seed)
-
-    def flat(spec):
-        out = np.zeros(spec.padded_size, np.float32)
-        for name, shape in spec.entries:
-            std = Model._init_std(name, shape)
-            if std is not None:
-                off, n = spec.offsets[name]
-                out[off:off + n] = rng.standard_normal(n) * std
-        return out
-    return {"embed": flat(model.embed_spec),
-            "blocks": np.stack([flat(model.period_spec)
-                                for _ in range(model.n_periods)]),
-            "head": flat(model.head_spec),
-            "unemb": np.stack([flat(model.unemb_spec)
-                               for _ in range(model.unemb_chunks)])}
+# GLOBAL fp32 buffers of a model's layout, numpy normal draws at the
+# reference's per-name scales (norms and padding zero)
+_init = step_bars.global_params
 
 
 def _port_model(world):

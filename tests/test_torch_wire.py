@@ -163,8 +163,7 @@ def test_wire_arithmetic_equals_the_reference(arch_name, variant, size):
     assert tz.comm_volume_per_step(pm.n_params(), pm.zcfg) == \
         rz.comm_volume_per_step(rm.n_params(), rm.zcfg)
     assert tz.EVENT_KINDS == rz.EVENT_KINDS
-    assert tz.WIRE_LABELS == tuple(lbl for lbl in rz.WIRE_LABELS
-                                   if lbl != "zero.qgz_reduce1hop")
+    assert tz.WIRE_LABELS == rz.WIRE_LABELS
 
 
 @pytest.mark.parametrize("prefetch", (1, 2))
