@@ -146,7 +146,10 @@ last line is printed.
    Each run's gate passes on every rank with the reference projection's
    MiB a rank a step (``KNOB_MIB``) to the byte; losses are finite; the
    step-1 and step-2 losses hold phase 6's as the note at ``KNOBS`` says;
-   every rank's launches per step are what its config issues.
+   every rank's launches per step are what its config issues; under
+   ``qwz_blocked=False`` every rank's gather of a layer group on the card
+   equals ``quantize_global`` / ``dequantize_global`` of every shard on
+   the host, bit for bit.
 9. Multi-pod phase: the 2 x 2 x 2 ("pod", "data", "model") world, eight
    rank processes of qwen3-0.6b at full width on the one card, batch 8
    (one row a rank), --attn pallas: ``MP_STEPS`` steps at the default
@@ -283,10 +286,15 @@ MR_L = 3_932_928
 # prefetch 0).  Their step-1 losses: the three knobs that change only the
 # backward (qgZ's format and hops, hpZ's group) run the same forward as
 # phase 6, so their step-1 loss must equal phase 6's bit for bit; the
-# non-blocked qwZ gather changes the forward's weights, so its step-1 loss
-# is held to MR_REL of phase 6's (the reference's bar for one quantized
-# variant's loss against another's, checks.py:361), and every knob's
-# step 2 to MR_REL of phase 6's step 2.
+# non-blocked qwZ gather changes the forward's weights (one scale a shard
+# instead of one a block of 256), so its step-1 loss is held to phase 6's
+# step-1 bar, MR_LOSS1_ATOL of phase 6's.  Every knob's step 2 is held to
+# the same 1e-3 of phase 6's step 2: the H100 read at most 8.4e-4 (the
+# non-blocked gather; INT8 qgZ 4.7e-4, the 1-hop 1.4e-4, the pod-wide hpZ
+# 0), so the bar sits just above what the knobs move the loss by.  The
+# non-blocked gather runs in plain PyTorch on the card, so each of its
+# ranks also holds its gather of a layer group, bit for bit, against
+# quantize_global / dequantize_global of every rank's shard on the host.
 KNOB_STEPS = 2
 KNOBS = {"qgz_1hop": dict(qgz_2hop=False), "qgz_int8": dict(qgz_bits=8),
          "qwz_nonblocked": dict(qwz_blocked=False),
@@ -1652,7 +1660,12 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
         # a sharded sequence keeps the flash kernels out (mha's rule)
         per_step = step_launches(built.arch, built.model,
                                  "xla" if rs.seq_axes else args.attn)
+        # the non-blocked qwZ gather on the card against the host's
+        # quantize_global / dequantize_global of the same shards
+        nb_err = (_nonblocked_gather_err(res["params"]["blocks"][0], z)
+                  if not z.qwz_blocked else None)
         outs.append({"losses": res["losses"], "step_s": res["step_s"],
+                     "nonblocked_err": nb_err,
                      "launches": res["launches"], "want": per_step,
                      "comm": res["comm_steps"], "gate": res["gate"],
                      "agree": res["ranks_agree"],
@@ -1664,6 +1677,26 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
         gc.collect()
         torch.cuda.empty_cache()
     return outs
+
+
+def _nonblocked_gather_err(shard: torch.Tensor, z: ZeroConfig) -> float:
+    """This rank's non-blocked qwZ gather of ``shard`` (a layer group's
+    fp32 master shard on the card, ``zeropp.fwd_gather``: one scale a
+    shard, the world's payloads and scales gathered) against every rank's
+    shard quantized and dequantized on the host, shard by shard, in
+    ``compute_dtype``: the largest |difference| (0: bit-identical)."""
+    import torch.distributed as dist
+    from repro_torch.core import quant, zeropp
+    got = zeropp.fwd_gather(shard, z).cpu()
+    host = shard.cpu()
+    shards = [torch.empty_like(host) for _ in range(dist.get_world_size())]
+    dist.all_gather(shards, host)
+    want = torch.cat([quant.dequantize_global(
+        *quant.quantize_global(s, z.qwz_bits), z.qwz_bits, z.compute_dtype)
+        for s in shards])
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return float("inf")
+    return float((got.float() - want.float()).abs().max())
 
 
 def _mr_argv(batch: int, steps: int, *extra, mesh=MR_MESH) -> list:
@@ -1909,19 +1942,28 @@ def knob_phase(losses_2x2: list) -> dict:
         losses = outs[0]["losses"]
         t = f"{tag} {name} {over}"
         grad_side = name != "qwz_nonblocked"
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses, losses_2x2)]
+        diff = [abs(a - b) for a, b in zip(losses, losses_2x2)]
         print(f"{t}: losses {losses!r} vs phase 6's {losses_2x2[:KNOB_STEPS]!r}"
               f": step 1 {'bit-identical' if losses[0] == losses_2x2[0] else 'differs'}"
-              f" (bar: {'bit-identical' if grad_side else f'{MR_REL} relative'}"
-              f"), relative {[f'{v:.2e}' for v in rel]} (bar {MR_REL})",
+              f" (bar: {'bit-identical' if grad_side else MR_LOSS1_ATOL}), "
+              f"|diff| {[f'{v:.2e}' for v in diff]} (bar {MR_LOSS1_ATOL})",
               flush=True)
         if not all(np.isfinite(losses)):
             fail(f"{t}: non-finite loss {losses}")
         if grad_side and losses[0] != losses_2x2[0]:
             fail(f"{t}: step-1 loss {losses[0]!r} is not phase 6's "
                  f"{losses_2x2[0]!r}: the knob moved the forward")
-        if not max(rel) < MR_REL:
-            fail(f"{t}: losses beyond {MR_REL} of phase 6's")
+        if not max(diff) <= MR_LOSS1_ATOL:
+            fail(f"{t}: losses beyond {MR_LOSS1_ATOL} of phase 6's")
+        if not grad_side:
+            errs = [out["nonblocked_err"] for out in outs]
+            print(f"{t}: each rank's non-blocked gather of layer group 0 on "
+                  f"the card vs quantize_global / dequantize_global of "
+                  f"every shard on the host: max |diff| {errs} (bar: "
+                  f"bit-identical)", flush=True)
+            if any(e != 0.0 for e in errs):
+                fail(f"{t}: the non-blocked gather differs from "
+                     f"quantize_global / dequantize_global: {errs}")
         wire_report(t, outs, KNOB_MIB[name])
         out[f"train_{y}x{x}_{name}"] = _mr_report(t, outs, TRAIN_BATCH)
     return out

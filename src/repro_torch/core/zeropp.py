@@ -62,10 +62,11 @@ class ZeroConfig:
     fast tier (``intra_axis``: qgZ's first hop), ``inter_group`` the
     slower tiers (``inter_axes``, one axis or several: qgZ's second hop),
     ``secondary_group`` hpZ's secondary group (``secondary_axes``; None:
-    the intra group).  None is torch.distributed's default group, or a
-    world of 1 when no process group is initialised; at world > 1 the
-    caller passes the groups (``launch.mesh.Mesh.group``), and
-    :func:`grad_reduce` checks that the tiers tile the world.
+    the intra group, which a wider ``hpz_axes`` beyond one rank refuses).
+    None is torch.distributed's default group, or a world of 1 when no
+    process group is initialised; at world > 1 the caller passes the
+    groups (``launch.mesh.Mesh.group``), and :func:`grad_reduce` checks
+    that the tiers tile the world.
 
     The paper's ablation knobs are the reference's: ``qwz_blocked=False``
     (one scale a shard, Fig. 2 / Fig. 14), ``hpz_axes`` (a wider
@@ -116,6 +117,13 @@ class ZeroConfig:
             raise ValueError(
                 f"ZeroConfig.prefetch must be >= 0 (ring depth), got "
                 f"{self.prefetch}")
+        if (self.distributed and self.secondary_group is None
+                and self.secondary_axes != (self.intra_axis,)
+                and cl.world_size(self.group) > 1):
+            raise ValueError(
+                f"hpz_axes {self.hpz_axes} needs its secondary_group "
+                f"(launch.mesh.Mesh.group) beyond one rank: the intra "
+                f"group would hold the secondary partition")
 
     def effective_prefetch(self, n: int) -> int:
         """Usable ring depth for an ``n``-step loop: at most n-1 (a deeper
@@ -140,7 +148,7 @@ class ZeroConfig:
 
     @property
     def hpz_group(self) -> Any:
-        """The process group of ``secondary_axes``."""
+        """The process group of ``secondary_axes`` (see ``__post_init__``)."""
         return (self.secondary_group if self.secondary_group is not None
                 else self.intra_group)
 

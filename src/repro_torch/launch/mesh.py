@@ -9,14 +9,15 @@ over an initialised process group plus the groups of its axes:
     ``("pod", "data", "model")`` (the reference's multi-pod mesh); ranks
     are row-major with ``model`` fastest, so rank r's flat shard and batch
     rows are the r-th of the world (the reference's ``P(dp_axes)``);
-  * :meth:`Mesh.group` gives this rank's group over any tuple of axes
-    (``collectives.axis_group``): the intra group ``("model",)`` (qgZ's
-    first hop, hpZ's default secondary group: X consecutive ranks), the
-    inter group (every axis but ``model``: qgZ's second hop, its ranks
-    row-major over ``("pod", "data")``), one pod ``("data", "model")``
-    (a wider hpZ secondary group), the sequence axes of a layout.  Every
-    group is created when the mesh is, so every rank creates them in the
-    same order.
+  * :meth:`Mesh.group` gives this rank's group over the tuples of axes a
+    run uses (``collectives.axis_group``): the intra group ``("model",)``
+    (qgZ's first hop, hpZ's default secondary group: X consecutive
+    ranks), the inter group (every axis but ``model``: qgZ's second hop,
+    its ranks row-major over ``("pod", "data")``), the sequence axes of
+    a layout (a suffix of the axes), one pod ``("data", "model")`` (a
+    wider hpZ secondary group) and any other ``hpz_axes``.  Every group
+    is created when the mesh is, so every rank creates them in the same
+    order.
 
 :func:`spawn` starts one process per rank, gives each an initialised
 process group (ranks 0 … N-1, meeting at a ``TCPStore`` that the
@@ -30,7 +31,6 @@ the launching process, before any rank starts: ranks that met a cold
 from __future__ import annotations
 
 import dataclasses
-import itertools
 import os
 import queue as queue_lib
 import time
@@ -59,8 +59,8 @@ def axes_of(shape: Tuple[int, ...]) -> Tuple[str, ...]:
 class Mesh:
     """A world of ``shape`` over ``axes_of(shape)``: the whole ZeRO world
     is torch.distributed's default group (none at world 1); ``groups``
-    maps each proper, non-empty tuple of axes (in mesh order) to this
-    rank's group over it (None at world 1)."""
+    maps the proper tuples of axes (in mesh order) that :func:`make_mesh`
+    built to this rank's group over each (None at world 1)."""
     shape: Tuple[int, ...]
     groups: Optional[Dict[Tuple[str, ...], Any]] = None
 
@@ -101,6 +101,9 @@ class Mesh:
             return None
         if axes == self.axes:
             return dist.group.WORLD
+        if axes not in self.groups:
+            raise ValueError(f"no group over {axes}: make_mesh builds "
+                             f"{sorted(self.groups)} and its hpz_axes")
         return self.groups[axes]
 
 
@@ -118,12 +121,19 @@ def parse_mesh(spec: str) -> Tuple[int, ...]:
     return shape
 
 
-def make_mesh(shape: Tuple[int, ...]) -> Mesh:
-    """The mesh of ``shape`` over the default process group, the group of
-    every proper tuple of its axes created (every rank must call this, in
-    the same order).  A world of 1 needs no process group."""
+def make_mesh(shape: Tuple[int, ...],
+              hpz_axes: Optional[Tuple[str, ...]] = None) -> Mesh:
+    """The mesh of ``shape`` over the default process group, with the
+    groups a run uses created (every rank must call this, in the same
+    order): every proper suffix of the axes (``("model",)``, the
+    sequence axes, one pod), every axis but ``model`` and, where given,
+    ``hpz_axes`` (in mesh order).  A world of 1 needs no process
+    group."""
     shape = tuple(int(s) for s in shape)
     axes = axes_of(shape)
+    subs = [axes[k:] for k in range(len(axes) - 1, 0, -1)] + [axes[:-1]]
+    if hpz_axes:
+        subs.append(tuple(a for a in axes if a in hpz_axes))
     world = 1
     for s in shape:
         world *= s
@@ -135,9 +145,11 @@ def make_mesh(shape: Tuple[int, ...]) -> Mesh:
             f"mesh {'x'.join(map(str, shape))} needs a process group of "
             f"{world} ranks, found {have}: start the ranks with "
             f"repro_torch.launch.mesh.spawn")
-    return Mesh(shape, {sub: cl.axis_group(shape, axes, sub)
-                        for k in range(1, len(axes))
-                        for sub in itertools.combinations(axes, k)})
+    groups: Dict[Tuple[str, ...], Any] = {}
+    for sub in subs:
+        if sub != axes and sub not in groups:
+            groups[sub] = cl.axis_group(shape, axes, sub)
+    return Mesh(shape, groups)
 
 
 # ---------------------------------------------------------------- spawner

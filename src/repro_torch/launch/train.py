@@ -87,7 +87,7 @@ def build_everything(arch_name: str, mesh_shape: Tuple[int, ...] = (1, 1),
     arch = get_config(arch_name)
     if reduced:
         arch = arch.reduced()
-    mesh = mesh_lib.make_mesh(mesh_shape)
+    mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"))
     over = dict(overrides)
     if prefetch is not None:
         over["prefetch"] = prefetch

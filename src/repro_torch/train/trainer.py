@@ -87,21 +87,17 @@ def choose_batch_seq_axes(global_batch: int, shape: Tuple[int, ...],
     return tuple(batch_axes), tuple(a for a in axes if a not in batch_axes)
 
 
-def _layout(z, world: int, mesh: Optional[Mesh]):
+def _layout(world: int, mesh: Optional[Mesh]):
     """(axes, {axis: size}, group of a tuple of axes) of the step's world:
-    the mesh's, or at world > 1 without one the two-axis world of the
-    config's tiers (a three-axis world needs its mesh)."""
-    if mesh is not None:
-        if mesh.world != world:
-            raise ValueError(f"mesh {mesh.shape} for a ZeRO world of "
-                             f"{world}")
-        return mesh.axes, mesh.sizes, mesh.group
-    if len(z.dp_axes) > 2 and world > 1:
-        raise ValueError(f"a world over {z.dp_axes} needs its mesh "
-                         f"(build_train_step(mesh=))")
-    x = cl.world_size(z.intra_group) if world > 1 else 1
-    groups = {AXES[1:]: z.intra_group, AXES: z.group}
-    return AXES, dict(zip(AXES, (world // x, x))), groups.get
+    the mesh's, which a world of more than one rank needs."""
+    if mesh is None:
+        if world > 1:
+            raise ValueError(f"a ZeRO world of {world} ranks needs its mesh "
+                             f"(build_train_step(mesh=))")
+        return AXES, dict.fromkeys(AXES, 1), lambda axes: None
+    if mesh.world != world:
+        raise ValueError(f"mesh {mesh.shape} for a ZeRO world of {world}")
+    return mesh.axes, mesh.sizes, mesh.group
 
 
 def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
@@ -123,9 +119,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     kernels).  ``attn_impl`` is the reference's switch: "xla" (plain
     attention) or "pallas" (the flash kernels where ``mha``'s rule
     allows: no sequence axis).  ``mesh`` is the world's
-    ``launch.mesh.Mesh`` (its axes, sizes and groups); without it a world
-    of more than one rank is read as ``(Y, X)`` from the config's tier
-    groups."""
+    ``launch.mesh.Mesh`` (its axes, sizes and groups), required beyond
+    one rank."""
     dev = platform.resolve_device(device)
     if dev.type != model.device.type:
         raise ValueError(f"step built for {dev} but the model runs on "
@@ -138,7 +133,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
     rank = cl.flat_rank(z.group) if world > 1 else 0
-    axes, sizes, group_of = _layout(z, world, mesh)
+    axes, sizes, group_of = _layout(world, mesh)
     if global_batch is not None:
         batch_axes, seq_axes = choose_batch_seq_axes(
             global_batch, tuple(sizes[a] for a in axes), axes)

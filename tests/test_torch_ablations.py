@@ -22,8 +22,9 @@ world 4 (2 × 2), on gloo ranks.
       the misaligned 1-hop raises ``ValueError`` (``checks.py:1080``);
   (d) one training step of gpt-350m reduced (2 layers, d 64, vocab 128,
       seq 64, batch 8: two rows a rank) at 2 × 2 under each knob, fp32
-      compute, against the reference's step with the same override on the
-      same global fp32 state: the loss within 1e-5; gradients, m and v
+      compute (and one with ``grad_dtype=bfloat16``, the optimizer-side
+      gradients), against the reference's step with the same override on
+      the same global fp32 state: the loss within 1e-5; gradients, m and v
       within what the rounding flips on each element's qgZ path can move
       it by (``step_bars.path_steps``, from the scales every rank's B4
       and B5 read: at Y > 1 a flip moves an element by a step of the
@@ -75,6 +76,8 @@ KNOBS = {"qwz_nonblocked": dict(qwz_blocked=False),
          "qgz_int8": dict(qgz_bits=8),
          "qgz_1hop": dict(qgz_2hop=False),
          "hpz_world": dict(hpz_axes=("data", "model"))}
+# (d) also steps with bf16 optimizer-side gradients, which move no wire byte
+STEP_KNOBS = dict(KNOBS, grad_bf16=dict(grad_dtype=torch.bfloat16))
 # (c): (name, bits, block, elements a rank)
 RS_CASES = (("int8", 8, 32, 4 * 32 * 4), ("int4", 4, 64, 4 * 64 * 4))
 GATHER_CASES = (("f32_int8", 8, "float32", 1024), ("bf16_int4", 4,
@@ -167,8 +170,9 @@ def tree(prefix):
     return {k[len(prefix):]: jnp.asarray(v) for k, v in d.items()
             if k.startswith(prefix)}
 def put(prefix, t):
-    for k, v in t.items():
-        out[prefix + k] = np.asarray(v)
+    for k, v in t.items():     # bf16 (grad_dtype) as float32: exact
+        out[prefix + k] = np.asarray(jnp.asarray(v, jnp.float32)
+                                     if v.dtype == jnp.bfloat16 else v)
 arch = get_config("gpt-350m").reduced()
 batch = {k[2:]: d[k] for k in d if k.startswith("b.")}
 F32 = dict(param_dtype=jnp.float32, compute_dtype=jnp.float32,
@@ -176,7 +180,8 @@ F32 = dict(param_dtype=jnp.float32, compute_dtype=jnp.float32,
 rs = RunSpec(mode="train", seq_axes=(), attn_impl="xla")
 KNOBS = {"qwz_nonblocked": dict(qwz_blocked=False),
          "qgz_int8": dict(qgz_bits=8), "qgz_1hop": dict(qgz_2hop=False),
-         "hpz_world": dict(hpz_axes=("data", "model"))}
+         "hpz_world": dict(hpz_axes=("data", "model")),
+         "grad_bf16": dict(grad_dtype=jnp.bfloat16)}
 for name, over in KNOBS.items():
     m = Model(arch, make_policy(arch, AXES, "zeropp", **over, **F32).zcfg,
               world=4)
@@ -236,6 +241,22 @@ def _collectives(rank, world, d, mesh):
         out["misaligned"] = "accepted"
     except ValueError as e:
         out["misaligned"] = str(e)
+    # a wider hpz_axes without its group must not fall back to the intra
+    # group; hpz_axes of the intra axis alone may
+    for name, kw in (("zcfg", dict(intra_group=mesh.intra,
+                                   inter_group=mesh.inter)),
+                     ("policy", None)):
+        try:
+            if kw is None:
+                make_policy(get_config(ARCH).reduced(), mesh.axes,
+                            hpz_axes=("data", "model"))
+            else:
+                tz.ZeroConfig(hpz_axes=("data", "model"), **kw)
+            out["hpz_no_group." + name] = "accepted"
+        except ValueError as e:
+            out["hpz_no_group." + name] = str(e)
+    out["hpz_intra"] = cl.world_size(tz.ZeroConfig(
+        hpz_axes=("model",), intra_group=mesh.intra).hpz_group)
     return out
 
 
@@ -247,7 +268,7 @@ def _steps(rank, world, d, mesh):
     p = {k[2:]: v for k, v in d.items() if k.startswith("p.")}
     tb = {k[2:]: torch.from_numpy(v).long() for k, v in d.items()
           if k.startswith("b.")}
-    for name, over in KNOBS.items():
+    for name, over in STEP_KNOBS.items():
         pol = make_policy(arch, mesh.axes, "zeropp", mesh=mesh, **over,
                           **TF32)
         model = Model(arch, pol.zcfg, world=world, device="cpu")
@@ -267,7 +288,14 @@ def _steps(rank, world, d, mesh):
             opt=to_numpy(opt), met={k: float(v) for k, v in m.items()},
             comm=tlaunch.comm_since(sent),
             projected=projected_wire_by_label(model, mesh.sizes),
-            hpz_world=cl.world_size(pol.zcfg.hpz_group))
+            hpz_world=cl.world_size(pol.zcfg.hpz_group),
+            grads_bf16=all(torch.equal(v, v.bfloat16().to(v.dtype))
+                           for v in grads.values()))
+    try:        # beyond one rank the step needs its mesh
+        trainer.build_train_step(model, AdamWConfig(), device="cpu")
+        out["no_mesh"] = "accepted"
+    except ValueError as e:
+        out["no_mesh"] = str(e)
     return out
 
 
@@ -496,11 +524,27 @@ def test_misaligned_one_hop_raises(runs):
         assert "multiple of world*block" in r["coll"]["misaligned"]
 
 
+def test_step_beyond_one_rank_needs_its_mesh(runs):
+    for r in runs["ranks"]:
+        assert "needs its mesh" in r["steps"]["no_mesh"]
+
+
+def test_wider_hpz_axes_without_their_group_raise(runs):
+    """At world 4 a ``hpz_axes`` wider than ``model`` with no
+    ``secondary_group`` (a ZeroConfig, or make_policy with no mesh) is
+    refused rather than run over the intra pair."""
+    for r in runs["ranks"]:
+        for name in ("zcfg", "policy"):
+            assert "needs its secondary_group" in \
+                r["coll"]["hpz_no_group." + name], name
+        assert r["coll"]["hpz_intra"] == 2
+
+
 # ---------------------------------------------------------------------------
 # (d) one training step under each knob
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(KNOBS))
+@pytest.mark.parametrize("name", sorted(STEP_KNOBS))
 def test_knob_step_matches_reference(runs, name):
     ranks = runs["ranks"]
     step_bars.hold_qgz_step([r["steps"][name] for r in ranks], runs["ref"],
@@ -510,3 +554,4 @@ def test_knob_step_matches_reference(runs, name):
         "zero.qgz_reduce"
     assert label in s["comm"]
     assert s["hpz_world"] == (4 if name == "hpz_world" else 2)
+    assert s["grads_bf16"] == (name == "grad_bf16")

@@ -187,7 +187,16 @@ def _rank(rank, world, d, metrics_dir):
         "intra": dist.get_process_group_ranks(mesh.intra),
         "inter": dist.get_process_group_ranks(mesh.inter),
         "pod": dist.get_process_group_ranks(mesh.group(("data", "model"))),
-        "world": cl.world_size(mesh.group(mesh.axes))}}
+        "world": cl.world_size(mesh.group(mesh.axes)),
+        "built": sorted(mesh.groups)}}
+    try:
+        mesh.group(("pod", "model"))
+        out["groups"]["unbuilt"] = "accepted"
+    except ValueError as e:
+        out["groups"]["unbuilt"] = str(e)
+    wide = mesh_lib.make_mesh(MESH, hpz_axes=("pod", "model"))
+    out["groups"]["pod_model"] = dist.get_process_group_ranks(
+        wide.group(("pod", "model")))
     coll = {}
     for name, bits, block, _ in MP_CASES:
         coll["mp." + name] = cl.qgz_reduce_scatter(
@@ -302,6 +311,13 @@ def test_groups_are_the_references(runs):
                               for pp in range(2) for yy in range(2)]
         assert g["pod"] == [p * 4 + j for j in range(4)], (r, dd)
         assert g["world"] == WORLD
+        # only the groups a run uses: the suffixes of the axes, every axis
+        # but model, and hpz_axes where asked for
+        assert g["built"] == [("data", "model"), ("model",),
+                              ("pod", "data")]
+        assert "no group over ('pod', 'model')" in g["unbuilt"]
+        assert g["pod_model"] == [p * 4 + dd * 2 + mm for p in range(2)
+                                  for mm in range(2)]
         assert out["steps"]["hpz_pod"]["hpz_ranks"] == g["pod"]
         assert out["steps"]["zeropp"]["hpz_ranks"] == g["intra"]
 

@@ -123,7 +123,8 @@ def _world4_rank(rank, world):
             params = {k: shard_of(v, rank, world).clone()
                       for k, v in full.items()}
             step = trainer.build_train_step(model, AdamWConfig(),
-                                            device="cpu", global_batch=rows)
+                                            device="cpu", global_batch=rows,
+                                            mesh=mesh)
             with _Counts() as c:
                 loss, _, grads = step.loss_and_grads(params, batch)
             res = {"loss": float(loss),

@@ -227,12 +227,14 @@ def _world4_rank(rank, world, p4, b1, b2, b4):
         model = Model(arch, pol.zcfg, world=world, device="cpu")
         fresh = lambda: params_from_numpy(p4, model, rank=rank,  # noqa: E731
                                           world=world)
-        out[name] = _step(model, fresh(), b2, global_batch=2,
+        out[name] = _step(model, fresh(), b2, global_batch=2, mesh=mesh,
                           scales={} if name == "zeropp" else None)
         if name == "qgz_off":
-            out["batch1"] = _step(model, fresh(), b1, global_batch=1)
-            out["force"] = _step(model, fresh(), b4)
-            out["auto4"] = _step(model, fresh(), b4, global_batch=FORCE_BATCH)
+            out["batch1"] = _step(model, fresh(), b1, global_batch=1,
+                                  mesh=mesh)
+            out["force"] = _step(model, fresh(), b4, mesh=mesh)
+            out["auto4"] = _step(model, fresh(), b4, global_batch=FORCE_BATCH,
+                                 mesh=mesh)
     # the sequence the gather returns: every rank's positions, global order
     S = SEQ
     s = S // world

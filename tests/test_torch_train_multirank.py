@@ -191,7 +191,8 @@ def _step_rank(rank, world, p4, batch):
                           **TF32)
         model = Model(arch, pol.zcfg, world=world, device="cpu")
         step = trainer.build_train_step(model, AdamWConfig(lr=LR),
-                                        device="cpu", global_batch=STEP_BATCH)
+                                        device="cpu", global_batch=STEP_BATCH,
+                                        mesh=mesh)
         params = params_from_numpy(p4, model, rank=rank, world=world)
         opt = init_opt_state(params)
         loss, mets, grads = step.loss_and_grads(params, tb)

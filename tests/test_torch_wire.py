@@ -246,7 +246,7 @@ def _grid_rank(rank, world):
                           prefetch=pf)
         model = Model(arch, pol.zcfg, world=world, device="cpu")
         step = build_train_step(model, AdamWConfig(lr=3e-3), accum=accum,
-                                device="cpu", global_batch=BATCH)
+                                device="cpu", global_batch=BATCH, mesh=mesh)
         out[(variant, pf, accum)] = _measure(model, step, BATCH, accum)
     return out
 
@@ -262,7 +262,7 @@ def _sp_rank(rank, world):
     out = {}
     for rows in SP_BATCHES:
         step = build_train_step(model, AdamWConfig(lr=3e-3), device="cpu",
-                                global_batch=rows)
+                                global_batch=rows, mesh=mesh)
         out[rows] = _measure(model, step, rows, 1)
         out[("seq_axes", rows)] = step.run_spec.seq_axes
     with profile() as prof:
