@@ -17,7 +17,9 @@ last line is printed.
    plain PyTorch version on the same inputs — B1 quantize (bf16 serving
    shards and the fp32 master shards of training), B2 dequantize, and the
    qgZ kernels B3 reorder-quantize, B4 dequant-reduce-requantize and B5
-   dequant-reduce (every flat group of qwen3-0.6b with N = 1, the reorder
+   dequant-reduce (every flat group of qwen3-0.6b and of the 8-layer
+   gemma3-4b with N = 1 — gemma3's embedding is 671,088,640 elements, its
+   fp32 shard 2.7 GB, past 2^31 bytes —, the reorder
    shape (Y, X, L) = (2, 8, 1,966,336), N = 8 at one layer group, and the
    chain a rank of phase 6's 2 x 2 world runs at a layer group: B3 on (2,
    2, 3,932,928), B4 and B5 at N = 2) all bit-identical; B8 dequant-GEMM
@@ -161,6 +163,29 @@ last line is printed.
    step times and peak, and rank 0's profiled step (host wall, device
    busy share, gloo host time by label).
 
+10. gemma3-4b phases (head dim 256, 5 local : 1 global layers), on the
+   full width cut to ``GEMMA_LAYERS`` = 8 layers (one period and a rem
+   group of 2 local layers): after the flash phase, B6/B7 at hd 256 in
+   bf16 at q (2, 4096, 8, 256), k/v (2, 4096, 4, 256), causal with the
+   local layers' window of 1024 and without, held as phase 2 holds hd
+   128 and timed beside the bound (the window's pairs only), the plain
+   versions and SDPA (with the backend it took), and in fp32 at (1,
+   1024, 8/4, 256), plain causal and with window 300 and softcap 30, at
+   2e-5 / 3e-5, two launches bit-identical; B8 at gemma3's head chunk (T
+   4, N 65,536, K 2560); B1-B5 at its flat groups in phase 2. After
+   phase 5: phase 3 on the 8-layer model
+   (prompts 7, 300, 1100 and 1500, the last two wrapping the 1024-slot
+   rings at prefill, each prefilled at its exact length); phase 4's rule
+   on a 3-layer ("local", "attn") stack of gemma3's widths, vocab 8192,
+   batch 1 x ``GEMMA_PARITY_SEQ`` under --attn pallas; and
+   ``train_loop`` on the 8-layer model (bf16, full ZeRO++, world 1,
+   --attn pallas, batch 2 x 4096, 6 steps at lr 3e-4): finite losses,
+   the last below the first, B6 twice and B7 once a layer and B1-B5 once
+   a flat group (the rem group included) every step; step p50, tokens/s,
+   peak memory and a profiled step.  The build report's per-kernel lines
+   give every hd-256 instantiation's registers, spills and shared
+   memory.
+
 The kernel phase also holds B1-B5 at the knobs' shapes and widths
 (``knob_kernel_phase``): the INT8 qgZ chain of a 2 x 2 rank at a layer
 group, B5 at N = 4 (the 2 x 2 x 2 inter hop), the 1-hop's B1 on (4, L)
@@ -169,11 +194,15 @@ quantized ring's dequantize-and-add), each bit-identical and timed.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
-plain version's, its bound and, for B6/B7, SDPA's); the last line is
+plain version's, its bound and, for B6/B7, SDPA's; B6/B7 at hd 256 as
+``flash_fwd_hd256``/``flash_bwd_hd256``, the same wrappers and counters
+on the gemma3 path); the whole run's seconds come before it; the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -256,6 +285,18 @@ FLASH_BF16_CASES = (
     (1, 1024, 1024, 16, 4, 64, True, 0, 0.0),       # hd 64, GQA 4
 )
 FLASH_TILE = fa.TILE          # the kernels' q and kv tile
+# gemma3-4b (head dim 256, 5 local : 1 global): full width cut to 8 layers
+# (one period and a rem group of 2 local layers; 34 layers' fp32 state
+# would not fit the card at world 1); its attention at batch 2 x 4096
+GEMMA_LAYERS = 8
+GEMMA_WINDOW = 1024
+GEMMA_FLASH_SHAPE = (2, 4096, 8, 4, 256)
+GEMMA_F32_SHAPE = (1, 1024, 8, 4, 256)
+GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_TRAIN_STEPS = 2, 4096, 6
+GEMMA_PARITY_SEQ = 2048
+# the last two prompts are longer than the window: their rings wrap at
+# prefill
+GEMMA_PROMPTS = (7, 300, 1100, 1500)
 # step-1 losses of the two attention routes: bf16 through 28 layers, with
 # kv tiles summed in other orders (64-wide vs 1024-wide chunks)
 ROUTE_LOSS_ATOL = 1e-2
@@ -331,7 +372,8 @@ QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
                  "dequant_matmul_kernel": "B8 dequant_matmul"}
 # B8: the head's decode and prefill shapes (T rows, one vocab chunk, NB =
 # d/256 scale groups) and the broadcast layout (NB = 1); then edge shapes
-B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1))
+B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1),
+           (4, 65536, 2560, 10))          # gemma3-4b's head chunk, decode
 B8_EDGE_T = (*range(1, 10), 17)
 B8_EDGE_N = (1, 31, 4097)
 B8_EDGE_KNB = ((64, 1), (1024, 4), (4096, 16))
@@ -395,9 +437,11 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     # B1 / B2 at every flat-shard shape of the paths (all (1, N) rows, bf16,
     # INT8, block 256): the head norm, one layer group, one unembedding
     # chunk (serving feeds it to the dequant-GEMM, training dequantizes
-    # it) and the embedding
+    # it) and the embedding of qwen3-0.6b, then gemma3-4b's groups (up to
+    # 671 M elements)
     q_err = d_err = 0.0
-    for n in (1024, 15_730_944, 38_895_616, 155_582_464):
+    for n in (1024, 15_730_944, 38_895_616, 155_582_464,
+              *gemma3_group_sizes()):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
         pp, sp = quant.quantize_blockwise(x, cfg)
@@ -514,7 +558,11 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
                     f"weights and scales), plain {plain:.4f} ms, bound " \
                     f"{b8[0]:.4f} ms ({b8[1]}), cuBLAS bf16 x @ W_bf16.T on " \
                     f"dequantized weights {lib:.4f} ms"
-            if T == 4:                # the decode step's: the record's
+            if (T, K) == (4, 2560):   # gemma3-4b's head, beside it
+                extra["gemma3_t4"] = dict(ms=ms, plain_ms=plain,
+                                          bound_ms=b8[0], library_ms=lib,
+                                          shape=[T, N, K, NB])
+            elif T == 4:              # the decode step's: the record's
                 rec.update(ms=ms, plain_ms=plain, bound=b8,
                            shape=(T, N, K, NB), library_ms=lib)
                 # one 16-row tile alone (one warp's dependent steps: the
@@ -606,7 +654,8 @@ def _same(name, shape, got, want) -> float:
 
 def qgz_kernel_phase(flush: torch.Tensor) -> dict:
     """B1 on fp32 master shards and the qgZ kernels B3, B4, B5, each at
-    every flat group of the training path (N = 1), B3 at a reordering
+    every flat group of the training paths (N = 1; qwen3-0.6b's, then
+    gemma3-4b's, whose fp32 shards pass 2^31 bytes), B3 at a reordering
     shape, B4/B5 at N = 8, and the chain a rank of the 2 x 2 world runs at
     a layer group (B3 on (2, 2, L), B4 and B5 at N = 2); bit-identical to
     the plain versions."""
@@ -628,7 +677,7 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
               f"({b[1]})", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, bound=b)
 
-    for n in PATH_NS:
+    for n in (*PATH_NS, *gemma3_group_sizes()):
         nb = n // 256
         # B1: the qwZ quantize of an fp32 master shard (training)
         x = torch.randn(1, n, generator=g, device=dev) * 0.02
@@ -1234,20 +1283,25 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
 
 # ----------------------------------------------------------------- engine
 
-def engine_phase() -> dict:
-    cfg = get_config("qwen3-0.6b")
+def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
+    """Phase 3 on ``cfg`` (default qwen3-0.6b at full width; the gemma3
+    phase passes its 8-layer stack) with prompts of ``prompt_lens``
+    tokens."""
+    cfg = cfg or get_config("qwen3-0.6b")
     z = ZeroConfig(dp_axes=("model",))            # qwZ on, world 1, bf16
     model = Model(cfg, z, world=1, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     params = model.init_params(g)
     n_params = sum(int(np.prod(s)) for s in model.param_shapes().values())
-    print(f"engine: {cfg.name} full width ({cfg.n_layers} layers, d "
+    print(f"engine: {cfg.name} full width ({cfg.n_layers} layers: "
+          f"{model.n_periods} x {model.period}"
+          f"{f' + {model.rem_kinds}' if model.rem else ''}, d "
           f"{cfg.d_model}, vocab {cfg.vocab}), {n_params} flat params bf16, "
           f"{model.unemb_chunks} head chunks", flush=True)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
-               for n in PROMPTS]
+               for n in prompt_lens]
 
     # warm-up (library load, cuBLAS handles, allocator) outside the count
     warm = ServeEngine(model, params, n_slots=1, kv_len=KV_LEN)
@@ -1289,17 +1343,17 @@ def engine_phase() -> dict:
     wall = time.perf_counter() - t0
     launches = dict(platform.LAUNCHES)
 
-    for u, n in zip(uids, PROMPTS):
+    for u, n in zip(uids, prompt_lens):
         if eng.status[u] != "done" or len(res[u]) != MAX_NEW:
             fail(f"request {u} (prompt {n}) did not finish: "
                  f"{eng.status[u]}, {len(res[u])} tokens")
     model_calls = calls["prefill"] + calls["decode"]
-    # per model call: qwZ gathers of embed + every layer group + head norm
-    # (quantize + dequantize each) and of every unemb chunk (quantize
-    # only, consumed by one dequant-GEMM each)
-    per_call = {"quantize_blockwise": 1 + cfg.n_layers + 1
-                + model.unemb_chunks,
-                "dequantize_blockwise": 1 + cfg.n_layers + 1,
+    # per model call: qwZ gathers of embed + every layer group (a period,
+    # and the rem group) + head norm (quantize + dequantize each) and of
+    # every unemb chunk (quantize only, consumed by one dequant-GEMM each)
+    groups = 1 + model.n_periods + int(model.rem > 0) + 1
+    per_call = {"quantize_blockwise": groups + model.unemb_chunks,
+                "dequantize_blockwise": groups,
                 "dequant_matmul": model.unemb_chunks}
     for k, per in per_call.items():
         if launches[k] <= 0 or launches[k] != per * model_calls:
@@ -1331,7 +1385,7 @@ def engine_phase() -> dict:
         if err > LOGIT_ATOL:
             fail(f"request {u} (prompt {len(p)}): first-token logits differ "
                  f"from its standalone prefill by {err} > {LOGIT_ATOL}")
-        caches = steps.pad_prefill_caches(caches, KV_LEN)
+        caches = steps.pad_prefill_caches(model, caches, KV_LEN)
         same = int(int(want.argmax()) == toks[0])
         req_err = 0.0
         for j in range(1, MAX_NEW):
@@ -1373,6 +1427,12 @@ def engine_phase() -> dict:
              f"steps")
     profile_decode(dec.fn, params, eng.pool.caches,
                    [len(p) for p in prompts[:N_SLOTS]])
+    if model.rem or model.period != ("attn",):
+        rings = [c["k"].shape[-3] for c in eng.pool.caches["blocks"]]
+        print(f"engine: every prompt prefilled at its exact length "
+              f"({calls['prefill']} prefills); pool cache slots per block "
+              f"of the period {rings} (local rings of the window), kv_len "
+              f"{KV_LEN}", flush=True)
     st = eng.stats()
     print(f"engine: first-token logits vs standalone prefill max abs diff "
           f"{worst:.4f} (bar {LOGIT_ATOL})", flush=True)
@@ -1431,13 +1491,15 @@ def _grads_within_one_int4_step(got: dict, want: dict) -> tuple:
 
 def step_launches(cfg, model, attn: str) -> dict:
     """Kernel launches one training step issues: each of B1-B5 once per
-    flat group (embedding, layers, head norm, unembedding chunks), none of
-    B8, and under --attn pallas B6 twice per layer (the forward and the
-    layer's recompute) and B7 once.  The knobs move B1-B5: non-blocked
+    flat group (embedding, layer groups — a period of the pattern each,
+    and the leftover layers' rem group —, head norm, unembedding chunks),
+    none of B8, and under --attn pallas B6 twice per layer (the forward
+    and the layer's recompute) and B7 once.  The knobs move B1-B5: non-blocked
     qwZ quantizes in plain PyTorch (no B1, no B2, as the reference
     computes it outside its kernels); the 1-hop qgZ runs B1 and B5 once
     per group and no B3 or B4."""
-    groups = 1 + cfg.n_layers + 1 + model.unemb_chunks
+    groups = (1 + model.n_periods + int(model.rem > 0) + 1
+              + model.unemb_chunks)
     z = model.zcfg
     qwz = int(z.qwz and z.qwz_blocked)
     two_hop = int(z.qgz and z.qgz_2hop)
@@ -1461,47 +1523,58 @@ def train_parity_phase() -> None:
     vocab 8192 in 4 chunks, fp32 compute): batch 2 x 256 with plain
     attention, and 2 x 512 with --attn pallas (the flash kernels need S a
     multiple of 512, the reference's rule)."""
-    import dataclasses
-    from repro_torch.data.synthetic import SyntheticLM
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
                               vocab=8192, unemb_chunks=4)
+    for attn, seq in (("xla", 256), ("pallas", 512)):
+        parity_step(cfg, attn, 2, seq)
+
+
+def parity_step(cfg, attn: str, rows: int, seq: int) -> None:
+    """One full-ZeRO++ ``loss_and_grads`` of ``cfg`` in fp32 on the card
+    and on the CPU from the same parameters and batch (rows x seq), held
+    to phase 4's rule; the card's launches must be ``step_launches``."""
+    from repro_torch.data.synthetic import SyntheticLM
     pol = make_policy(cfg, variant="zeropp", param_dtype=torch.float32,
                       compute_dtype=torch.float32, reduce_dtype=torch.float32)
     cpu_model = Model(cfg, pol.zcfg, device="cpu")
     cuda_model = Model(cfg, pol.zcfg, device="cuda")
     params = cpu_model.init_params(torch.Generator().manual_seed(0),
                                    dtype=torch.float32)
-    for attn, seq in (("xla", 256), ("pallas", 512)):
-        lm = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=7)
-        out = {}
-        for dev in ("cuda", "cpu"):
-            model = cpu_model if dev == "cpu" else cuda_model
-            st = build_train_step(model, AdamWConfig(), device=dev,
-                                  attn_impl=attn)
-            batch = train_launch.device_batch(cfg, lm, 0, 2, 1, dev)
-            p = {k: v.to(dev) for k, v in params.items()}
-            platform.reset_launches()
-            loss, _, grads = st.loss_and_grads(p, batch)
-            launches = dict(platform.LAUNCHES)
-            out[dev] = (float(loss), grads)
-            if dev == "cuda":
-                want = step_launches(cfg, model, attn)
-                if launches != want:
-                    fail(f"train parity --attn {attn}: launches {launches}, "
-                         f"expected {want}")
-        dl = abs(out["cuda"][0] - out["cpu"][0])
-        if not (np.isfinite(out["cuda"][0]) and dl <= 1e-5):
-            fail(f"train parity --attn {attn}: loss {out['cuda'][0]} (card) "
-                 f"vs {out['cpu'][0]} (CPU)")
-        n_far, n, worst, n_loose = _grads_within_one_int4_step(
-            out["cuda"][1], out["cpu"][1])
-        print(f"train parity --attn {attn} ({cfg.n_layers} layers, d "
-              f"{cfg.d_model}, vocab {cfg.vocab}, batch 2 x {seq}, fp32): "
-              f"loss card {out['cuda'][0]:.6f} vs CPU {out['cpu'][0]:.6f} "
-              f"(|diff| {dl:.2e} <= 1e-5); grads: {n_far} of {n} elements "
-              f"beyond rtol 1e-5 / atol 1e-6, max abs diff {worst:.3e}, none "
-              f"beyond one INT4 step; {n_loose} blocks' steps apart by more "
-              f"than rtol 1e-5 (within atol 1e-6 on 7·step)", flush=True)
+    lm = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=7)
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = cpu_model if dev == "cpu" else cuda_model
+        st = build_train_step(model, AdamWConfig(), device=dev,
+                              attn_impl=attn)
+        batch = train_launch.device_batch(cfg, lm, 0, rows, 1, dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        platform.reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = st.loss_and_grads(p, batch)
+        out[dev] = (float(loss), grads)
+        secs[dev] = time.perf_counter() - t0
+        launches = dict(platform.LAUNCHES)
+        if dev == "cuda":
+            want = step_launches(cfg, model, attn)
+            if launches != want:
+                fail(f"train parity --attn {attn}: launches {launches}, "
+                     f"expected {want}")
+    dl = abs(out["cuda"][0] - out["cpu"][0])
+    if not (np.isfinite(out["cuda"][0]) and dl <= 1e-5):
+        fail(f"train parity --attn {attn}: loss {out['cuda'][0]} (card) "
+             f"vs {out['cpu'][0]} (CPU)")
+    n_far, n, worst, n_loose = _grads_within_one_int4_step(
+        out["cuda"][1], out["cpu"][1])
+    extra = f" window {cfg.window}," if "local" in cfg.pattern else ""
+    print(f"train parity --attn {attn} ({cfg.name}: {cfg.n_layers} layers "
+          f"of {cfg.pattern},{extra} d {cfg.d_model}, hd {cfg.d_head}, vocab "
+          f"{cfg.vocab}, batch {rows} x {seq}, fp32): loss card "
+          f"{out['cuda'][0]:.6f} vs CPU {out['cpu'][0]:.6f} (|diff| "
+          f"{dl:.2e} <= 1e-5); grads: {n_far} of {n} elements beyond rtol "
+          f"1e-5 / atol 1e-6, max abs diff {worst:.3e}, none beyond one INT4 "
+          f"step; {n_loose} blocks' steps apart by more than rtol 1e-5 "
+          f"(within atol 1e-6 on 7·step); card {secs['cuda']:.1f} s, CPU "
+          f"{secs['cpu']:.1f} s", flush=True)
 
 
 def train_phase(attn: str) -> tuple:
@@ -1563,6 +1636,232 @@ def train_phase(attn: str) -> tuple:
         overhead_reading(tag, built.step.fn, res["params"], res["opt"],
                          batch)
     return launches, losses
+
+
+# ----------------------------------------------------------------- gemma3
+
+def gemma3_config():
+    """gemma3-4b at full width, cut in depth only: one period of 5 local
+    and 1 attn layers and a rem group of 2 local layers."""
+    return dataclasses.replace(get_config("gemma3-4b"), n_layers=GEMMA_LAYERS)
+
+
+def gemma3_group_sizes() -> tuple:
+    """Elements of the 8-layer gemma3-4b's flat groups at world 1, each a
+    (1, N) row of B1-B5 on its training path: the embedding, the period,
+    the rem group, one unembedding chunk and the head norm."""
+    cfg = gemma3_config()
+    shapes = Model(cfg, make_policy(cfg, variant="zeropp").zcfg,
+                   device="cuda").param_shapes()
+    return (shapes["embed"][0], shapes["blocks"][1], shapes["rem"][0],
+            shapes["unemb"][1], shapes["head"][0])
+
+
+def _window_pairs(S: int, window: int) -> int:
+    """(q, k) pairs a causal sliding window of ``window`` keeps in S rows."""
+    if not window or window >= S:
+        return _causal_pairs(S)
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def _sdpa_backend(fn) -> str:
+    """The backend SDPA took, read from the device kernels one call ran."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events()).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def gemma3_flash_phase(flush: torch.Tensor) -> dict:
+    """B6/B7 at head dim 256, gemma3-4b's training shape (q (2, 4096, 8,
+    256), k/v (2, 4096, 4, 256)), in bf16: causal with the local layers'
+    window of 1024 and without (the global layer), each held against the
+    plain versions at testing/flash_bars.py and twice with the same bits,
+    timed beside its bound, the plain version and SDPA (with the backend
+    it took); then the fp32 route at (1, 1024, 8/4, 256), plain causal
+    and with window 300 and softcap 30, at 2e-5 / 3e-5 and timed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    B, S, H, K, hd = GEMMA_FLASH_SHAPE
+    q, k, v, do = _flash_inputs(g, GEMMA_FLASH_SHAPE, torch.bfloat16)
+    qb, kb = B * S * H * hd * 2, B * S * K * hd * 2
+    rec = {}
+    fwd_err = bwd_err = 0.0
+    for window in (GEMMA_WINDOW, 0):
+        kw = dict(scale=hd ** -0.5, causal=True, window=window)
+        tag = f"{GEMMA_FLASH_SHAPE} hd 256 causal window {window}"
+        (out, m, l), want, bar, fe, be = _hold_bf16(tag, q, k, v, do, kw)
+        fwd_err, bwd_err = max(fwd_err, fe), max(bwd_err, be)
+        del want, bar
+        prod = 2 * hd * B * H * _window_pairs(S, window)
+        b6 = bound_mixed(2 * qb + 2 * kb + 8 * B * H * S,
+                         ((2 * prod, BF16_OPS_S),))
+        b7 = bound_mixed(4 * qb + 4 * kb + 8 * B * H * S,
+                         (((2 + 3 * 2) * prod, BF16_OPS_S),))
+        f_ms = median_ms(lambda: fa.flash_fwd(q, k, v, **kw), flush)
+        b_ms = median_ms(lambda: fa.flash_bwd(q, k, v, out, m, l, do, **kw),
+                         flush)
+        f_plain = median_ms(lambda: ref.flash_fwd_ref(q, k, v, **kw), flush,
+                            n=3, warmup=1)
+        b_plain = median_ms(lambda: ref.flash_bwd_ref(
+            q, k, v, out, m, l, do, **kw), flush, n=3, warmup=1)
+        if f_ms < b6[0] or b_ms < b7[0]:
+            fail(f"hd 256 window {window}: a flash kernel reads faster than "
+                 f"its bound (B6 {f_ms} < {b6[0]} or B7 {b_ms} < {b7[0]})")
+        # the library's attention on the same inputs, a yardstick only
+        sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        sdo = do.transpose(1, 2)
+        pos = torch.arange(S, device="cuda")
+        band = ((pos[:, None] >= pos[None, :])
+                & (pos[:, None] - pos[None, :] < window)) if window else None
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=band, is_causal=band is None,
+                enable_gqa=True)
+        with torch.no_grad():
+            lib_f = median_ms(sdpa, flush)
+            backend = _sdpa_backend(sdpa)
+        so = sdpa()
+        lib_b = median_ms(lambda: torch.autograd.grad(
+            so, (sq, sk, sv), sdo, retain_graph=True), flush)
+        del so, sq, sk, sv, sdo, band
+        print(f"B6 flash_fwd {tag} bf16: kernel {f_ms:.4f} ms "
+              f"({100 * b6[0] / f_ms:.1f} % of its bound), plain "
+              f"{f_plain:.4f} ms, bound {b6[0]:.4f} ms ({b6[1]}), SDPA "
+              f"({backend}) {lib_f:.4f} ms", flush=True)
+        print(f"B7 flash_bwd {tag} bf16: kernel {b_ms:.4f} ms "
+              f"({100 * b7[0] / b_ms:.1f} % of its bound), plain "
+              f"{b_plain:.4f} ms, bound {b7[0]:.4f} ms ({b7[1]}), SDPA "
+              f"({backend}) backward {lib_b:.4f} ms", flush=True)
+        key = "local" if window else "global"
+        for name, ms, plain, bnd, lib in (
+                ("flash_fwd_hd256", f_ms, f_plain, b6, lib_f),
+                ("flash_bwd_hd256", b_ms, b_plain, b7, lib_b)):
+            r = rec.setdefault(name, {"extra": {"sdpa_backend": backend}})
+            if window:          # the record: the local layers' shape
+                r.update(ms=ms, plain_ms=plain, bound=bnd, library_ms=lib,
+                         shape=GEMMA_FLASH_SHAPE + (window,))
+            r["extra"][key] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                   library_ms=lib, window=window)
+        del out, m, l
+    del q, k, v, do
+
+    # the fp32 (FFMA) route at hd 256, at the reference's bars
+    for extra in ({}, dict(window=FLASH_WINDOW, softcap=FLASH_SOFTCAP)):
+        q, k, v, do = _flash_inputs(g, GEMMA_F32_SHAPE, torch.float32)
+        kw = dict(scale=hd ** -0.5, causal=True, **extra)
+        got = fa.flash_fwd(q, k, v, **kw)
+        want = ref.flash_fwd_ref(q, k, v, **kw)
+        for name, a, b in zip(("out", "m", "l"), got, want):
+            if not torch.allclose(a, b, rtol=2e-5, atol=2e-5):
+                fail(f"B6 f32 hd 256 {extra} {name}: beyond 2e-5 (max abs "
+                     f"err {_max_err(a, b)})")
+        grads = fa.flash_bwd(q, k, v, *got, do, **kw)
+        wgrads = ref.flash_bwd_ref(q, k, v, *got, do, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, wgrads):
+            if not torch.allclose(a, b, rtol=3e-5, atol=3e-5):
+                fail(f"B7 f32 hd 256 {extra} {name}: beyond 3e-5 (max abs "
+                     f"err {_max_err(a, b)})")
+        if not (all(torch.equal(a, b) for a, b in
+                    zip(fa.flash_fwd(q, k, v, **kw), got))
+                and all(torch.equal(a, b) for a, b in zip(
+                    fa.flash_bwd(q, k, v, *got, do, **kw), grads))):
+            fail(f"B6/B7 f32 hd 256 {extra}: two launches differ")
+        errs = [_max_err(a, b) for a, b in zip((*got, *grads),
+                                                     (*want, *wgrads))]
+        fwd_err, bwd_err = max(fwd_err, *errs[:3]), max(bwd_err, *errs[3:])
+        t_f = median_ms(lambda: fa.flash_fwd(q, k, v, **kw), flush)
+        t_b = median_ms(lambda: fa.flash_bwd(q, k, v, *got, do, **kw), flush)
+        print(f"B6/B7 {GEMMA_F32_SHAPE} f32 causal {extra or ''}: out/m/l "
+              f"max abs err {max(errs[:3]):.3e} (rtol/atol 2e-5), dq/dk/dv "
+              f"{max(errs[3:]):.3e} (3e-5), both bit-identical across two "
+              f"launches; forward {t_f:.4f} ms, backward {t_b:.4f} ms",
+              flush=True)
+        tag = "f32_window_softcap" if extra else "f32"
+        rec["flash_fwd_hd256"]["extra"][tag + "_ms"] = t_f
+        rec["flash_bwd_hd256"]["extra"][tag + "_ms"] = t_b
+        del q, k, v, do, got, want, grads, wgrads
+    rec["flash_fwd_hd256"]["max_abs_err"] = fwd_err
+    rec["flash_bwd_hd256"]["max_abs_err"] = bwd_err
+    torch.cuda.synchronize()
+    return rec
+
+
+def gemma3_parity_phase() -> None:
+    """Phase 4's rule on gemma3-4b's widths: pattern ("local", "attn") at
+    3 layers (one period and a rem layer), vocab 8192, window 1024, fp32,
+    batch 1 x GEMMA_PARITY_SEQ under --attn pallas (B6/B7 at hd 256 on
+    the card, their plain versions on the CPU)."""
+    cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=3,
+                              pattern=("local", "attn"), vocab=8192,
+                              unemb_chunks=4)
+    parity_step(cfg, "pallas", 1, GEMMA_PARITY_SEQ)
+
+
+def gemma3_train_phase() -> dict:
+    """``train_loop`` on the 8-layer full-width gemma3-4b: bf16 compute,
+    full ZeRO++ at world 1, --attn pallas, batch 2 x 4096, 6 steps at a
+    constant lr 3e-4.  Finite losses, the last below the first, every
+    step's launches ``step_launches`` (B6 2x and B7 1x a layer, B1-B5
+    once a flat group, rem included); prints step p50, tokens/s, peak
+    memory and one profiled step.  Returns the run's launches."""
+    cfg = gemma3_config()
+    args = train_launch.parser().parse_args([
+        "--batch", str(GEMMA_TRAIN_BATCH), "--seq", str(GEMMA_TRAIN_SEQ),
+        "--steps", str(GEMMA_TRAIN_STEPS), "--lr", str(TRAIN_LR),
+        "--lr-schedule", "constant", "--device", "cuda", "--attn", "pallas",
+        "--log-every", "0"])
+    args.arch = cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    platform.reset_launches()
+    res = train_launch.train_loop(args)
+    launches = dict(platform.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    built = res["built"]
+    model = built.model
+    per_step = step_launches(cfg, model, "pallas")
+    for i, c in enumerate(res["launches"]):
+        if c != per_step:
+            fail(f"gemma3 train step {i}: launches {c}, expected {per_step}")
+    losses = res["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"gemma3 train: losses not finite and falling: {losses}")
+    p50 = statistics.median(res["step_s"][1:])
+    tokens = GEMMA_TRAIN_BATCH * GEMMA_TRAIN_SEQ
+    tag = "train gemma3-4b --attn pallas"
+    print(f"{tag}: full width (d {cfg.d_model}, vocab {cfg.vocab}, hd "
+          f"{cfg.d_head}, window {cfg.window}), {cfg.n_layers} layers "
+          f"({model.n_periods} x {model.period} + rem "
+          f"{model.rem_kinds}), {model.n_params()} params fp32 "
+          f"master + fp32 moments, full ZeRO++ on a one-rank world, batch "
+          f"{GEMMA_TRAIN_BATCH} x {GEMMA_TRAIN_SEQ}, constant lr {TRAIN_LR}",
+          flush=True)
+    print(f"{tag}: losses {[round(x, 4) for x in losses]} (drop "
+          f"{losses[0] - losses[-1]:.4f}); entropy bound "
+          f"{res['entropy_bound']:.4f}", flush=True)
+    print(f"{tag}: step p50 (steps 2-{GEMMA_TRAIN_STEPS}) {p50 * 1e3:.1f} "
+          f"ms, {tokens / p50:,.0f} tokens/s, first step "
+          f"{res['step_s'][0] * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); launches per "
+          f"step {per_step}", flush=True)
+    batch = train_launch.device_batch(built.arch, built.lm, GEMMA_TRAIN_STEPS,
+                                      GEMMA_TRAIN_BATCH, 1, model.device)
+    profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
+                 f"{tag} step")
+    del res, built, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def telemetry_check(tag: str, metrics_dir: str, res: dict) -> None:
@@ -2175,6 +2474,7 @@ def main() -> None:
         rec["quantize_blockwise"]["max_abs_err"],
         rec["quantize_blockwise_f32"]["max_abs_err"])
     rec.update(flash_kernel_phase(flush))
+    rec.update(gemma3_flash_phase(flush))
     del flush
     by_path = {"serve": engine_phase()}
     train_parity_phase()
@@ -2189,6 +2489,12 @@ def main() -> None:
     if not abs(loss_pallas - loss_xla) <= ROUTE_LOSS_ATOL:
         fail("the two attention routes' step-1 losses differ beyond "
              f"{ROUTE_LOSS_ATOL}")
+    # gemma3-4b: slab serving, the parity step and the training run
+    by_path["serve_gemma3"] = engine_phase(gemma3_config(), GEMMA_PROMPTS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma3_parity_phase()
+    by_path["train_gemma3"] = gemma3_train_phase()
     # the same run on four ranks of a 2 x 2 world, at the default ring
     # depth and at the synchronous schedule
     by_path["train_2x2"], by_path["train_2x2_sync"], losses_2x2 = \
@@ -2202,27 +2508,34 @@ def main() -> None:
         losses_pallas)
 
     # each kernel's path(s): it must have launched in every one of them
-    quant_train = ("train", "train_xla", "train_2x2", "train_2x2_sync",
+    quant_train = ("train", "train_xla", "train_gemma3", "train_2x2",
+                   "train_2x2_sync",
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
     flash = ("train", "train_2x2", "train_2x2_sync") + tuple(
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
-    paths = {"quantize_blockwise": ("serve", "train_2x2_qgz_1hop")
+    serve = ("serve", "serve_gemma3")
+    paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
-             "dequantize_blockwise": ("serve", "train_2x2_qgz_1hop")
+             "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "quantize_reordered": quant_train + ("train_2x2_qwz_nonblocked",),
              "dequant_reduce_quant": quant_train
              + ("train_2x2_qwz_nonblocked",),
              "dequant_reduce": quant_train + tuple(
                  f"train_2x2_{k}" for k in KNOB_MIB),
-             "dequant_matmul": ("serve",),
+             "dequant_matmul": serve,
              "flash_fwd": flash,
-             "flash_bwd": flash}
+             "flash_bwd": flash,
+             # the same wrappers and counters at head dim 256: the gemma3
+             # path runs no other
+             "flash_fwd_hd256": ("train_gemma3",),
+             "flash_bwd_hd256": ("train_gemma3",)}
+    counter = {"flash_fwd_hd256": "flash_fwd", "flash_bwd_hd256": "flash_bwd"}
     for name, ps in paths.items():
         for pth in ps:
-            if by_path[pth][name] <= 0:
+            if by_path[pth][counter.get(name, name)] <= 0:
                 fail(f"{name} was not launched on the {pth} path")
     cu = "src/repro_torch/kernels/csrc/"
     srcs = {"quantize_blockwise": (cu + "quant_block.cu",
@@ -2242,15 +2555,21 @@ def main() -> None:
             "flash_fwd": (cu + "flash_attention_tc.cu",
                           "src/repro/kernels/flash_attention.py:76"),
             "flash_bwd": (cu + "flash_attention_tc.cu",
-                          "src/repro/kernels/flash_attention.py:194")}
+                          "src/repro/kernels/flash_attention.py:194"),
+            "flash_fwd_hd256": (cu + "flash_attention_tc.cu",
+                                "src/repro/kernels/flash_attention.py:76"),
+            "flash_bwd_hd256": (cu + "flash_attention_tc.cu",
+                                "src/repro/kernels/flash_attention.py:194")}
     kernels = []
     for name, (src, replaces) in srcs.items():
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": sum(by_path[p][name] for p in paths[name]),
-                        "launches_by_path": {p: by_path[p][name]
-                                             for p in paths[name]},
+                        "launches": sum(by_path[p][counter.get(name, name)]
+                                        for p in paths[name]),
+                        "launches_by_path": {
+                            p: by_path[p][counter.get(name, name)]
+                            for p in paths[name]},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                         "bound_by": r["bound"][1],

@@ -21,15 +21,24 @@
 // FFMA (never TF32), so the floor is the CUDA cores' 67 TFLOP/s.
 //
 // Design.  All three kernels tile by 64 query rows x 64 kv rows with 256
-// threads.  A tile of one head is staged in shared memory as fp32,
-// row-major with a row of hd + 1 floats (64 + 1 for the 64 x 64 p/dl
-// tiles), which makes every scalar shared read of the inner loops free of
-// bank conflicts whichever operand layout a product wants.  Thread (ty,
+// threads, except the backward at hd 256 (below).  A tile of one head is
+// staged in shared memory as fp32, row-major with a row of hd + 1 floats
+// (c + 1 for a p/dl tile of c columns).  A row of an odd number of words
+// puts rows r and r + 1 on neighbouring banks, so every scalar shared read
+// of the inner loops (one row broadcast, or 16 consecutive rows, or 16
+// consecutive columns) is free of bank conflicts whichever operand layout
+// a product wants, at every hd: 17, 65, 129 and 257 words.  Thread (ty,
 // tx) of a 16 x 16 grid owns rows ty + 16 i and columns tx + 16 j of a
-// 64 x 64 tile (i, j < 4) and columns tx + 16 j of the hd-wide
-// accumulators (j < hd / 16); a row's 16 threads are one half-warp, so its
-// max and sum reduce by shuffles.  Nothing goes through atomics: the
-// results are the same bit for bit from run to run.
+// product tile and columns tx + 16 j of the hd-wide accumulators (j < hd
+// / 16); a row's 16 threads are one half-warp, so its max and sum reduce
+// by shuffles.  Nothing goes through atomics: the results are the same
+// bit for bit from run to run.
+// At hd 256 a 64-row tile is 65.8 KB, so the backward's staged tiles
+// (q, dO, K, V and p/dl) would need 280 KB (dq) and 297 KB (dk/dv), more
+// than a block's 227 KB.  There the kernels take 32-row kv tiles: dq
+// walks kv in tiles of 32 (the 64 x 32 logits), and dk/dv owns 32 kv rows
+// (the 32 x 64 transposed logits), 206 and 215 KB.  The forward keeps 64
+// (Q, K-or-p and V: 197 KB).
 //  * forward: grid (q tile, h, b).  The q tile stays in shared memory; the
 //    block walks its kv tiles, stages K and V, computes the 64 x 64 logits,
 //    updates (m, l) and rescales the fp32 accumulator held in registers,
@@ -62,26 +71,32 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;                 // q rows and kv rows per tile
+constexpr int kTile = 64;                 // q rows (and kv rows below hd 256)
 constexpr int kLP = kTile + 1;            // row of a 64 x 64 p / dl tile
 constexpr float kNegInf = -1e30f;
+
+// kv rows per tile of the backward kernels at head dim HD (see the note)
+template <int HD> struct Bwd {
+  static constexpr int KT = HD > 128 ? 32 : kTile;
+  static constexpr int LP = KT + 1;       // row of a 64 x KT (or KT x 64) tile
+};
 
 // Element strides of a (B, S, heads, hd) tensor; hd is contiguous.
 struct Strides {
   long long b, s, h;
 };
 
-// Stage rows [s0, s0 + 64) of head h of batch b as fp32 in dst[64][HD + 1].
+// Stage rows [s0, s0 + R) of head h of batch b as fp32 in dst[R][HD + 1].
 // Consecutive threads take consecutive rows, so the shared stores hit
 // distinct banks; each reads 16 bytes of its row.
-template <int HD>
+template <int HD, int R = kTile>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           Strides st, int b, int s0, int h) {
   constexpr int kVec = 4;
   constexpr int kVecs = HD / kVec;
   const float* base = src + b * st.b + (long long)s0 * st.s + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kThreads) {
-    const int r = idx % kTile, c = (idx / kTile) * kVec;
+  for (int idx = threadIdx.x; idx < R * kVecs; idx += kThreads) {
+    const int r = idx % R, c = (idx / R) * kVec;
     const uint4 raw = *reinterpret_cast<const uint4*>(base + r * st.s + c);
     const float* e = reinterpret_cast<const float*>(&raw);
     float* d = dst + r * (HD + 1) + c;
@@ -103,9 +118,10 @@ struct Mask {
     if (window) ok = ok && qp - kp < window;
     return ok ? x : kNegInf;
   }
-  // True when every (q, k) pair of the tiles at q0, k0 is masked.
-  __device__ __forceinline__ bool skip(int q0, int k0) const {
-    return (causal && q0 + kTile - 1 < k0) || (window && q0 - (k0 + kTile - 1) >= window);
+  // True when every (q, k) pair of the q tile [q0, q0 + qn) and the kv
+  // tile [k0, k0 + kn) is masked.
+  __device__ __forceinline__ bool skip(int q0, int k0, int qn = kTile, int kn = kTile) const {
+    return (causal && q0 + qn - 1 < k0) || (window && q0 - (k0 + kn - 1) >= window);
   }
   // dl's softcap factor 1 - t^2, zero on masked logits.
   __device__ __forceinline__ float cap_grad(float lg) const {
@@ -127,39 +143,41 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 }
 
 // acc[i][j] += sum_d A[ra + 16 i][d] * B[rb + 16 j][d] over d < n, A and B
-// row-major with rows of ld floats (the 64 x 64 tile of a product A B^T).
-template <int N, int LD>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* __restrict__ A,
+// row-major with rows of ld floats (the 16 NI x 16 NJ tile of a product
+// A B^T).
+template <int N, int LD, int NI = 4, int NJ = 4>
+__device__ __forceinline__ void tile_abt(float (&acc)[NI][NJ], const float* __restrict__ A,
                                          const float* __restrict__ B, int ra, int rb) {
 #pragma unroll 4
   for (int d = 0; d < N; ++d) {
-    float a[4], bb[4];
+    float a[NI], bb[NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ra + 16 * i) * LD + d];
+    for (int i = 0; i < NI; ++i) a[i] = A[(ra + 16 * i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B[(rb + 16 * j) * LD + d];
+    for (int j = 0; j < NJ; ++j) bb[j] = B[(rb + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
   }
 }
 
-// acc[i][j] += sum_c P[ra + 16 i][c] * X[c][cx + 16 j] over c < 64, P with
-// rows of kLP floats, X with rows of HD + 1 (the hd-wide product P X).
-template <int HD>
-__device__ __forceinline__ void tile_px(float (&acc)[4][HD / 16], const float* __restrict__ P,
+// acc[i][j] += sum_c P[ra + 16 i][c] * X[c][cx + 16 j] over c < NC, P with
+// rows of LP floats, X with rows of HD + 1 (the hd-wide product P X of
+// 16 NI rows).
+template <int HD, int NI = 4, int NC = kTile, int LP = kLP>
+__device__ __forceinline__ void tile_px(float (&acc)[NI][HD / 16], const float* __restrict__ P,
                                         const float* __restrict__ X, int ra, int cx) {
   constexpr int DC = HD / 16;
 #pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float a[4], x[DC];
+  for (int c = 0; c < NC; ++c) {
+    float a[NI], x[DC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[(ra + 16 * i) * kLP + c];
+    for (int i = 0; i < NI; ++i) a[i] = P[(ra + 16 * i) * LP + c];
 #pragma unroll
     for (int j = 0; j < DC; ++j) x[j] = X[c * (HD + 1) + cx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
   }
@@ -254,7 +272,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // -------------------------------------------------------------- backward
 
-// dq: q-major.  m, l and dsum are (B, H, Sq); dq is written (B, Sq, H, hd).
+// dq: q-major, kv in tiles of KT rows.  m, l and dsum are (B, H, Sq); dq
+// is written (B, Sq, H, hd).
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -265,12 +284,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int Sq, int S, int H, int K, Mask mk) {
   constexpr int LD = HD + 1;
   constexpr int DC = HD / 16;
+  constexpr int KT = Bwd<HD>::KT, LP = Bwd<HD>::LP, NJ = KT / 16;
   extern __shared__ float smem[];
   float* Qs = smem;                 // [64][LD]
   float* Ds = Qs + kTile * LD;      // dO [64][LD]
-  float* Ks = Ds + kTile * LD;      // [64][LD]
-  float* Vs = Ks + kTile * LD;      // [64][LD]
-  float* Ls = Vs + kTile * LD;      // dl [64][kLP]
+  float* Ks = Ds + kTile * LD;      // [KT][LD]
+  float* Vs = Ks + KT * LD;         // [KT][LD]
+  float* Ls = Vs + KT * LD;         // dl [64][LP]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -291,27 +311,27 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    if (mk.skip(q0, k0)) continue;
+  for (int k0 = 0; k0 < S; k0 += KT) {
+    if (mk.skip(q0, k0, kTile, KT)) continue;
     __syncthreads();
-    load_tile<HD>(Ks, k, sk, b, k0, g);
-    load_tile<HD>(Vs, v, sv, b, k0, g);
+    load_tile<HD, KT>(Ks, k, sk, b, k0, g);
+    load_tile<HD, KT>(Vs, v, sv, b, k0, g);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_abt<HD, LD>(s, Qs, Ks, ty, tx);
-    tile_abt<HD, LD>(dp, Ds, Vs, ty, tx);
+    float s[4][NJ] = {}, dp[4][NJ] = {};
+    tile_abt<HD, LD, 4, NJ>(s, Qs, Ks, ty, tx);
+    tile_abt<HD, LD, 4, NJ>(dp, Ds, Vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float lg = mk.logit(s[i][j], qp, k0 + tx + 16 * j);
         const float p = expf(lg - mr[i]) / lr[i];
-        Ls[(ty + 16 * i) * kLP + tx + 16 * j] = p * (dp[i][j] - dr[i]) * mk.cap_grad(lg);
+        Ls[(ty + 16 * i) * LP + tx + 16 * j] = p * (dp[i][j] - dr[i]) * mk.cap_grad(lg);
       }
     }
     __syncthreads();
-    tile_px<HD>(acc, Ls, Ks, ty, tx);
+    tile_px<HD, 4, KT, LP>(acc, Ls, Ks, ty, tx);
   }
 
 #pragma unroll
@@ -322,8 +342,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dk/dv: kv-major, summed over the H / K query heads of the group.  dk and
-// dv are written (B, S, K, hd).
+// dk/dv: kv-major, KT kv rows a block, summed over the H / K query heads of
+// the group.  dk and dv are written (B, S, K, hd).
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -334,32 +354,33 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      Strides sv, Strides sd, int Sq, int S, int H, int K, Mask mk) {
   constexpr int LD = HD + 1;
   constexpr int DC = HD / 16;
+  constexpr int KT = Bwd<HD>::KT, NI = KT / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;                 // [64][LD]
-  float* Vs = Ks + kTile * LD;      // [64][LD]
-  float* Qs = Vs + kTile * LD;      // [64][LD]
+  float* Ks = smem;                 // [KT][LD]
+  float* Vs = Ks + KT * LD;         // [KT][LD]
+  float* Qs = Vs + KT * LD;         // [64][LD]
   float* Ds = Qs + kTile * LD;      // dO [64][LD]
-  float* Pt = Ds + kTile * LD;      // p^T [64 kv][kLP]
-  float* Lt = Pt + kTile * kLP;     // dl^T [64 kv][kLP]
-  float* st = Lt + kTile * kLP;     // m, l, dsum of the q tile [3][64]
+  float* Pt = Ds + kTile * LD;      // p^T [KT kv][kLP]
+  float* Lt = Pt + KT * kLP;        // dl^T [KT kv][kLP]
+  float* st = Lt + KT * kLP;        // m, l, dsum of the q tile [3][64]
 
-  const int k0 = blockIdx.x * kTile;  // causal: the first kv tiles see the most q tiles
+  const int k0 = blockIdx.x * KT;   // causal: the first kv tiles see the most q tiles
   const int g = blockIdx.y, b = blockIdx.z;
   const int rep = H / K;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_tile<HD>(Ks, k, sk, b, k0, g);
-  load_tile<HD>(Vs, v, sv, b, k0, g);
-  float ak[4][DC], av[4][DC];
+  load_tile<HD, KT>(Ks, k, sk, b, k0, g);
+  load_tile<HD, KT>(Vs, v, sv, b, k0, g);
+  float ak[NI][DC], av[NI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) ak[i][j] = av[i][j] = 0.0f;
 
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
     for (int q0 = 0; q0 < Sq; q0 += kTile) {
-      if (mk.skip(q0, k0)) continue;
+      if (mk.skip(q0, k0, kTile, KT)) continue;
       __syncthreads();
       load_tile<HD>(Qs, q, sq, b, q0, h);
       load_tile<HD>(Ds, dout, sd, b, q0, h);
@@ -372,15 +393,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
       // rows: kv (ty + 16 i), columns: q (tx + 16 j)
-      float s[4][4] = {}, dp[4][4] = {};
-      tile_abt<HD, LD>(s, Ks, Qs, ty, tx);
-      tile_abt<HD, LD>(dp, Vs, Ds, ty, tx);
+      float s[NI][4] = {}, dp[NI][4] = {};
+      tile_abt<HD, LD, NI, 4>(s, Ks, Qs, ty, tx);
+      tile_abt<HD, LD, NI, 4>(dp, Vs, Ds, ty, tx);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const float mq = st[c], lq = st[kTile + c], dq_ = st[2 * kTile + c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < NI; ++i) {
           const float lg = mk.logit(s[i][j], q0 + c, k0 + ty + 16 * i);
           const float p = expf(lg - mq) / lq;
           Pt[(ty + 16 * i) * kLP + c] = p;
@@ -388,13 +409,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       __syncthreads();
-      tile_px<HD>(av, Pt, Ds, ty, tx);
-      tile_px<HD>(ak, Lt, Qs, ty, tx);
+      tile_px<HD, NI>(av, Pt, Ds, ty, tx);
+      tile_px<HD, NI>(ak, Lt, Qs, ty, tx);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < NI; ++i) {
     const long long at = (((long long)b * S + k0 + ty + 16 * i) * K + g) * HD;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
@@ -421,9 +442,10 @@ cudaError_t allow_smem(Kern kern, size_t bytes) {
 template <int HD> size_t smem_bytes(int which) {
   constexpr int LD = HD + 1;
   constexpr int KP = kTile * LD > kTile * kLP ? kTile * LD : kTile * kLP;
+  constexpr int KT = Bwd<HD>::KT;
   return sizeof(float) * (which == 0   ? 2 * kTile * LD + KP
-                          : which == 1 ? 4 * kTile * LD + kTile * kLP
-                                       : 4 * kTile * LD + 2 * kTile * kLP + 3 * kTile);
+                          : which == 1 ? 2 * (kTile + KT) * LD + kTile * Bwd<HD>::LP
+                                       : 2 * (kTile + KT) * LD + 2 * KT * kLP + 3 * kTile);
 }
 
 template <int HD>
@@ -464,14 +486,14 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* dout, c
   auto kdkv = flash_bwd_dkv_kernel<HD>;
   e = allow_smem(kdkv, smem_dkv);
   if (e != cudaSuccess) return e;
-  kdkv<<<dim3(sh.S / kTile, sh.K, sh.B), kThreads, smem_dkv, stream>>>(
+  kdkv<<<dim3(sh.S / Bwd<HD>::KT, sh.K, sh.B), kThreads, smem_dkv, stream>>>(
       qp, kp, vp, dp, m, l, dsum, static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, sv, sd,
       sh.Sq, sh.S, sh.H, sh.K, mk);
   return cudaGetLastError();
 }
 
 bool valid(int hd, Shape sh) {
-  return (hd == 16 || hd == 64 || hd == 128) && sh.B > 0 && sh.K > 0 &&
+  return (hd == 16 || hd == 64 || hd == 128 || hd == 256) && sh.B > 0 && sh.K > 0 &&
          sh.H % sh.K == 0 && sh.Sq % kTile == 0 && sh.S % kTile == 0 && sh.Sq > 0 &&
          sh.Sq <= sh.S;
 }
@@ -480,7 +502,8 @@ bool valid(int hd, Shape sh) {
   switch (hd) {                 \
     case 16: return CALL(16);   \
     case 64: return CALL(64);   \
-    default: return CALL(128);  \
+    case 128: return CALL(128); \
+    default: return CALL(256);  \
   }
 
 }  // namespace
@@ -490,9 +513,9 @@ extern "C" {
 // Forward, float32.  q (B, Sq, H, hd), k and v (B, S, K, hd), each with a
 // contiguous hd and element strides (b, s, head) in strides[0..8] (q, k,
 // v); rows 16-byte aligned.  Writes out (B, Sq, H, hd) contiguous, m and l
-// (B, H, Sq).  Requires hd in {16, 64, 128} (the port's configs:
-// qwen3-0.6b, gpt-350m and the reduced test shapes), H % K == 0, Sq and S
-// multiples of 64, Sq <= S.
+// (B, H, Sq).  Requires hd in {16, 64, 128, 256} (the port's configs:
+// qwen3-0.6b, gpt-350m, gemma3-4b and the reduced test shapes), H % K ==
+// 0, Sq and S multiples of 64, Sq <= S.
 int repro_flash_fwd_f32(int device, int hd, const void* q, const void* k, const void* v,
                         void* out, float* m, float* l, const long long* strides, int B, int Sq,
                         int S, int H, int K, float scale, int causal, int window, float softcap,

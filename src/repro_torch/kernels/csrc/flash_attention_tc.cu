@@ -46,9 +46,11 @@
 // 64 kv rows; each warp owns 16 rows of the block's tile (query rows in the
 // forward and dq kernels, kv rows in the dk/dv kernel), so a row's max and
 // sum reduce within a quad of lanes by shuffles.  Operands are staged in
-// shared memory as bf16 rows of hd + 8 elements: the 16-byte pad puts the 8
-// rows an ldmatrix phase reads (and the 16-byte cp.async stores) on 8
-// distinct groups of 4 banks, free of conflicts at hd 16, 64 and 128.
+// shared memory as bf16 rows of hd + 8 elements: hd / 8 + 1 chunks of 16
+// bytes, an odd count at every hd the kernels take (3, 9, 17 and 33), so
+// the 8 consecutive rows an ldmatrix phase reads (and the 16-byte cp.async
+// stores) land on 8 distinct groups of 4 banks, free of conflicts at hd
+// 16, 64, 128 and 256.
 // ldmatrix feeds the A and B fragments (.trans where a product wants the
 // transposed operand: V in PV, K in dl.K, dO and Q in the dk/dv products).
 // Tiles arrive by 16-byte cp.async and are double-buffered (commit and wait
@@ -81,6 +83,36 @@
 // run to run.  Tiles that are wholly masked are skipped, exactly as in the
 // FFMA kernels (flash_attention.cu's note gives why that changes nothing).
 //
+// Head dim 256 (gemma3-4b).  A staged tile is 64 x 264 x 2 = 33.8 KB, so
+// the three kernels' 5, 6 and 6 tiles (169, 203 and 204 KB) still fit one
+// block's 227 KB; what does not fit is the register file.  A warp's fp32
+// accumulators over hd are 16 x 256 / 32 = 128 floats a thread, and every
+// kernel above holds more beside them at hd 128 already (the forward 198
+// registers with its Q fragments; dk/dv 255 and a 40-byte spill with two
+// accumulators).  So at hd 256:
+//  * forward: the Q fragments (64 registers at hd 256) are read from
+//    shared memory by ldmatrix at each k step instead of held: 128
+//    accumulators, 32 logits and the fragments in flight;
+//  * dq: the kv tile's 64 columns are taken as two halves of 32 (as dk/dv
+//    takes its q columns), which halves the logits and dp (32 registers,
+//    not 64) beside the 128 accumulators;
+//  * dk/dv: dk and dv are split between two warp groups, flash_bwd_dkv_tc_
+//    split_kernel: 8 warps, warps 0-3 own dv and warps 4-7 dk of the same
+//    16 kv rows each, so each warp holds one 128-float accumulator.  Both
+//    groups form p from S^T = K.Q^T (the dv group does no dP^T); the price
+//    is one QK^T product more per pair, 7 instead of 6 (+17 %), against a
+//    32-row kv tile (which leaves the accumulators as they are: they are
+//    per 16 rows of a warp, not per tile) or a grid split over hd halves
+//    (which recomputes S^T and dP^T in each half: 8 products, +33 %).
+//    hd <= 128 keep flash_bwd_dkv_tc_kernel, since the split is slower
+//    there: with the split kernel at every hd (151 registers, no spill at
+//    hd 128), chip_smoke.py's flash phase read B7 at qwen3-0.6b's shape
+//    (8, 2048, 16/8, 128) causal 4.4321 and 4.3770 ms, against 3.1999 and
+//    3.2762 ms with flash_bwd_dkv_tc_kernel (255 registers, 40 bytes
+//    spilled), the versions run A, B, B, A in one call on an H100 80GB
+//    HBM3 at 700 W: the extra QK^T product and the 8-warp blocks cost
+//    more than the spill.
+//
 // Next step (ROADMAP Queue B): wgmma with TMA and warp specialisation.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -103,6 +135,8 @@ template <int HD> struct Dims {
   static constexpr int TILE = kTile * LD; // one staged tile, bf16
   static constexpr int KS = HD / 16;      // k16 steps over hd
   static constexpr int DN = HD / 8;       // n8 tiles over hd
+  static constexpr bool kWide = HD > 128; // the hd-256 layouts (see above)
+  static constexpr int QCOLS = kWide ? 32 : kTile;  // dq: kv columns a pass
 };
 
 // Element strides of a (B, S, heads, hd) tensor; hd is contiguous.
@@ -157,13 +191,14 @@ template <int N> __device__ __forceinline__ void cp_wait() {
 }
 
 // Rows [s0, s0 + 64) of head h of batch b into dst[64][HD + 8] by 16-byte
-// cp.async; consecutive threads take consecutive chunks of a row.
-template <int HD>
+// cp.async, a block of NT threads; consecutive threads take consecutive
+// chunks of a row.
+template <int HD, int NT = kThreads>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ src, Strides st,
                                            int b, int s0, int h) {
   constexpr int kVecs = HD / 8;
   const bf16* base = src + b * st.b + (long long)s0 * st.s + h * st.h;
-  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kTile * kVecs; idx += NT) {
     const int r = idx / kVecs, c = (idx % kVecs) * 8;
     cp_async16(dst + r * Dims<HD>::LD + c, base + r * st.s + c);
   }
@@ -299,7 +334,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_commit();
 
-  uint32_t qf[D::KS][4];
+  // Q's A fragments, held for the whole kv loop below hd 256
+  uint32_t qf[D::kWide ? 1 : D::KS][4];
   float acc[D::DN][4];
 #pragma unroll
   for (int j = 0; j < D::DN; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
@@ -317,9 +353,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_wait<0>();
     }
     __syncthreads();                      // tile k0 (and Q) has landed
-    if (k0 == k_lo) {
+    if (!D::kWide && k0 == k_lo) {
 #pragma unroll
-      for (int ks = 0; ks < D::KS; ++ks) load_a<D::LD>(qf[ks], Qs, r0, 16 * ks, lane);
+      for (int ks = 0; ks < D::KS; ++ks) load_a<D::LD>(qf[D::kWide ? 0 : ks], Qs, r0, 16 * ks, lane);
     }
     const bf16* Kt = Ks + buf * D::TILE;
     const bf16* Vt = Vs + buf * D::TILE;
@@ -329,12 +365,19 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
     for (int ks = 0; ks < D::KS; ++ks) {
+      uint32_t qa[4];
+      if (D::kWide) {
+        load_a<D::LD>(qa, Qs, r0, 16 * ks, lane);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[D::kWide ? 0 : ks][e];
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bb[4];
         load_b_nk<D::LD>(bb, Kt, 16 * np, 16 * ks, lane);
-        mma(s[2 * np], qf[ks], bb[0], bb[1]);
-        mma(s[2 * np + 1], qf[ks], bb[2], bb[3]);
+        mma(s[2 * np], qa, bb[0], bb[1]);
+        mma(s[2 * np + 1], qa, bb[2], bb[3]);
       }
     }
 
@@ -471,59 +514,66 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const bf16* Kt = Ks + buf * D::TILE;
     const bf16* Vt = Vs + buf * D::TILE;
+    const bool edge = mk.edge(q0, k0);
+    constexpr int NC = D::QCOLS, NN = NC / 8;
 
-    // s = Q K^T, dp = dO V^T
-    float s[8][4], dp[8][4];
+    // one pass below hd 256; at hd 256 the two halves are not unrolled
+    // into each other, which would hold both halves' logits at once
+#pragma unroll 1
+    for (int c = 0; c < kTile; c += NC) {     // NC kv columns at a time
+      // s = Q K^T, dp = dO V^T over kv columns [c, c + NC)
+      float s[NN][4], dp[NN][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < NN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
 #pragma unroll
-    for (int ks = 0; ks < D::KS; ++ks) {
-      uint32_t aq[4], ad[4];
-      load_a<D::LD>(aq, Qs, r0, 16 * ks, lane);
-      load_a<D::LD>(ad, Ds, r0, 16 * ks, lane);
+      for (int ks = 0; ks < D::KS; ++ks) {
+        uint32_t aq[4], ad[4];
+        load_a<D::LD>(aq, Qs, r0, 16 * ks, lane);
+        load_a<D::LD>(ad, Ds, r0, 16 * ks, lane);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        load_b_nk<D::LD>(bk, Kt, 16 * np, 16 * ks, lane);
-        mma(s[2 * np], aq, bk[0], bk[1]);
-        mma(s[2 * np + 1], aq, bk[2], bk[3]);
-        load_b_nk<D::LD>(bv, Vt, 16 * np, 16 * ks, lane);
-        mma(dp[2 * np], ad, bv[0], bv[1]);
-        mma(dp[2 * np + 1], ad, bv[2], bv[3]);
-      }
-    }
-    // dl = p (dp - dsum) cap', over s
-    auto grads = [&](auto masked) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float lg = mk.template logit<decltype(masked)::value>(
-              s[n][e], q0 + r0 + fr + 8 * i, k0 + 8 * n + fc + (e & 1));
-          const float p = exp_e(lg - mr[i]) * il[i];
-          s[n][e] = p * (dp[n][e] - dr[i]) * mk.cap_grad(lg);
+        for (int np = 0; np < NN / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          load_b_nk<D::LD>(bk, Kt, c + 16 * np, 16 * ks, lane);
+          mma(s[2 * np], aq, bk[0], bk[1]);
+          mma(s[2 * np + 1], aq, bk[2], bk[3]);
+          load_b_nk<D::LD>(bv, Vt, c + 16 * np, 16 * ks, lane);
+          mma(dp[2 * np], ad, bv[0], bv[1]);
+          mma(dp[2 * np + 1], ad, bv[2], bv[3]);
         }
-    };
-    if (mk.edge(q0, k0))
-      grads(std::true_type());
-    else
-      grads(std::false_type());
-    // acc += dl K, dl as hi + lo bf16 fragments
+      }
+      // dl = p (dp - dsum) cap', over s
+      auto grads = [&](auto masked) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t hi[4], lo[4];
-      a_from_c(s[2 * kk], s[2 * kk + 1], hi, lo);
+        for (int n = 0; n < NN; ++n)
 #pragma unroll
-      for (int dn = 0; dn < D::DN / 2; ++dn) {
-        uint32_t bb[4];
-        load_b_kn<D::LD>(bb, Kt, 16 * kk, 16 * dn, lane);
-        mma(acc[2 * dn], hi, bb[0], bb[1]);
-        mma(acc[2 * dn], lo, bb[0], bb[1]);
-        mma(acc[2 * dn + 1], hi, bb[2], bb[3]);
-        mma(acc[2 * dn + 1], lo, bb[2], bb[3]);
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float lg = mk.template logit<decltype(masked)::value>(
+                s[n][e], q0 + r0 + fr + 8 * i, k0 + c + 8 * n + fc + (e & 1));
+            const float p = exp_e(lg - mr[i]) * il[i];
+            s[n][e] = p * (dp[n][e] - dr[i]) * mk.cap_grad(lg);
+          }
+      };
+      if (edge)
+        grads(std::true_type());
+      else
+        grads(std::false_type());
+      // acc += dl K, dl as hi + lo bf16 fragments
+#pragma unroll
+      for (int kk = 0; kk < NN / 2; ++kk) {
+        uint32_t hi[4], lo[4];
+        a_from_c(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+        for (int dn = 0; dn < D::DN / 2; ++dn) {
+          uint32_t bb[4];
+          load_b_kn<D::LD>(bb, Kt, c + 16 * kk, 16 * dn, lane);
+          mma(acc[2 * dn], hi, bb[0], bb[1]);
+          mma(acc[2 * dn], lo, bb[0], bb[1]);
+          mma(acc[2 * dn + 1], hi, bb[2], bb[3]);
+          mma(acc[2 * dn + 1], lo, bb[2], bb[3]);
+        }
       }
     }
   }
@@ -693,6 +743,164 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dk/dv at hd 256: the kernel above with dk and dv split between two warp
+// groups (the header's note).  8 warps; warp w owns kv rows 16 (w % 4) of
+// the tile and, in group w / 4, dv (0) or dk (1).  Both groups form p^T
+// from S^T = K.Q^T; the dk group also forms dP^T = V.dO^T and dl^T.
+template <int HD>
+__global__ void __launch_bounds__(2 * kThreads)
+flash_bwd_dkv_tc_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                              const float* __restrict__ m, const float* __restrict__ l,
+                              const float* __restrict__ dsum, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                              Strides sd, int Sq, int S, int H, int K, Mask mk) {
+  using D = Dims<HD>;
+  constexpr int NT = 2 * kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
+  bf16* Vs = Ks + D::TILE;                       // [64][LD]
+  bf16* Qs = Vs + D::TILE;                       // 2 x [64][LD]
+  bf16* Ds = Qs + 2 * D::TILE;                   // dO, 2 x [64][LD]
+  float* St = reinterpret_cast<float*>(Ds + 2 * D::TILE);  // 2 x m, l, dsum [3][64]
+
+  const int k0 = blockIdx.x * kTile;
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int rep = H / K;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = (warp % kWarps) * 16;
+  const bool dk_group = warp >= kWarps;           // warp-uniform
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+
+  int q_lo = 0;
+  while (q_lo < Sq && mk.skip(q_lo, k0)) q_lo += kTile;
+  int q_hi = q_lo;
+  while (q_hi < Sq && !mk.skip(q_hi, k0)) q_hi += kTile;
+  const int per_head = (q_hi - q_lo) / kTile, n_items = rep * per_head;
+
+  auto stage_item = [&](int i, int slot) {
+    const int h = g * rep + i / per_head, q0 = q_lo + kTile * (i % per_head);
+    stage_tile<HD, NT>(Qs + slot * D::TILE, q, sq, b, q0, h);
+    stage_tile<HD, NT>(Ds + slot * D::TILE, dout, sd, b, q0, h);
+    const long long at = ((long long)b * H + h) * Sq + q0;
+    float* st = St + slot * 3 * kTile;
+    stage_row(st, m + at, 0);
+    stage_row(st + kTile, l + at, kTile / 4);
+    stage_row(st + 2 * kTile, dsum + at, kTile / 2);
+  };
+  stage_tile<HD, NT>(Ks, k, sk, b, k0, g);
+  stage_tile<HD, NT>(Vs, v, sv, b, k0, g);
+  if (n_items > 0) stage_item(0, 0);
+  cp_commit();
+
+  float acc[D::DN][4];                            // dv, or dk
+#pragma unroll
+  for (int j = 0; j < D::DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int it = 0; it < n_items; ++it) {
+    const int buf = it & 1;
+    __syncthreads();
+    if (it + 1 < n_items) {
+      stage_item(it + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = q_lo + kTile * (it % per_head);
+    const bf16* Qt = Qs + buf * D::TILE;
+    const bf16* Dt = Ds + buf * D::TILE;
+    const float* st = St + buf * 3 * kTile;
+    const bool edge = mk.edge(q0, k0);
+
+#pragma unroll 1
+    for (int c = 0; c < kTile; c += 32) {     // 32 q columns at a time
+      // rows: kv (r0 + fr, + 8), columns: q (c + 8 n + fc, + 1)
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < D::KS; ++ks) {
+        uint32_t ak_[4];
+        load_a<D::LD>(ak_, Ks, r0, 16 * ks, lane);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bq[4];
+          load_b_nk<D::LD>(bq, Qt, c + 16 * np, 16 * ks, lane);
+          mma(s[2 * np], ak_, bq[0], bq[1]);
+          mma(s[2 * np + 1], ak_, bq[2], bq[3]);
+        }
+        if (dk_group) {
+          uint32_t av_[4];
+          load_a<D::LD>(av_, Vs, r0, 16 * ks, lane);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t bd[4];
+            load_b_nk<D::LD>(bd, Dt, c + 16 * np, 16 * ks, lane);
+            mma(dp[2 * np], av_, bd[0], bd[1]);
+            mma(dp[2 * np + 1], av_, bd[2], bd[3]);
+          }
+        }
+      }
+      // p^T over s (dv group), dl^T over s (dk group)
+      auto grads = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int col = c + 8 * n + fc + x;
+            const float mq = st[col], il = 1.0f / st[kTile + col], dq_ = st[2 * kTile + col];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int e = 2 * i + x;
+              const float lg = mk.template logit<decltype(masked)::value>(
+                  s[n][e], q0 + col, k0 + r0 + fr + 8 * i);
+              const float p = exp_e(lg - mq) * il;
+              s[n][e] = dk_group ? p * (dp[n][e] - dq_) * mk.cap_grad(lg) : p;
+            }
+          }
+      };
+      if (edge)
+        grads(std::true_type());
+      else
+        grads(std::false_type());
+      // dv += p^T dO, or dk += dl^T Q, as hi + lo bf16 fragments
+      const bf16* Xt = dk_group ? Qt : Dt;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t hi[4], lo[4];
+        a_from_c(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+        for (int dn = 0; dn < D::DN / 2; ++dn) {
+          uint32_t bx[4];
+          load_b_kn<D::LD>(bx, Xt, c + 16 * kk, 16 * dn, lane);
+          mma(acc[2 * dn], hi, bx[0], bx[1]);
+          mma(acc[2 * dn], lo, bx[0], bx[1]);
+          mma(acc[2 * dn + 1], hi, bx[2], bx[3]);
+          mma(acc[2 * dn + 1], lo, bx[2], bx[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  bf16* out = dk_group ? dk : dv;
+  const float f = dk_group ? mk.scale : 1.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long at = (((long long)b * S + k0 + r0 + fr + 8 * i) * K + g) * HD + fc;
+#pragma unroll
+    for (int j = 0; j < D::DN; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + at + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * i] * f, acc[j][2 * i + 1] * f);
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 struct Shape {
@@ -744,17 +952,22 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* dout, c
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  auto kdkv = flash_bwd_dkv_tc_kernel<HD>;
-  e = allow_smem(kdkv, smem_bytes<HD>(2));
-  if (e != cudaSuccess) return e;
-  kdkv<<<dim3(sh.S / kTile, sh.K, sh.B), kThreads, smem_bytes<HD>(2), stream>>>(
-      qp, kp, vp, dp, m, l, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, sv,
-      sd, sh.Sq, sh.S, sh.H, sh.K, mk);
-  return cudaGetLastError();
+  auto dkv = [&](auto kern, int threads) {
+    cudaError_t err = allow_smem(kern, smem_bytes<HD>(2));
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(sh.S / kTile, sh.K, sh.B), threads, smem_bytes<HD>(2), stream>>>(
+        qp, kp, vp, dp, m, l, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, sv,
+        sd, sh.Sq, sh.S, sh.H, sh.K, mk);
+    return cudaGetLastError();
+  };
+  if constexpr (Dims<HD>::kWide)
+    return dkv(flash_bwd_dkv_tc_split_kernel<HD>, 2 * kThreads);
+  else
+    return dkv(flash_bwd_dkv_tc_kernel<HD>, kThreads);
 }
 
 bool valid(int hd, Shape sh) {
-  return (hd == 16 || hd == 64 || hd == 128) && sh.B > 0 && sh.K > 0 &&
+  return (hd == 16 || hd == 64 || hd == 128 || hd == 256) && sh.B > 0 && sh.K > 0 &&
          sh.H % sh.K == 0 && sh.Sq % kTile == 0 && sh.S % kTile == 0 && sh.Sq > 0 &&
          sh.Sq <= sh.S;
 }
@@ -763,7 +976,8 @@ bool valid(int hd, Shape sh) {
   switch (hd) {                 \
     case 16: return CALL(16);   \
     case 64: return CALL(64);   \
-    default: return CALL(128);  \
+    case 128: return CALL(128); \
+    default: return CALL(256);  \
   }
 
 }  // namespace
@@ -773,8 +987,8 @@ extern "C" {
 // Forward, bfloat16.  q (B, Sq, H, hd), k and v (B, S, K, hd), each with a
 // contiguous hd and element strides (b, s, head) in strides[0..8] (q, k,
 // v); rows 16-byte aligned.  Writes out (B, Sq, H, hd) contiguous bf16, m
-// and l (B, H, Sq) float32.  Requires hd in {16, 64, 128}, H % K == 0, Sq
-// and S multiples of 64, Sq <= S.
+// and l (B, H, Sq) float32.  Requires hd in {16, 64, 128, 256}, H % K ==
+// 0, Sq and S multiples of 64, Sq <= S.
 int repro_flash_fwd_bf16(int device, int hd, const void* q, const void* k, const void* v,
                          void* out, float* m, float* l, const long long* strides, int B, int Sq,
                          int S, int H, int K, float scale, int causal, int window, float softcap,

@@ -38,7 +38,7 @@ _BWD = [_I, _I] + [_P] * 11 + _TAIL
 # dtype -> (library, suffix of its entry points)
 _ROUTES = {torch.bfloat16: ("flash_attention_tc", "bf16"),
            torch.float32: ("flash_attention", "f32")}
-HEAD_DIMS = (16, 64, 128)      # qwen3-0.6b, gpt-350m, reduced configs
+HEAD_DIMS = (16, 64, 128, 256)  # qwen3-0.6b, gpt-350m, gemma3-4b, reduced
 TILE = 64
 
 

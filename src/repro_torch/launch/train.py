@@ -9,6 +9,10 @@ no elastic runtime yet).  Runs on the card by default:
         --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
         [--mesh YxX|PxYxX] [--prefetch K] [--device cuda|cpu]
 
+(``--arch``: qwen3-0.6b, gpt-350m or gemma3-4b; no flag cuts the depth,
+as in the reference: ``train_loop`` takes an ``ArchConfig`` for
+``args.arch`` as well as a name.)
+
 ``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
 one rank process per position over a gloo group (``launch/mesh.py``; on
 the card all of them share device 0).  The paper's ablation knobs
@@ -40,11 +44,12 @@ import dataclasses
 import os
 import statistics
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as cl
 from repro_torch.core.partition import shard_of
 from repro_torch.data.synthetic import SyntheticLM, make_batch
@@ -70,21 +75,24 @@ class Built:
     lm: SyntheticLM
 
 
-def build_everything(arch_name: str, mesh_shape: Tuple[int, ...] = (1, 1),
+def build_everything(arch_name: Union[str, ArchConfig],
+                     mesh_shape: Tuple[int, ...] = (1, 1),
                      variant: str = "zeropp", reduced: bool = False,
                      batch: int = 8, seq: int = 2048, lr: float = 3e-4,
                      accum: int = 1, lr_schedule: str = "warmup_cosine",
                      device="cuda", attn_impl: str = "xla",
                      prefetch: Optional[int] = None, **overrides) -> Built:
     """Construct (mesh, arch, model, train step, data) for this rank of a
-    ``mesh_shape`` world, ``(Y, X)`` or ``(P, Y, X)`` (a process group of
+    ``mesh_shape`` world, for ``arch_name`` (a registered name, or an
+    ``ArchConfig`` such as a depth-cut copy of one), ``(Y, X)`` or ``(P, Y, X)`` (a process group of
     that size must exist beyond one rank).  ``batch`` is the global batch
     (rows per microbatch); ``lr_schedule`` is the reference's
     ``warmup_cosine(lr, 10, 10_000)`` or ``constant``; ``attn_impl`` the
     attention route ("pallas": the flash kernels); ``prefetch`` the ring
     depth (None: the policy's); ``overrides`` further ``ZeroConfig``
     fields (the paper's knobs)."""
-    arch = get_config(arch_name)
+    arch = arch_name if isinstance(arch_name, ArchConfig) \
+        else get_config(arch_name)
     if reduced:
         arch = arch.reduced()
     mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"))

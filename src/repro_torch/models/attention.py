@@ -3,7 +3,9 @@
 Port of the reference's ``models/attention.py`` (``mha`` — dense, and the
 chunked online-softmax ``flash_attention`` with its hand-written VJP —,
 its sequence-parallel KV gather ``_gather_seq`` and ``seq_shard_offset``,
-``per_seq_pos``, ``decode_attend``, ``cache_insert``).  Training may shard
+``per_seq_pos``, ``decode_attend`` with its ring-buffer slot positions,
+``cache_insert``).  Every route takes the sliding ``window`` of
+``local`` layers as the reference's mask ``q_pos - k_pos < window``.  Training may shard
 the sequence over ``seq_axes`` (``RunSpec.seq_axes``, the ranks of
 ``seq_group``): queries stay local, K/V are all-gathered in global shard
 order, and the backward reduce-scatters their cotangents.  Decode is not
@@ -26,7 +28,7 @@ dtype before the value product, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -99,14 +101,22 @@ def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd)
 
 
-def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    return q_pos[:, None] >= k_pos[None, :]
+def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor,
+            window: int = 0) -> torch.Tensor:
+    """(Sq, S) mask: causal, and within ``window`` positions when > 0
+    (the reference's ``q_pos - k_pos < window``)."""
+    mask = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return mask
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         seq_axes: Sequence[str] = (), seq_group: Any = None,
-        kv_chunk: int = 1024, impl: str = "xla") -> torch.Tensor:
-    """Causal attention for training and prefill.  q (B, Sq, H, hd) and k,
+        kv_chunk: int = 1024, impl: str = "xla",
+        window: int = 0) -> torch.Tensor:
+    """Causal attention for training and prefill (sliding-window when
+    ``window`` > 0: query p sees keys p - window < k <= p).  q (B, Sq, H, hd) and k,
     v (B, Sq, K, hd) are this rank's shards of a sequence sharded over
     ``seq_axes`` (the ranks of ``seq_group``; none: the whole sequence):
     K/V are gathered to (B, S, K, hd) and the queries sit at
@@ -126,26 +136,27 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S = k.shape[1]
     if impl == "pallas" and not seq_axes and S >= 512 and S % 512 == 0 \
             and Sq % 512 == 0:
-        return flash_attention_kernel(q, k, v, scale, True, 0, 0.0)
+        return flash_attention_kernel(q, k, v, scale, True, window, 0.0)
     q_pos = seq_shard_offset(Sq, seq_axes, seq_group) + torch.arange(
         Sq, device=q.device)
     if S > kv_chunk and S % kv_chunk == 0:
-        return flash_attention(q, k, v, q_pos, scale, kv_chunk)
+        return flash_attention(q, k, v, q_pos, scale, kv_chunk, window)
     logits = _logits(q, k, scale)
-    mask = _causal(q_pos, torch.arange(S, device=q.device))
+    mask = _causal(q_pos, torch.arange(S, device=q.device), window)
     logits = torch.where(mask[None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return _pv(p, v)
 
 
-def _chunk_logits(q, kc, k0, q_pos, scale):
+def _chunk_logits(q, kc, k0, q_pos, scale, window):
     """(B, H, Sq, kc) masked fp32 logits for one KV chunk starting at k0."""
     logits = _logits(q, kc, scale)
     k_pos = k0 + torch.arange(kc.shape[1], device=q.device)
-    return torch.where(_causal(q_pos, k_pos)[None, None], logits, NEG_INF)
+    return torch.where(_causal(q_pos, k_pos, window)[None, None], logits,
+                       NEG_INF)
 
 
-def _flash_forward(q, k, v, q_pos, scale, kv_chunk):
+def _flash_forward(q, k, v, q_pos, scale, kv_chunk, window):
     """Chunked online-softmax forward (the reference's _flash_fwd_impl):
     returns out (B, Sq, H, hd) and the fp32 row stats m, l (B, H, Sq),
     l clamped at 1e-30."""
@@ -156,7 +167,7 @@ def _flash_forward(q, k, v, q_pos, scale, kv_chunk):
     acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
     for k0 in range(0, S, kv_chunk):
         kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
-        logits = _chunk_logits(q, kc, k0, q_pos, scale)
+        logits = _chunk_logits(q, kc, k0, q_pos, scale, window)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -175,10 +186,10 @@ class _FlashAttention(torch.autograd.Function):
     accumulates dq over the chunks, dk/dv per chunk, all in fp32."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, scale, kv_chunk):
-        out, m, l = _flash_forward(q, k, v, q_pos, scale, kv_chunk)
+    def forward(ctx, q, k, v, q_pos, scale, kv_chunk, window):
+        out, m, l = _flash_forward(q, k, v, q_pos, scale, kv_chunk, window)
         ctx.save_for_backward(q, k, v, q_pos, out, m, l)
-        ctx.scale, ctx.kv_chunk = scale, kv_chunk
+        ctx.scale, ctx.kv_chunk, ctx.window = scale, kv_chunk, window
         return out
 
     @staticmethod
@@ -199,7 +210,8 @@ class _FlashAttention(torch.autograd.Function):
         for k0 in range(0, S, kv_chunk):
             sl = slice(k0, k0 + kv_chunk)
             kc, vc = k[:, sl].to(torch.float32), v[:, sl].to(torch.float32)
-            logits = _chunk_logits(q, k[:, sl], k0, q_pos, scale)
+            logits = _chunk_logits(q, k[:, sl], k0, q_pos, scale,
+                                   ctx.window)
             p = torch.exp(logits - m[..., None]) / l[..., None]
             dp = torch.einsum("bkrqd,bskd->bkrqs", dog, vc)
             dl = p.reshape(B, K, r, Sq, -1) * (dp - D.reshape(B, K, r, Sq, 1))
@@ -209,16 +221,17 @@ class _FlashAttention(torch.autograd.Function):
             dv[:, sl] = torch.einsum("bkrqs,bkrqd->bskd",
                                      p.reshape(B, K, r, Sq, -1), dog)
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_pos: torch.Tensor, scale: float,
-                    kv_chunk: int) -> torch.Tensor:
-    """Causal chunked online-softmax attention with the reference's
-    hand-written VJP.  q (B, Sq, H, hd); k, v (B, S, K, hd) with S a
-    multiple of ``kv_chunk``; q_pos (Sq,) absolute query positions."""
-    return _FlashAttention.apply(q, k, v, q_pos, scale, kv_chunk)
+                    q_pos: torch.Tensor, scale: float, kv_chunk: int,
+                    window: int = 0) -> torch.Tensor:
+    """Causal (sliding-window when ``window`` > 0) chunked online-softmax
+    attention with the reference's hand-written VJP.  q (B, Sq, H, hd);
+    k, v (B, S, K, hd) with S a multiple of ``kv_chunk``; q_pos (Sq,)
+    absolute query positions."""
+    return _FlashAttention.apply(q, k, v, q_pos, scale, kv_chunk, window)
 
 
 def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
@@ -233,16 +246,25 @@ def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
 
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cache_pos: torch.Tensor
+                  v_cache: torch.Tensor, cache_pos: torch.Tensor, *,
+                  window: int = 0,
+                  slot_positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Exact decode attention of (B, 1, H, hd) queries over a (B, S, K, hd)
-    cache whose slot s holds position s.  Each row attends to its own
-    valid prefix, the slots at or before its ``cache_pos``."""
+    cache.  Slot s holds position s, or ``slot_positions[b, s]`` (a ring
+    buffer: a sliding-window layer's cache; negative = empty).  Each row
+    attends to the slots whose position p satisfies 0 <= p <= its
+    ``cache_pos`` t and, with a ``window``, p > t - window."""
     B, _, H, hd = q.shape
     S = k_cache.shape[1]
     cache_pos = per_seq_pos(cache_pos, B).to(q.device)
     logits = _logits(q, k_cache, hd ** -0.5)              # (B, H, 1, S)
-    valid = torch.arange(S, device=q.device)[None, :] <= cache_pos[:, None]
+    pos = torch.arange(S, device=q.device)[None, :] if slot_positions is None \
+        else slot_positions.to(q.device).reshape(-1, S)   # (1 | B, S)
+    t = cache_pos[:, None].to(pos.dtype)
+    valid = (pos >= 0) & (pos <= t)
+    if window:
+        valid &= pos > t - window
     vmask = valid[:, None, None, :]                       # (B, 1, 1, S)
     logits = torch.where(vmask, logits, NEG_INF)
     m = logits.amax(dim=-1)                               # (B, H, 1)
@@ -257,8 +279,9 @@ def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
                  cache_pos: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write each sequence's new K/V (B, 1, K, hd) at its own slot of the
-    (B, S, K, hd) caches.  Unlike the reference (immutable arrays, donated
+    """Write each sequence's new K/V (B, 1, K, hd) at its own slot
+    ``cache_pos`` (a ring cache passes position mod capacity) of the (B,
+    S, K, hd) caches.  Unlike the reference (immutable arrays, donated
     buffers) the write is IN PLACE; the caches are returned for symmetry.
     Rows whose position lies outside [0, S) are left untouched."""
     B, S = k_cache.shape[0], k_cache.shape[1]

@@ -1,8 +1,8 @@
 """Shared neural building blocks (pure functions on explicit weights).
 
-Port of the reference's ``models/layers.py`` (``rms_norm``, ``swiglu``,
-``rope_table``, ``apply_rope``) with its dtype rules: norms compute in
-fp32 and cast back, rotary tables are fp32.
+Port of the reference's ``models/layers.py`` (``rms_norm``, ``swiglu``
+with its silu and gelu gates, ``rope_table``, ``apply_rope``) with its
+dtype rules: norms compute in fp32 and cast back, rotary tables are fp32.
 """
 from __future__ import annotations
 
@@ -22,12 +22,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
             * (1.0 + scale.to(torch.float32))).to(dt)
 
 
-def swiglu(x: torch.Tensor, w_gate_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SiLU-gated MLP.  ``w_gate_up``: (d, 2*ff) fused gate|up;
-    ``w_down``: (ff, d)."""
+def swiglu(x: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor,
+           act: str = "silu") -> torch.Tensor:
+    """Gated MLP.  ``w_gate_up``: (d, 2*ff) fused gate|up; ``w_down``:
+    (ff, d).  ``act`` is "silu" or "gelu" (the tanh approximation, the
+    reference's ``jax.nn.gelu(approximate=True)``)."""
     g, u = torch.chunk(x @ w_gate_up, 2, dim=-1)
-    return (F.silu(g) * u) @ w_down
+    if act == "silu":
+        a = F.silu(g)
+    elif act == "gelu":
+        a = F.gelu(g, approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return (a * u) @ w_down
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float

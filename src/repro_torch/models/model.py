@@ -1,8 +1,11 @@
 """The Model: parameter groups, init, training loss, prefill, decode.
 
-Port of the reference's ``models/model.py`` ``Model`` for dense ``attn``
-stacks (the reference's block pattern ``("attn",)``: one block per layer
-group, named ``0.*`` in the flat layout).  ``Model`` owns the flat ZeRO
+Port of the reference's ``models/model.py`` ``Model`` for dense stacks of
+``attn`` and ``local`` blocks tiled from ``cfg.pattern``: one period of the
+pattern per layer group (its blocks named ``0.*``, ``1.*``, ... in the
+flat layout; ``("attn",)`` is one block a group) and the ``n_layers %
+len(pattern)`` leftover layers, the first kinds of a period, in a group of
+their own (``rem``) applied after the loop.  ``Model`` owns the flat ZeRO
 parameter groups — same specs, offsets and padding as the reference, so
 its buffers load unchanged (``repro_torch.convert``) — and drives the
 layer loop through the ZeRO++ engine (``core/zeropp.py``,
@@ -16,7 +19,8 @@ chunks through ``_streaming_xent``.
 Groups (flat buffers):
 
   embed  : (E_pad,)            token embedding
-  blocks : (n_layers, P_pad)   one attn block per loop step
+  blocks : (n_periods, P_pad)  one period of the pattern per loop step
+  rem    : (R_pad,)            the leftover layers (only when there are)
   head   : (H_pad,)            final norm
   unemb  : (nv, U_pad)         unembedding, TRANSPOSED (V, d), nv chunks
 
@@ -24,7 +28,8 @@ The model runs on ``device`` ("cuda" unless the caller asks for "cpu").
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from functools import partial
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,10 +58,14 @@ class Model:
         self.cfg = cfg
         self.zcfg = zcfg
         self.world = world
-        self.n_periods = cfg.n_layers
+        self.period = tuple(cfg.pattern)
+        self.n_periods = cfg.n_layers // len(self.period)
+        self.rem = cfg.n_layers % len(self.period)
+        self.rem_kinds = self.period[:self.rem]   # the leftover layers
         align = zcfg.align(world) if zcfg.distributed else zcfg.align(1)
-        self.period_spec = ParamSpec(tuple(block_entries(cfg, "0.")),
-                                     align=align)
+        self.period_spec = ParamSpec(self._entries(self.period), align=align)
+        self.rem_spec = ParamSpec(self._entries(self.rem_kinds),
+                                  align=align) if self.rem else None
         self.embed_spec = ParamSpec((("emb", (cfg.vocab, cfg.d_model)),),
                                     align=align)
         self.head_spec = ParamSpec((("fnorm", (cfg.d_model,)),), align=align)
@@ -66,6 +75,14 @@ class Model:
         self.vchunk = cfg.vocab // nv
         self.unemb_spec = ParamSpec(
             (("unemb", (self.vchunk, cfg.d_model)),), align=align)
+
+    def _entries(self, kinds: Sequence[str]) -> tuple:
+        """Flat-layout entries of a group of blocks: block i's under
+        ``f"{i}."``."""
+        out: list = []
+        for i, kind in enumerate(kinds):
+            out += block_entries(self.cfg, kind, f"{i}.")
+        return tuple(out)
 
     def _auto_unemb_chunks(self, target_bytes: int = 512 * 2 ** 20) -> int:
         cfg = self.cfg
@@ -84,14 +101,18 @@ class Model:
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """GLOBAL flat buffer shapes (the reference's, key for key)."""
-        return {"embed": (self.embed_spec.padded_size,),
-                "blocks": (self.n_periods, self.period_spec.padded_size),
-                "head": (self.head_spec.padded_size,),
-                "unemb": (self.unemb_chunks, self.unemb_spec.padded_size)}
+        out = {"embed": (self.embed_spec.padded_size,),
+               "blocks": (self.n_periods, self.period_spec.padded_size)}
+        if self.rem_spec:
+            out["rem"] = (self.rem_spec.padded_size,)
+        out["head"] = (self.head_spec.padded_size,)
+        out["unemb"] = (self.unemb_chunks, self.unemb_spec.padded_size)
+        return out
 
     def n_params(self) -> int:
         """Parameters in the flat groups, padding excluded."""
         return (self.embed_spec.size + self.period_spec.size * self.n_periods
+                + (self.rem_spec.size if self.rem_spec else 0)
                 + self.head_spec.size + self.unemb_spec.size * self.unemb_chunks)
 
     def comm_events(self, accum: int = 1) -> list:
@@ -102,8 +123,9 @@ class Model:
         folds it into the per-label projection that the collectives'
         counters are gated against (``obs.report``).
 
-        Each ``zero_apply`` site (the embedding, the head norm, each
-        unembedding chunk) issues one of each kind; the layer loop issues
+        Each ``zero_apply`` site (the embedding, the leftover layers'
+        ``rem`` group, the head norm, each unembedding chunk) issues one of
+        each kind; the layer loop issues
         n of each per step at every ring depth.  The reference's scan ring
         issues n + k (k wrap-around gathers and k reduces of zero
         gradients); the port's ring (``core/schedule.py``) issues neither,
@@ -118,10 +140,12 @@ class Model:
             ev.append({"kind": kind, "elems": int(elems),
                        "count": float(count) * accum, "site": site})
 
-        for site, e, c in (("embed", self.embed_spec.padded_size, 1),
-                           ("head", self.head_spec.padded_size, 1),
-                           ("unemb", self.unemb_spec.padded_size,
-                            self.unemb_chunks)):
+        sites = [("embed", self.embed_spec.padded_size, 1)]
+        if self.rem_spec:
+            sites.append(("rem", self.rem_spec.padded_size, 1))
+        sites += [("head", self.head_spec.padded_size, 1),
+                  ("unemb", self.unemb_spec.padded_size, self.unemb_chunks)]
+        for site, e, c in sites:
             for kind in ("fwd_gather", "bwd_gather", "grad_reduce"):
                 add(kind, e, c, site)
         n, P = self.n_periods, self.period_spec.padded_size
@@ -169,6 +193,8 @@ class Model:
         for g in range(self.n_periods):
             blocks[g] = self._init_flat(self.period_spec, gen, dtype)
         out["blocks"] = blocks
+        if self.rem_spec:
+            out["rem"] = self._init_flat(self.rem_spec, gen, dtype)
         out["head"] = self._init_flat(self.head_spec, gen, dtype)
         out["unemb"] = torch.stack([
             self._init_flat(self.unemb_spec, gen, dtype)
@@ -218,11 +244,20 @@ class Model:
         B, S = h.shape[0], h.shape[1]
         cos, sin = self._rope_tables(rs, S)
 
-        def period_fn(W, h, cos, sin):
-            p = _sub(self.period_spec.unpack(W.to(z.compute_dtype)), "0.")
-            return apply_block(cfg, p, h, rs, {"rope": (cos, sin)}, None)[0]
+        def group_fn(W, h, cos, sin, spec, kinds):
+            p = spec.unpack(W.to(z.compute_dtype))
+            for i, kind in enumerate(kinds):
+                h = apply_block(cfg, kind, _sub(p, f"{i}."), h, rs,
+                                {"rope": (cos, sin)}, None)[0]
+            return h
 
-        h = zero_apply_scan(period_fn, z)(params["blocks"], h, cos, sin)
+        h = zero_apply_scan(partial(group_fn, spec=self.period_spec,
+                                    kinds=self.period), z)(
+            params["blocks"], h, cos, sin)
+        if self.rem_spec:
+            h = zero_apply(partial(group_fn, spec=self.rem_spec,
+                                   kinds=self.rem_kinds), z)(
+                params["rem"], h, cos, sin)
 
         def norm_fn(W, h):
             p = self.head_spec.unpack(W.to(z.compute_dtype))
@@ -315,15 +350,22 @@ class Model:
 
     # ------------------------------------------------------------ prefill
 
-    def _period_fn(self, rs: RunSpec, pos):
+    def _group_fn(self, rs: RunSpec, pos, spec: ParamSpec,
+                  kinds: Sequence[str]):
+        """``f(W, h, caches) -> (h, new caches)`` of a group of blocks
+        (a period, or the ``rem`` layers); ``caches`` holds one per block
+        (None in prefill)."""
         cfg, z = self.cfg, self.zcfg
 
-        def period_fn(W, h, cache):
-            p = _sub(self.period_spec.unpack(W.to(z.compute_dtype)), "0.")
-            h, c = apply_block(cfg, p, h, rs, pos,
-                               None if cache is None else cache[0])
-            return h, (c,)
-        return period_fn
+        def group_fn(W, h, caches):
+            p = spec.unpack(W.to(z.compute_dtype))
+            out = []
+            for i, kind in enumerate(kinds):
+                h, c = apply_block(cfg, kind, _sub(p, f"{i}."), h, rs, pos,
+                                   None if caches is None else caches[i])
+                out.append(c)
+            return h, tuple(out)
+        return group_fn
 
     @torch.no_grad()
     def prefill_fn(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -333,17 +375,26 @@ class Model:
         caches).  ``last_pos`` (B,) selects each sequence's logits position
         — the last REAL token of a right-padded prompt; default: the final
         position."""
+        z = self.zcfg
         h = self._embed(params, batch["tokens"])
         pos = {"rope": self._rope_tables(rs, h.shape[1])}
-        h, ys = zero_scan_inference(self._period_fn(rs, pos), self.zcfg)(
+        h, ys = zero_scan_inference(
+            self._group_fn(rs, pos, self.period_spec, self.period), z)(
             params["blocks"], h)
-        # per-layer caches -> one (n_layers, B, S, K, hd) stack each
-        caches = ({key: torch.stack([y[0][key] for y in ys])
-                   for key in ("k", "v")},)
+        # per-period caches -> one (n_periods, B, S, K, hd) stack for each
+        # block of the period (S: the prompt, or a local layer's window)
+        caches = tuple({key: torch.stack([y[j][key] for y in ys])
+                        for key in ("k", "v")}
+                       for j in range(len(self.period)))
+        rem = None
+        if self.rem_spec:
+            h, rem = zero_apply_inference(
+                self._group_fn(rs, pos, self.rem_spec, self.rem_kinds),
+                z)(params["rem"], h, None)
         h_last = h[:, -1:, :] if last_pos is None \
             else select_positions(h, last_pos)
         return self._head_logits(params, h_last), {"blocks": caches,
-                                                   "rem": None}
+                                                   "rem": rem}
 
     # ------------------------------------------------------------- decode
 
@@ -358,25 +409,38 @@ class Model:
         cache_pos = attn_lib.per_seq_pos(cache_pos, h.shape[0]).to(self.device)
         pos = {"rope": self._rope_tables(rs, 1, cache_pos=cache_pos),
                "cache_pos": cache_pos}
-        per_layer = [tuple({key: c[key][i] for key in ("k", "v")}
-                           for c in caches["blocks"])
-                     for i in range(self.n_periods)]
-        h, _ = zero_scan_inference(self._period_fn(rs, pos), self.zcfg)(
-            params["blocks"], h, per_layer)
+        per_period = [tuple({key: c[key][i] for key in ("k", "v")}
+                            for c in caches["blocks"])
+                      for i in range(self.n_periods)]
+        h, _ = zero_scan_inference(
+            self._group_fn(rs, pos, self.period_spec, self.period),
+            self.zcfg)(params["blocks"], h, per_period)
+        if self.rem_spec:
+            h, _ = zero_apply_inference(
+                self._group_fn(rs, pos, self.rem_spec, self.rem_kinds),
+                self.zcfg)(params["rem"], h, caches["rem"])
         return self._head_logits(params, h), caches
 
     # ------------------------------------------------------------- caches
 
     def cache_shapes(self, batch: int, kv_len: int):
-        """GLOBAL cache shapes matching decode_fn's layout."""
-        per = ({k: (self.n_periods,) + s for k, s in
-                init_cache_shapes(self.cfg, batch, kv_len).items()},)
-        return {"blocks": per, "rem": None}
+        """GLOBAL cache shapes matching decode_fn's layout: for each block
+        of the period a (n_periods, ...) stack, for each ``rem`` layer its
+        own (None without one)."""
+        blocks = tuple({k: (self.n_periods,) + s for k, s in
+                        init_cache_shapes(self.cfg, kind, batch,
+                                          kv_len).items()}
+                       for kind in self.period)
+        rem = tuple(init_cache_shapes(self.cfg, kind, batch, kv_len)
+                    for kind in self.rem_kinds) if self.rem_spec else None
+        return {"blocks": blocks, "rem": rem}
 
     def init_caches(self, batch: int, kv_len: int,
                     dtype: torch.dtype = torch.bfloat16):
+        def zeros(per):
+            return {k: torch.zeros(s, dtype=dtype, device=self.device)
+                    for k, s in per.items()}
         shapes = self.cache_shapes(batch, kv_len)
-        return {"blocks": tuple(
-            {k: torch.zeros(s, dtype=dtype, device=self.device)
-             for k, s in per.items()} for per in shapes["blocks"]),
-            "rem": None}
+        rem = shapes["rem"]
+        return {"blocks": tuple(zeros(per) for per in shapes["blocks"]),
+                "rem": None if rem is None else tuple(zeros(p) for p in rem)}

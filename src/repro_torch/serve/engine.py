@@ -12,7 +12,10 @@ Step anatomy (``ServeEngine.step``):
                 time) end with status ``"timeout"``: active ones release
                 their slot, queued ones leave the queue without one.
   1. admit    — FIFO admission while slots are free; each prompt is
-                right-padded to its length bucket, prefilled with batch=1
+                right-padded to its length bucket (an ``attn``-only stack;
+                any other prefills at the prompt's exact length, since a
+                ring cache would absorb the pad tokens), prefilled with
+                batch=1
                 (the per-sequence ``last_pos`` logits give the first token,
                 streamed at once) and its caches copied into the slot.
   2. decode   — one batched step over ALL slots: tokens (n_slots, 1),
@@ -72,6 +75,11 @@ class ServeEngine:
         if dev.type != model.device.type:
             raise ValueError(f"engine on {dev} but the model runs on "
                              f"{model.device}")
+        cfg = model.cfg
+        if "local" in model.period and kv_len < cfg.window:
+            raise ValueError(
+                f"kv_len={kv_len} below the sliding window {cfg.window}: "
+                f"ring caches from prefill would not fit the pool")
         self.model = model
         self.params = params
         self.device = model.device
@@ -84,6 +92,9 @@ class ServeEngine:
         self._prefill = steps.build_prefill_step(model, with_last_pos=True,
                                                  device=dev)
         self._decode = steps.build_decode_step(model, device=dev)
+        # prompts right-padded to buckets are exact only when every layer
+        # masks by position (full attention): a ring would hold the pads
+        self._pad_ok = set(model.period) == {"attn"}
         self.clock = clock                       # injectable for tests
         self.slots: List[Optional[_Active]] = [None] * n_slots
         self.results: Dict[int, List[int]] = {}
@@ -160,7 +171,7 @@ class ServeEngine:
             slot = self.pool.alloc()
             assert slot is not None
             P = len(req.prompt)
-            toks = np.zeros((1, bucket), np.int64)
+            toks = np.zeros((1, bucket if self._pad_ok else P), np.int64)
             toks[0, :P] = req.prompt
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
             last = torch.full((1,), P - 1, dtype=torch.int64,

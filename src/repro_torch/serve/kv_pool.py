@@ -2,8 +2,10 @@
 
 Port of the slab ``KVPool`` of the reference's ``serve/kv_pool.py``.  The
 pool owns ONE cache tree of batch size ``n_slots`` (the decode batch),
-laid out exactly like ``Model.cache_shapes``.  A request occupies one slot
-for its lifetime:
+laid out exactly like ``Model.cache_shapes``: each block kind's own cache
+length (``kv_len`` for ``attn``, the ring's ``min(window, kv_len)`` for
+``local``), stacked over periods, and the ``rem`` layers' caches.  A
+request occupies one slot for its lifetime:
 
   admit  -> ``alloc()`` hands out the oldest retired slot (FIFO recycling)
   prefill-> ``write_prefill`` copies the request's padded prefill caches
@@ -28,6 +30,7 @@ from repro_torch.serve import steps
 class KVPool:
     def __init__(self, model, n_slots: int, kv_len: int,
                  dtype: torch.dtype = torch.bfloat16):
+        self.model = model
         self.n_slots = n_slots
         self.kv_len = kv_len
         self.caches = model.init_caches(n_slots, kv_len, dtype)
@@ -52,8 +55,13 @@ class KVPool:
                       prompt_len: int) -> None:
         """Grow a request's batch=1 prefill caches to pool capacity and copy
         them into batch index ``slot`` (in place)."""
-        grown = steps.pad_prefill_caches(prefill_caches, self.kv_len)
+        grown = steps.pad_prefill_caches(self.model, prefill_caches,
+                                         self.kv_len)
         for pool_c, new_c in zip(self.caches["blocks"], grown["blocks"]):
-            for key in ("k", "v"):           # (L, B, kv_len, K, hd)
+            for key in ("k", "v"):           # (n_periods, B, S, K, hd)
                 pool_c[key][:, slot] = new_c[key][:, 0]
+        for pool_c, new_c in zip(self.caches["rem"] or (),
+                                 grown["rem"] or ()):
+            for key in ("k", "v"):           # (B, S, K, hd)
+                pool_c[key][slot] = new_c[key][0]
         self.lengths[slot] = prompt_len

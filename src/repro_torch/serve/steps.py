@@ -65,16 +65,31 @@ def build_decode_step(model: Model, device="cuda") -> ServeStep:
     return ServeStep(fn=fn, run_spec=rs)
 
 
-def pad_prefill_caches(caches, kv_len: int):
+def pad_prefill_caches(model: Model, caches, kv_len: int):
     """Grow prefill KV caches (length = prompt) to decode capacity.
 
-    Full-attention caches use slot == position, so zero-padding the
-    sequence dim to ``kv_len`` is exact: padded slots are masked out by
-    decode_attend's position-validity test."""
-    def grow(arr):
-        pad = kv_len - arr.shape[2]                 # (L, B, S, K, hd)
-        return F.pad(arr, (0, 0, 0, 0, 0, pad)) if pad > 0 else arr
+    Full-attention (``attn``) caches use slot == position, so
+    zero-padding the sequence dim to ``kv_len`` is exact: padded slots are
+    masked out by decode_attend's position-validity test.  Ring buffers
+    (``local`` layers) are already capacity-sized and stay as they are."""
+    def grow(kind, cache, axis):
+        if kind != "attn":
+            return cache
+        out = {}
+        for key in ("k", "v"):
+            arr = cache[key]
+            pad = kv_len - arr.shape[axis]
+            if pad > 0:
+                widths = [0, 0] * (arr.dim() - axis)
+                widths[-1] = pad
+                arr = F.pad(arr, widths)
+            out[key] = arr
+        return out
 
-    blocks = tuple({key: grow(c[key]) for key in ("k", "v")}
-                   for c in caches["blocks"])
-    return {"blocks": blocks, "rem": None}
+    blocks = tuple(grow(kind, c, 2)              # (n_periods, B, S, K, hd)
+                   for kind, c in zip(model.period, caches["blocks"]))
+    rem = caches.get("rem")
+    if rem is not None:
+        rem = tuple(grow(kind, c, 1)             # (B, S, K, hd)
+                    for kind, c in zip(model.rem_kinds, rem))
+    return {"blocks": blocks, "rem": rem}

@@ -246,12 +246,15 @@ def global_params(model, seed: int) -> dict:
                 off, n = spec.offsets[name]
                 out[off:off + n] = rng.standard_normal(n) * std
         return out
-    return {"embed": flat(model.embed_spec),
-            "blocks": np.stack([flat(model.period_spec)
-                                for _ in range(model.n_periods)]),
-            "head": flat(model.head_spec),
-            "unemb": np.stack([flat(model.unemb_spec)
-                               for _ in range(model.unemb_chunks)])}
+    out = {"embed": flat(model.embed_spec),
+           "blocks": np.stack([flat(model.period_spec)
+                               for _ in range(model.n_periods)])}
+    if model.rem_spec:
+        out["rem"] = flat(model.rem_spec)
+    out["head"] = flat(model.head_spec)
+    out["unemb"] = np.stack([flat(model.unemb_spec)
+                             for _ in range(model.unemb_chunks)])
+    return out
 
 
 def _glued(per_rank: Sequence[Mapping], part: str) -> Dict[str, np.ndarray]:

@@ -45,7 +45,7 @@ def _greedy(model, params, prompt, n):
     ds = steps.build_decode_step(model, device="cpu")
     logits, caches = ps.fn(params, {"tokens": torch.from_numpy(
         prompt[None, :]).long()})
-    caches = steps.pad_prefill_caches(caches, KV)
+    caches = steps.pad_prefill_caches(model, caches, KV)
     toks = [int(logits[0, -1].argmax())]
     for i in range(1, n):
         logits, caches = ds.fn(params, caches,

@@ -57,8 +57,11 @@ CASES = [
     (1, 64, 4, 2, 64, 0, 30.0, 32, 32, "f32"),     # softcap, GQA 2
     (1, 128, 2, 2, 32, 32, 20.0, 64, 32, "f32"),   # window + softcap
     (1, 512, 4, 2, 64, 0, 0.0, 512, 512, "bf16"),  # the path's tiles
+    (1, 512, 2, 1, 256, 0, 0.0, 256, 256, "f32"),  # hd 256 (gemma3-4b)
+    (1, 512, 2, 1, 256, 300, 0.0, 256, 128, "f32"),  # hd 256, its window
 ]
-IDS = ["gqa1", "gqa4", "window", "softcap", "window_softcap", "bf16_s512"]
+IDS = ["gqa1", "gqa4", "window", "softcap", "window_softcap", "bf16_s512",
+       "hd256", "hd256_window"]
 
 
 def _inputs(B, S, H, K, hd, seed):

@@ -152,6 +152,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         dm.dequant_matmul(torch.zeros(1, 40, device="cuda"),
                           torch.zeros(2, 40, dtype=torch.int8, device="cuda"),
                           torch.ones(2, 1, device="cuda"))
+    q = torch.zeros(1, 64, 2, 96, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd in"):     # 256 launches
+        fa.flash_fwd(q, q, q, scale=0.1)
 
 
 # the redesigned B3/B4 tile 1,024 elements a warp, 32 a lane: block counts
@@ -220,7 +223,8 @@ def test_dequant_reduce_kernels_bit_identical(gen, N, C, block, bits_in,
 
 @pytest.mark.parametrize("B,S,H,K,hd,window,softcap", [
     (1, 256, 4, 2, 64, 0, 0.0), (2, 192, 4, 1, 64, 70, 0.0),
-    (1, 128, 2, 2, 128, 0, 20.0), (1, 256, 8, 2, 16, 100, 30.0)])
+    (1, 128, 2, 2, 128, 0, 20.0), (1, 256, 8, 2, 16, 100, 30.0),
+    (1, 128, 2, 1, 256, 0, 0.0), (1, 192, 4, 2, 256, 70, 20.0)])
 def test_flash_kernels_close_and_deterministic(gen, B, S, H, K, hd, window,
                                                softcap):
     q = torch.randn(B, S, H, hd, generator=gen, device="cuda")
@@ -255,6 +259,8 @@ BF16_CASES = [
     (1, 320, 320, 4, 1, 64, True, 100, 30.0),    # window + softcap, GQA 4
     (1, 192, 448, 4, 2, 128, False, 70, 0.0),    # Sq < S, non-causal window
     (2, 256, 256, 2, 2, 16, True, 0, 20.0),      # softcap, hd 16
+    (1, 256, 256, 4, 2, 256, True, 0, 0.0),      # hd 256 (gemma3-4b)
+    (1, 192, 320, 4, 1, 256, False, 100, 30.0),  # hd 256, Sq < S, window
 ]
 
 

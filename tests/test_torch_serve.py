@@ -105,7 +105,7 @@ def _run_both(pair, B=2, S=8, n_decode=3, seed=0):
                    torch.from_numpy(last).long())
     tlogits = [_np(tl)]
     tpre = {k: _np(tc["blocks"][0][k]) for k in ("k", "v")}
-    tc = steps.pad_prefill_caches(tc, KV)
+    tc = steps.pad_prefill_caches(model, tc, KV)
     for i in range(n_decode):
         pos = last + 1 + i
         jl, jc = jds.fn(jparams, jc, {"tokens": nxt[i]}, jnp.asarray(pos))
@@ -169,7 +169,7 @@ def _port_greedy(model, params, prompt, n):
     ds = steps.build_decode_step(model, device="cpu")
     logits, caches = ps.fn(params, {"tokens": torch.from_numpy(
         prompt[None, :]).long()})
-    caches = steps.pad_prefill_caches(caches, KV)
+    caches = steps.pad_prefill_caches(model, caches, KV)
     toks = [int(logits[0, -1].argmax())]
     for i in range(1, n):
         logits, caches = ds.fn(params, caches,

@@ -97,16 +97,20 @@ TF32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32,
 class _Pair:
     """The reference and the port on the same fp32 state."""
 
-    def __init__(self, variant: str = "zeropp", **overrides):
+    def __init__(self, variant: str = "zeropp", arch: str = "qwen3-0.6b",
+                 cut=None, **overrides):
+        """``arch`` reduced, with ``cut`` (e.g. {"n_layers": 8}) passed
+        on to ``reduced`` on both sides."""
+        cut = cut or {}
         self.mesh = make_mesh((1, 1), AXES)
-        self.jarch = jax_get_config("qwen3-0.6b").reduced()
+        self.jarch = jax_get_config(arch).reduced(**cut)
         pol = jax_policy(self.jarch, AXES, variant, **overrides, **JF32)
         self.jm = JaxModel(self.jarch, pol.zcfg, world=1)
         self.jopt_cfg = JaxAdamW(lr=LR)
         self.jp, self.jo = jtrainer.init_state(self.jm, self.mesh,
                                                self.jopt_cfg,
                                                jax.random.PRNGKey(0))
-        arch = get_config("qwen3-0.6b").reduced()
+        arch = get_config(arch).reduced(**cut)
         self.model = Model(arch, make_policy(arch, AXES, variant,
                                              **overrides, **TF32).zcfg,
                            device="cpu")

@@ -32,7 +32,11 @@ and reads its rows of the same global ``SyntheticLM`` batch.
       straddle a shard, so the gathered weights are the same bits);
   (d) ``choose_batch_seq_axes`` and the flat layout at W ranks are the
       reference's (the batches that do not cover the world, which shard
-      the sequence, are ``tests/test_torch_seq_parallel.py``'s).
+      the sequence, are ``tests/test_torch_seq_parallel.py``'s);
+  (e) one full-ZeRO++ step of gemma3-4b reduced to 8 layers (one period
+      of 5 ``local`` and 1 ``attn`` layers and a ``rem`` group of 2
+      ``local`` ones, window 8, gelu) at world 4, at (a)'s full-ZeRO++
+      bar: the ``rem`` group under qgZ.
 
 Every rank runs all of its variants in one spawn (one for world 4, one for
 world 8), while the reference's subprocess runs beside them.  The module
@@ -86,9 +90,15 @@ CURVES = (("baseline", "baseline", 1, 8), ("zeropp", "zeropp", 1, 8),
 _init = step_bars.global_params
 
 
-def _port_model(world):
-    arch = get_config(ARCH).reduced()
+def _port_model(world, arch=None):
+    arch = arch or get_config(ARCH).reduced()
     return Model(arch, make_policy(arch).zcfg, world=world, device="cpu")
+
+
+def _gemma3():
+    """(e): one (5 local, 1 attn) period and a rem group of 2 local layers,
+    window 8, gelu; vocab 128 as gpt-350m reduced, so the same batch."""
+    return get_config("gemma3-4b").reduced(n_layers=8)
 
 
 def _batch(rows, step=0):
@@ -131,11 +141,14 @@ batch = {k[2:]: d[k] for k in d if k.startswith("b.")}
 F32 = dict(param_dtype=jnp.float32, compute_dtype=jnp.float32,
            reduce_dtype=jnp.float32)
 rs = RunSpec(mode="train", seq_axes=(), attn_impl="xla")
-for name, over in (("qgz_off", dict(qgz=False)), ("zeropp", {})):
+garch = get_config("gemma3-4b").reduced(n_layers=8)
+for name, arch, over, pre in (("qgz_off", arch, dict(qgz=False), "p4."),
+                              ("zeropp", arch, {}, "p4."),
+                              ("gemma3", garch, {}, "g4.")):
     m = Model(arch, make_policy(arch, AXES, "zeropp", **over, **F32).zcfg,
               world=4)
     specs = param_specs(m, AXES)
-    p = tree("p4.")
+    p = tree(pre)
     def lg(p, b):
         (loss, _), g = jax.value_and_grad(
             lambda p: m.loss_fn(p, b, rs, 4), has_aux=True)(p)
@@ -178,22 +191,24 @@ np.savez(sys.argv[2], **out)
 """
 
 
-def _step_rank(rank, world, p4, batch):
+def _step_rank(rank, world, p4, batch, g4):
     """(a), (c) at world 4: each variant's loss and gradient shards from
     ``loss_and_grads``, then one step's metrics, parameter and moment
-    shards."""
+    shards; (e) the same of the reduced gemma3-4b under full ZeRO++."""
     out = {}
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
-    arch = get_config(ARCH).reduced()
     mesh = mesh_lib.make_mesh(STEP_MESH)
-    for name, over in STEP_VARIANTS.items():
+    runs = [(name, get_config(ARCH).reduced(), over, p4)
+            for name, over in STEP_VARIANTS.items()]
+    runs.append(("gemma3", _gemma3(), {}, g4))
+    for name, arch, over, p in runs:
         pol = make_policy(arch, mesh_lib.AXES, "zeropp", mesh=mesh, **over,
                           **TF32)
         model = Model(arch, pol.zcfg, world=world, device="cpu")
         step = trainer.build_train_step(model, AdamWConfig(lr=LR),
                                         device="cpu", global_batch=STEP_BATCH,
                                         mesh=mesh)
-        params = params_from_numpy(p4, model, rank=rank, world=world)
+        params = params_from_numpy(p, model, rank=rank, world=world)
         opt = init_opt_state(params)
         loss, mets, grads = step.loss_and_grads(params, tb)
         m = step.fn(params, opt, tb)
@@ -223,9 +238,11 @@ def _curve_rank(rank, world, p8):
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("multirank")
     p4, p8 = _init(_port_model(4), 1), _init(_port_model(8), 2)
+    g4 = _init(_port_model(4, _gemma3()), 3)
     batch = _batch(STEP_BATCH)
     arrays = {"lr": np.float32(LR)}
     arrays.update({"p4." + k: v for k, v in p4.items()})
+    arrays.update({"g4." + k: v for k, v in g4.items()})
     arrays.update({"p8." + k: v for k, v in p8.items()})
     arrays.update({"b." + k: v for k, v in batch.items()})
     np.savez(d / "in.npz", **arrays)
@@ -238,7 +255,8 @@ def runs(tmp_path_factory):
                                 str(d / "in.npz"), str(d / "out.npz")],
                                env=env, stdout=log, stderr=subprocess.STDOUT)
         try:
-            step = mesh_lib.spawn(_step_rank, 4, p4, batch, device="cpu")
+            step = mesh_lib.spawn(_step_rank, 4, p4, batch, g4,
+                                  device="cpu")
             curve = mesh_lib.spawn(_curve_rank, 8, p8, device="cpu")
             ref.wait(timeout=300)
         finally:
@@ -317,6 +335,35 @@ def test_world4_step_matches_reference_with_full_zeropp(runs):
     # qgZ really quantized: the qgZ-off gradients of the same state differ
     off = _glued([r["qgz_off"]["grads"] for r in runs["step"]])
     assert not np.allclose(tg["blocks"], off["blocks"], rtol=1e-3, atol=1e-5)
+
+
+def test_world4_gemma3_step_matches_reference_with_full_zeropp(runs):
+    """(e): the reduced gemma3-4b on 2 x 2 under full ZeRO++, its ``rem``
+    group a flat group of its own, sharded, qgZ-reduced and updated as
+    the reference does, at the full-ZeRO++ bar above.  The grad norm
+    (above 1 here) clips both sides' first step, each by its own 1 /
+    norm, and the norms differ by the gradients' INT4 steps: an m element
+    whose gradient sits one INT4 step off would then miss its block's
+    step by that ratio.  So m and v are held as (1 - b1)·g and
+    (1 - b2)·g², each side's clip divided out of its own moments."""
+    tg, jg, tp, jp, to, jo, t_norm, j_norm = _hold_step(runs, "gemma3")
+    assert set(tg) == set(jg) == {"embed", "blocks", "rem", "head", "unemb"}
+    far = step_bars.far_share(STEP_MESH)
+    step_bars.grads_within_int4(tg, jg, far)
+    gdiff = np.sqrt(sum(np.sum((tg[k].astype(np.float64) - jg[k]) ** 2)
+                        for k in tg))
+    assert abs(t_norm - j_norm) <= gdiff + 1e-5 * j_norm
+
+    def unclipped(o, norm):
+        c = min(1.0, 1.0 / (norm + 1e-12))
+        return {"m": {k: v / c for k, v in o["m"].items()},
+                "v": {k: v / c ** 2 for k, v in o["v"].items()}}
+    step_bars.moments_within_int4(unclipped(to, t_norm),
+                                  unclipped(jo, j_norm), far)
+    step_bars.params_near(tp, jp,
+                          {k: step_bars.moment_dir(to, k) for k in tp},
+                          {k: step_bars.moment_dir(jo, k) for k in tp}, LR,
+                          far)
 
 
 def test_world4_loss_equals_world1_loss(runs):

@@ -3,8 +3,9 @@
   (a) the arithmetic: ``comm_volume_per_step``, ``event_wire_bytes`` and
       ``step_wire_by_label`` of the port equal the reference's to the byte
       on the reference's own event list (``Model.comm_events()`` at depth
-      0), for qwen3-0.6b at full width and gpt-350m reduced, under
-      ``zeropp`` and ``baseline``, at 1 x 1, 2 x 2 and 4 x 2; the port's
+      0), for qwen3-0.6b at full width, gpt-350m reduced and gemma3-4b
+      reduced to 8 layers (a ``rem`` site), under ``zeropp`` and
+      ``baseline``, at 1 x 1, 2 x 2, 4 x 2 and 2 x 2 x 2; the port's
       ``Model.comm_events()`` equals the reference's at depth 0 event for
       event, and at depths 1 and 2 the reference's minus k events per
       block phase (the reference's scan ring issues n + k, the port's n);
@@ -45,6 +46,7 @@ import subprocess                                            # noqa: E402
 import sys                                                   # noqa: E402
 from pathlib import Path                                     # noqa: E402
 
+import numpy as np                                           # noqa: E402
 import pytest                                                # noqa: E402
 
 from repro_torch.configs import get_config                   # noqa: E402
@@ -62,10 +64,13 @@ from repro_torch.train.trainer import build_train_step       # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 AXES = ("data", "model")
-SIZES = {"1x1": (1, 1), "2x2": (2, 2), "4x2": (4, 2)}
+AXES3 = ("pod", "data", "model")
+SIZES = {"1x1": (1, 1), "2x2": (2, 2), "4x2": (4, 2), "2x2x2": (2, 2, 2)}
 # name -> (config, overrides of .reduced(); None: full width)
 ARCHS = {"qwen3-0.6b": ("qwen3-0.6b", None),
-         "gpt-350m-reduced": ("gpt-350m", {})}
+         "gpt-350m-reduced": ("gpt-350m", {}),
+         # one (5 local, 1 attn) period and a rem group of 2 local layers
+         "gemma3-4b-reduced": ("gemma3-4b", {"n_layers": 8})}
 VARIANTS = ("zeropp", "baseline")
 # (b): the reference's _prefetch_env: gpt-350m reduced to 4 layers on 4 x 2
 N_LAYERS = 4
@@ -113,25 +118,29 @@ def _arch(get, name, reduced):
     return arch if reduced is None else arch.reduced(**reduced)
 
 
-def _ref_model(name, reduced, variant, world, prefetch=0):
+def _ref_model(name, reduced, variant, world, prefetch=0, axes=AXES):
     """The reference's Model (specs only: nothing is allocated)."""
     from repro.configs import get_config as rget
     from repro.models.model import Model as RModel
     from repro.train.policy import make_policy as rpolicy
     arch = _arch(rget, name, reduced)
-    return RModel(arch, rpolicy(arch, AXES, variant,
+    return RModel(arch, rpolicy(arch, axes, variant,
                                 prefetch=prefetch).zcfg, world=world)
 
 
-def _port_model(name, reduced, variant, world, prefetch=1):
+def _port_model(name, reduced, variant, world, prefetch=1, axes=AXES):
     arch = _arch(get_config, name, reduced)
-    return Model(arch, make_policy(arch, AXES, variant,
+    return Model(arch, make_policy(arch, axes, variant,
                                    prefetch=prefetch).zcfg,
                  world=world, device="cpu")
 
 
+def _axes(shape):
+    return AXES if len(shape) == 2 else AXES3
+
+
 def _sizes(shape):
-    return dict(zip(AXES, shape))
+    return dict(zip(_axes(shape), shape))
 
 
 # ---------------------------------------------------------------------------
@@ -142,14 +151,24 @@ def _sizes(shape):
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("arch_name", sorted(ARCHS))
 def test_wire_arithmetic_equals_the_reference(arch_name, variant, size):
+    """At ring depth 0 the events are the reference's one for one (with a
+    ``rem`` group: its site's three, 15 events in all); at depth 1 the
+    reference's less its k wrap-around events per block phase (none when
+    the loop has one step: gemma3-4b reduced, one period)."""
     from repro.core import zeropp as rz
     shape = SIZES[size]
-    world, sizes = shape[0] * shape[1], _sizes(shape)
-    rm = _ref_model(*ARCHS[arch_name], variant, world)
-    pm = _port_model(*ARCHS[arch_name], variant, world)
+    world, sizes, axes = int(np.prod(shape)), _sizes(shape), _axes(shape)
+    rm = _ref_model(*ARCHS[arch_name], variant, world, axes=axes)
+    pm = _port_model(*ARCHS[arch_name], variant, world, axes=axes)
     ev = rm.comm_events()
     assert pm.comm_events() == ev
-    assert len(ev) == 12
+    assert len(ev) == (15 if rm.rem_spec else 12)
+    assert ("rem" in {e["site"] for e in ev}) == (pm.rem_spec is not None)
+    deep = _ref_model(*ARCHS[arch_name], variant, world, 1, axes)
+    k = pm.zcfg.effective_prefetch(pm.n_periods)
+    assert pm.comm_events() == [
+        dict(e, count=e["count"] - (k if e["site"].startswith("blocks.")
+                                    else 0)) for e in deep.comm_events()]
     for e in ev:
         assert tz.wire_label(e["kind"], pm.zcfg) == \
             rz.wire_label(e["kind"], rm.zcfg)
