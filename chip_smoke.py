@@ -125,7 +125,9 @@ last line is printed.
    the port's projection at 1 % and checks that the ranks agree, and a
    miss fails the rank; prints them in MiB a rank a step beside the
    projection, and the paper's Table-1 volumes of qwen3-0.6b
-   (``zeropp.comm_volume_per_step``) with their cut.
+   (``zeropp.comm_volume_per_step``) with their cut.  The synchronous
+   run saves a checkpoint after its last step (``--ckpt-dir
+   --ckpt-every``: every rank its shard file); phase 11 restores it.
 7. Sequence-parallel phase: the 2 x 2 world at a global batch of
    ``SP_BATCH`` x 2048, which covers only ``data``: each rank holds one
    row's half of the sequence (1,024 tokens), ``mha`` all-gathers K/V
@@ -146,7 +148,12 @@ last line is printed.
    B5 at INT8), ``qwz_blocked=False`` (one scale a shard, plain PyTorch:
    no B1/B2) and ``hpz_axes=("data", "model")`` (hpZ over the world).
    Each run's gate passes on every rank with the reference projection's
-   MiB a rank a step (``KNOB_MIB``) to the byte; losses are finite; the
+   MiB a rank a step (``KNOB_MIB``) to the byte, and every rank's bytes by
+   interconnect tier (``comm.tier.<tier>.bytes``) sum to its labels' at
+   every step (printed by tier beside the labels; so are phases 6, 7 and
+   9's); the 1-hop's bytes on the slow tier (``data``) exceed the 2-hop's
+   of phase 6 and its fast-tier bytes fall short of them, the ordering of
+   the reference's ``per_tier_wire`` at this shape; losses are finite; the
    step-1 and step-2 losses hold phase 6's as the note at ``KNOBS`` says;
    every rank's launches per step are what its config issues; under
    ``qwz_blocked=False`` every rank's gather of a layer group on the card
@@ -185,6 +192,28 @@ last line is printed.
    peak memory and a profiled step.  The build report's per-kernel lines
    give every hd-256 instantiation's registers, spills and shared
    memory.
+11. Checkpoint phase (after phase 6; qwen3-0.6b at full width, --attn
+   pallas, phase 5's seed, batch and lr; ``shutil.disk_usage`` of the
+   checkpoints' temporary directory printed first, ``CKPT_FREE_GB``
+   required, every checkpoint deleted after its use): a world of 1
+   restores phase 6's 2 x 2 checkpoint (four shard files, one manifest;
+   each rank's save time printed) through ``--ckpt-dir`` and runs to step
+   ``MR_STEPS``, each loss within ``CKPT_REL_ELASTIC`` of phase 6's; then
+   ``train_loop`` takes ``CKPT_STEPS`` steps at world 1 and saves fp32
+   (``--ckpt-every``), the same state is saved INT8 (under
+   ``CKPT_INT8_SIZE`` of the fp32 directory), both restore into fresh
+   tensors on the card (fp32 bit-identical to the saved state, every INT8
+   parameter block within absmax/127 · 0.6 + 1e-8); the next step from
+   the in-memory state twice and from the fp32 restore must be
+   bit-identical (or, if the in-memory step does not repeat, the restore
+   within its spread), and the INT8 restore's next two losses within
+   ``CKPT_REL_INT8`` of the fp32 restore's; save, restore and fsync
+   seconds and sizes printed.  ``ServeEngine.from_checkpoint`` boots from
+   the INT8 checkpoint and serves phase 3's first four prompts greedily
+   to the tokens of an engine given ``load_global`` -> ``fit_to`` -> bf16
+   of it (first prefill logits bit-identical); a gemma3-4b engine refuses
+   it.  The restored steps and the booted engine count as paths of
+   B1-B8.
 
 The kernel phase also holds B1-B5 at the knobs' shapes and widths
 (``knob_kernel_phase``): the INT8 qgZ chain of a 2 x 2 rank at a layer
@@ -206,6 +235,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import os
 import re
 import shutil
 import statistics
@@ -358,6 +388,22 @@ MP_MESH, MP_STEPS, MP_HPZ_STEPS = (2, 2, 2), 3, 2
 MP_MIB = {"zero.qwz_gather": 637.055, "zero.hpz_gather": 716.861,
           "zero.qgz_reduce": 323.428}
 MP_HPZ_MIB = dict(MP_MIB, **{"zero.hpz_gather": 1075.292})
+# the checkpoint phase: qwen3-0.6b at full width, --attn pallas, phase 5's
+# seed, batch and lr: CKPT_STEPS steps at world 1 through the launcher's
+# loop, saved fp32 (--ckpt-every), then saved INT8, both restored; the
+# reference's bars: the INT8 directory under CKPT_INT8_SIZE of the fp32
+# one (checks.py:545), every restored parameter block within absmax/127 ·
+# 0.6 + 1e-8 (:559), the INT8 restore's next two losses within
+# CKPT_REL_INT8 of the fp32 restore's (:571); phase 6's synchronous run
+# saves after its step 2 and a world of 1 continues from it within
+# CKPT_REL_ELASTIC of phase 6's losses (:428).  The engine booted from the
+# INT8 checkpoint serves the first N_SLOTS prompts of phase 3,
+# CKPT_MAX_NEW tokens each.  The checkpoints' directory must have
+# CKPT_FREE_GB free (9.0 GB a fp32 checkpoint of params, m and v)
+CKPT_STEPS = 2
+CKPT_INT8_SIZE, CKPT_REL_INT8, CKPT_REL_ELASTIC = 0.35, 0.05, 0.02
+CKPT_FREE_GB = 25
+CKPT_MAX_NEW = 16
 # phase 5's telemetry-overhead reading: steps with telemetry on
 # alternating with as many with it off (printed, not gated: a wall-clock
 # bar would fail on noise)
@@ -1966,7 +2012,8 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
         outs.append({"losses": res["losses"], "step_s": res["step_s"],
                      "nonblocked_err": nb_err,
                      "launches": res["launches"], "want": per_step,
-                     "comm": res["comm_steps"], "gate": res["gate"],
+                     "comm": res["comm_steps"], "tiers": res["tier_steps"],
+                     "save_s": res["save_s"], "gate": res["gate"],
                      "agree": res["ranks_agree"],
                      "peak": res["peak_bytes"], "profile": prof,
                      "prefetch": z.prefetch, "seq_axes": rs.seq_axes,
@@ -2054,6 +2101,13 @@ def _mr_spawn(runs: list, tag: str, mesh=MR_MESH) -> list:
     return per_run
 
 
+def tier_mib(tiers: dict) -> dict:
+    """A rank's step by tier ({tier: bytes, "<tier>.other": bytes}) as
+    {tier: MiB less ``other``'s share}, the ``zero.*`` bytes a tier."""
+    return {k: (b - tiers.get(k + ".other", 0)) / 2 ** 20
+            for k, b in tiers.items() if "." not in k}
+
+
 def wire_report(tag: str, outs: list, want_mib: dict = None) -> None:
     """The launcher's comm gate as every rank reports it (``--obs-gate``:
     each step's wire bytes per label within 1 % of the port's projection
@@ -2062,11 +2116,17 @@ def wire_report(tag: str, outs: list, want_mib: dict = None) -> None:
     here, then printed in MiB a rank a step, measured / projected.  With
     ``want_mib`` ({label: MiB, 3 decimals}, the reference projection's)
     every rank's bytes must equal the projection to the byte and the
-    projection must read those MiB."""
+    projection must read those MiB.  The same bytes by interconnect tier
+    (``comm.tier.<tier>.bytes``) must sum to the labels' on every rank at
+    every step; rank 0's first step is printed by tier."""
     for r, out in enumerate(outs):
         if not (out["gate"]["ok"] and out["agree"]):
             fail(f"{tag} rank {r}: comm gate {out['gate']}, ranks agree "
                  f"{out['agree']}")
+        for j, (c, t) in enumerate(zip(out["comm"], out["tiers"])):
+            if train_launch.tier_total(t) != sum(c.values()):
+                fail(f"{tag} rank {r} step {j}: tiers {t} do not sum to the "
+                     f"labels {c}")
     rows = outs[0]["gate"]["comm"]["labels"]
     projected = {k: row["projected"] for k, row in rows.items()
                  if k != "other"}
@@ -2086,6 +2146,13 @@ def wire_report(tag: str, outs: list, want_mib: dict = None) -> None:
         + "at every step, "
         + ("equal to the projection to the byte" if exact
            else "within 1 % of the projection"), flush=True)
+    t = outs[0]["tiers"][0]
+    print(f"{tag}: by tier, MiB a rank a step less other: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tier_mib(t).items())
+        + "; other " + ", ".join(f"{k} {b:,.0f} B" for k, b in t.items()
+                                 if k.endswith(".other"))
+        + f"; the tiers sum to the labels on all {len(outs)} ranks at every "
+        + "step", flush=True)
 
 
 def _mr_report(tag: str, outs: list, rows: int) -> dict:
@@ -2113,20 +2180,25 @@ def _mr_report(tag: str, outs: list, rows: int) -> dict:
             for k in platform.LAUNCHES}
 
 
-def multirank_phase(world1_losses: list) -> tuple:
+def multirank_phase(world1_losses: list, ckpt_dir: str) -> tuple:
     """qwen3-0.6b at full width on a Y x X = 2 x 2 world: four rank
     processes sharing the card over a gloo group, full ZeRO++ under --attn
     pallas, the world-1 pallas phase's seed, batches and lr: MR_STEPS
     steps at the default prefetch ring (depth 1), then MR_SYNC_STEPS at
-    --prefetch 0.  Holds the ring's losses against that phase's
-    (``world1_losses``), the synchronous run's against the ring's first
-    steps bit for bit, and every rank's launches; returns the launches
-    summed over the ranks, of the ring run and of the synchronous run."""
+    --prefetch 0, which saves a checkpoint into ``ckpt_dir`` after its
+    last step (``--ckpt-every``: every rank its own shard file).  Holds
+    the ring's losses against that phase's (``world1_losses``), the
+    synchronous run's against the ring's first steps bit for bit, and
+    every rank's launches; returns the launches summed over the ranks, of
+    the ring run and of the synchronous run, the ring's losses, its rank
+    0's first step by tier and every rank's save seconds."""
     y, x = MR_MESH
     tag = f"train {y}x{x}"
     ring, sync = _mr_spawn([_mr_argv(TRAIN_BATCH, MR_STEPS),
                             _mr_argv(TRAIN_BATCH, MR_SYNC_STEPS,
-                                     "--prefetch", "0")], tag)
+                                     "--prefetch", "0", "--ckpt-dir",
+                                     ckpt_dir, "--ckpt-every",
+                                     str(MR_SYNC_STEPS))], tag)
     if ring[0]["prefetch"] != 1 or sync[0]["prefetch"] != 0:
         fail(f"{tag}: prefetch {ring[0]['prefetch']} / {sync[0]['prefetch']}"
              f", expected 1 / 0")
@@ -2174,7 +2246,8 @@ def multirank_phase(world1_losses: list) -> tuple:
           f"{v['grad_reduce'] / 2 ** 20:.3f}): a {v['reduction_factor']:.3f}x "
           f"cut", flush=True)
     return (_mr_report(f"{tag} prefetch 1", ring, TRAIN_BATCH),
-            _mr_report(f"{tag} prefetch 0", sync, TRAIN_BATCH), losses)
+            _mr_report(f"{tag} prefetch 0", sync, TRAIN_BATCH), losses,
+            ring[0]["tiers"][0], [out["save_s"] for out in sync])
 
 
 def seq_parallel_phase() -> dict:
@@ -2221,7 +2294,7 @@ def seq_parallel_phase() -> dict:
     return _mr_report(tag, outs, SP_BATCH)
 
 
-def knob_phase(losses_2x2: list) -> dict:
+def knob_phase(losses_2x2: list, tiers_2x2: dict) -> dict:
     """The paper's ablation knobs on the 2 x 2 world: qwen3-0.6b at full
     width, --attn pallas, batch 8, phase 6's seed, batches and lr, in one
     spawn of four ranks, KNOB_STEPS steps of each of KNOBS (ZeroConfig
@@ -2230,7 +2303,11 @@ def knob_phase(losses_2x2: list) -> dict:
     launcher gate must pass on every rank with the reference projection's
     MiB (KNOB_MIB) to the byte, its losses be finite, and its step-1 and
     step-2 losses hold phase 6's (``losses_2x2``) as the KNOBS note says.
-    Returns {path: launches summed over the ranks}."""
+    The 1-hop qgZ's bytes on the slow tier (``data``) must exceed, and its
+    bytes on the fast tier (``model``) fall short of, the 2-hop's of phase
+    6 (``tiers_2x2``), as the reference's ``per_tier_wire`` orders them at
+    this shape (``tests/test_torch_wire.py``).  Returns {path: launches
+    summed over the ranks}."""
     y, x = MR_MESH
     tag = f"train {y}x{x} knobs"
     runs = [{"argv": _mr_argv(TRAIN_BATCH, KNOB_STEPS), "zero": over,
@@ -2264,6 +2341,15 @@ def knob_phase(losses_2x2: list) -> dict:
                 fail(f"{t}: the non-blocked gather differs from "
                      f"quantize_global / dequantize_global: {errs}")
         wire_report(t, outs, KNOB_MIB[name])
+        if name == "qgz_1hop":
+            one, two = tier_mib(outs[0]["tiers"][0]), tier_mib(tiers_2x2)
+            print(f"{t}: the 1-hop's MiB a rank a step by tier {one} vs the "
+                  f"2-hop's (phase 6) {two}: slow tier (data) "
+                  f"{one['data'] / two['data']:.3f}x, fast tier (model) "
+                  f"{one['model'] / two['model']:.3f}x", flush=True)
+            if not (one["data"] > two["data"] and one["model"] < two["model"]):
+                fail(f"{t}: the 1-hop does not move bytes from the fast tier "
+                     f"to the slow one: {one} vs {two}")
         out[f"train_{y}x{x}_{name}"] = _mr_report(t, outs, TRAIN_BATCH)
     return out
 
@@ -2315,6 +2401,315 @@ def multipod_phase(world1_losses: list) -> tuple:
                                        for k in labels})), flush=True)
     return report, _mr_report(f"{tag} hpz_axes=('data', 'model')", hpz,
                               TRAIN_BATCH)
+
+
+# ------------------------------------------------------------- checkpoints
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _with_fsync_clock(fn):
+    """``fn()`` with ``os.fsync`` timed: (its result, the seconds spent in
+    fsync calls)."""
+    real, spent = os.fsync, [0.0]
+
+    def timed(fd):
+        t0 = time.perf_counter()
+        real(fd)
+        spent[0] += time.perf_counter() - t0
+    os.fsync = timed
+    try:
+        return fn(), spent[0]
+    finally:
+        os.fsync = real
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    """The largest |a - b| over every buffer of two params dicts."""
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def _states_equal(a: dict, b: dict) -> bool:
+    from repro_torch.train.state import flatten_state
+    fa, fb = flatten_state(a), flatten_state(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].device == fb[k].device and torch.equal(fa[k], fb[k])
+        for k in fa)
+
+
+def check_disk(root: str) -> None:
+    du = shutil.disk_usage(root)
+    print(f"checkpoint: {root}: {du.free / 1e9:.1f} GB free of "
+          f"{du.total / 1e9:.1f} GB (shutil.disk_usage)", flush=True)
+    if du.free < CKPT_FREE_GB * 1e9:
+        fail(f"checkpoint: {root} has {du.free / 1e9:.1f} GB free, the "
+             f"checkpoint phase needs {CKPT_FREE_GB} GB")
+
+
+def checkpoint_phase(root: str, losses_pallas: list) -> dict:
+    """World 1, qwen3-0.6b at full width, --attn pallas, phase 5's seed,
+    batch and lr: CKPT_STEPS steps through the launcher's loop saving an
+    fp32 checkpoint (--ckpt-every), an INT8 save of the same state, both
+    restored into fresh tensors on the card; step CKPT_STEPS + 1 from the
+    in-memory state twice and from the fp32 restore (bit-identical, or
+    the restore within the in-memory spread), the INT8 restore's blocks and
+    next two losses at the reference's bars; then ``ServeEngine.
+    from_checkpoint`` on the INT8 checkpoint against an engine given
+    ``load_global`` -> ``fit_to`` -> bf16 of it in memory.  Returns the
+    launches of the restored steps and of the booted engine's run."""
+    from repro_torch.train.state import (ZeroState, fit_to, load_global,
+                                         read_manifest)
+    tag = "checkpoint world 1"
+    d32, d8 = Path(root) / "w1_fp32", Path(root) / "w1_int8"
+    args = train_launch.parser().parse_args([
+        "--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", str(CKPT_STEPS), "--lr", str(TRAIN_LR),
+        "--lr-schedule", "constant", "--device", "cuda", "--attn", "pallas",
+        "--log-every", "0", "--ckpt-dir", str(d32), "--ckpt-every",
+        str(CKPT_STEPS), "--ckpt-format", "fp32"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, fsync32 = _with_fsync_clock(lambda: train_launch.train_loop(args))
+    built, params, opt = res["built"], res["params"], res["opt"]
+    model, mesh = built.model, built.mesh
+    p32 = d32 / f"ckpt_{CKPT_STEPS}"
+    print(f"{tag}: {CKPT_STEPS} steps of phase 5's run (losses "
+          f"{res['losses']!r}; phase 5 {losses_pallas[:CKPT_STEPS]!r}: "
+          f"{'bit-identical' if res['losses'] == losses_pallas[:CKPT_STEPS] else 'differ'}"
+          f"), saved by --ckpt-every {CKPT_STEPS}: {p32.name}", flush=True)
+    st = ZeroState(model, mesh, params, opt, step=CKPT_STEPS,
+                   meta={"world": 1, "arch": built.arch.name,
+                         "data_cursor": CKPT_STEPS})
+    t0 = time.perf_counter()
+    p8, fsync8 = _with_fsync_clock(lambda: st.save(str(d8), fmt="int8"))
+    save8 = time.perf_counter() - t0
+    b32, b8 = _dir_bytes(p32), _dir_bytes(p8)
+    man = read_manifest(p8)
+    print(f"{tag}: fp32 save {res['save_s'][0]:.2f} s (fsync "
+          f"{fsync32:.2f} s), {b32 / 1e9:.3f} GB; INT8 save {save8:.2f} s "
+          f"(fsync {fsync8:.2f} s), {b8 / 1e9:.3f} GB: {b8 / b32:.4f} of "
+          f"the fp32 one (bar {CKPT_INT8_SIZE}); {model.n_params():,} "
+          f"params, padded buffers {sum(int(np.prod(v.shape)) for v in params.values()):,}",
+          flush=True)
+    if not b8 < CKPT_INT8_SIZE * b32:
+        fail(f"{tag}: the INT8 checkpoint is {b8 / b32:.4f} of the fp32 one")
+    if man["format"] != "int8_blockwise" or not all(
+            v["quantized"] for v in man["layout"].values()
+            if not v["replicated"]):
+        fail(f"{tag}: the INT8 checkpoint stores a buffer raw: "
+             f"{man['layout']}")
+    t0 = time.perf_counter()
+    r32 = ZeroState.restore(model, mesh, str(d32))
+    torch.cuda.synchronize()
+    load32 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r8 = ZeroState.restore(model, mesh, str(d8))
+    torch.cuda.synchronize()
+    load8 = time.perf_counter() - t0
+    if r32.step != CKPT_STEPS or r32.meta["world"] != 1:
+        fail(f"{tag}: restored step {r32.step}, meta {r32.meta}")
+    if not _states_equal({"p": r32.params, "o": r32.opt},
+                         {"p": params, "o": opt}):
+        fail(f"{tag}: the fp32 restore is not the saved state bit for bit "
+             f"on the card")
+    worst = 0.0
+    for k, want in params.items():
+        got = r8.params[k]
+        if got.device.type != "cuda":
+            fail(f"{tag}: the INT8 restore placed {k} on {got.device}")
+        n = want.shape[-1]
+        wb = want.reshape(*want.shape[:-1], n // 256, 256)
+        bound = wb.abs().amax(-1, keepdim=True) / 127.0 * 0.6 + 1e-8
+        ratio = float(((got.reshape(wb.shape) - wb).abs() / bound).max())
+        worst = max(worst, ratio)
+    print(f"{tag}: restores into fresh tensors on the card: fp32 "
+          f"{load32:.2f} s (bit-identical to the saved state), INT8 "
+          f"{load8:.2f} s (every parameter block within "
+          f"{worst:.4f} of its bound absmax/127 * 0.6 + 1e-8)", flush=True)
+    if worst > 1.0:
+        fail(f"{tag}: an INT8-restored block exceeds its bound ({worst})")
+    # step CKPT_STEPS + 1: twice from the in-memory state, once from the
+    # fp32 restore
+    batch = train_launch.device_batch(built.arch, built.lm, CKPT_STEPS,
+                                      TRAIN_BATCH, 1, model.device)
+    twin = _clone({"p": params, "o": opt})
+    fn = built.step.fn
+    la = float(fn(params, opt, batch)["loss"])
+    lb = float(fn(twin["p"], twin["o"], batch)["loss"])
+    platform.reset_launches()
+    lr = float(fn(r32.params, r32.opt, batch)["loss"])
+    launches = dict(platform.LAUNCHES)
+    same = la == lb and _states_equal(params, twin["p"])
+    spread = 0.0 if same else _max_diff(params, twin["p"])
+    d_restored = _max_diff(params, r32.params)
+    print(f"{tag}: step {CKPT_STEPS + 1} twice from the in-memory state: "
+          f"losses {la!r} / {lb!r}, "
+          + ("bit-identical" if same else
+             f"params differ by up to {spread:.3e} (the card's step does not "
+             f"repeat bit for bit)")
+          + f"; from the fp32 restore: loss {lr!r}, params differ by "
+          f"{d_restored:.3e}", flush=True)
+    if same and (lr != la or d_restored != 0.0):
+        fail(f"{tag}: the restored step differs from the in-memory one")
+    if not same and (abs(lr - la) > abs(lb - la) or d_restored > spread):
+        fail(f"{tag}: the restored step is outside the in-memory spread")
+    del twin
+    gc.collect()
+    lf = [lr, float(fn(r32.params, r32.opt, train_launch.device_batch(
+        built.arch, built.lm, CKPT_STEPS + 1, TRAIN_BATCH, 1,
+        model.device))["loss"])]
+    del r32
+    gc.collect()
+    torch.cuda.empty_cache()
+    lq = [float(fn(r8.params, r8.opt, train_launch.device_batch(
+        built.arch, built.lm, i, TRAIN_BATCH, 1, model.device))["loss"])
+        for i in (CKPT_STEPS, CKPT_STEPS + 1)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lq, lf)]
+    print(f"{tag}: the next two losses from the INT8 restore {lq!r} vs the "
+          f"fp32 restore's {lf!r}: relative {[f'{v:.2e}' for v in rel]} "
+          f"(bar {CKPT_REL_INT8})", flush=True)
+    if not max(rel) < CKPT_REL_INT8:
+        fail(f"{tag}: INT8-restored losses beyond {CKPT_REL_INT8}")
+    del res, built, params, opt, st, r8, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = serve_boot(p8)
+    shutil.rmtree(d32)
+    shutil.rmtree(d8)
+    return {"train_ckpt": launches, "serve_ckpt": serve}
+
+
+def serve_boot(path: Path) -> dict:
+    """``ServeEngine.from_checkpoint`` on the INT8 checkpoint ``path``
+    against an engine given ``load_global`` -> ``fit_to`` -> bf16 of it:
+    the same bf16 params, the first N_SLOTS prompts of phase 3 served
+    greedily to the same tokens, the first prefill's logits bit-identical;
+    a model of another arch refuses the checkpoint.  Returns the booted
+    engine's launches over its run."""
+    from repro_torch.train.state import fit_to, load_global
+    tag = "checkpoint serving boot"
+    cfg = get_config("qwen3-0.6b")
+    model = Model(cfg, ZeroConfig(dp_axes=("model",)), world=1,
+                  device="cuda")
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_checkpoint(model, str(path), n_slots=N_SLOTS,
+                                      kv_len=KV_LEN)
+    torch.cuda.synchronize()
+    boot = time.perf_counter() - t0
+    _, tree, meta = load_global(str(path), prefix="params")
+    shapes = model.param_shapes()
+    mem = {k: torch.from_numpy(fit_to(v, shapes[k])).to("cuda",
+                                                         torch.bfloat16)
+           for k, v in tree["params"].items()}
+    del tree
+    if not _states_equal(eng.params, mem):
+        fail(f"{tag}: the booted params are not bf16 of fit_to of "
+             f"load_global")
+    plain = ServeEngine(model, mem, n_slots=N_SLOTS, kv_len=KV_LEN)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in PROMPTS[:N_SLOTS]]
+    toks, first = [], []
+    for i, e in enumerate((eng, plain)):
+        pre = e._prefill
+
+        def prefill_fn(*a, pre=pre, i=i):
+            logits, caches = pre.fn(*a)
+            if len(first) == i:
+                first.append(logits.clone())
+            return logits, caches
+        e._prefill = steps.ServeStep(fn=prefill_fn, run_spec=pre.run_spec)
+        uids = [e.submit(p, max_new_tokens=CKPT_MAX_NEW) for p in prompts]
+        torch.cuda.synchronize()
+        platform.reset_launches()
+        res = e.run(max_steps=1000)
+        torch.cuda.synchronize()
+        if i == 0:
+            launches = dict(platform.LAUNCHES)
+        toks.append([res[u] for u in uids])
+    print(f"{tag}: ServeEngine.from_checkpoint (INT8, meta {meta}) booted in "
+          f"{boot:.2f} s; {len(prompts)} prompts ({PROMPTS[:N_SLOTS]} tokens) "
+          f"x {CKPT_MAX_NEW} greedy tokens: "
+          f"{'the same tokens' if toks[0] == toks[1] else 'DIFFERENT tokens'}"
+          f" as the in-memory engine, first prefill logits "
+          f"{'bit-identical' if torch.equal(first[0], first[1]) else 'DIFFER'}",
+          flush=True)
+    if toks[0] != toks[1] or not torch.equal(first[0], first[1]):
+        fail(f"{tag}: the booted engine serves differently")
+    if any(len(t) != CKPT_MAX_NEW for t in toks[0]):
+        fail(f"{tag}: a request did not finish: {toks[0]}")
+    other = Model(gemma3_config(), ZeroConfig(dp_axes=("model",)), world=1,
+                  device="cuda")
+    try:
+        ServeEngine.from_checkpoint(other, str(path), n_slots=1,
+                                    kv_len=KV_LEN)
+    except ValueError as e:
+        print(f"{tag}: a {other.cfg.name} engine refuses it: {e}",
+              flush=True)
+    else:
+        fail(f"{tag}: a {other.cfg.name} engine booted from a "
+             f"{cfg.name} checkpoint")
+    del eng, plain, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def elastic_phase(ckpt_dir: str, losses_2x2: list, save_s: list) -> dict:
+    """Phase 6's synchronous 2 x 2 run saved after its step MR_SYNC_STEPS
+    (four rank processes, four shard files, one manifest): a world of 1
+    restores it through the launcher's loop (--ckpt-dir) and runs to step
+    MR_STEPS; each loss within CKPT_REL_ELASTIC of phase 6's at the same
+    step.  Returns the launches of the restored run."""
+    from repro_torch.train.state import read_manifest
+    tag = "checkpoint 2x2 -> 1"
+    path = Path(ckpt_dir) / f"ckpt_{MR_SYNC_STEPS}"
+    man = read_manifest(str(path))
+    files = sorted(f.name for f in path.iterdir())
+    print(f"{tag}: phase 6's --prefetch 0 run saved {path.name} at 2 x 2: "
+          f"{files}, {_dir_bytes(path) / 1e9:.3f} GB, each rank's save "
+          f"{[round(s[0], 2) for s in save_s]} s", flush=True)
+    if man["num_processes"] != 4 or len(man["shard_files"]) != 4 or \
+            files != sorted(man["shard_files"] + ["manifest.json"]):
+        fail(f"{tag}: expected four shard files and a manifest: {files}")
+    args = train_launch.parser().parse_args([
+        "--arch", "qwen3-0.6b", "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--steps", str(MR_STEPS), "--lr", str(TRAIN_LR),
+        "--lr-schedule", "constant", "--device", "cuda", "--attn", "pallas",
+        "--log-every", "0", "--ckpt-dir", ckpt_dir])
+    gc.collect()
+    torch.cuda.empty_cache()
+    platform.reset_launches()
+    t0 = time.perf_counter()
+    res = train_launch.train_loop(args)
+    wall = time.perf_counter() - t0
+    launches = dict(platform.LAUNCHES)
+    want = losses_2x2[MR_SYNC_STEPS:MR_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["losses"], want)]
+    print(f"{tag}: a world of 1 restored step {res['start']} (saved world "
+          f"{res['restored']['world']}) and ran to step {MR_STEPS} in "
+          f"{wall:.2f} s: losses {res['losses']!r} vs phase 6's {want!r}, "
+          f"relative {[f'{v:.2e}' for v in rel]} (bar {CKPT_REL_ELASTIC})",
+          flush=True)
+    if res["start"] != MR_SYNC_STEPS or res["restored"]["world"] != 4:
+        fail(f"{tag}: restored at step {res['start']}, meta "
+             f"{res['restored']}")
+    if len(rel) != MR_STEPS - MR_SYNC_STEPS or not max(rel) < CKPT_REL_ELASTIC:
+        fail(f"{tag}: losses beyond {CKPT_REL_ELASTIC} of phase 6's")
+    per_step = step_launches(res["built"].arch, res["built"].model, "pallas")
+    if any(c != per_step for c in res["launches"]):
+        fail(f"{tag}: launches {res['launches']}, expected {per_step}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)
+    return launches
 
 
 def profile_decode(decode, params, caches, positions) -> None:
@@ -2496,26 +2891,42 @@ def main() -> None:
     gemma3_parity_phase()
     by_path["train_gemma3"] = gemma3_train_phase()
     # the same run on four ranks of a 2 x 2 world, at the default ring
-    # depth and at the synchronous schedule
-    by_path["train_2x2"], by_path["train_2x2_sync"], losses_2x2 = \
-        multirank_phase(losses_pallas)
+    # depth and at the synchronous schedule, which saves a checkpoint
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        check_disk(ckpt_root)
+        mr_ckpt = str(Path(ckpt_root) / "mr")
+        (by_path["train_2x2"], by_path["train_2x2_sync"], losses_2x2,
+         tiers_2x2, mr_save_s) = multirank_phase(losses_pallas, mr_ckpt)
+        # this slice's path: checkpoints. phase 6's 2 x 2 checkpoint
+        # restored at world 1, then world 1's fp32 and INT8 checkpoints,
+        # their restores and the engine booted from INT8
+        t_ck = time.perf_counter()
+        by_path["train_ckpt_2x2_to_1"] = elastic_phase(mr_ckpt, losses_2x2,
+                                                       mr_save_s)
+        by_path.update(checkpoint_phase(ckpt_root, losses_pallas))
+        print(f"checkpoint phase: {time.perf_counter() - t_ck:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     # the 2 x 2 world with the sequence sharded
     by_path["train_2x2_seq"] = seq_parallel_phase()
-    # this slice's paths: the paper's knobs at 2 x 2, and the 2 x 2 x 2
-    # world
-    by_path.update(knob_phase(losses_2x2))
+    # the paper's knobs at 2 x 2 (with the bytes by tier), and the
+    # 2 x 2 x 2 world
+    by_path.update(knob_phase(losses_2x2, tiers_2x2))
     by_path["train_2x2x2"], by_path["train_2x2x2_hpz"] = multipod_phase(
         losses_pallas)
 
     # each kernel's path(s): it must have launched in every one of them
     quant_train = ("train", "train_xla", "train_gemma3", "train_2x2",
-                   "train_2x2_sync",
+                   "train_2x2_sync", "train_ckpt", "train_ckpt_2x2_to_1",
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
-    flash = ("train", "train_2x2", "train_2x2_sync") + tuple(
+    flash = ("train", "train_2x2", "train_2x2_sync", "train_ckpt",
+             "train_ckpt_2x2_to_1") + tuple(
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
-    serve = ("serve", "serve_gemma3")
+    serve = ("serve", "serve_gemma3", "serve_ckpt")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)

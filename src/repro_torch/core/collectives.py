@@ -64,11 +64,17 @@ advances a collective's hops while other collectives are in flight: no
 label can be "current" then.  The quantized ring counts under
 ``zero.qgz_ring``, the reference's name for it; collectives outside the
 ZeRO engine (the sequence gather, the metric and norm all-reduces) take
-:data:`OTHER`.  A world of 1 issues nothing and counts nothing.
+:data:`OTHER`.  The same bytes also go to ``comm.tier.<tier>.bytes``,
+the interconnect tier of the group's mesh axes (``obs.metrics.tier``:
+the slowest of ``model`` < ``data`` < ``pod``), and ``other``'s share to
+``comm.tier.<tier>.other.bytes``; :func:`axis_group` records each group's
+axes, :func:`set_world_axes` the default group's (``launch.mesh.make_mesh``
+sets them; ``("data", "model")`` until then).  A world of 1 issues
+nothing and counts nothing.
 """
 from __future__ import annotations
 
-from typing import Generator, Optional, Sequence, Tuple
+from typing import Any, Dict, Generator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -76,7 +82,7 @@ import torch.distributed as dist
 from repro_torch.core.quant import (QuantConfig, dequantize_global,
                                     quantize_global)
 from repro_torch.kernels import ops as _kops
-from repro_torch.obs.metrics import get_registry
+from repro_torch.obs.metrics import get_registry, tier
 from repro_torch.obs.trace import annotate
 
 # The labels the collectives count under (``zeropp.wire_label`` projects
@@ -135,9 +141,38 @@ def finish(hops: Hops) -> torch.Tensor:
             return out
 
 
-def _count(label: str, nbytes) -> None:
-    """Add a collective's wire bytes per rank to ``comm.<label>.bytes``."""
-    get_registry().counter(f"comm.{label}.bytes").inc(nbytes)
+# The mesh axes behind each process group, for the tier counters: the
+# groups :func:`axis_group` made, and the default group (key None).
+_GROUP_AXES: Dict[Any, Tuple[str, ...]] = {None: ("data", "model")}
+
+
+def set_world_axes(axes: Sequence[str]) -> None:
+    """Record the mesh axes of the default group (the whole world)."""
+    _GROUP_AXES[None] = tuple(axes)
+
+
+def group_axes(group) -> Tuple[str, ...]:
+    """The mesh axes ``group`` spans (None or the WORLD group: the
+    world's)."""
+    if group is None or group is dist.group.WORLD:
+        return _GROUP_AXES[None]
+    try:
+        return _GROUP_AXES[group]
+    except KeyError:
+        raise ValueError("a process group that axis_group did not make: "
+                         "its tier is unknown") from None
+
+
+def _count(label: str, nbytes, group) -> None:
+    """Add a collective's wire bytes per rank to ``comm.<label>.bytes``
+    and to its group's tier, ``comm.tier.<tier>.bytes`` (``other``'s also
+    to ``comm.tier.<tier>.other.bytes``)."""
+    reg = get_registry()
+    reg.counter(f"comm.{label}.bytes").inc(nbytes)
+    t = tier(group_axes(group))
+    reg.counter(f"comm.tier.{t}.bytes").inc(nbytes)
+    if label == OTHER:
+        reg.counter(f"comm.tier.{t}.other.bytes").inc(nbytes)
 
 
 def _wait(label: str, *works) -> None:
@@ -163,7 +198,7 @@ def _gather_start(shard: torch.Tensor, group, label: str):
     with annotate(label):
         work = dist.all_gather_into_tensor(out, shard, group=group,
                                            async_op=True)
-    _count(label, out.nbytes - shard.nbytes)
+    _count(label, out.nbytes - shard.nbytes, group)
     return out, work
 
 
@@ -183,7 +218,7 @@ def all_reduce(x: torch.Tensor, group=None, label: str = OTHER) -> None:
         return
     with annotate(label):
         dist.all_reduce(x, group=group)
-    _count(label, 2 * x.nbytes * (world - 1) / world)
+    _count(label, 2 * x.nbytes * (world - 1) / world, group)
 
 
 def axis_group(shape: Sequence[int], names: Sequence[str],
@@ -214,6 +249,7 @@ def axis_group(shape: Sequence[int], names: Sequence[str],
     ranks = torch.arange(world).reshape(tuple(int(s) for s in shape))
     enum = ranks.permute(*outer, *inner).reshape(-1, size).tolist()
     group, _ = dist.new_subgroups_by_enumeration(enum)
+    _GROUP_AXES[group] = axes
     return group
 
 
@@ -226,6 +262,7 @@ def tier_groups(intra_size: int):
     if world % intra_size:
         raise ValueError(f"world {world} is not a multiple of {intra_size}")
     shape, names = (world // intra_size, intra_size), ("data", "model")
+    set_world_axes(names)
     return (axis_group(shape, names, ("model",)),
             axis_group(shape, names, ("data",)))
 
@@ -275,7 +312,7 @@ def baseline_reduce_scatter_hops(grad: torch.Tensor, group=None,
         with annotate(label):
             work = dist.reduce_scatter_tensor(out, grad, group=group,
                                               async_op=True)
-        _count(label, grad.nbytes - out.nbytes)
+        _count(label, grad.nbytes - out.nbytes, group)
     yield
     _wait(label, work)
     return out
@@ -403,7 +440,7 @@ def _all_to_all_start(x: torch.Tensor, group, label: str):
     out = torch.empty_like(x)
     with annotate(label):
         work = dist.all_to_all_single(out, x, group=group, async_op=True)
-    _count(label, x.nbytes * (world - 1) // world)
+    _count(label, x.nbytes * (world - 1) // world, group)
     return out, work
 
 
@@ -549,7 +586,7 @@ def qgz_quantized_ring_reduce_scatter(grad: torch.Tensor, group,
             works = dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, msg, nxt, group),
                 dist.P2POp(dist.irecv, got, prv, group)])
-        _count(QGZ_RING, msg.nbytes)
+        _count(QGZ_RING, msg.nbytes, group)
         _wait(QGZ_RING, *works)
         payload, scales = _unpack_scales(got, payload.shape[-1])
         acc = _kops.dequant_reduce(payload[None], scales[None], cfg,

@@ -127,8 +127,9 @@ def make_mesh(shape: Tuple[int, ...],
     groups a run uses created (every rank must call this, in the same
     order): every proper suffix of the axes (``("model",)``, the
     sequence axes, one pod), every axis but ``model`` and, where given,
-    ``hpz_axes`` (in mesh order).  A world of 1 needs no process
-    group."""
+    ``hpz_axes`` (in mesh order).  Each group's axes, and the world's,
+    are recorded for the tier counters (``collectives.group_axes``).  A
+    world of 1 needs no process group."""
     shape = tuple(int(s) for s in shape)
     axes = axes_of(shape)
     subs = [axes[k:] for k in range(len(axes) - 1, 0, -1)] + [axes[:-1]]
@@ -145,6 +146,7 @@ def make_mesh(shape: Tuple[int, ...],
             f"mesh {'x'.join(map(str, shape))} needs a process group of "
             f"{world} ranks, found {have}: start the ranks with "
             f"repro_torch.launch.mesh.spawn")
+    cl.set_world_axes(axes)
     groups: Dict[Tuple[str, ...], Any] = {}
     for sub in subs:
         if sub != axes and sub not in groups:

@@ -2,12 +2,14 @@
 
 Port of the reference's ``launch/train.build_everything`` and
 ``train_loop`` on a ``(Y, X)`` ``("data", "model")`` or ``(P, Y, X)``
-``("pod", "data", "model")`` world, one process per rank (no checkpoints,
-no elastic runtime yet).  Runs on the card by default:
+``("pod", "data", "model")`` world, one process per rank, with periodic
+per-shard checkpoints and restart from the latest onto any world (no
+elastic supervisor yet).  Runs on the card by default:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --batch 8 \\
         --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
-        [--mesh YxX|PxYxX] [--prefetch K] [--device cuda|cpu]
+        [--mesh YxX|PxYxX] [--prefetch K] [--device cuda|cpu] \\
+        [--ckpt-dir D [--ckpt-every N] [--ckpt-format fp32|int8]]
 
 (``--arch``: qwen3-0.6b, gpt-350m or gemma3-4b; no flag cuts the depth,
 as in the reference: ``train_loop`` takes an ``ArchConfig`` for
@@ -24,6 +26,15 @@ shards the sequence over the axes it leaves (``trainer.build_train_step``).
 0 is the synchronous schedule).  ``--device cpu`` runs the plain PyTorch
 versions of the kernels and is meant for tests at ``--reduced`` size.
 
+Checkpoints (the reference's flags; ``train/state.py``): with
+``--ckpt-dir D`` the loop restores the latest checkpoint under D (or D
+itself, a checkpoint), whatever world wrote it, and continues at its
+step (the batches and the LR schedule, driven by the restored
+``opt["count"]``, pick up where the saved run stopped); ``--ckpt-every
+N`` saves ``D/ckpt_<step>`` after every N-th step, every rank its own
+shard file, in ``--ckpt-format`` fp32 (exact) or int8 (blockwise, ~4x
+smaller), with meta ``world``, ``arch`` and ``data_cursor``.
+
 Telemetry (the reference's ``--metrics-dir``/``--obs-gate``):
 ``--metrics-dir D`` records the run's knobs (``tune.*`` gauges), a
 ``train.step`` span, the ``train.steps``/``train.tokens`` counters and a
@@ -31,8 +42,11 @@ Telemetry (the reference's ``--metrics-dir``/``--obs-gate``):
 collective label — the delta of the ``comm.<label>.bytes`` counters that
 ``core/collectives.py`` bumps where it issues each collective — and gates
 them against ``obs.report.projected_wire_by_label`` (1 %; every rank its
-own bytes, the projection is per rank); rank 0 writes ``D/events.jsonl``
-and ``D/BENCH_runtime.json``.  ``--obs-gate`` makes a failing gate raise.
+own bytes, the projection is per rank), and the same bytes by
+interconnect tier (the ``comm.tier.<tier>.bytes`` counters, which must
+sum to the labels' on every rank at every step); rank 0 writes
+``D/events.jsonl`` and ``D/BENCH_runtime.json`` (``comm_per_step``,
+``comm_per_tier_per_step``).  ``--obs-gate`` makes a failing gate raise.
 Without ``--metrics-dir`` the tracer is the disabled no-op.  Every step
 runs in a ``train.step`` profiler range (``obs.trace.annotate``, free
 unless a profiler records), as every collective's issue and wait do.
@@ -51,18 +65,19 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as cl
-from repro_torch.core.partition import shard_of
 from repro_torch.data.synthetic import SyntheticLM, make_batch
 from repro_torch.kernels import platform
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import Model
-from repro_torch.obs.metrics import Registry, get_registry, set_registry
+from repro_torch.obs.metrics import (TIER_RANK, Registry, get_registry,
+                                     set_registry)
 from repro_torch.obs.report import (export_snapshot, projected_wire_by_label,
                                     runtime_gate)
 from repro_torch.obs.trace import Tracer, annotate, get_tracer
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.optim.schedule import constant, warmup_cosine
 from repro_torch.train.policy import VARIANTS, make_policy
+from repro_torch.train.state import ZeroState, init_shards
 from repro_torch.train.trainer import build_train_step
 
 
@@ -129,35 +144,48 @@ def device_batch(arch, lm: SyntheticLM, step_i: int, batch: int,
     return out
 
 
-def init_shards(model: Model, seed: int) -> Dict[str, torch.Tensor]:
-    """This rank's fp32 master shards: the GLOBAL buffers drawn from a
-    generator seeded with ``seed`` (so every world starts from the same
-    global parameters), then this rank's primary shard of each, cut on
-    the trailing axis."""
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(seed)
-    params = model.init_params(gen, dtype=torch.float32)
-    if model.world == 1:
-        return params
-    rank = cl.flat_rank(model.zcfg.group)
-    return {k: shard_of(v, rank, model.world).clone()
-            for k, v in params.items()}
+def _counted(head: str) -> Dict[str, float]:
+    """{name: value} of the ``<head><name>.bytes`` counters."""
+    return {k[len(head):-len(".bytes")]: v
+            for k, v in get_registry().snapshot().items()
+            if k.startswith(head) and k.endswith(".bytes")}
 
 
 def comm_bytes() -> Dict[str, float]:
     """{label: wire bytes counted so far} from the ``comm.<label>.bytes``
     counters."""
-    return {k[len("comm."):-len(".bytes")]: v
-            for k, v in get_registry().snapshot().items()
-            if k.startswith("comm.") and k.endswith(".bytes")}
+    return {k: v for k, v in _counted("comm.").items()
+            if not k.startswith("tier.")}
+
+
+def tier_bytes() -> Dict[str, float]:
+    """{tier: wire bytes counted so far} from the ``comm.tier.<tier>.bytes``
+    counters, and ``<tier>.other``: the ``other`` label's share of it."""
+    return _counted("comm.tier.")
+
+
+def _since(now: Dict[str, float], sent: Dict[str, float]
+           ) -> Dict[str, float]:
+    return {k: b - sent.get(k, 0) for k, b in now.items()
+            if b != sent.get(k, 0)}
 
 
 def comm_since(sent: Dict[str, float]) -> Dict[str, float]:
     """The labels' bytes counted since ``sent`` (a :func:`comm_bytes`),
     the labels that sent nothing left out."""
-    now = comm_bytes()
-    return {lbl: b - sent.get(lbl, 0) for lbl, b in now.items()
-            if b != sent.get(lbl, 0)}
+    return _since(comm_bytes(), sent)
+
+
+def tier_since(sent: Dict[str, float]) -> Dict[str, float]:
+    """The tiers' bytes counted since ``sent`` (a :func:`tier_bytes`), as
+    :func:`comm_since`."""
+    return _since(tier_bytes(), sent)
+
+
+def tier_total(tiers: Dict[str, float]) -> float:
+    """A :func:`tier_since` record's bytes over every tier (``other``'s
+    shares are in them already)."""
+    return sum(b for k, b in tiers.items() if "." not in k)
 
 
 def _ranks_agree(comm_steps, labels, group, dev) -> bool:
@@ -191,16 +219,22 @@ def record_step(reg: Registry, tracer: Tracer, i: int, wall_s: float,
 
 def train_loop(args, on_step: Optional[Callable] = None,
                overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Run ``args.steps`` steps from a seeded fp32 init on this rank of an
-    ``args.mesh`` world (``overrides``: ``ZeroConfig`` fields, the paper's
-    knobs).  Returns the losses (summed over the world),
-    per-step wall seconds (synchronized), per-step kernel launches, each
-    step's wire bytes per collective label on this rank (``comm_steps``),
-    the peak device memory (0 on the CPU), the data's entropy bound, the
-    gate report and whether every rank counted the same bytes
-    (``gate``/``ranks_agree``, None without ``--metrics-dir``), and the
-    built run with this rank's final params/opt.  ``on_step(i, metrics)`` is called after
-    each step; only rank 0 prints and writes telemetry."""
+    """Train to step ``args.steps`` on this rank of an ``args.mesh`` world
+    (``overrides``: ``ZeroConfig`` fields, the paper's knobs): from the
+    latest checkpoint under ``args.ckpt_dir`` where there is one (its step
+    is ``start``), else from a seeded fp32 init (``start`` 0), saving one
+    every ``args.ckpt_every`` steps.  Returns the losses of the steps run
+    (summed over the world), per-step wall seconds (synchronized), per-step
+    kernel launches, each step's wire bytes per collective label on this
+    rank (``comm_steps``) and per tier (``tier_steps``: tier ->
+    bytes, ``<tier>.other`` the ``other`` label's share), the peak device
+    memory (0 on the CPU), the data's entropy bound, the gate report and
+    whether every rank counted the same bytes (``gate``/``ranks_agree``,
+    None without ``--metrics-dir``), the wall seconds of each save
+    (``save_s``), the restored checkpoint's meta (``restored``, None), and
+    the built run with this rank's final params/opt.  ``on_step(i,
+    metrics)`` is called after each step; only rank 0 prints and writes
+    telemetry."""
     built = build_everything(args.arch, mesh_lib.parse_mesh(args.mesh),
                              args.variant, args.reduced, args.batch,
                              args.seq, args.lr, args.accum, args.lr_schedule,
@@ -209,9 +243,19 @@ def train_loop(args, on_step: Optional[Callable] = None,
     model = built.model
     z = model.zcfg
     dev = model.device
-    params = init_shards(model, args.seed)
-    opt = init_opt_state(params)
     rank0 = cl.flat_rank(z.group) == 0
+    ckpt_dir = args.ckpt_dir
+    st = ZeroState.restore(model, built.mesh, ckpt_dir) if ckpt_dir else None
+    if st is None:
+        start, restored = 0, None
+        params = init_shards(model, args.seed)
+        opt = init_opt_state(params)
+    else:
+        start, restored, params, opt = st.step, st.meta, st.params, st.opt
+        if rank0:
+            print(f"[train] restored step {start} from {ckpt_dir} (saved "
+                  f"world={st.meta.get('world')}, now={model.world})",
+                  flush=True)
     log = args.log_every and rank0
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     telemetry = bool(args.metrics_dir)
@@ -224,14 +268,15 @@ def train_loop(args, on_step: Optional[Callable] = None,
         for knob in ("prefetch", "qwz", "hpz", "qgz", "qwz_block",
                      "qgz_block", "qwz_blocked", "qgz_bits", "qgz_2hop"):
             reg.gauge(f"tune.{knob}").set(int(getattr(z, knob)))
-    losses, step_s, launches, comm_steps = [], [], [], []
+    losses, step_s, launches, comm_steps, tier_steps = [], [], [], [], []
+    save_s = []
     try:
-        for i in range(args.steps):
+        for i in range(start, args.steps):
             batch = device_batch(built.arch, built.lm, i, args.batch,
                                  args.accum, dev)
             sync()
             before = dict(platform.LAUNCHES)
-            sent = comm_bytes()
+            sent, sent_t = comm_bytes(), tier_bytes()
             t0 = time.perf_counter()
             with annotate("train.step"), tracer.span("train.step", step=i):
                 metrics = built.step.fn(params, opt, batch)
@@ -241,6 +286,7 @@ def train_loop(args, on_step: Optional[Callable] = None,
             launches.append({k: platform.LAUNCHES[k] - before[k]
                              for k in before})
             comm_steps.append(comm_since(sent))
+            tier_steps.append(tier_since(sent_t))
             losses.append(loss)
             if telemetry:
                 record_step(reg, tracer, i, step_s[-1], metrics,
@@ -253,28 +299,40 @@ def train_loop(args, on_step: Optional[Callable] = None,
                       f"{float(metrics['lr']):.2e} {step_s[-1]:.3f} s "
                       f"{metrics['tokens'] / step_s[-1]:,.0f} tok/s",
                       flush=True)
+            if ckpt_dir and args.ckpt_every and \
+                    (i + 1) % args.ckpt_every == 0:
+                t0 = time.perf_counter()
+                ZeroState(model, built.mesh, params, opt, step=i + 1).save(
+                    ckpt_dir, meta={"world": model.world,
+                                    "arch": built.arch.name,
+                                    "data_cursor": i + 1},
+                    fmt=args.ckpt_format)
+                save_s.append(time.perf_counter() - t0)
         gate = agree = None
-        if telemetry:
-            gate, agree = _obs_gate(args, built, comm_steps, rank0,
-                                    overrides or {})
+        if telemetry and comm_steps:
+            gate, agree = _obs_gate(args, built, comm_steps, tier_steps,
+                                    rank0, overrides or {})
     finally:
         if telemetry:
             tracer.close()
             set_registry(old_reg)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return {"losses": losses, "step_s": step_s, "launches": launches,
-            "comm_steps": comm_steps, "peak_bytes": peak,
+            "comm_steps": comm_steps, "tier_steps": tier_steps,
+            "start": start, "restored": restored, "save_s": save_s,
+            "peak_bytes": peak,
             "entropy_bound": built.lm.entropy_bound, "gate": gate,
             "ranks_agree": agree, "built": built, "params": params, "opt": opt}
 
 
-def _obs_gate(args, built: Built, comm_steps, rank0: bool,
+def _obs_gate(args, built: Built, comm_steps, tier_steps, rank0: bool,
               overrides: Dict[str, Any]) -> Tuple[Dict[str, Any], bool]:
     """Gate every step's measured bytes per label against the projection
     (strict under ``--obs-gate``: a failing rank raises), check that the
-    ranks agree, and on rank 0 export ``BENCH_runtime.json``.  Returns the
-    gate report of the first failing step, else of the last, and whether
-    the ranks agree."""
+    ranks agree and that every step's tiers sum to its labels, and on rank
+    0 export ``BENCH_runtime.json`` and print the report line (with the
+    last step's bytes by tier).  Returns the gate report of the first
+    failing step, else of the last, and whether the ranks agree."""
     model, mesh = built.model, built.mesh
     projected = projected_wire_by_label(model, mesh.sizes, accum=args.accum)
     reports = [runtime_gate(measured=c, projected=projected,
@@ -284,11 +342,17 @@ def _obs_gate(args, built: Built, comm_steps, rank0: bool,
     agree = _ranks_agree(comm_steps, labels, model.zcfg.group, model.device)
     if args.obs_gate and not agree:
         raise AssertionError("the ranks counted different wire bytes")
+    split = [tier_total(t) == sum(c.values())
+             for c, t in zip(comm_steps, tier_steps)]
+    if not all(split):
+        raise AssertionError(f"the tiers' bytes do not sum to the labels' at "
+                             f"steps {[i for i, ok in enumerate(split) if not ok]}")
     if rank0:
         export_snapshot(
             os.path.join(args.metrics_dir, "BENCH_runtime.json"),
             extra={"gate": gate, "ranks_agree": agree,
                    "comm_per_step": comm_steps,
+                   "comm_per_tier_per_step": tier_steps,
                    "config": {"arch": built.arch.name,
                               "variant": args.variant,
                               "overrides": {k: repr(v) for k, v in
@@ -301,8 +365,18 @@ def _obs_gate(args, built: Built, comm_steps, rank0: bool,
         print(f"[train] obs gate {'PASS' if gate['ok'] else 'FAIL'} on "
               f"every step, ranks {'agree' if agree else 'DISAGREE'}: "
               f"labels {labels} vs the analytic projection (BENCH -> "
-              f"{args.metrics_dir}/BENCH_runtime.json)", flush=True)
+              f"{args.metrics_dir}/BENCH_runtime.json); the last step by "
+              f"tier: {_tier_line(tier_steps[-1])}", flush=True)
     return gate, agree
+
+
+def _tier_line(tiers: Dict[str, float]) -> str:
+    """A :func:`tier_since` record as MiB a tier (``other``'s share in
+    brackets), fastest tier first."""
+    names = sorted((k for k in tiers if "." not in k), key=TIER_RANK.get)
+    return ", ".join(
+        f"{t} {tiers[t] / 2 ** 20:.3f} MiB (other "
+        f"{tiers.get(t + '.other', 0):,.0f} B)" for t in names) or "none"
 
 
 def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
@@ -310,6 +384,7 @@ def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
     can receive (the run's params stay in the rank)."""
     out = train_loop(args)
     return {k: out[k] for k in ("losses", "step_s", "launches", "comm_steps",
+                                "tier_steps", "start", "restored", "save_s",
                                 "peak_bytes", "entropy_bound", "gate",
                                 "ranks_agree")}
 
@@ -355,6 +430,14 @@ def parser() -> argparse.ArgumentParser:
                     help="enable telemetry: rank 0 writes events.jsonl and "
                          "BENCH_runtime.json here (default: the disabled "
                          "no-op tracer)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the latest checkpoint here (any world) "
+                         "and save here with --ckpt-every")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save a checkpoint after every N-th step (0: "
+                         "never)")
+    ap.add_argument("--ckpt-format", default="fp32", choices=("fp32", "int8"),
+                    help="fp32 (exact) or int8 (blockwise, ~4x smaller)")
     ap.add_argument("--obs-gate", action="store_true",
                     help="raise when a step's wire bytes per label miss "
                          "the analytic projection by more than 1%% (with "

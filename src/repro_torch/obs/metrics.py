@@ -14,6 +14,11 @@ Names are dot-separated, ``<subsystem>.<noun>[.<qual>]``:
                                         label (zero.qwz_gather, ..., other),
                                         counted where the collective is
                                         issued (``core/collectives.py``)
+  comm.tier.<tier>.bytes    counter     the same bytes by interconnect tier
+                                        (:func:`tier` of the group's axes:
+                                        model, data or pod); the ``other``
+                                        label's share of a tier also in
+                                        ``comm.tier.<tier>.other.bytes``
   kernels.dispatch.<op>.<route>  counter  the kernel seam's routes
                                         (``kernels/ops.py``: cuda or torch),
                                         with telemetry on
@@ -25,6 +30,23 @@ from __future__ import annotations
 import threading
 from collections import deque
 from typing import Dict, Optional, Sequence, Union
+
+# The interconnect tiers, fastest first: a collective over several mesh
+# axes crosses the slowest of them (the reference's
+# ``launch/jaxpr_analysis.py`` ``_TIER_RANK``).
+TIER_RANK = {"model": 0, "data": 1, "pod": 2}
+
+
+def tier(axes: Sequence[str]) -> str:
+    """The tier a collective over ``axes`` crosses: the slowest of them in
+    the order ``model`` < ``data`` < ``pod`` (``model`` for no axis; an
+    axis outside the table counts as ``model``), the reference's
+    ``_tier``."""
+    best = "model"
+    for a in axes:
+        if TIER_RANK.get(a, 0) > TIER_RANK[best]:
+            best = a
+    return best
 
 
 class Counter:

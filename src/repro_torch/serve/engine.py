@@ -25,9 +25,12 @@ Step anatomy (``ServeEngine.step``):
   3. retire   — EOS / max-new-tokens / KV capacity free the slot.
 
 Weights stay in their flat ZeRO buffers and every layer group moves
-through the qwZ INT8 gather on every step, as in the reference.  Paged
-mode, speculative decoding, boot-time tuning and checkpoint boot come
-with later slices; the constructor refuses them.
+through the qwZ INT8 gather on every step, as in the reference.
+:meth:`ServeEngine.from_checkpoint` boots from a checkpoint (fp32 or
+INT8, saved at any world) through the params-only bf16 load
+(``train.state.load_serving_params``).  Paged mode, speculative decoding
+and boot-time tuning come with later slices; the constructor refuses
+them.
 """
 from __future__ import annotations
 
@@ -106,6 +109,21 @@ class ServeEngine:
         self._tok_lat = Histogram("serve.tok_latency_ms", window=512)
         self._decode_win: deque = deque(maxlen=256)  # (wall_s, toks) per tick
         self._tick = 0
+
+    # ------------------------------------------------------------- boot
+
+    @classmethod
+    def from_checkpoint(cls, model, ckpt: str, *, dtype=torch.bfloat16,
+                        **kw) -> "ServeEngine":
+        """Boot from a checkpoint (per-shard fp32 or INT8, or a legacy
+        npz; ``ckpt`` a checkpoint or a directory of them, the latest
+        taken) via the params-only bf16 serving load, which refuses a
+        checkpoint written for another arch.  ``kw``: the constructor's
+        (``n_slots``, ``kv_len``, ...)."""
+        from repro_torch.train.state import load_serving_params
+        params = load_serving_params(model, ckpt, dtype=dtype,
+                                     expect_arch=model.cfg.name)
+        return cls(model, params, **kw)
 
     # ---------------------------------------------------------- requests
 

@@ -31,8 +31,21 @@
       not hold it);
   (d) the launcher: ``launch.train --mesh 2x2 --steps 3 --metrics-dir D
       --obs-gate`` writes a passing ``BENCH_runtime.json`` whose
-      ``comm.zero.*.bytes`` are 3 × the projection, and an
-      ``events.jsonl`` that replays to 3 steps.
+      ``comm.zero.*.bytes`` are 3 × the projection, whose
+      ``comm_per_tier_per_step`` sums to ``comm_per_step`` at every step,
+      and an ``events.jsonl`` that replays to 3 steps; ``bench_diff``
+      reads the per-tier record and reads an older file as before;
+  (e) the bytes by tier (``comm.tier.<tier>.bytes``, the slowest of each
+      group's axes, ``model`` < ``data`` < ``pod``): on every rank at
+      every step the tiers sum to the labels, and each tier's bytes less
+      ``other``'s share in it equal the reference's jaxpr-measured
+      ``per_tier_wire`` to the byte, at depth 0 — (b)'s two variants at
+      4 x 2; at 2 x 2 x 2 (the same 8 ranks) the five variants and the
+      knobs ``qgz_2hop=False`` and ``hpz_axes=("data", "model")``; at
+      2 x 2 (the 4 ranks of (c)) zeropp and ``qgz_2hop=False``; and the
+      1-hop qgZ puts more bytes on the slow tier than the 2-hop, in the
+      port at 2 x 2 and 2 x 2 x 2 and in the reference at qwen3-0.6b's
+      full width at 2 x 2 (the ordering chip_smoke's knob phase holds).
 
 The reference is imported inside the tests only: every spawned rank
 imports this module.
@@ -55,8 +68,8 @@ from repro_torch.data.synthetic import SyntheticLM           # noqa: E402
 from repro_torch.launch import mesh as mesh_lib              # noqa: E402
 from repro_torch.launch import train as tlaunch              # noqa: E402
 from repro_torch.models.model import Model                   # noqa: E402
-from repro_torch.obs.report import (projected_wire_by_label,  # noqa: E402
-                                    runtime_gate)
+from repro_torch.obs.report import (bench_diff,  # noqa: E402
+                                    projected_wire_by_label, runtime_gate)
 from repro_torch.obs.trace import replay_counters            # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.train.policy import make_policy             # noqa: E402
@@ -88,27 +101,65 @@ QWEN_2X2_MIB = {"zeropp": {"zero.qwz_gather": 546.025,
                 "baseline": {"zero.baseline_gather": 2150.499,
                              "zero.baseline_reduce": 1075.250}}
 
+# (e): {name: (mesh shape, variant, ZeroConfig knobs)}, all at depth 0,
+# gpt-350m reduced to N_LAYERS layers, batch 16
+TIER_CASES = {
+    "4x2-zeropp": ((4, 2), "zeropp", {}),
+    "4x2-baseline": ((4, 2), "baseline", {}),
+    **{f"2x2x2-{v}": ((2, 2, 2), v, {})
+       for v in ("baseline", "zeropp", "qwz", "hpz", "qgz")},
+    "2x2x2-qgz_1hop": ((2, 2, 2), "zeropp", {"qgz_2hop": False}),
+    "2x2x2-hpz_pod": ((2, 2, 2), "zeropp", {"hpz_axes": ("data", "model")}),
+    "2x2-zeropp": ((2, 2), "zeropp", {}),
+    "2x2-qgz_1hop": ((2, 2), "zeropp", {"qgz_2hop": False}),
+}
+
 _REF_SNIPPET = r"""
 import json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 os.environ["JAX_PLATFORMS"] = "cpu"
-import jax, jax.numpy as jnp
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config
+from repro.core.compat import make_mesh
 from repro.launch.jaxpr_analysis import analyze_jaxpr
+from repro.models.model import Model
+from repro.optim.adamw import AdamWConfig
 from repro.testing.checks import _abstract_tree, _prefetch_env
 from repro.train import trainer as trainer_lib
-out = {}
-for variant in ("zeropp", "baseline"):
-    mesh, arch, model, opt_cfg, ts, lm = _prefetch_env(
-        0, variant=variant, arch_name="gpt-350m", n_layers=4)
+from repro.train.policy import make_policy
+def walk(mesh, model, opt_cfg, ts, rows, seq):
     p_sh, o_sh = trainer_lib.state_shapes(model, opt_cfg)
     params = _abstract_tree(p_sh, mesh, ts.in_specs[0])
     opt = _abstract_tree(o_sh, mesh, ts.in_specs[1])
-    bsh = {"tokens": jax.ShapeDtypeStruct((16, 64), jnp.int32),
-           "targets": jax.ShapeDtypeStruct((16, 64), jnp.int32)}
+    bsh = {"tokens": jax.ShapeDtypeStruct((rows, seq), jnp.int32),
+           "targets": jax.ShapeDtypeStruct((rows, seq), jnp.int32)}
     batch = _abstract_tree(bsh, mesh, ts.in_specs[2])
     cj = jax.make_jaxpr(ts.fn)(params, opt, batch)
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    out[variant] = analyze_jaxpr(cj, sizes)["collectives"]["wire_by_label"]
+    return analyze_jaxpr(cj, sizes)["collectives"]
+out = {"labels": {}, "tiers": {}}
+for variant in ("zeropp", "baseline"):
+    mesh, arch, model, opt_cfg, ts, lm = _prefetch_env(
+        0, variant=variant, arch_name="gpt-350m", n_layers=4)
+    out["labels"][variant] = walk(mesh, model, opt_cfg, ts, 16,
+                                  64)["wire_by_label"]
+def tiers(shape, variant, knobs, arch, rows, seq):
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    world = int(np.prod(shape))
+    mesh = make_mesh(shape, axes, devices=jax.devices()[:world])
+    pol = make_policy(arch, axes, variant, prefetch=0, **knobs)
+    model = Model(arch, pol.zcfg, world=world)
+    opt_cfg = AdamWConfig(lr=3e-3, moments_dtype=pol.moments_dtype)
+    ts = trainer_lib.build_train_step(model, mesh, opt_cfg,
+                                      global_batch=rows)
+    return walk(mesh, model, opt_cfg, ts, rows, seq)["per_tier_wire"]
+gpt = get_config("gpt-350m").reduced(n_layers=4)
+for name, (shape, variant, knobs) in json.loads(sys.argv[2]).items():
+    out["tiers"][name] = tiers(tuple(shape), variant, knobs, gpt, 16, 64)
+qwen = get_config("qwen3-0.6b")
+for name, knobs in (("2hop", {}), ("1hop", {"qgz_2hop": False})):
+    out["tiers"]["qwen3-2x2-" + name] = tiers((2, 2), "zeropp", knobs, qwen,
+                                              8, 2048)
 json.dump(out, open(sys.argv[1], "w"))
 """
 
@@ -240,8 +291,9 @@ def test_table1_volume_reduction_is_four():
 # (b), (c) the counters on gloo ranks
 # ---------------------------------------------------------------------------
 
-def _measure(model, step, batch_rows, accum, steps=STEPS):
-    """Each step's counted bytes per label on this rank."""
+def _measure(model, step, batch_rows, accum, steps=STEPS, tiers=None):
+    """Each step's counted bytes per label on this rank (and per tier,
+    appended to ``tiers`` when given)."""
     params = tlaunch.init_shards(model, 0)
     opt = init_opt_state(params)
     lm = SyntheticLM(vocab=model.cfg.vocab, seq_len=SEQ, seed=7)
@@ -249,14 +301,33 @@ def _measure(model, step, batch_rows, accum, steps=STEPS):
     for i in range(steps):
         batch = tlaunch.device_batch(model.cfg, lm, i, batch_rows * accum,
                                      accum, "cpu")
-        before = tlaunch.comm_bytes()
+        before, before_t = tlaunch.comm_bytes(), tlaunch.tier_bytes()
         step.fn(params, opt, batch)
         out.append(tlaunch.comm_since(before))
+        if tiers is not None:
+            tiers.append(tlaunch.tier_since(before_t))
     return out
 
 
+def _tier_cases(out, mesh, world, arch):
+    """(e): every case of TIER_CASES on ``mesh``'s shape, one step each at
+    depth 0, into ``out[name]`` (labels) and ``out[("tiers", name)]``."""
+    for name, (shape, variant, knobs) in TIER_CASES.items():
+        if shape != mesh.shape:
+            continue
+        pol = make_policy(arch, mesh.axes, variant, mesh=mesh, prefetch=0,
+                          **knobs)
+        model = Model(arch, pol.zcfg, world=world, device="cpu")
+        step = build_train_step(model, AdamWConfig(lr=3e-3), device="cpu",
+                                global_batch=BATCH, mesh=mesh)
+        out[("tiers", name)] = []
+        out[name] = _measure(model, step, BATCH, 1, steps=1,
+                             tiers=out[("tiers", name)])
+
+
 def _grid_rank(rank, world):
-    """(b): every case of CASES at 4 x 2."""
+    """(b): every case of CASES at 4 x 2, with their bytes by tier; (e):
+    the 4 x 2 and 2 x 2 x 2 cases of TIER_CASES."""
     mesh = mesh_lib.make_mesh(MESH)
     arch = get_config("gpt-350m").reduced(n_layers=N_LAYERS)
     out = {}
@@ -266,7 +337,12 @@ def _grid_rank(rank, world):
         model = Model(arch, pol.zcfg, world=world, device="cpu")
         step = build_train_step(model, AdamWConfig(lr=3e-3), accum=accum,
                                 device="cpu", global_batch=BATCH, mesh=mesh)
-        out[(variant, pf, accum)] = _measure(model, step, BATCH, accum)
+        out[("tiers", variant, pf, accum)] = []
+        out[(variant, pf, accum)] = _measure(
+            model, step, BATCH, accum, tiers=out[("tiers", variant, pf,
+                                                  accum)])
+    _tier_cases(out, mesh, world, arch)
+    _tier_cases(out, mesh_lib.make_mesh((2, 2, 2)), world, arch)
     return out
 
 
@@ -288,6 +364,7 @@ def _sp_rank(rank, world):
         _measure(model, step, SP_BATCHES[-1], 1, steps=1)
     out["ranges"] = sorted({e.name for e in prof.events()
                             if e.name.startswith(("zero.", "other"))})
+    _tier_cases(out, mesh, world, arch)
     return out
 
 
@@ -304,8 +381,9 @@ def grid(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     with open(d / "ref.log", "w") as log:
         ref = subprocess.Popen([sys.executable, "-c", _REF_SNIPPET,
-                                str(d / "ref.json")], env=env, stdout=log,
-                               stderr=subprocess.STDOUT)
+                                str(d / "ref.json"),
+                                json.dumps(TIER_CASES)], env=env,
+                               stdout=log, stderr=subprocess.STDOUT)
         try:
             ranks = mesh_lib.spawn(_grid_rank, MESH[0] * MESH[1],
                                    device="cpu")
@@ -337,6 +415,9 @@ def test_counted_bytes_equal_the_projection_on_every_rank(grid, case):
     per_rank = [r[case] for r in grid["ranks"]]
     assert all(steps == per_rank[0] for steps in per_rank), \
         "the ranks counted different bytes"
+    for r in grid["ranks"]:
+        for c, t in zip(r[case], r[("tiers",) + case]):
+            assert tlaunch.tier_total(t) == sum(c.values())
     for c in per_rank[0]:
         assert _zero(c) == projected
         runtime_gate(measured=c, projected=projected, strict=True)
@@ -351,7 +432,7 @@ def test_counted_bytes_at_depth0_equal_the_references_jaxpr(grid, variant):
     """The reference's own measurement (its jaxpr walk) against the port's
     counters, to the byte; its ``other`` is 0, the port's is not (see the
     module note)."""
-    ref = grid["ref"][variant]
+    ref = grid["ref"]["labels"][variant]
     assert ref.get("other", 0.0) == 0.0
     want = {k: v for k, v in ref.items() if k != "other"}
     for r in grid["ranks"]:
@@ -389,6 +470,57 @@ def test_profiled_step_shows_every_labels_issue_and_wait(grid):
 
 
 # ---------------------------------------------------------------------------
+# (e) the bytes by tier
+# ---------------------------------------------------------------------------
+
+def _tier_ranks(grid, name):
+    """The ranks that ran TIER_CASES[name]: (c)'s four at 2 x 2, else
+    (b)'s eight."""
+    return grid["sp"] if TIER_CASES[name][0] == SP_MESH else grid["ranks"]
+
+
+def _less_other(tiers):
+    """{tier: bytes less ``other``'s share} of a ``tier_since`` record."""
+    return {k: b - tiers.get(k + ".other", 0) for k, b in tiers.items()
+            if "." not in k}
+
+
+@pytest.mark.parametrize("name", sorted(TIER_CASES))
+def test_counted_tiers_equal_the_references_per_tier_wire(grid, name):
+    """Every rank's bytes a tier less ``other``'s share in it (reported,
+    not held: the reference's jaxpr walk has no ``other``, see the module
+    note) equal the reference's ``per_tier_wire`` to the byte; the tiers
+    sum to the labels, ``other``'s shares to ``other``."""
+    want = {k: v for k, v in grid["ref"]["tiers"][name].items() if v}
+    ranks = _tier_ranks(grid, name)
+    assert len(ranks) == int(np.prod(TIER_CASES[name][0]))
+    for r in ranks:
+        (c,), (t,) = r[name], r[("tiers", name)]
+        assert tlaunch.tier_total(t) == sum(c.values())
+        assert sum(b for k, b in t.items() if k.endswith(".other")) == \
+            c.get("other", 0)
+        assert {k: b for k, b in _less_other(t).items() if b} == want
+
+
+def test_one_hop_qgz_moves_more_on_the_slow_tier(grid):
+    """The paper's reason for the 2-hop qgZ (§3.3.2): the 1-hop's
+    all-to-all crosses the slow tier with every slice.  Its slow-tier
+    bytes exceed the 2-hop's, and its fast-tier bytes fall short of them,
+    in the port (2 x 2: ``data``; 2 x 2 x 2: ``pod``) and in the
+    reference at qwen3-0.6b's full width at 2 x 2, chip_smoke's knob
+    shape."""
+    ref = grid["ref"]["tiers"]
+    one, two = ref["qwen3-2x2-1hop"], ref["qwen3-2x2-2hop"]
+    assert one["data"] > two["data"] and one["model"] < two["model"]
+    for shape, slow in (("2x2", "data"), ("2x2x2", "pod")):
+        (t1,) = _tier_ranks(grid, f"{shape}-qgz_1hop")[0][
+            ("tiers", f"{shape}-qgz_1hop")]
+        (t2,) = _tier_ranks(grid, f"{shape}-zeropp")[0][
+            ("tiers", f"{shape}-zeropp")]
+        assert t1[slow] > t2[slow] and t1["model"] < t2["model"], shape
+
+
+# ---------------------------------------------------------------------------
 # (d) the launcher's telemetry
 # ---------------------------------------------------------------------------
 
@@ -411,6 +543,26 @@ def test_launcher_writes_a_passing_bench_and_a_replayable_log(tmp_path):
     assert m["train.steps"] == 3 and m["train.step.wall_ms"]["count"] == 3
     assert m["tune.qwz"] == m["tune.hpz"] == m["tune.qgz"] == 1
     assert doc["config"]["mesh"] == [2, 2]
+    tiers = doc["comm_per_tier_per_step"]
+    assert len(tiers) == 3 and set(tiers[0]) == {"model", "data",
+                                                 "data.other"}
+    for c, t in zip(doc["comm_per_step"], tiers):
+        assert tlaunch.tier_total(t) == sum(c.values())
+        assert t["data.other"] == c["other"]
+    assert sum(m[f"comm.tier.{k}.bytes"] for k in ("model", "data")) == \
+        sum(v for k, v in m.items() if k.startswith("comm.")
+            and not k.startswith("comm.tier."))
+    # bench_diff reads the new leaves, and an older file as before
+    old = {"runtime": {k: v for k, v in doc.items()
+                       if k != "comm_per_tier_per_step"}}
+    assert bench_diff(old, old) == []
+    rows = bench_diff(old, {"runtime": doc})
+    assert [r[0] for r in rows] == ["runtime.comm_per_tier_per_step"]
+    drift = json.loads(json.dumps(doc))
+    drift["comm_per_tier_per_step"][0]["model"] += 1
+    assert [r[0] for r in bench_diff({"runtime": doc},
+                                     {"runtime": drift})] == \
+        ["runtime.comm_per_tier_per_step"]
     tot = replay_counters(str(d / "events.jsonl"))
     assert tot["train.steps"] == 3
     for lbl, b in projected.items():
