@@ -214,6 +214,28 @@ last line is printed.
    of it (first prefill logits bit-identical); a gemma3-4b engine refuses
    it.  The restored steps and the booted engine count as paths of
    B1-B8.
+12. qwen2-vl-72b phase (QKV bias, M-RoPE, embedding inputs: the
+   reference's vlm backbone, the frontend stubbed), at full width (d
+   8192, 64/8 heads of 128, d_ff 29,568, vocab 152,064) cut to
+   ``QWEN2VL_LAYERS`` = 2 of its 80 layers (3.0 B parameters, 48 GB of
+   fp32 state at world 1).  In phase 2: B1-B5 at its layer group
+   (877,684,736 elements) and an unembedding chunk, bit-identical; B8 at
+   its head (T 4, N 25,344, K 8192) beside cuBLAS; the bf16 flash cases
+   of starcoder2-3b's (H 24 / K 2, hd 128) and musicgen-large's (H 32 / K
+   32, hd 64) attention; after the gemma3 flash phase, B6/B7 in bf16 at
+   (4, 2048, 64/8, 128) causal (a GQA group of 8) held as FLASH_SHAPE,
+   timed beside SDPA.  After the gemma3 train phase: ``train_loop`` (bf16,
+   full ZeRO++, world 1, --attn pallas) for 4 steps of 4 x 2048 stub
+   embeddings and (t, t // 16, t % 16) positions (the stub's 4.98 GB
+   table drawn on a host thread from the script's start): finite losses,
+   the last below the first, launches ``step_launches`` (no embedding
+   group); step p50, tokens/s, peak memory, a profiled step.  Phase 4's
+   rule on 1 layer of its widths (vocab 4,096, 1 x 512, --attn pallas,
+   biases seeded nonzero).  The reference's serving consistency check at
+   full width through ``serve/steps.py`` in fp32: prefill of 124
+   positions plus 4 decode steps against one prefill of 128, relative
+   2e-2 and the same argmax; then the bf16 path (B8 in the head) at 4
+   rows, its decode step timed and profiled.
 
 The kernel phase also holds B1-B5 at the knobs' shapes and widths
 (``knob_kernel_phase``): the INT8 qgZ chain of a 2 x 2 rank at a layer
@@ -225,7 +247,10 @@ The line before the last is the kernels' JSON record (every kernel: its
 launches on each path, its error against the plain version, its time, the
 plain version's, its bound and, for B6/B7, SDPA's; B6/B7 at hd 256 as
 ``flash_fwd_hd256``/``flash_bwd_hd256``, the same wrappers and counters
-on the gemma3 path); the whole run's seconds come before it; the last
+on the gemma3 path; at GQA 8 as ``flash_fwd_gqa8``/``flash_bwd_gqa8`` and
+B8 at K 8192 as ``dequant_matmul_k8192`` on the qwen2-vl paths; B1-B5's
+records carry qwen2-vl's group shapes in their extras); the whole run's
+seconds come before it; the last
 line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -313,6 +338,8 @@ FLASH_BF16_CASES = (
     (1, 512, 1024, 16, 8, 128, True, 0, 0.0),       # Sq < S
     (1, 1024, 1024, 16, 16, 16, True, 0, 0.0),      # hd 16, GQA 1
     (1, 1024, 1024, 16, 4, 64, True, 0, 0.0),       # hd 64, GQA 4
+    (1, 1024, 1024, 24, 2, 128, True, 0, 0.0),      # starcoder2-3b: GQA 12
+    (1, 1024, 1024, 32, 32, 64, True, 0, 0.0),      # musicgen-large: MHA
 )
 FLASH_TILE = fa.TILE          # the kernels' q and kv tile
 # gemma3-4b (head dim 256, 5 local : 1 global): full width cut to 8 layers
@@ -327,6 +354,21 @@ GEMMA_PARITY_SEQ = 2048
 # the last two prompts are longer than the window: their rings wrap at
 # prefill
 GEMMA_PROMPTS = (7, 300, 1100, 1500)
+# qwen2-vl-72b (QKV bias, M-RoPE, embedding inputs; 64 query heads over 8
+# KV heads of 128, d 8192, d_ff 29,568, vocab 152,064): full width cut to
+# QWEN2VL_LAYERS layers, 877,684,736 parameters each, and the
+# 1,245,708,288-element unembedding (no embedding): 3.0 B parameters,
+# 48.0 GB of fp32 master, gradient and moments at world 1.  Its attention
+# at the training batch (4 x 2048); the parity step at 1 layer, a vocabulary
+# of 4,096 and 1 x 512; serving: prefill(P) + n decode steps against
+# prefill(P + n) (the reference's consistency check, relative bar 2e-2,
+# checks.py:666), then a bf16 decode step timed at QWEN2VL_DECODE_ROWS rows
+QWEN2VL_LAYERS = 2
+QWEN2VL_FLASH_SHAPE = (4, 2048, 64, 8, 128)
+QWEN2VL_TRAIN_BATCH, QWEN2VL_TRAIN_SEQ, QWEN2VL_TRAIN_STEPS = 4, 2048, 4
+QWEN2VL_PARITY_VOCAB, QWEN2VL_PARITY_SEQ = 4096, 512
+QWEN2VL_PROMPT, QWEN2VL_EXTRA, QWEN2VL_SERVE_REL = 124, 4, 2e-2
+QWEN2VL_DECODE_ROWS, QWEN2VL_DECODE_STEPS = 4, 8
 # step-1 losses of the two attention routes: bf16 through 28 layers, with
 # kv tiles summed in other orders (64-wide vs 1024-wide chunks)
 ROUTE_LOSS_ATOL = 1e-2
@@ -419,7 +461,8 @@ QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
 # B8: the head's decode and prefill shapes (T rows, one vocab chunk, NB =
 # d/256 scale groups) and the broadcast layout (NB = 1); then edge shapes
 B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1),
-           (4, 65536, 2560, 10))          # gemma3-4b's head chunk, decode
+           (4, 65536, 2560, 10),          # gemma3-4b's head chunk, decode
+           (4, 25344, 8192, 32))          # qwen2-vl-72b's, decode (K 8192)
 B8_EDGE_T = (*range(1, 10), 17)
 B8_EDGE_N = (1, 31, 4097)
 B8_EDGE_KNB = ((64, 1), (1024, 4), (4096, 16))
@@ -486,8 +529,9 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     # it) and the embedding of qwen3-0.6b, then gemma3-4b's groups (up to
     # 671 M elements)
     q_err = d_err = 0.0
+    vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
     for n in (1024, 15_730_944, 38_895_616, 155_582_464,
-              *gemma3_group_sizes()):
+              *gemma3_group_sizes(), vl_layer, vl_chunk):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
         pp, sp = quant.quantize_blockwise(x, cfg)
@@ -509,6 +553,10 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         if n == 15_730_944:   # the per-layer shape: 28 launches per call
             rec["quantize_blockwise"] = dict(ms=q_ms, plain_ms=q_plain,
                                              bound=q_bound, shape=(1, n))
+        if n in (vl_layer, vl_chunk):
+            rec.setdefault("qwen2_vl", {})[("quantize_blockwise", n)] = dict(
+                ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
+                shape=[1, n], dtype="bf16")
         d = qb.dequantize(p, s, cfg, torch.bfloat16)
         dp = quant.dequantize_blockwise(p, s, cfg, torch.bfloat16)
         err = (d.float() - dp.float()).abs().max().item()
@@ -528,6 +576,10 @@ def kernel_phase(flush: torch.Tensor) -> dict:
         if n == 15_730_944:
             rec["dequantize_blockwise"] = dict(
                 ms=d_ms, plain_ms=d_plain, bound=d_bound, shape=(1, n))
+        if n in (vl_layer, vl_chunk):
+            rec["qwen2_vl"][("dequantize_blockwise", n)] = dict(
+                ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
+                shape=[1, n])
         del x, p, s
 
     # small INT4 and stochastic-rounding (u field) cases, bit-identical
@@ -608,6 +660,10 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
                 extra["gemma3_t4"] = dict(ms=ms, plain_ms=plain,
                                           bound_ms=b8[0], library_ms=lib,
                                           shape=[T, N, K, NB])
+            elif (T, K) == (4, 8192):  # qwen2-vl-72b's head (K 8192)
+                extra["qwen2_vl_t4"] = dict(
+                    ms=ms, plain_ms=plain, bound_ms=b8[0], bound_by=b8[1],
+                    library_ms=lib, shape=[T, N, K, NB], max_abs_err=err)
             elif T == 4:              # the decode step's: the record's
                 rec.update(ms=ms, plain_ms=plain, bound=b8,
                            shape=(T, N, K, NB), library_ms=lib)
@@ -723,7 +779,8 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
               f"({b[1]})", flush=True)
         return dict(ms=ms, plain_ms=plain_ms, bound=b)
 
-    for n in (*PATH_NS, *gemma3_group_sizes()):
+    vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
+    for n in (*PATH_NS, *gemma3_group_sizes(), vl_layer, vl_chunk):
         nb = n // 256
         # B1: the qwZ quantize of an fp32 master shard (training)
         x = torch.randn(1, n, generator=g, device=dev) * 0.02
@@ -790,6 +847,15 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
             rec["quantize_reordered"] = dict(r3, shape=(1, 1, n))
             rec["dequant_reduce_quant"] = dict(r4, shape=(1, n // 2))
             rec["dequant_reduce"] = dict(r5, shape=(1, n // 2))
+        if n in (vl_layer, vl_chunk):
+            vl = rec.setdefault("qwen2_vl", {})
+            for name, r_, shape in (
+                    ("quantize_blockwise_f32", r, [1, n]),
+                    ("quantize_reordered", r3, [1, 1, n]),
+                    ("dequant_reduce_quant", r4, [1, n // 2]),
+                    ("dequant_reduce", r5, [1, n // 2])):
+                vl[(name, n)] = dict(ms=r_["ms"], plain_ms=r_["plain_ms"],
+                                     bound_ms=r_["bound"][0], shape=shape)
         del p3, p4, pay, sc, pay5, sc5, out
 
     # B3 where a wrong index would show: Y, X > 1, with and without a u field
@@ -1537,15 +1603,16 @@ def _grads_within_one_int4_step(got: dict, want: dict) -> tuple:
 
 def step_launches(cfg, model, attn: str) -> dict:
     """Kernel launches one training step issues: each of B1-B5 once per
-    flat group (embedding, layer groups — a period of the pattern each,
-    and the leftover layers' rem group —, head norm, unembedding chunks),
+    flat group (embedding where the model has one, layer groups — a
+    period of the pattern each, and the leftover layers' rem group —,
+    head norm, unembedding chunks),
     none of B8, and under --attn pallas B6 twice per layer (the forward
     and the layer's recompute) and B7 once.  The knobs move B1-B5: non-blocked
     qwZ quantizes in plain PyTorch (no B1, no B2, as the reference
     computes it outside its kernels); the 1-hop qgZ runs B1 and B5 once
     per group and no B3 or B4."""
-    groups = (1 + model.n_periods + int(model.rem > 0) + 1
-              + model.unemb_chunks)
+    groups = (int(model.embed_spec is not None) + model.n_periods
+              + int(model.rem > 0) + 1 + model.unemb_chunks)
     z = model.zcfg
     qwz = int(z.qwz and z.qwz_blocked)
     two_hop = int(z.qgz and z.qgz_2hop)
@@ -1575,10 +1642,12 @@ def train_parity_phase() -> None:
         parity_step(cfg, attn, 2, seq)
 
 
-def parity_step(cfg, attn: str, rows: int, seq: int) -> None:
+def parity_step(cfg, attn: str, rows: int, seq: int,
+                bias_seed: int = None) -> None:
     """One full-ZeRO++ ``loss_and_grads`` of ``cfg`` in fp32 on the card
     and on the CPU from the same parameters and batch (rows x seq), held
-    to phase 4's rule; the card's launches must be ``step_launches``."""
+    to phase 4's rule; the card's launches must be ``step_launches``.
+    ``bias_seed``: draw the QKV biases nonzero from it."""
     from repro_torch.data.synthetic import SyntheticLM
     pol = make_policy(cfg, variant="zeropp", param_dtype=torch.float32,
                       compute_dtype=torch.float32, reduce_dtype=torch.float32)
@@ -1586,6 +1655,8 @@ def parity_step(cfg, attn: str, rows: int, seq: int) -> None:
     cuda_model = Model(cfg, pol.zcfg, device="cuda")
     params = cpu_model.init_params(torch.Generator().manual_seed(0),
                                    dtype=torch.float32)
+    if bias_seed is not None:
+        _seed_biases(cpu_model, params, bias_seed)
     lm = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=7)
     out, secs = {}, {}
     for dev in ("cuda", "cpu"):
@@ -1612,6 +1683,12 @@ def parity_step(cfg, attn: str, rows: int, seq: int) -> None:
     n_far, n, worst, n_loose = _grads_within_one_int4_step(
         out["cuda"][1], out["cpu"][1])
     extra = f" window {cfg.window}," if "local" in cfg.pattern else ""
+    if cfg.qkv_bias:
+        extra += " QKV bias seeded nonzero,"
+    if cfg.mrope:
+        extra += " M-RoPE (t, t // 16, t % 16),"
+    if cfg.embed_inputs:
+        extra += " stub embeddings,"
     print(f"train parity --attn {attn} ({cfg.name}: {cfg.n_layers} layers "
           f"of {cfg.pattern},{extra} d {cfg.d_model}, hd {cfg.d_head}, vocab "
           f"{cfg.vocab}, batch {rows} x {seq}, fp32): loss card "
@@ -1905,6 +1982,302 @@ def gemma3_train_phase() -> dict:
     profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
                  f"{tag} step")
     del res, built, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------ qwen2-vl
+
+def qwen2_vl_config():
+    """qwen2-vl-72b at full width, cut in depth only (QWEN2VL_LAYERS of
+    80 layers: 80 layers' fp32 state is 1.15 TB)."""
+    return dataclasses.replace(get_config("qwen2-vl-72b"),
+                               n_layers=QWEN2VL_LAYERS)
+
+
+def qwen2_vl_group_sizes() -> tuple:
+    """Elements of the cut qwen2-vl-72b's flat groups at world 1, each a
+    (1, N) row of B1-B5 on its training path: one layer group, one
+    unembedding chunk and the head norm (no embedding: the stub feeds
+    embeddings)."""
+    cfg = qwen2_vl_config()
+    shapes = Model(cfg, make_policy(cfg, variant="zeropp").zcfg,
+                   device="cuda").param_shapes()
+    if "embed" in shapes:
+        fail("qwen2-vl-72b has an embedding group")
+    return shapes["blocks"][1], shapes["unemb"][1], shapes["head"][0]
+
+
+def stub_table_thread():
+    """The frontend stub's (152,064 x 8,192) fp32 table, drawn on a host
+    thread while the earlier phases run (numpy's draws release the GIL):
+    1.25 B normal draws, the reference's bits, kept by
+    ``data.synthetic.stub_table`` for every later batch."""
+    import threading
+    from repro_torch.data.synthetic import stub_table
+    cfg = get_config("qwen2-vl-72b")
+    t = threading.Thread(target=stub_table, args=(cfg.vocab, cfg.d_model),
+                         daemon=True)
+    t.start()
+    return t
+
+
+def _seed_biases(model, params: dict, seed: int) -> None:
+    """Draw every ``bq``/``bk``/``bv`` entry of the layer groups from
+    N(0, 0.5²) (the init leaves them 0, which would not test the bias
+    path), in place."""
+    g = torch.Generator(device=params["blocks"].device)
+    g.manual_seed(seed)
+    spec = model.period_spec
+    for name, _ in spec.entries:
+        if name.split(".")[-1] in ("bq", "bk", "bv"):
+            off, n = spec.offsets[name]
+            rows = params["blocks"][:, off:off + n]
+            rows.copy_(0.5 * torch.randn(rows.shape, generator=g,
+                                         device=rows.device))
+
+
+def qwen2_vl_flash_phase(flush: torch.Tensor) -> dict:
+    """B6/B7 in bf16 at qwen2-vl-72b's training shape (q (4, 2048, 64,
+    128), k/v (4, 2048, 8, 128): a GQA group of 8, dk/dv summed over 8
+    heads), causal, held as phase 2 holds FLASH_SHAPE and twice with the
+    same bits, timed beside the bound, the plain versions and SDPA."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    B, S, H, K, hd = QWEN2VL_FLASH_SHAPE
+    q, k, v, do = _flash_inputs(g, QWEN2VL_FLASH_SHAPE, torch.bfloat16)
+    kw = dict(scale=hd ** -0.5, causal=True)
+    tag = f"{QWEN2VL_FLASH_SHAPE} causal (GQA 8)"
+    (out, m, l), want, bar, fe, be = _hold_bf16(tag, q, k, v, do, kw)
+    del want, bar
+    prod = 2 * hd * B * H * _causal_pairs(S)
+    qb_, kb_ = B * S * H * hd * 2, B * S * K * hd * 2
+    b6 = bound_mixed(2 * qb_ + 2 * kb_ + 8 * B * H * S,
+                     ((2 * prod, BF16_OPS_S),))
+    b7 = bound_mixed(4 * qb_ + 4 * kb_ + 8 * B * H * S,
+                     (((2 + 3 * 2) * prod, BF16_OPS_S),))
+    f_ms = median_ms(lambda: fa.flash_fwd(q, k, v, **kw), flush)
+    b_ms = median_ms(lambda: fa.flash_bwd(q, k, v, out, m, l, do, **kw),
+                     flush)
+    f_plain = median_ms(lambda: ref.flash_fwd_ref(q, k, v, **kw), flush,
+                        n=3, warmup=1)
+    b_plain = median_ms(lambda: ref.flash_bwd_ref(q, k, v, out, m, l, do,
+                                                  **kw), flush, n=3, warmup=1)
+    if f_ms < b6[0] or b_ms < b7[0]:
+        fail(f"GQA 8: a flash kernel reads faster than its bound (B6 {f_ms} "
+             f"< {b6[0]} or B7 {b_ms} < {b7[0]})")
+    sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdo = do.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        lib_f = median_ms(sdpa, flush)
+        backend = _sdpa_backend(sdpa)
+    so = sdpa()
+    lib_b = median_ms(lambda: torch.autograd.grad(
+        so, (sq, sk, sv), sdo, retain_graph=True), flush)
+    del so, sq, sk, sv, sdo
+    print(f"B6 flash_fwd {tag} bf16: kernel {f_ms:.4f} ms "
+          f"({100 * b6[0] / f_ms:.1f} % of its bound), plain {f_plain:.4f} "
+          f"ms, bound {b6[0]:.4f} ms ({b6[1]}), SDPA ({backend}) "
+          f"{lib_f:.4f} ms", flush=True)
+    print(f"B7 flash_bwd {tag} bf16: kernel {b_ms:.4f} ms "
+          f"({100 * b7[0] / b_ms:.1f} % of its bound), plain {b_plain:.4f} "
+          f"ms, bound {b7[0]:.4f} ms ({b7[1]}), SDPA ({backend}) backward "
+          f"{lib_b:.4f} ms", flush=True)
+    del q, k, v, do, out, m, l
+    torch.cuda.synchronize()
+    extra = {"sdpa_backend": backend}
+    return {"flash_fwd_gqa8": dict(ms=f_ms, plain_ms=f_plain, bound=b6,
+                                   library_ms=lib_f, max_abs_err=fe,
+                                   shape=QWEN2VL_FLASH_SHAPE, extra=extra),
+            "flash_bwd_gqa8": dict(ms=b_ms, plain_ms=b_plain, bound=b7,
+                                   library_ms=lib_b, max_abs_err=be,
+                                   shape=QWEN2VL_FLASH_SHAPE, extra=extra)}
+
+
+def qwen2_vl_train_phase(table) -> dict:
+    """``train_loop`` on the cut qwen2-vl-72b: bf16 compute, full ZeRO++
+    at world 1, --attn pallas, batch 4 x 2048 of the stub's embeddings
+    and (t, t // 16, t % 16) positions, QWEN2VL_TRAIN_STEPS steps at a
+    constant lr 3e-4.  Finite losses, the last below the first, every
+    step's launches ``step_launches`` (no embedding group); prints step
+    p50, tokens/s, peak memory and one profiled step.  ``table``: the
+    stub table's drawing thread, joined first.  Returns the run's
+    launches."""
+    t0 = time.perf_counter()
+    table.join()
+    print(f"qwen2-vl stub table ready ({time.perf_counter() - t0:.1f} s "
+          f"waited)", flush=True)
+    cfg = qwen2_vl_config()
+    args = train_launch.parser().parse_args([
+        "--batch", str(QWEN2VL_TRAIN_BATCH), "--seq", str(QWEN2VL_TRAIN_SEQ),
+        "--steps", str(QWEN2VL_TRAIN_STEPS), "--lr", str(TRAIN_LR),
+        "--lr-schedule", "constant", "--device", "cuda", "--attn", "pallas",
+        "--log-every", "0"])
+    args.arch = cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    platform.reset_launches()
+    res = train_launch.train_loop(args)
+    launches = dict(platform.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    built = res["built"]
+    model = built.model
+    if "embed" in res["params"] or model.embed_spec is not None:
+        fail("qwen2-vl train: an embedding group exists")
+    per_step = step_launches(cfg, model, "pallas")
+    for i, c in enumerate(res["launches"]):
+        if c != per_step:
+            fail(f"qwen2-vl train step {i}: launches {c}, expected "
+                 f"{per_step}")
+    losses = res["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"qwen2-vl train: losses not finite and falling: {losses}")
+    p50 = statistics.median(res["step_s"][1:])
+    tokens = QWEN2VL_TRAIN_BATCH * QWEN2VL_TRAIN_SEQ
+    total = torch.cuda.get_device_properties(0).total_memory
+    tag = "train qwen2-vl-72b --attn pallas"
+    print(f"{tag}: full width (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab} in {model.unemb_chunks} chunks; QKV bias, M-RoPE, "
+          f"embedding inputs), {cfg.n_layers} of 80 layers, "
+          f"{model.n_params()} params fp32 master + fp32 moments, full "
+          f"ZeRO++ on a one-rank world, batch {QWEN2VL_TRAIN_BATCH} x "
+          f"{QWEN2VL_TRAIN_SEQ} (stub embeddings and positions), constant "
+          f"lr {TRAIN_LR}", flush=True)
+    print(f"{tag}: losses {[round(x, 4) for x in losses]} (drop "
+          f"{losses[0] - losses[-1]:.4f}); entropy bound "
+          f"{res['entropy_bound']:.4f}", flush=True)
+    print(f"{tag}: step p50 (steps 2-{QWEN2VL_TRAIN_STEPS}) "
+          f"{p50 * 1e3:.1f} ms, {tokens / p50:,.0f} tokens/s, first step "
+          f"{res['step_s'][0] * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated); launches per step {per_step}",
+          flush=True)
+    batch = train_launch.device_batch(built.arch, built.lm,
+                                      QWEN2VL_TRAIN_STEPS,
+                                      QWEN2VL_TRAIN_BATCH, 1, model.device)
+    profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
+                 f"{tag} step")
+    del res, built, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def qwen2_vl_parity_phase() -> None:
+    """Phase 4's rule on qwen2-vl-72b's widths: 1 layer, vocab 4,096 in 4
+    chunks, fp32, batch 1 x 512 under --attn pallas (B6/B7 at GQA 8 on
+    the card, their plain versions on the CPU), the QKV biases seeded
+    nonzero, the stub's positions (three different streams)."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1,
+                              vocab=QWEN2VL_PARITY_VOCAB, unemb_chunks=4)
+    parity_step(cfg, "pallas", 1, QWEN2VL_PARITY_SEQ, bias_seed=3)
+
+
+def _vl_inputs(batch: dict, sl) -> dict:
+    """The model inputs of ``batch`` at the positions ``sl``."""
+    return {"embeds": batch["embeds"][:, sl],
+            "positions": batch["positions"][:, :, sl]}
+
+
+def qwen2_vl_serve_phase() -> dict:
+    """The reference's serving consistency check (checks.py:607) at full
+    width through ``serve/steps.py``, fp32 compute: prefill of P =
+    QWEN2VL_PROMPT positions, then QWEN2VL_EXTRA teacher-forced decode
+    steps (the stub's embeddings and positions of each), against one
+    prefill of P + n: max |diff| / max |logits| under QWEN2VL_SERVE_REL and
+    the same argmax.  Then the bf16 serving path (weights bf16, the head
+    through B8) on QWEN2VL_DECODE_ROWS rows: a prefill and
+    QWEN2VL_DECODE_STEPS decode steps, each timed.  Returns the bf16
+    path's launches."""
+    from repro_torch.data.synthetic import SyntheticLM, make_batch
+    cfg = qwen2_vl_config()
+    P, n = QWEN2VL_PROMPT, QWEN2VL_EXTRA
+    cap = P + n
+    lm = SyntheticLM(vocab=cfg.vocab, seq_len=P + max(n,
+                                                      QWEN2VL_DECODE_STEPS),
+                     seed=9)
+    host = make_batch(cfg, lm, 0, QWEN2VL_DECODE_ROWS)
+    batch = {"embeds": torch.from_numpy(host["embeds"]).cuda(),
+             "positions": torch.from_numpy(host["positions"]).long().cuda()}
+    f32 = make_policy(cfg, param_dtype=torch.float32,
+                      compute_dtype=torch.float32).zcfg
+    model = Model(cfg, f32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    params = model.init_params(gen, dtype=torch.float32)
+    _seed_biases(model, params, 22)
+    ps = steps.build_prefill_step(model)
+    ds = steps.build_decode_step(model)
+    rows = slice(0, 2)
+    two = {k: v[:, rows] if k == "positions" else v[rows]
+           for k, v in batch.items()}
+    want, _ = ps.fn(params, _vl_inputs(two, slice(0, cap)))
+    got, caches = ps.fn(params, _vl_inputs(two, slice(0, P)))
+    caches = steps.pad_prefill_caches(model, caches, cap)
+    for t in range(P, cap):
+        got, caches = ds.fn(params, caches, _vl_inputs(two, slice(t, t + 1)),
+                            torch.full((2,), t, device="cuda"))
+    want, got = want.float(), got.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail("qwen2-vl serving: non-finite logits")
+    rel = ((got - want).abs().max() / (want.abs().max() + 1e-9)).item()
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    print(f"serve qwen2-vl-72b ({cfg.n_layers} layers, full width, fp32): "
+          f"prefill({P}) + {n} decode steps vs prefill({cap}): max |diff| / "
+          f"max |logits| {rel:.3e} (bar {QWEN2VL_SERVE_REL}), argmax "
+          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    if not (rel < QWEN2VL_SERVE_REL and same):
+        fail(f"qwen2-vl prefill/decode mismatch: rel {rel}, argmax equal "
+             f"{same}")
+    del model, params, caches, want, got, ps, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bf16 serving path: qwZ INT8 gathers, the head through B8
+    model = Model(cfg, make_policy(cfg).zcfg, device="cuda")
+    gen.manual_seed(21)
+    params = model.init_params(gen, dtype=torch.float32)
+    _seed_biases(model, params, 22)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    ps = steps.build_prefill_step(model)
+    ds = steps.build_decode_step(model)
+    B = QWEN2VL_DECODE_ROWS
+    platform.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = ps.fn(params, _vl_inputs(batch, slice(0, P)))
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    caches = steps.pad_prefill_caches(model, caches,
+                                      P + QWEN2VL_DECODE_STEPS)
+    dec_ms = []
+    for t in range(P, P + QWEN2VL_DECODE_STEPS):
+        step = _vl_inputs(batch, slice(t, t + 1))
+        pos = torch.full((B,), t, device="cuda")
+        t0 = time.perf_counter()
+        logits, caches = ds.fn(params, caches, step, pos)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(platform.LAUNCHES)
+    if not torch.isfinite(logits).all():
+        fail("qwen2-vl bf16 decode: non-finite logits")
+    if launches["dequant_matmul"] <= 0:
+        fail("qwen2-vl bf16 decode: the head did not launch B8")
+    print(f"serve qwen2-vl-72b bf16 ({B} rows): prefill {P} positions "
+          f"{pre_ms:.1f} ms, decode step p50 (steps 2-"
+          f"{QWEN2VL_DECODE_STEPS}) {statistics.median(dec_ms[1:]):.1f} ms "
+          f"(host wall, synchronized), launches {launches}", flush=True)
+    profile_step(lambda: ds.fn(params, caches, step, pos),
+                 f"qwen2-vl decode step, {B} rows at position {t}", n=3)
+    del model, params, caches, logits
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -2815,6 +3188,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs the card")
     print(device_line(), flush=True)
     t0 = time.perf_counter()
+    table = stub_table_thread()
     logs = platform.build()
     print(f"built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2862,7 +3236,10 @@ def main() -> None:
     sass_census("dequant_matmul", r"dequant_matmul_tc_kernel")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = kernel_phase(flush)
-    rec.update(qgz_kernel_phase(flush))
+    vl_kernels = rec.pop("qwen2_vl")
+    qgz = qgz_kernel_phase(flush)
+    vl_kernels.update(qgz.pop("qwen2_vl"))
+    rec.update(qgz)
     for name, extra in knob_kernel_phase(flush).items():
         rec[name].setdefault("extra", {}).update(extra)
     rec["quantize_blockwise"]["max_abs_err"] = max(
@@ -2870,6 +3247,7 @@ def main() -> None:
         rec["quantize_blockwise_f32"]["max_abs_err"])
     rec.update(flash_kernel_phase(flush))
     rec.update(gemma3_flash_phase(flush))
+    rec.update(qwen2_vl_flash_phase(flush))
     del flush
     by_path = {"serve": engine_phase()}
     train_parity_phase()
@@ -2890,6 +3268,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     gemma3_parity_phase()
     by_path["train_gemma3"] = gemma3_train_phase()
+    # qwen2-vl-72b (QKV bias, M-RoPE, embedding inputs) at full width
+    t12 = time.perf_counter()
+    by_path["train_qwen2_vl"] = qwen2_vl_train_phase(table)
+    qwen2_vl_parity_phase()
+    by_path["serve_qwen2_vl"] = qwen2_vl_serve_phase()
+    print(f"qwen2-vl phase: {time.perf_counter() - t12:.1f} s", flush=True)
     # the same run on four ranks of a 2 x 2 world, at the default ring
     # depth and at the synchronous schedule, which saves a checkpoint
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2918,7 +3302,8 @@ def main() -> None:
         losses_pallas)
 
     # each kernel's path(s): it must have launched in every one of them
-    quant_train = ("train", "train_xla", "train_gemma3", "train_2x2",
+    quant_train = ("train", "train_xla", "train_gemma3", "train_qwen2_vl",
+                   "train_2x2",
                    "train_2x2_sync", "train_ckpt", "train_ckpt_2x2_to_1",
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
@@ -2926,7 +3311,7 @@ def main() -> None:
              "train_ckpt_2x2_to_1") + tuple(
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
-    serve = ("serve", "serve_gemma3", "serve_ckpt")
+    serve = ("serve", "serve_gemma3", "serve_qwen2_vl", "serve_ckpt")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)
@@ -2942,8 +3327,15 @@ def main() -> None:
              # the same wrappers and counters at head dim 256: the gemma3
              # path runs no other
              "flash_fwd_hd256": ("train_gemma3",),
-             "flash_bwd_hd256": ("train_gemma3",)}
-    counter = {"flash_fwd_hd256": "flash_fwd", "flash_bwd_hd256": "flash_bwd"}
+             "flash_bwd_hd256": ("train_gemma3",),
+             # and at qwen2-vl-72b's GQA group of 8 (64 / 8 heads), and B8
+             # at its K 8192
+             "flash_fwd_gqa8": ("train_qwen2_vl",),
+             "flash_bwd_gqa8": ("train_qwen2_vl",),
+             "dequant_matmul_k8192": ("serve_qwen2_vl",)}
+    counter = {"flash_fwd_hd256": "flash_fwd", "flash_bwd_hd256": "flash_bwd",
+               "flash_fwd_gqa8": "flash_fwd", "flash_bwd_gqa8": "flash_bwd",
+               "dequant_matmul_k8192": "dequant_matmul"}
     for name, ps in paths.items():
         for pth in ps:
             if by_path[pth][counter.get(name, name)] <= 0:
@@ -2970,7 +3362,27 @@ def main() -> None:
             "flash_fwd_hd256": (cu + "flash_attention_tc.cu",
                                 "src/repro/kernels/flash_attention.py:76"),
             "flash_bwd_hd256": (cu + "flash_attention_tc.cu",
-                                "src/repro/kernels/flash_attention.py:194")}
+                                "src/repro/kernels/flash_attention.py:194"),
+            "flash_fwd_gqa8": (cu + "flash_attention_tc.cu",
+                               "src/repro/kernels/flash_attention.py:76"),
+            "flash_bwd_gqa8": (cu + "flash_attention_tc.cu",
+                               "src/repro/kernels/flash_attention.py:194"),
+            "dequant_matmul_k8192": (cu + "dequant_matmul.cu",
+                                     "src/repro/kernels/dequant_matmul.py:58")}
+    # B8 at K 8192 is its own entry; B1-B5 at qwen2-vl-72b's layer group
+    # and unembedding chunk ride in their records' extras
+    k8 = rec["dequant_matmul"]["extra"]["qwen2_vl_t4"]
+    rec["dequant_matmul_k8192"] = dict(
+        k8, bound=(k8["bound_ms"], k8["bound_by"]),
+        extra={"library_call": rec["dequant_matmul"]["extra"][
+            "library_call"]})
+    vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
+    for (name, n), r in vl_kernels.items():
+        key = "blocks" if n == vl_layer else "unemb_chunk"
+        tag = {"quantize_blockwise": "_bf16",
+               "quantize_blockwise_f32": "_f32"}.get(name, "")
+        rec[name.replace("_f32", "")].setdefault("extra", {})[
+            f"qwen2_vl_{key}{tag}"] = r
     kernels = []
     for name, (src, replaces) in srcs.items():
         r = rec[name]

@@ -1,6 +1,6 @@
 """ArchConfig: static description of a decoder (own copy of the
 reference's ``configs/base.py``, cut to the fields the port's ``attn`` and
-``local`` blocks and its flat parameter layout read)."""
+``local`` blocks, its inputs and its flat parameter layout read)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,8 +21,11 @@ class ArchConfig:
     # the n_layers % len(pattern) leftover layers in a group of their own.
     # kinds: attn (global causal GQA + MLP), local (sliding-window GQA + MLP)
     pattern: Tuple[str, ...] = ("attn",)
+    qkv_bias: bool = False           # bq/bk/bv added before the head split
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    mrope: bool = False              # Qwen2-VL 3-stream rotary (t, h, w)
+    logit_softcap: float = 0.0       # attention logits: c·tanh(x / c)
     window: int = 0                  # sliding window of the "local" layers
     # mlp (gated: act(gate) * up)
     d_ff: int = 0
@@ -30,6 +33,9 @@ class ArchConfig:
     # the unembedding is stored TRANSPOSED (V, d) in this many vocab-row
     # chunks, each gathered on its own; 0 = auto (<= 512 MB per chunk)
     unemb_chunks: int = 0
+    # io: a frontend stub supplies (B, S, d_model) embeddings (audio, vlm);
+    # the model then has no embedding group
+    embed_inputs: bool = False
 
     @property
     def d_head(self) -> int:
@@ -37,7 +43,8 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Tiny config of the same shape family for CPU tests (the
-        reference's rule: a multi-kind pattern keeps one whole period)."""
+        reference's rule: a multi-kind pattern keeps one whole period;
+        qkv_bias, mrope, logit_softcap and embed_inputs are kept)."""
         scale = dict(n_layers=max(len(self.pattern), 2)
                      if len(self.pattern) > 1 else min(self.n_layers, 2),
                      d_model=64, vocab=128,

@@ -4,11 +4,14 @@
 An order-1 Markov chain with a low-entropy, seeded transition table: the
 conditional distribution is learnable, so loss curves fall toward the
 chain's conditional entropy, and every batch is a pure function of (seed,
-step, shard).
+step, shard).  The frontend stub of the ``embed_inputs`` configs (audio,
+vlm) maps tokens through a fixed seeded table (the "precomputed frame /
+patch embeddings"), and M-RoPE gets synthetic (t, h, w) positions.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
@@ -55,10 +58,41 @@ class SyntheticLM:
         return out
 
 
+@functools.lru_cache(maxsize=2)
+def stub_table(vocab: int, d_model: int) -> np.ndarray:
+    """The frontend stub's fixed (vocab, d_model) fp32 projection table:
+    the reference's ``default_rng(vocab * 7 + 13)`` normal draws times
+    0.05, bit for bit.  Drawn row block by row block (one generator, so
+    the same stream as one call) and kept for the last two (vocab,
+    d_model): qwen2-vl-72b's is 1.25 B draws, 4.98 GB, too costly to
+    redraw each step.  Read-only: batches gather copies of its rows."""
+    rng = np.random.default_rng(vocab * 7 + 13)
+    table = np.empty((vocab, d_model), np.float32)
+    rows = max(1, (1 << 24) // d_model)
+    for r in range(0, vocab, rows):
+        n = min(rows, vocab - r)
+        table[r:r + n] = rng.standard_normal((n, d_model)) * 0.05
+    table.flags.writeable = False
+    return table
+
+
 def make_batch(arch: ArchConfig, lm: SyntheticLM, step: int,
                global_batch: int) -> Dict[str, np.ndarray]:
-    """GLOBAL batch dict for one train step: tokens and next-token
-    targets, (global_batch, seq_len) int32 each."""
+    """GLOBAL batch dict for one train step: next-token ``targets``
+    (global_batch, seq_len) int32, and ``tokens`` (the same shape), or
+    with ``arch.embed_inputs`` the stub's ``embeds`` (global_batch,
+    seq_len, d_model) float32; with ``arch.mrope`` the stub's
+    ``positions`` (3, global_batch, seq_len) int32: (t, t // 16, t % 16)
+    — the reference's draws and layout."""
     toks = lm.batch(step, global_batch)
-    return {"targets": toks[:, 1:].astype(np.int32),
-            "tokens": toks[:, :-1].astype(np.int32)}
+    batch = {"targets": toks[:, 1:].astype(np.int32)}
+    B, S = batch["targets"].shape
+    if arch.embed_inputs:
+        batch["embeds"] = stub_table(arch.vocab, arch.d_model)[toks[:, :-1]]
+    else:
+        batch["tokens"] = toks[:, :-1].astype(np.int32)
+    if arch.mrope:
+        # text-like ramp on t, a coarse grid on h and w
+        t = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+        batch["positions"] = np.stack([t, t // 16, t % 16]).astype(np.int32)
+    return batch

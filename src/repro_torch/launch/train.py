@@ -11,9 +11,13 @@ elastic supervisor yet).  Runs on the card by default:
         [--mesh YxX|PxYxX] [--prefetch K] [--device cuda|cpu] \\
         [--ckpt-dir D [--ckpt-every N] [--ckpt-format fp32|int8]]
 
-(``--arch``: qwen3-0.6b, gpt-350m or gemma3-4b; no flag cuts the depth,
-as in the reference: ``train_loop`` takes an ``ArchConfig`` for
-``args.arch`` as well as a name.)
+(``--arch``: any name of ``repro_torch.configs.list_archs()``:
+gemma3-4b, gpt-18b, gpt-350m, musicgen-large, qwen1.5-110b,
+qwen2-vl-72b, qwen3-0.6b or starcoder2-3b; musicgen-large and
+qwen2-vl-72b train on the frontend stub's embeddings, qwen2-vl-72b with
+its M-RoPE positions (accum 1 only).  No flag cuts the depth, as in the
+reference: ``train_loop`` takes an ``ArchConfig`` for ``args.arch`` as
+well as a name.)
 
 ``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
 one rank process per position over a gloo group (``launch/mesh.py``; on
@@ -132,12 +136,16 @@ def build_everything(arch_name: Union[str, ArchConfig],
 
 def device_batch(arch, lm: SyntheticLM, step_i: int, batch: int,
                  accum: int, device) -> Dict[str, torch.Tensor]:
-    """Step ``step_i``'s batch as long tensors on ``device``; with accum >
-    1 a leading microbatch axis (accum, batch/accum, S)."""
+    """Step ``step_i``'s batch on ``device``: tokens, targets and M-RoPE
+    positions as long, the stub's embeds as float32; with accum > 1 a
+    leading microbatch axis (accum, batch/accum, ...) on every leaf, as
+    the reference's launcher cuts it (the step refuses accum > 1 for an
+    M-RoPE model, whose positions are (3, B, S))."""
     host = make_batch(arch, lm, step_i, batch)
     out = {}
     for k, v in host.items():
-        t = torch.from_numpy(v).long()
+        t = torch.from_numpy(v)
+        t = t.float() if k == "embeds" else t.long()
         if accum > 1:
             t = t.reshape((accum, -1) + tuple(t.shape[1:]))
         out[k] = t.to(device)
@@ -403,7 +411,8 @@ def run(args):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    help="a registered config (configs.list_archs())")
     ap.add_argument("--variant", default="zeropp", choices=VARIANTS)
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's tiny test shape (CPU runs)")

@@ -5,7 +5,10 @@ chunked online-softmax ``flash_attention`` with its hand-written VJP —,
 its sequence-parallel KV gather ``_gather_seq`` and ``seq_shard_offset``,
 ``per_seq_pos``, ``decode_attend`` with its ring-buffer slot positions,
 ``cache_insert``).  Every route takes the sliding ``window`` of
-``local`` layers as the reference's mask ``q_pos - k_pos < window``.  Training may shard
+``local`` layers as the reference's mask ``q_pos - k_pos < window``, and
+the ``logit_softcap`` c as the reference's ``c·tanh(logits / c)`` on the
+scaled logits before the mask (the chunked backward's chain factor
+``1 - tanh²``).  Training may shard
 the sequence over ``seq_axes`` (``RunSpec.seq_axes``, the ranks of
 ``seq_group``): queries stay local, K/V are all-gathered in global shard
 order, and the backward reduce-scatters their cotangents.  Decode is not
@@ -92,6 +95,12 @@ def _logits(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
     return lg.reshape(B, H, Sq, S) * scale
 
 
+def _cap(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    """``softcap·tanh(logits / softcap)``; the logits as they are when
+    ``softcap`` is 0."""
+    return torch.tanh(logits / softcap) * softcap if softcap else logits
+
+
 def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, Sq, H, hd) = p (B, H, Sq, S) @ v (B, S, K, hd), in p's dtype."""
     B, H, Sq, S = p.shape
@@ -114,9 +123,10 @@ def _causal(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         seq_axes: Sequence[str] = (), seq_group: Any = None,
         kv_chunk: int = 1024, impl: str = "xla",
-        window: int = 0) -> torch.Tensor:
+        window: int = 0, logit_softcap: float = 0.0) -> torch.Tensor:
     """Causal attention for training and prefill (sliding-window when
-    ``window`` > 0: query p sees keys p - window < k <= p).  q (B, Sq, H, hd) and k,
+    ``window`` > 0: query p sees keys p - window < k <= p; logits capped
+    at ±``logit_softcap`` when > 0).  q (B, Sq, H, hd) and k,
     v (B, Sq, K, hd) are this rank's shards of a sequence sharded over
     ``seq_axes`` (the ranks of ``seq_group``; none: the whole sequence):
     K/V are gathered to (B, S, K, hd) and the queries sit at
@@ -136,27 +146,29 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S = k.shape[1]
     if impl == "pallas" and not seq_axes and S >= 512 and S % 512 == 0 \
             and Sq % 512 == 0:
-        return flash_attention_kernel(q, k, v, scale, True, window, 0.0)
+        return flash_attention_kernel(q, k, v, scale, True, window,
+                                      logit_softcap)
     q_pos = seq_shard_offset(Sq, seq_axes, seq_group) + torch.arange(
         Sq, device=q.device)
     if S > kv_chunk and S % kv_chunk == 0:
-        return flash_attention(q, k, v, q_pos, scale, kv_chunk, window)
-    logits = _logits(q, k, scale)
+        return flash_attention(q, k, v, q_pos, scale, kv_chunk, window,
+                               logit_softcap)
+    logits = _cap(_logits(q, k, scale), logit_softcap)
     mask = _causal(q_pos, torch.arange(S, device=q.device), window)
     logits = torch.where(mask[None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     return _pv(p, v)
 
 
-def _chunk_logits(q, kc, k0, q_pos, scale, window):
+def _chunk_logits(q, kc, k0, q_pos, scale, window, softcap):
     """(B, H, Sq, kc) masked fp32 logits for one KV chunk starting at k0."""
-    logits = _logits(q, kc, scale)
+    logits = _cap(_logits(q, kc, scale), softcap)
     k_pos = k0 + torch.arange(kc.shape[1], device=q.device)
     return torch.where(_causal(q_pos, k_pos, window)[None, None], logits,
                        NEG_INF)
 
 
-def _flash_forward(q, k, v, q_pos, scale, kv_chunk, window):
+def _flash_forward(q, k, v, q_pos, scale, kv_chunk, window, softcap):
     """Chunked online-softmax forward (the reference's _flash_fwd_impl):
     returns out (B, Sq, H, hd) and the fp32 row stats m, l (B, H, Sq),
     l clamped at 1e-30."""
@@ -167,7 +179,7 @@ def _flash_forward(q, k, v, q_pos, scale, kv_chunk, window):
     acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
     for k0 in range(0, S, kv_chunk):
         kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
-        logits = _chunk_logits(q, kc, k0, q_pos, scale, window)
+        logits = _chunk_logits(q, kc, k0, q_pos, scale, window, softcap)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -183,13 +195,18 @@ def _flash_forward(q, k, v, q_pos, scale, kv_chunk, window):
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``flash_attention`` custom VJP: the backward
     rebuilds each chunk's probabilities from the saved row stats and
-    accumulates dq over the chunks, dk/dv per chunk, all in fp32."""
+    accumulates dq over the chunks, dk/dv per chunk, all in fp32; under a
+    softcap the logit gradient takes the chain factor 1 - t² of t =
+    capped / softcap (0 at masked positions, where the capped logit is
+    NEG_INF)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, scale, kv_chunk, window):
-        out, m, l = _flash_forward(q, k, v, q_pos, scale, kv_chunk, window)
+    def forward(ctx, q, k, v, q_pos, scale, kv_chunk, window, softcap):
+        out, m, l = _flash_forward(q, k, v, q_pos, scale, kv_chunk, window,
+                                   softcap)
         ctx.save_for_backward(q, k, v, q_pos, out, m, l)
         ctx.scale, ctx.kv_chunk, ctx.window = scale, kv_chunk, window
+        ctx.softcap = softcap
         return out
 
     @staticmethod
@@ -211,27 +228,34 @@ class _FlashAttention(torch.autograd.Function):
             sl = slice(k0, k0 + kv_chunk)
             kc, vc = k[:, sl].to(torch.float32), v[:, sl].to(torch.float32)
             logits = _chunk_logits(q, k[:, sl], k0, q_pos, scale,
-                                   ctx.window)
+                                   ctx.window, ctx.softcap)
             p = torch.exp(logits - m[..., None]) / l[..., None]
             dp = torch.einsum("bkrqd,bskd->bkrqs", dog, vc)
             dl = p.reshape(B, K, r, Sq, -1) * (dp - D.reshape(B, K, r, Sq, 1))
+            if ctx.softcap:
+                t = logits / ctx.softcap
+                chain = torch.where(logits <= NEG_INF / 2, 0.0, 1.0 - t * t)
+                dl = dl * chain.reshape(dl.shape)
             dq = dq + torch.einsum("bkrqs,bskd->bkrqd", dl, kc).reshape(
                 B, H, Sq, hd) * scale
             dk[:, sl] = torch.einsum("bkrqs,bqkrd->bskd", dl, qf) * scale
             dv[:, sl] = torch.einsum("bkrqs,bkrqd->bskd",
                                      p.reshape(B, K, r, Sq, -1), dog)
         dq = dq.permute(0, 2, 1, 3).to(q.dtype)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, scale: float, kv_chunk: int,
-                    window: int = 0) -> torch.Tensor:
-    """Causal (sliding-window when ``window`` > 0) chunked online-softmax
-    attention with the reference's hand-written VJP.  q (B, Sq, H, hd);
-    k, v (B, S, K, hd) with S a multiple of ``kv_chunk``; q_pos (Sq,)
-    absolute query positions."""
-    return _FlashAttention.apply(q, k, v, q_pos, scale, kv_chunk, window)
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """Causal (sliding-window when ``window`` > 0, logits capped at
+    ±``softcap`` when > 0) chunked online-softmax attention with the
+    reference's hand-written VJP.  q (B, Sq, H, hd); k, v (B, S, K, hd)
+    with S a multiple of ``kv_chunk``; q_pos (Sq,) absolute query
+    positions."""
+    return _FlashAttention.apply(q, k, v, q_pos, scale, kv_chunk, window,
+                                 softcap)
 
 
 def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
@@ -247,18 +271,20 @@ def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, cache_pos: torch.Tensor, *,
-                  window: int = 0,
+                  window: int = 0, logit_softcap: float = 0.0,
                   slot_positions: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Exact decode attention of (B, 1, H, hd) queries over a (B, S, K, hd)
     cache.  Slot s holds position s, or ``slot_positions[b, s]`` (a ring
     buffer: a sliding-window layer's cache; negative = empty).  Each row
     attends to the slots whose position p satisfies 0 <= p <= its
-    ``cache_pos`` t and, with a ``window``, p > t - window."""
+    ``cache_pos`` t and, with a ``window``, p > t - window; its logits are
+    capped at ±``logit_softcap`` when > 0."""
     B, _, H, hd = q.shape
     S = k_cache.shape[1]
     cache_pos = per_seq_pos(cache_pos, B).to(q.device)
-    logits = _logits(q, k_cache, hd ** -0.5)              # (B, H, 1, S)
+    logits = _cap(_logits(q, k_cache, hd ** -0.5),        # (B, H, 1, S)
+                  logit_softcap)
     pos = torch.arange(S, device=q.device)[None, :] if slot_positions is None \
         else slot_positions.to(q.device).reshape(-1, S)   # (1 | B, S)
     t = cache_pos[:, None].to(pos.dtype)

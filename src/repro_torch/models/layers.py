@@ -1,8 +1,9 @@
 """Shared neural building blocks (pure functions on explicit weights).
 
 Port of the reference's ``models/layers.py`` (``rms_norm``, ``swiglu``
-with its silu and gelu gates, ``rope_table``, ``apply_rope``) with its
-dtype rules: norms compute in fp32 and cast back, rotary tables are fp32.
+with its silu and gelu gates, ``rope_table``, ``mrope_tables``,
+``apply_rope``) with its dtype rules: norms compute in fp32 and cast
+back, rotary tables are fp32.
 """
 from __future__ import annotations
 
@@ -62,3 +63,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_tables(positions_thw: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[float, float, float] = (0.25, 0.375, 0.375)
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (Qwen2-VL §3.1): the rotary half-dim is split into three
+    sections driven by the temporal / height / width position streams,
+    ``int(half * section)`` frequencies for t and h (truncated, as the
+    reference does) and the rest for w.  Equal streams give
+    :func:`rope_table`'s values.
+
+    positions_thw: (3, B, S) int.  Returns (cos, sin): (B, S, half)."""
+    half = head_dim // 2
+    s_t = int(half * sections[0])
+    s_h = int(half * sections[1])
+    dev = positions_thw.device
+    exps = torch.arange(half, dtype=torch.float32, device=dev) / half
+    freqs = 1.0 / (theta ** exps)
+    sec_of = torch.cat([torch.zeros(s_t, dtype=torch.long, device=dev),
+                        torch.ones(s_h, dtype=torch.long, device=dev),
+                        torch.full((half - s_t - s_h,), 2, dtype=torch.long,
+                                   device=dev)])
+    # the position stream of each frequency index: (B, S, half)
+    p = positions_thw.to(torch.float32).movedim(0, -1)[..., sec_of]
+    ang = p * freqs
+    return torch.cos(ang), torch.sin(ang)

@@ -18,13 +18,19 @@ chunks through ``_streaming_xent``.
 
 Groups (flat buffers):
 
-  embed  : (E_pad,)            token embedding
+  embed  : (E_pad,)            token embedding (absent with
+                               ``cfg.embed_inputs``: the batch brings
+                               ``embeds``, (B, S, d), from the stub)
   blocks : (n_periods, P_pad)  one period of the pattern per loop step
   rem    : (R_pad,)            the leftover layers (only when there are)
   head   : (H_pad,)            final norm
   unemb  : (nv, U_pad)         unembedding, TRANSPOSED (V, d), nv chunks
 
-The model runs on ``device`` ("cuda" unless the caller asks for "cpu").
+Rotary tables come from the positions 0..S-1 of the sequence (offset by
+this rank's sequence shard), or with ``cfg.mrope`` from the batch's
+``positions`` (3, B, S) in every mode (already this rank's slice, so no
+offset is added).  The model runs on ``device`` ("cuda" unless the
+caller asks for "cpu").
 """
 from __future__ import annotations
 
@@ -66,8 +72,8 @@ class Model:
         self.period_spec = ParamSpec(self._entries(self.period), align=align)
         self.rem_spec = ParamSpec(self._entries(self.rem_kinds),
                                   align=align) if self.rem else None
-        self.embed_spec = ParamSpec((("emb", (cfg.vocab, cfg.d_model)),),
-                                    align=align)
+        self.embed_spec = None if cfg.embed_inputs else ParamSpec(
+            (("emb", (cfg.vocab, cfg.d_model)),), align=align)
         self.head_spec = ParamSpec((("fnorm", (cfg.d_model,)),), align=align)
         nv = cfg.unemb_chunks or self._auto_unemb_chunks()
         assert cfg.vocab % nv == 0, (cfg.vocab, nv)
@@ -101,8 +107,9 @@ class Model:
 
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
         """GLOBAL flat buffer shapes (the reference's, key for key)."""
-        out = {"embed": (self.embed_spec.padded_size,),
-               "blocks": (self.n_periods, self.period_spec.padded_size)}
+        out = {"embed": (self.embed_spec.padded_size,)} \
+            if self.embed_spec else {}
+        out["blocks"] = (self.n_periods, self.period_spec.padded_size)
         if self.rem_spec:
             out["rem"] = (self.rem_spec.padded_size,)
         out["head"] = (self.head_spec.padded_size,)
@@ -111,9 +118,11 @@ class Model:
 
     def n_params(self) -> int:
         """Parameters in the flat groups, padding excluded."""
-        return (self.embed_spec.size + self.period_spec.size * self.n_periods
+        return ((self.embed_spec.size if self.embed_spec else 0)
+                + self.period_spec.size * self.n_periods
                 + (self.rem_spec.size if self.rem_spec else 0)
-                + self.head_spec.size + self.unemb_spec.size * self.unemb_chunks)
+                + self.head_spec.size
+                + self.unemb_spec.size * self.unemb_chunks)
 
     def comm_events(self, accum: int = 1) -> list:
         """Every ZeRO engine collective one training step issues:
@@ -123,9 +132,9 @@ class Model:
         folds it into the per-label projection that the collectives'
         counters are gated against (``obs.report``).
 
-        Each ``zero_apply`` site (the embedding, the leftover layers'
-        ``rem`` group, the head norm, each unembedding chunk) issues one of
-        each kind; the layer loop issues
+        Each ``zero_apply`` site (the embedding where the model has one,
+        the leftover layers' ``rem`` group, the head norm, each
+        unembedding chunk) issues one of each kind; the layer loop issues
         n of each per step at every ring depth.  The reference's scan ring
         issues n + k (k wrap-around gathers and k reduces of zero
         gradients); the port's ring (``core/schedule.py``) issues neither,
@@ -140,7 +149,8 @@ class Model:
             ev.append({"kind": kind, "elems": int(elems),
                        "count": float(count) * accum, "site": site})
 
-        sites = [("embed", self.embed_spec.padded_size, 1)]
+        sites = [("embed", self.embed_spec.padded_size, 1)] \
+            if self.embed_spec else []
         if self.rem_spec:
             sites.append(("rem", self.rem_spec.padded_size, 1))
         sites += [("head", self.head_spec.padded_size, 1),
@@ -164,7 +174,7 @@ class Model:
             return shape[-1] ** -0.5
         if base in ("wq", "wk", "wv", "wgu", "wo", "wdn"):
             return shape[0] ** -0.5
-        return None
+        return None                         # norms and biases
 
     def _init_flat(self, spec: ParamSpec, gen: torch.Generator,
                    dtype: torch.dtype) -> torch.Tensor:
@@ -187,7 +197,8 @@ class Model:
         reference's: parity tests load its buffers through
         ``repro_torch.convert`` instead."""
         dtype = dtype or self.zcfg.param_dtype
-        out = {"embed": self._init_flat(self.embed_spec, gen, dtype)}
+        out = {"embed": self._init_flat(self.embed_spec, gen, dtype)} \
+            if self.embed_spec else {}
         blocks = torch.empty(self.n_periods, self.period_spec.padded_size,
                              dtype=dtype, device=self.device)
         for g in range(self.n_periods):
@@ -203,9 +214,12 @@ class Model:
 
     # ------------------------------------------------------------- positions
 
-    def _rope_tables(self, rs: RunSpec, s_local: int,
-                     cache_pos: Optional[torch.Tensor] = None):
+    def _rope_tables(self, batch: Dict[str, torch.Tensor], rs: RunSpec,
+                     s_local: int, cache_pos: Optional[torch.Tensor] = None):
         cfg = self.cfg
+        if cfg.mrope:       # (3, B, S_loc) from the frontend stub
+            return nn.mrope_tables(batch["positions"].to(self.device),
+                                   cfg.d_head, cfg.rope_theta)
         if rs.mode == "decode":
             p = cache_pos[:, None]            # per-sequence: (B, 1)
         else:
@@ -217,9 +231,17 @@ class Model:
     def _emb_lookup(self, W: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return self.embed_spec.unpack(W)["emb"][t].to(self.zcfg.compute_dtype)
 
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return zero_apply_inference(self._emb_lookup, self.zcfg)(
-            params["embed"], tokens)
+    def _inputs(self, params: Params, batch: Dict[str, torch.Tensor],
+                train: bool = False) -> torch.Tensor:
+        """(B, S, d) activations in the compute dtype: the stub's
+        ``embeds`` (``cfg.embed_inputs``), else the ``tokens``' rows of the
+        embedding group, gathered by its ``zero_apply`` (training) or
+        ``zero_apply_inference``."""
+        z = self.zcfg
+        if self.cfg.embed_inputs:
+            return batch["embeds"].to(self.device, z.compute_dtype)
+        ap = zero_apply if train else zero_apply_inference
+        return ap(self._emb_lookup, z)(params["embed"], batch["tokens"])
 
     # ------------------------------------------------------------- train
 
@@ -240,9 +262,9 @@ class Model:
         cfg, z = self.cfg, self.zcfg
         if rs.mode != "train":
             raise ValueError(f"loss_fn needs a train RunSpec, got {rs}")
-        h = zero_apply(self._emb_lookup, z)(params["embed"], batch["tokens"])
+        h = self._inputs(params, batch, train=True)
         B, S = h.shape[0], h.shape[1]
-        cos, sin = self._rope_tables(rs, S)
+        cos, sin = self._rope_tables(batch, rs, S)
 
         def group_fn(W, h, cos, sin, spec, kinds):
             p = spec.unpack(W.to(z.compute_dtype))
@@ -376,8 +398,8 @@ class Model:
         — the last REAL token of a right-padded prompt; default: the final
         position."""
         z = self.zcfg
-        h = self._embed(params, batch["tokens"])
-        pos = {"rope": self._rope_tables(rs, h.shape[1])}
+        h = self._inputs(params, batch)
+        pos = {"rope": self._rope_tables(batch, rs, h.shape[1])}
         h, ys = zero_scan_inference(
             self._group_fn(rs, pos, self.period_spec, self.period), z)(
             params["blocks"], h)
@@ -401,13 +423,15 @@ class Model:
     @torch.no_grad()
     def decode_fn(self, params: Params, caches, batch: Dict[str, torch.Tensor],
                   cache_pos, rs: RunSpec) -> Tuple[torch.Tensor, Any]:
-        """One decode step.  batch: tokens (B, 1).  ``cache_pos`` is
-        PER-SEQUENCE (B,) (a scalar broadcasts), so rows admitted at
-        different steps decode together.  The caches are updated IN PLACE
-        (the reference returns new arrays) and returned."""
-        h = self._embed(params, batch["tokens"])
+        """One decode step.  batch: tokens (B, 1), or embeds (B, 1, d)
+        (``cfg.embed_inputs``), and with ``cfg.mrope`` the new token's
+        positions (3, B, 1).  ``cache_pos`` is PER-SEQUENCE (B,) (a scalar
+        broadcasts), so rows admitted at different steps decode together.
+        The caches are updated IN PLACE (the reference returns new arrays)
+        and returned."""
+        h = self._inputs(params, batch)
         cache_pos = attn_lib.per_seq_pos(cache_pos, h.shape[0]).to(self.device)
-        pos = {"rope": self._rope_tables(rs, 1, cache_pos=cache_pos),
+        pos = {"rope": self._rope_tables(batch, rs, 1, cache_pos=cache_pos),
                "cache_pos": cache_pos}
         per_period = [tuple({key: c[key][i] for key in ("k", "v")}
                             for c in caches["blocks"])

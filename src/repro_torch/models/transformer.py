@@ -3,8 +3,10 @@
 Port of the reference's ``models/transformer.py`` for the dense block
 kinds ``attn`` (global causal attention) and ``local`` (sliding-window
 attention over ``cfg.window`` positions): parameter entries (same names,
-shapes and order, so the flat layout matches), ``RunSpec``, the attention
-half in its train/prefill and decode branches (a ``local`` layer's decode
+shapes and order, so the flat layout matches; the ``bq``/``bk``/``bv``
+biases of ``cfg.qkv_bias`` after ``wo``), ``RunSpec``, the attention
+half (biases added before the head split, ``cfg.logit_softcap`` on every
+route) in its train/prefill and decode branches (a ``local`` layer's decode
 cache is a ring buffer of ``min(window, kv_len)`` slots: position t
 lives in slot t mod capacity, filled at prefill with the prompt's last
 ``window`` positions), the MLP half with its ``cfg.act`` gate,
@@ -38,6 +40,9 @@ def block_entries(cfg: ArchConfig, kind: str, pre: str
     e = [(pre + "ln1", (d,)),
          (pre + "wq", (d, H * hd)), (pre + "wk", (d, K * hd)),
          (pre + "wv", (d, K * hd)), (pre + "wo", (H * hd, d))]
+    if cfg.qkv_bias:
+        e += [(pre + "bq", (H * hd,)), (pre + "bk", (K * hd,)),
+              (pre + "bv", (K * hd,))]
     if cfg.qk_norm:
         e += [(pre + "qn", (hd,)), (pre + "kn", (hd,))]
     return e + [(pre + "ln2", (d,)), (pre + "wgu", (d, 2 * cfg.d_ff)),
@@ -64,9 +69,12 @@ def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
     B, S, d = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     hn = nn.rms_norm(h, p["ln1"])
-    q = (hn @ p["wq"]).reshape(B, S, H, hd)
-    k = (hn @ p["wk"]).reshape(B, S, K, hd)
-    v = (hn @ p["wv"]).reshape(B, S, K, hd)
+    q, k, v = hn @ p["wq"], hn @ p["wk"], hn @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
     if cfg.qk_norm:
         q = nn.rms_norm(q, p["qn"])
         k = nn.rms_norm(k, p["kn"])
@@ -85,11 +93,13 @@ def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
         s = torch.arange(cap, device=h.device)
         spos = t[:, None] - torch.remainder(t[:, None] - s[None, :], cap)
         o = attn.decode_attend(q, kc, vc, t, window=window,
+                               logit_softcap=cfg.logit_softcap,
                                slot_positions=spos)
         new_cache = {"k": kc, "v": vc}
     else:
         o = attn.mha(q, k, v, seq_axes=rs.seq_axes, seq_group=rs.seq_group,
-                     impl=rs.attn_impl, window=window)
+                     impl=rs.attn_impl, window=window,
+                     logit_softcap=cfg.logit_softcap)
         new_cache = _build_prefill_cache(cfg, kind, k, v) \
             if rs.mode == "prefill" else None
     o = o.reshape(B, S, H * hd) @ p["wo"]

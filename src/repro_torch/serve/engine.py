@@ -30,7 +30,8 @@ through the qwZ INT8 gather on every step, as in the reference.
 INT8, saved at any world) through the params-only bf16 load
 (``train.state.load_serving_params``).  Paged mode, speculative decoding
 and boot-time tuning come with later slices; the constructor refuses
-them.
+them.  Models fed by a frontend stub (``embed_inputs``, ``mrope``) are
+refused as in the reference: they serve through the raw ``serve.steps``.
 """
 from __future__ import annotations
 
@@ -62,6 +63,17 @@ class _Active:
     gen: torch.Generator
 
 
+def _refuse_stub_inputs(cfg) -> None:
+    """The engine feeds token ids: a model fed by a frontend stub
+    (embeddings, M-RoPE positions) serves through the raw
+    ``serve.steps`` prefill and decode steps only (the reference's
+    refusal)."""
+    if cfg.embed_inputs or cfg.mrope:
+        raise ValueError(
+            "ServeEngine drives token-in models; embed/M-RoPE frontends "
+            "need their own input pipeline")
+
+
 class ServeEngine:
     def __init__(self, model, params: Dict[str, torch.Tensor], *,
                  n_slots: int, kv_len: int,
@@ -79,6 +91,7 @@ class ServeEngine:
             raise ValueError(f"engine on {dev} but the model runs on "
                              f"{model.device}")
         cfg = model.cfg
+        _refuse_stub_inputs(cfg)
         if "local" in model.period and kv_len < cfg.window:
             raise ValueError(
                 f"kv_len={kv_len} below the sliding window {cfg.window}: "
@@ -121,6 +134,7 @@ class ServeEngine:
         checkpoint written for another arch.  ``kw``: the constructor's
         (``n_slots``, ``kv_len``, ...)."""
         from repro_torch.train.state import load_serving_params
+        _refuse_stub_inputs(model.cfg)
         params = load_serving_params(model, ckpt, dtype=dtype,
                                      expect_arch=model.cfg.name)
         return cls(model, params, **kw)

@@ -234,8 +234,9 @@ def moments_within_int4(to: Mapping, jo: Mapping, far: float = 1e-3,
 
 def global_params(model, seed: int) -> dict:
     """GLOBAL fp32 buffers of ``model``'s flat layout, numpy normal draws
-    at the reference's per-name scales (norms and padding zero): the state
-    both sides of a step comparison start from."""
+    at the reference's per-name scales (norms, biases and padding zero;
+    no ``embed`` where the model has none): the state both sides of a
+    step comparison start from."""
     rng = np.random.default_rng(seed)
 
     def flat(spec):
@@ -246,9 +247,9 @@ def global_params(model, seed: int) -> dict:
                 off, n = spec.offsets[name]
                 out[off:off + n] = rng.standard_normal(n) * std
         return out
-    out = {"embed": flat(model.embed_spec),
-           "blocks": np.stack([flat(model.period_spec)
-                               for _ in range(model.n_periods)])}
+    out = {"embed": flat(model.embed_spec)} if model.embed_spec else {}
+    out["blocks"] = np.stack([flat(model.period_spec)
+                              for _ in range(model.n_periods)])
     if model.rem_spec:
         out["rem"] = flat(model.rem_spec)
     out["head"] = flat(model.head_spec)

@@ -111,8 +111,9 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     primary shards and the GLOBAL batch; with ``accum > 1`` every batch
     leaf carries a leading microbatch axis (accum, B, S), the tiles are
     cut on the next two axes, and the gradients of the microbatches are
-    summed, then divided by ``accum``, as in the reference.  The layout is
-    the reference's: ``global_batch`` (rows per microbatch) takes
+    summed, then divided by ``accum``, as in the reference (an M-RoPE
+    model, whose ``positions`` are (3, B, S), takes accum 1 only).  The
+    layout is the reference's: ``global_batch`` (rows per microbatch) takes
     ``choose_batch_seq_axes``; without it the batch goes over ``data`` and
     the sequence over ``model``.  A sequence axis of size 1 is left out
     (the reference keeps it, and its ``mha`` then drops the flash
@@ -132,6 +133,13 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
                          f"{model.world}, its ZeRO group holds {world} ranks")
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
+    if accum > 1 and model.cfg.mrope:
+        # the reference's launcher cuts every leaf as (accum, B/accum,
+        # ...), which cannot split the (3, B, S) positions by rows
+        raise ValueError("gradient accumulation (accum > 1) does not run "
+                         "an M-RoPE batch: the reference cuts every batch "
+                         "leaf on its leading axis, and positions are "
+                         "(3, B, S)")
     rank = cl.flat_rank(z.group) if world > 1 else 0
     axes, sizes, group_of = _layout(world, mesh)
     if global_batch is not None:
@@ -153,19 +161,26 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
                  attn_impl=attn_impl)
 
     def tile(batch: Tensors) -> Tensors:
-        """This rank's rows and sequence slice of the global batch (views)."""
+        """This rank's rows and sequence slice of the global batch (views):
+        every leaf is cut on its (rows, sequence) axes, (0, 1) — (1, 2)
+        under a microbatch axis — and M-RoPE ``positions`` (3, B, S) on
+        (1, 2), the reference's ``P(None, b, s)``."""
         if world == 1:
             return batch
         ax = 1 if accum > 1 else 0
-        b, s = batch["tokens"].shape[ax:ax + 2]
+        b, s = batch["targets"].shape[ax:ax + 2]
         if b % nb or s % ns:
             raise ValueError(
                 f"a batch of {b} x {s} does not tile the "
                 f"{'x'.join(str(sizes[a]) for a in axes)} world as rows "
                 f"over {batch_axes} and the sequence over {seq_axes}")
         rb, sb = b // nb, s // ns
-        return {k: v.narrow(ax, rank // ns * rb, rb).narrow(
-            ax + 1, rank % ns * sb, sb) for k, v in batch.items()}
+
+        def cut(k, v):
+            a = 1 if k == "positions" else ax
+            return v.narrow(a, rank // ns * rb, rb).narrow(
+                a + 1, rank % ns * sb, sb)
+        return {k: cut(k, v) for k, v in batch.items()}
 
     def one(params: Tensors, batch: Tensors
             ) -> Tuple[torch.Tensor, Dict[str, Any], Tensors]:

@@ -261,6 +261,12 @@ BF16_CASES = [
     (2, 256, 256, 2, 2, 16, True, 0, 20.0),      # softcap, hd 16
     (1, 256, 256, 4, 2, 256, True, 0, 0.0),      # hd 256 (gemma3-4b)
     (1, 192, 320, 4, 1, 256, False, 100, 30.0),  # hd 256, Sq < S, window
+    # large GQA groups: dk/dv sum 12 and 16 heads' q rows (starcoder2-3b's
+    # 24 / 2; 32 / 2), the long chains mma_pair_add keeps within the bar
+    (1, 1024, 1024, 24, 2, 128, True, 0, 0.0),
+    (1, 1024, 1024, 32, 2, 128, True, 0, 0.0),
+    (1, 1024, 1024, 24, 2, 64, True, 0, 0.0),
+    (1, 512, 512, 64, 8, 128, True, 0, 0.0),     # qwen2-vl-72b's GQA 8
 ]
 
 

@@ -228,9 +228,9 @@ def test_quantize_shard_sqrt_never_underestimates():
     assert (np.abs(back - x) <= s32 / 2 + 1e-12).all()
 
 
-def _tiny(seed=0):
-    """A world-1 state of gpt-350m reduced on the CPU."""
-    arch = get_config("gpt-350m").reduced()
+def _tiny(seed=0, arch_name="gpt-350m"):
+    """A world-1 state of ``arch_name`` reduced on the CPU."""
+    arch = get_config(arch_name).reduced()
     model = Model(arch, make_policy(arch).zcfg, world=1, device="cpu")
     mesh = mesh_lib.make_mesh((1, 1))
     return model, mesh, ts.ZeroState(model, mesh).init(seed)
@@ -347,9 +347,9 @@ def test_bad_manifest_and_missing_shard_are_corrupt(tmp_path):
 # (c) world-1 interop
 # ---------------------------------------------------------------------------
 
-def _ref_tiny():
-    """The reference's world-1 state of gpt-350m reduced, and its global
-    host buffers."""
+def _ref_tiny(arch_name="gpt-350m"):
+    """The reference's world-1 state of ``arch_name`` reduced, and its
+    global host buffers (any ``bq``/``bk``/``bv`` bias drawn nonzero)."""
     import jax
     from repro.configs import get_config as rget
     from repro.core.compat import auto_axis_types, make_mesh
@@ -358,18 +358,23 @@ def _ref_tiny():
     from repro.train.policy import make_policy as rpolicy
     rmesh = make_mesh((1, 1), ("data", "model"),
                       axis_types=auto_axis_types(2))
-    arch = rget("gpt-350m").reduced()
+    arch = rget(arch_name).reduced()
     rmodel = RModel(arch, rpolicy(arch, ("data", "model")).zcfg, world=1)
     cfg = AdamWConfig()
     st = _ref().ZeroState(rmodel, rmesh, cfg).init(jax.random.PRNGKey(3))
     rng = np.random.default_rng(4)
     host = jax.device_get({"params": st.params, "opt": st.opt})
-    host = {"params": {k: np.asarray(v) for k, v in host["params"].items()},
+    host = {"params": {k: np.array(v) for k, v in host["params"].items()},
             "opt": {"m": {k: rng.normal(size=v.shape).astype(np.float32)
                           for k, v in host["params"].items()},
                     "v": {k: rng.uniform(size=v.shape).astype(np.float32)
                           for k, v in host["params"].items()},
                     "count": np.asarray(5, np.int32)}}
+    blocks = host["params"]["blocks"]
+    for name, _ in rmodel.period_spec.entries:
+        if name.split(".")[-1] in ("bq", "bk", "bv"):
+            off, n = rmodel.period_spec.offsets[name]
+            blocks[:, off:off + n] = rng.normal(size=(blocks.shape[0], n))
     st.place_global(host["params"], host["opt"])
     return rmodel, rmesh, cfg, st, host
 
@@ -381,10 +386,27 @@ def _npz(path):
 
 @pytest.mark.parametrize("fmt", ("fp32", "int8"))
 def test_world1_checkpoints_cross_both_ways(tmp_path, fmt):
+    _cross_both_ways(tmp_path, fmt, "gpt-350m")
+
+
+@pytest.mark.parametrize("fmt", ("fp32", "int8"))
+def test_world1_qwen2_vl_checkpoints_cross_both_ways(tmp_path, fmt):
+    """qwen2-vl-72b reduced: no ``embed`` group, the ``bq``/``bk``/``bv``
+    entries in the layer groups (seeded nonzero)."""
+    path = _cross_both_ways(tmp_path, fmt, "qwen2-vl-72b")
+    layout = ts.read_manifest(path)["param_layout"]
+    assert "embed" not in layout
+    names = [n for n, _ in layout["blocks"]["entries"]]
+    assert names.index("0.bq") == names.index("0.wo") + 1
+
+
+def _cross_both_ways(tmp_path, fmt, arch_name):
+    """The same host state saved by both sides, the same bytes; each side
+    restores the other's.  Returns the port's checkpoint path."""
     rs = _ref()
-    rmodel, rmesh, cfg, rst, host = _ref_tiny()
+    rmodel, rmesh, cfg, rst, host = _ref_tiny(arch_name)
     rpath = rst.save(str(tmp_path / "ref"), 5, fmt=fmt, meta={"world": 1})
-    model, mesh, _ = _tiny()
+    model, mesh, _ = _tiny(arch_name=arch_name)
     st = ts.ZeroState(model, mesh, step=5).place_global(host["params"],
                                                         host["opt"])
     path = st.save(str(tmp_path / "port"), fmt=fmt, meta={"world": 1})
@@ -412,6 +434,7 @@ def test_world1_checkpoints_cross_both_ways(tmp_path, fmt):
     if fmt == "fp32":
         for k, v in back.params.items():
             _same(v.numpy(), host["params"][k])
+    return path
 
 
 def test_a_trailing_dim_the_block_does_not_divide_is_stored_raw(tmp_path):

@@ -36,7 +36,20 @@ and reads its rows of the same global ``SyntheticLM`` batch.
   (e) one full-ZeRO++ step of gemma3-4b reduced to 8 layers (one period
       of 5 ``local`` and 1 ``attn`` layers and a ``rem`` group of 2
       ``local`` ones, window 8, gelu) at world 4, at (a)'s full-ZeRO++
-      bar: the ``rem`` group under qgZ.
+      bar: the ``rem`` group under qgZ;
+  (f) one full-ZeRO++ step of qwen2-vl-72b reduced (QKV biases seeded
+      nonzero, no embedding group, the stub's embeddings and (t, t // 16,
+      t % 16) positions) at 2 × 2 with batch 2: rows over ``data``, the
+      sequence over ``model``, so ``positions`` (3, B, S) is cut on its
+      axes 1 and 2.  The step-1 loss is the reference's
+      ``build_train_step``'s on 4 simulated devices within 1e-5; every
+      rank's counted bytes per ``zero.*`` label equal the reference's
+      projection (its ``comm_events`` folded by ``step_wire_by_label`` at
+      depth 0, which has no ``embed`` site) and per tier the reference's
+      jaxpr-measured ``per_tier_wire``: both count the K/V gathers and
+      reduce-scatters of the sharded sequence on the ``model`` tier (the
+      port under ``other``); the port's two scalar all-reduces on the
+      ``data`` tier, which the jaxpr walk does not count, are taken out.
 
 Every rank runs all of its variants in one spawn (one for world 4, one for
 world 8), while the reference's subprocess runs beside them.  The module
@@ -64,6 +77,7 @@ from repro_torch.core.zeropp import ZeroConfig               # noqa: E402
 from repro_torch.data import synthetic as tsyn               # noqa: E402
 from repro_torch.launch import mesh as mesh_lib              # noqa: E402
 from repro_torch.launch import train as tlaunch              # noqa: E402
+from repro_torch.obs.report import projected_wire_by_label   # noqa: E402
 from repro_torch.models import attention as tattn           # noqa: E402
 from repro_torch.models.model import Model                   # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
@@ -99,6 +113,28 @@ def _gemma3():
     """(e): one (5 local, 1 attn) period and a rem group of 2 local layers,
     window 8, gelu; vocab 128 as gpt-350m reduced, so the same batch."""
     return get_config("gemma3-4b").reduced(n_layers=8)
+
+
+def _qwen2_vl():
+    """(f): QKV bias, M-RoPE and embedding inputs, vocab 128."""
+    return get_config("qwen2-vl-72b").reduced()
+
+
+VL_BATCH = 2                # (f): rows over data, the sequence over model
+
+
+def _vl_params(world):
+    """(f)'s global buffers, the biases drawn nonzero."""
+    model = _port_model(world, _qwen2_vl())
+    p = _init(model, 4)
+    rng = np.random.default_rng(5)
+    spec = model.period_spec
+    for name, _ in spec.entries:
+        if name.split(".")[-1] in ("bq", "bk", "bv"):
+            off, n = spec.offsets[name]
+            p["blocks"][:, off:off + n] = 0.5 * rng.standard_normal(
+                (p["blocks"].shape[0], n))
+    return p
 
 
 def _batch(rows, step=0):
@@ -187,14 +223,39 @@ for name, variant, accum, steps in (("baseline", "baseline", 1, 8),
                                                     ts.in_specs[2]))
         losses.append(float(met["loss"]))
     out["curve." + name] = np.array(losses)
+# (f) qwen2-vl-72b reduced at 2 x 2, batch 2: rows over data, the sequence
+# over model; the step-1 loss, the projection (depth 0) and the jaxpr's tiers
+from repro.core.zeropp import step_wire_by_label
+from repro.launch.jaxpr_analysis import analyze_jaxpr
+varch = get_config("qwen2-vl-72b").reduced()
+m = Model(varch, make_policy(varch, AXES, "zeropp", prefetch=0, **F32).zcfg,
+          world=4)
+vb = {k[3:]: d[k] for k in d if k.startswith("vb.")}
+cfg = AdamWConfig(lr=LR)
+ts = trainer.build_train_step(m, mesh, cfg, donate=False,
+                              global_batch=len(vb["targets"]))
+assert ts.run_spec.seq_axes == ("model",), ts.run_spec.seq_axes
+p = tree("v4.")
+o = init_opt_state(p, cfg)
+b = trainer.place_batch(vb, mesh, ts.in_specs[2])
+sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+coll = analyze_jaxpr(jax.make_jaxpr(ts.fn)(p, o, b), sizes)["collectives"]
+_, _, met = ts.fn(p, o, b)
+out["vl.loss"] = np.asarray(met["loss"])
+for k, v in step_wire_by_label(m.comm_events(), m.zcfg, sizes).items():
+    out["vl.proj." + k] = np.asarray(v)
+for k, v in coll["per_tier_wire"].items():
+    out["vl.tier." + k] = np.asarray(v)
 np.savez(sys.argv[2], **out)
 """
 
 
-def _step_rank(rank, world, p4, batch, g4):
+def _step_rank(rank, world, p4, batch, g4, v4, vbatch):
     """(a), (c) at world 4: each variant's loss and gradient shards from
     ``loss_and_grads``, then one step's metrics, parameter and moment
-    shards; (e) the same of the reduced gemma3-4b under full ZeRO++."""
+    shards; (e) the same of the reduced gemma3-4b under full ZeRO++; (f)
+    one step of the reduced qwen2-vl-72b at batch 2: its metrics, its
+    sequence axes and its counted bytes by label and by tier."""
     out = {}
     tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
     mesh = mesh_lib.make_mesh(STEP_MESH)
@@ -216,6 +277,22 @@ def _step_rank(rank, world, p4, batch, g4):
                          grads=to_numpy(grads), params=to_numpy(params),
                          opt=to_numpy(opt),
                          met={k: float(v) for k, v in m.items()})
+    arch = _qwen2_vl()
+    pol = make_policy(arch, mesh_lib.AXES, "zeropp", mesh=mesh, **TF32)
+    model = Model(arch, pol.zcfg, world=world, device="cpu")
+    step = trainer.build_train_step(model, AdamWConfig(lr=LR), device="cpu",
+                                    global_batch=VL_BATCH, mesh=mesh)
+    params = params_from_numpy(v4, model, rank=rank, world=world)
+    tb = {k: torch.from_numpy(v).float() if k == "embeds"
+          else torch.from_numpy(v).long() for k, v in vbatch.items()}
+    before, before_t = tlaunch.comm_bytes(), tlaunch.tier_bytes()
+    m = step.fn(params, init_opt_state(params), tb)
+    out["qwen2_vl"] = dict(met={k: float(v) for k, v in m.items()},
+                           seq_axes=step.run_spec.seq_axes,
+                           comm=tlaunch.comm_since(before),
+                           tiers=tlaunch.tier_since(before_t),
+                           projected=projected_wire_by_label(
+                               model, dict(zip(mesh.axes, mesh.shape))))
     return out
 
 
@@ -239,11 +316,17 @@ def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("multirank")
     p4, p8 = _init(_port_model(4), 1), _init(_port_model(8), 2)
     g4 = _init(_port_model(4, _gemma3()), 3)
+    v4 = _vl_params(4)
+    vl = _qwen2_vl()
+    vbatch = tsyn.make_batch(vl, tsyn.SyntheticLM(vl.vocab, SEQ, seed=7), 0,
+                             VL_BATCH)
     batch = _batch(STEP_BATCH)
     arrays = {"lr": np.float32(LR)}
     arrays.update({"p4." + k: v for k, v in p4.items()})
     arrays.update({"g4." + k: v for k, v in g4.items()})
     arrays.update({"p8." + k: v for k, v in p8.items()})
+    arrays.update({"v4." + k: v for k, v in v4.items()})
+    arrays.update({"vb." + k: v for k, v in vbatch.items()})
     arrays.update({"b." + k: v for k, v in batch.items()})
     np.savez(d / "in.npz", **arrays)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -255,7 +338,7 @@ def runs(tmp_path_factory):
                                 str(d / "in.npz"), str(d / "out.npz")],
                                env=env, stdout=log, stderr=subprocess.STDOUT)
         try:
-            step = mesh_lib.spawn(_step_rank, 4, p4, batch, g4,
+            step = mesh_lib.spawn(_step_rank, 4, p4, batch, g4, v4, vbatch,
                                   device="cpu")
             curve = mesh_lib.spawn(_curve_rank, 8, p8, device="cpu")
             ref.wait(timeout=300)
@@ -364,6 +447,40 @@ def test_world4_gemma3_step_matches_reference_with_full_zeropp(runs):
                           {k: step_bars.moment_dir(to, k) for k in tp},
                           {k: step_bars.moment_dir(jo, k) for k in tp}, LR,
                           far)
+
+
+def test_world4_qwen2_vl_rows_and_sequence_match_reference(runs):
+    """(f): the positions' tiling (rows on axis 1, the sequence on axis 2)
+    and the missing embedding site, against the reference."""
+    ranks, ref = [r["qwen2_vl"] for r in runs["step"]], runs["ref"]
+    assert all(r["seq_axes"] == ("model",) for r in ranks)
+    mets = [r["met"] for r in ranks]
+    assert all(m == mets[0] for m in mets), "ranks disagree on the metrics"
+    assert np.isfinite(mets[0]["loss"])
+    assert abs(mets[0]["loss"] - float(ref["vl.loss"])) <= 1e-5, \
+        (mets[0]["loss"], float(ref["vl.loss"]))
+    assert mets[0]["tokens"] == VL_BATCH * SEQ
+    proj = {k[len("vl.proj."):]: float(v) for k, v in ref.items()
+            if k.startswith("vl.proj.")}
+    tiers = {k[len("vl.tier."):]: float(v) for k, v in ref.items()
+             if k.startswith("vl.tier.") and v}
+    # other: the K/V of a rank's tile (1 row x SEQ / 2 positions, fp32)
+    # gathered in the forward and the recompute and reduce-scattered in
+    # the backward, on the model tier, which the reference's jaxpr walk
+    # counts there too; and the two scalar all-reduces over the world
+    arch = _qwen2_vl()
+    kv = (SEQ // 2) * arch.n_kv_heads * arch.head_dim * 4
+    kv_other = arch.n_layers * 6 * kv * (2 - 1)
+    scalars = 2 * (4 + 12) * 3 / 4
+    for r in ranks:
+        zero = {k: v for k, v in r["comm"].items() if k != "other"}
+        assert zero == r["projected"] == {k: v for k, v in proj.items()
+                                          if v}, (zero, proj)
+        t = r["tiers"]
+        assert r["comm"]["other"] == kv_other + scalars
+        assert (t["model.other"], t["data.other"]) == (kv_other, scalars)
+        assert {"model": t["model"], "data": t["data"] - scalars} == tiers, \
+            (t, tiers)
 
 
 def test_world4_loss_equals_world1_loss(runs):

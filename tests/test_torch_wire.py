@@ -3,8 +3,9 @@
   (a) the arithmetic: ``comm_volume_per_step``, ``event_wire_bytes`` and
       ``step_wire_by_label`` of the port equal the reference's to the byte
       on the reference's own event list (``Model.comm_events()`` at depth
-      0), for qwen3-0.6b at full width, gpt-350m reduced and gemma3-4b
-      reduced to 8 layers (a ``rem`` site), under ``zeropp`` and
+      0), for qwen3-0.6b at full width, gpt-350m reduced, gemma3-4b
+      reduced to 8 layers (a ``rem`` site) and qwen2-vl-72b reduced (no
+      ``embed`` site), under ``zeropp`` and
       ``baseline``, at 1 x 1, 2 x 2, 4 x 2 and 2 x 2 x 2; the port's
       ``Model.comm_events()`` equals the reference's at depth 0 event for
       event, and at depths 1 and 2 the reference's minus k events per
@@ -83,7 +84,9 @@ SIZES = {"1x1": (1, 1), "2x2": (2, 2), "4x2": (4, 2), "2x2x2": (2, 2, 2)}
 ARCHS = {"qwen3-0.6b": ("qwen3-0.6b", None),
          "gpt-350m-reduced": ("gpt-350m", {}),
          # one (5 local, 1 attn) period and a rem group of 2 local layers
-         "gemma3-4b-reduced": ("gemma3-4b", {"n_layers": 8})}
+         "gemma3-4b-reduced": ("gemma3-4b", {"n_layers": 8}),
+         # no embedding site; QKV biases in the layer groups
+         "qwen2-vl-72b-reduced": ("qwen2-vl-72b", {})}
 VARIANTS = ("zeropp", "baseline")
 # (b): the reference's _prefetch_env: gpt-350m reduced to 4 layers on 4 x 2
 N_LAYERS = 4
@@ -203,7 +206,8 @@ def _sizes(shape):
 @pytest.mark.parametrize("arch_name", sorted(ARCHS))
 def test_wire_arithmetic_equals_the_reference(arch_name, variant, size):
     """At ring depth 0 the events are the reference's one for one (with a
-    ``rem`` group: its site's three, 15 events in all); at depth 1 the
+    ``rem`` group: its site's three, 15 events in all; with no embedding
+    group, 3 fewer); at depth 1 the
     reference's less its k wrap-around events per block phase (none when
     the loop has one step: gemma3-4b reduced, one period)."""
     from repro.core import zeropp as rz
@@ -213,7 +217,9 @@ def test_wire_arithmetic_equals_the_reference(arch_name, variant, size):
     pm = _port_model(*ARCHS[arch_name], variant, world, axes=axes)
     ev = rm.comm_events()
     assert pm.comm_events() == ev
-    assert len(ev) == (15 if rm.rem_spec else 12)
+    assert len(ev) == (15 if rm.rem_spec else 12) - (
+        3 if rm.embed_spec is None else 0)
+    assert ("embed" in {e["site"] for e in ev}) == (pm.embed_spec is not None)
     assert ("rem" in {e["site"] for e in ev}) == (pm.rem_spec is not None)
     deep = _ref_model(*ARCHS[arch_name], variant, world, 1, axes)
     k = pm.zcfg.effective_prefetch(pm.n_periods)
