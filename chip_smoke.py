@@ -24,8 +24,9 @@ last line is printed.
    chain a rank of phase 6's 2 x 2 world runs at a layer group: B3 on (2,
    2, 3,932,928), B4 and B5 at N = 2) all bit-identical; B8 dequant-GEMM
    within fp32 rtol 1e-5, atol 1e-5·max|out| (summation order), at the
-   head's decode (T = 4) and prefill (T = 1) shapes, the broadcast layout
-   (NB = 1) and edge inputs
+   head's decode (T = 4) and prefill (T = 1) shapes, the paged engine's
+   (T = 32, a prefill chunk; T = 20, a speculative verify at 4 slots),
+   the broadcast layout (NB = 1) and edge inputs
    (T 1-9 and 17, N 1, 31 and 4,097, (K, NB) (64, 1), (1024, 4) and (4096,
    16); rows of all -128 and all +-127; scales +-0, subnormal, 3.4e38, inf
    and NaN, with NaN and inf where the plain version has them; bf16 and
@@ -69,6 +70,25 @@ last line is printed.
    every kernel's launch count over the run is > 0 and equals what the
    code issues per model call; prints greedy agreement, TTFT, decode
    tokens/s and ms per decode step.
+3b. Paged serving phase, on phase 3's model, params and prompts:
+   ``ServeEngine(pool="paged", n_slots=4, kv_len=2048, page_size=16)``
+   (chunks of 32).  The six requests: every one finishes, each
+   request's first-token logits within ``LOGIT_ATOL`` of its raw prefill
+   and each paged decode step held by phase 3's rule against the request
+   alone, teacher-forced on the engine's tokens (rows of phase 3's alone
+   runs reused where the token streams agree, recomputed from the first
+   token that differs), B1, B2 and B8 launched per-call x model calls.
+   The prefix wave: three prompts sharing 512 tokens (suffixes of 40,
+   120 and 200), the second and third submitted once the first has
+   finished its prefill: at least 2 hits reusing 1,024 tokens; the first
+   prompt resubmitted after it retired must give bit-identical
+   first-token logits; every refcount 0 after the drain.  Speculative
+   decoding (``spec_tokens=4``) of the first four prompts, self-drafted
+   (mean accepted > 1) and by qwen3-0.6b's widths at 4 layers (seed 1),
+   every verify row that produced a token held by the same rule, and the
+   launches of both models.  Prints TTFT, ms per decode step and
+   tokens/s beside the slab engine's, the tokens a target step under
+   each drafter, the arenas' bytes and the phase's seconds.
 4. Train-parity phase: qwen3-0.6b widths at 2 layers and a vocabulary of
    8192 (4 unembedding chunks), fp32 compute, full ZeRO++: one
    ``loss_and_grads`` on the card (kernels) and on the CPU (plain
@@ -244,7 +264,8 @@ INT4 slices and its B5 over 4 contributions, and B5 with ``init`` (the
 quantized ring's dequantize-and-add), each bit-identical and timed.
 
 The line before the last is the kernels' JSON record (every kernel: its
-launches on each path, its error against the plain version, its time, the
+launches on each path — B1, B2 and B8 on ``serve_paged`` and
+``serve_spec`` too —, its error against the plain version, its time, the
 plain version's, its bound and, for B6/B7, SDPA's; B6/B7 at hd 256 as
 ``flash_fwd_hd256``/``flash_bwd_hd256``, the same wrappers and counters
 on the gemma3 path; at GQA 8 as ``flash_fwd_gqa8``/``flash_bwd_gqa8`` and
@@ -308,6 +329,16 @@ FLUSH_BYTES = 256 << 20        # > 50 MB L2: every timed launch starts cold
 PROMPTS = (7, 33, 120, 257, 600, 1500)
 MAX_NEW = 32
 N_SLOTS, KV_LEN = 4, 2048
+# the paged serving phase (after phase 3, on its model, params and
+# prompts): the page size (the chunk is the engine's default, 2 pages);
+# the prefix wave, PREFIX_LEN shared tokens and a suffix of its own for
+# each prompt, PREFIX_NEW tokens each; speculative decoding of the first
+# N_SLOTS prompts, SPEC_TOKENS drafts a round, self-drafted and by
+# qwen3-0.6b's widths at DRAFT_LAYERS layers
+PAGE_SIZE = 16
+PAGED_CHUNK = min(KV_LEN, 2 * PAGE_SIZE)       # the engine's default chunk
+PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_NEW = 512, (40, 120, 200), 8
+SPEC_TOKENS, DRAFT_LAYERS = 4, 4
 # first-token logits, engine (bucket-padded prefill inside a batch of
 # requests) vs the request's own unpadded prefill: both bf16 end to end
 # through 28 layers, different sequence lengths (and, for the 1500-token
@@ -459,8 +490,11 @@ QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
                  "dequant_matmul_tc_kernel": "B8 dequant_matmul",
                  "dequant_matmul_kernel": "B8 dequant_matmul"}
 # B8: the head's decode and prefill shapes (T rows, one vocab chunk, NB =
-# d/256 scale groups) and the broadcast layout (NB = 1); then edge shapes
+# d/256 scale groups), the broadcast layout (NB = 1) and the paged
+# engine's row counts; then edge shapes
 B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1),
+           (32, 37984, 1024, 4),          # a paged prefill chunk
+           (20, 37984, 1024, 4),          # a speculative verify, 4 x 5
            (4, 65536, 2560, 10),          # gemma3-4b's head chunk, decode
            (4, 25344, 8192, 32))          # qwen2-vl-72b's, decode (K 8192)
 B8_EDGE_T = (*range(1, 10), 17)
@@ -625,10 +659,15 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
         w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
                           dtype=torch.int8)
         sc = torch.rand(N, NB, generator=g, device=dev) * 0.01
+        before = platform.LAUNCHES["dequant_matmul"]
         out = dm.dequant_matmul(x, w, sc)
+        n_launch = platform.LAUNCHES["dequant_matmul"] - before
         want = ref.dequant_matmul_ref(x, w, sc)
         if not torch.isfinite(out).all():
             fail("B8 produced non-finite values")
+        # the tensor-core route: one launch per 8 rows of x, per 1,024 of K
+        if n_launch != -(-T // 8) * -(-K // 1024):
+            fail(f"B8 T={T} K={K}: {n_launch} launches counted")
         err = (out - want).abs().max().item()
         tol = 1e-5 * want.abs().max().item()
         if not torch.allclose(out, want, rtol=1e-5, atol=tol):
@@ -637,8 +676,8 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
             fail(f"B8 T={T} N={N} K={K} NB={NB}: two launches differ")
         errs.append(err)
         line = f"B8 dequant_matmul T={T} N={N} K={K} NB={NB}: max abs err " \
-               f"{err:.3e} (tol rtol 1e-5, atol {tol:.3e}), two launches " \
-               f"bit-identical"
+               f"{err:.3e} (tol rtol 1e-5, atol {tol:.3e}), two calls " \
+               f"bit-identical, {n_launch} launches a call"
         if NB > 1:
             ms = median_ms(lambda: dm.dequant_matmul(x, w, sc), flush)
             plain = median_ms(lambda: ref.dequant_matmul_ref(x, w, sc),
@@ -676,9 +715,11 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
                 extra.update(one_tile_ms=one, read_w_ms=read)
                 line += f"; one 16-row tile {one:.4f} ms; torch sum over W's " \
                         f"{N * K:,} bytes (read once) {read:.4f} ms"
-            else:                     # prefill's, beside it
-                extra["t1"] = dict(ms=ms, plain_ms=plain, bound_ms=b8[0],
-                                   library_ms=lib, shape=[T, N, K, NB])
+            else:   # prefill's (T 1), a paged chunk's (32), a verify's (20)
+                extra[f"t{T}"] = dict(ms=ms, plain_ms=plain, bound_ms=b8[0],
+                                      bound_by=b8[1], library_ms=lib,
+                                      shape=[T, N, K, NB], max_abs_err=err,
+                                      launches_per_call=n_launch)
         print(line, flush=True)
         del x, w, sc, out, want
     n_edge = 0
@@ -1398,7 +1439,8 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
 def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
     """Phase 3 on ``cfg`` (default qwen3-0.6b at full width; the gemma3
     phase passes its 8-layer stack) with prompts of ``prompt_lens``
-    tokens."""
+    tokens.  Returns the run's launches, and what the paged phase reuses:
+    the model, its params, the prompts and the engine's stats."""
     cfg = cfg or get_config("qwen3-0.6b")
     z = ZeroConfig(dp_axes=("model",))            # qwZ on, world 1, bf16
     model = Model(cfg, z, world=1, device="cuda")
@@ -1421,32 +1463,10 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
     warm.run(max_steps=10)
     torch.cuda.synchronize()
 
-    eng = ServeEngine(model, params, n_slots=N_SLOTS, kv_len=KV_LEN)
-    calls = {"prefill": 0, "decode": 0}
-    first_logits = []
-    pre, dec = eng._prefill, eng._decode
-
-    def prefill_fn(*a):
-        calls["prefill"] += 1
-        logits, caches = pre.fn(*a)
-        first_logits.append(logits[0, 0].float().clone())
-        return logits, caches
-
-    # per request, the engine's decode logits of its j-th token: j -> (V,)
-    step_logits: dict = {}
-
-    def decode_fn(*a):
-        calls["decode"] += 1
-        logits, caches = dec.fn(*a)
-        for act in eng.slots:
-            if act is not None:
-                step_logits.setdefault(act.req.uid, {})[act.n_gen] = \
-                    logits[act.slot, 0].float().clone()
-        return logits, caches
-
-    eng._prefill = steps.ServeStep(fn=prefill_fn, run_spec=pre.run_spec)
-    eng._decode = steps.ServeStep(fn=decode_fn, run_spec=dec.run_spec)
-    uids = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    cap = Capture()
+    eng = ServeEngine(model, params, n_slots=N_SLOTS, kv_len=KV_LEN,
+                      observer=cap)
+    uids = cap.submit(eng, prompts, MAX_NEW)
     torch.cuda.synchronize()
     platform.reset_launches()
     t0 = time.perf_counter()
@@ -1459,100 +1479,367 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
         if eng.status[u] != "done" or len(res[u]) != MAX_NEW:
             fail(f"request {u} (prompt {n}) did not finish: "
                  f"{eng.status[u]}, {len(res[u])} tokens")
-    model_calls = calls["prefill"] + calls["decode"]
-    # per model call: qwZ gathers of embed + every layer group (a period,
-    # and the rem group) + head norm (quantize + dequantize each) and of
-    # every unemb chunk (quantize only, consumed by one dequant-GEMM each)
-    groups = 1 + model.n_periods + int(model.rem > 0) + 1
-    per_call = {"quantize_blockwise": groups + model.unemb_chunks,
-                "dequantize_blockwise": groups,
-                "dequant_matmul": model.unemb_chunks}
-    for k, per in per_call.items():
-        if launches[k] <= 0 or launches[k] != per * model_calls:
-            fail(f"{k}: {launches[k]} launches, expected {per} x "
-                 f"{model_calls} model calls")
-    print(f"engine: {len(uids)} requests done, {calls['prefill']} prefills "
-          f"+ {calls['decode']} batched decode steps in {wall:.3f} s; "
-          f"launches {launches} (= per-call {per_call} x {model_calls})",
-          flush=True)
+    check_launches("engine", launches, cap, model)
+    print(f"engine: {len(uids)} requests done, {cap.count('prefill')} "
+          f"prefills + {cap.count('decode')} batched decode steps in "
+          f"{wall:.3f} s; launches {launches} (= the sum of each call's "
+          f"{per_call_launches(model)})", flush=True)
 
     # each request alone: raw prefill at its exact length, then decode
     # teacher-forced on the engine's own tokens, so every one of the
     # engine's batched decode steps is held against the same request run
     # alone at the same positions
-    ps = steps.build_prefill_step(model)
-    ds = steps.build_decode_step(model)
-    worst = dec_worst = 0.0
-    shift_min = float("inf")
-    agree = decisive = decisive_agree = 0
-    for i, (u, p) in enumerate(zip(uids, prompts)):
+    holds = []
+    for u, p in zip(uids, prompts):
         toks = res[u]
-        logits, caches = ps.fn(params, {"tokens": torch.from_numpy(
-            p[None, :]).long().cuda()})
-        want = logits[0, -1].float()
-        if not torch.isfinite(want).all() or want.shape != (cfg.vocab,):
-            fail(f"request {u}: standalone prefill logits bad")
-        err = (first_logits[i] - want).abs().max().item()
-        worst = max(worst, err)
-        if err > LOGIT_ATOL:
-            fail(f"request {u} (prompt {len(p)}): first-token logits differ "
-                 f"from its standalone prefill by {err} > {LOGIT_ATOL}")
-        caches = steps.pad_prefill_caches(model, caches, KV_LEN)
-        same = int(int(want.argmax()) == toks[0])
-        req_err = 0.0
-        for j in range(1, MAX_NEW):
-            prev = want
-            lg, caches = ds.fn(params, caches,
-                               {"tokens": torch.tensor([[toks[j - 1]]],
-                                                       device="cuda")},
-                               torch.tensor([len(p) + j - 1], device="cuda"))
-            want = lg[0, -1].float()
-            got = step_logits[u][j]
-            req_err = max(req_err, (got - want).abs().max().item())
-            # what an engine one position behind would have produced
-            shift_min = min(shift_min, (got - prev).abs().max().item())
-            same += int(int(want.argmax()) == toks[j])
-            top2 = torch.topk(want, 2).values
-            if (top2[0] - top2[1]).item() > 2 * DECODE_ATOL:
-                decisive += 1
-                decisive_agree += int(int(want.argmax()) == toks[j])
-        dec_worst = max(dec_worst, req_err)
-        agree += same
+        want = teacher_forced(model, params, p, toks)
+        h = hold_stream(f"request {u} (prompt {len(p)})",
+                        cap.stream(u, len(toks)), want, toks)
+        holds.append(h)
         print(f"  request {u} prompt {len(p):5d}: first-token logits max "
-              f"abs diff {err:.4f}; teacher-forced decode logits max abs "
-              f"diff {req_err:.4f}; greedy agreement {same}/{MAX_NEW}",
-              flush=True)
-    total = len(uids) * MAX_NEW
-    print(f"engine: batched decode vs each request alone (teacher-forced): "
-          f"logits max abs diff {dec_worst:.4f} (bar {DECODE_ATOL}); a "
-          f"one-position slip would differ by at least {shift_min:.4f}; "
-          f"greedy agreement {agree}/{total}, {decisive_agree}/{decisive} "
-          f"where the top-2 gap exceeds {2 * DECODE_ATOL}", flush=True)
-    if dec_worst > DECODE_ATOL:
-        fail(f"batched decode logits differ from the request alone by "
-             f"{dec_worst} > {DECODE_ATOL}")
-    if shift_min <= DECODE_ATOL:
-        fail(f"the decode check cannot tell a one-position slip "
-             f"({shift_min}) from rounding ({DECODE_ATOL})")
-    if decisive_agree != decisive:
-        fail(f"greedy tokens differ at {decisive - decisive_agree} decisive "
-             f"steps")
-    profile_decode(dec.fn, params, eng.pool.caches,
+              f"abs diff {h['first']:.4f}; teacher-forced decode logits max "
+              f"abs diff {h['dec']:.4f}; greedy agreement "
+              f"{h['agree']}/{MAX_NEW}", flush=True)
+    check_holds("engine: batched decode", holds)
+    profile_decode(steps.build_decode_step(model).fn, params,
+                   eng.pool.caches,
                    [len(p) for p in prompts[:N_SLOTS]])
     if model.rem or model.period != ("attn",):
         rings = [c["k"].shape[-3] for c in eng.pool.caches["blocks"]]
         print(f"engine: every prompt prefilled at its exact length "
-              f"({calls['prefill']} prefills); pool cache slots per block "
+              f"({cap.count('prefill')} prefills); pool cache slots per block "
               f"of the period {rings} (local rings of the window), kv_len "
               f"{KV_LEN}", flush=True)
     st = eng.stats()
     print(f"engine: first-token logits vs standalone prefill max abs diff "
-          f"{worst:.4f} (bar {LOGIT_ATOL})", flush=True)
+          f"{max(h['first'] for h in holds):.4f} (bar {LOGIT_ATOL})",
+          flush=True)
     print(f"engine: TTFT p50 {st['ttft_ms']['p50']:.2f} ms (p90 "
           f"{st['ttft_ms']['p90']:.2f}), decode {st['tok_per_s']:.1f} tok/s,"
           f" {st['tok_latency_ms']['p50']:.3f} ms per decode step (p50)",
           flush=True)
-    return launches
+    del eng, warm
+    return {"launches": launches, "model": model, "params": params,
+            "prompts": prompts, "stats": st}
+
+
+class Capture:
+    """An engine's observer: ``calls`` is each model call's kind with the
+    rows of x it passed through the head (B·T), ``rows[uid][p]`` the fp32
+    logits row of the target at the token in position p, from the
+    request's last prompt position on (a later verify overwrites a
+    rejected round's rows)."""
+
+    def __init__(self):
+        self.calls, self.rows, self.lens = [], {}, {}
+
+    def submit(self, eng, prompts, max_new: int) -> list:
+        uids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        self.lens.update((u, len(p)) for u, p in zip(uids, prompts))
+        return uids
+
+    def __call__(self, kind: str, rows: list, logits: torch.Tensor) -> None:
+        self.calls.append((kind, logits.shape[0] * logits.shape[1]))
+        if kind.startswith("draft"):
+            return
+        for uid, r, p in rows:
+            last = self.lens[uid] - 1
+            js = [last - p] if kind == "prefill" else \
+                range(logits.shape[1])
+            for j in js:
+                if 0 <= j < logits.shape[1] and p + j >= last:
+                    self.rows.setdefault(uid, {})[p + j] = \
+                        logits[r, j].float().clone()
+
+    def count(self, *kinds: str) -> int:
+        return sum(k in kinds for k, _ in self.calls)
+
+    def stream(self, uid: int, n: int) -> list:
+        """The rows that produced the request's n tokens, in order."""
+        return [self.rows[uid][self.lens[uid] - 1 + j] for j in range(n)]
+
+
+def per_call_launches(model, rows: int = 1) -> dict:
+    """B1, B2 and B8 launches of one serving model call whose head takes
+    ``rows`` rows of x: qwZ gathers of the embedding, every layer group (a
+    period, and the rem group) and the head norm (quantize + dequantize
+    each) and of every unembedding chunk (quantize only, consumed by one
+    dequant-GEMM each, which launches once per 8 rows of x and per 1,024
+    of K = d_model: csrc/dequant_matmul.cu's kMaxTile and kTcSlab)."""
+    groups = 1 + model.n_periods + int(model.rem > 0) + 1
+    b8 = -(-rows // 8) * -(-model.cfg.d_model // 1024)
+    return {"quantize_blockwise": groups + model.unemb_chunks,
+            "dequantize_blockwise": groups,
+            "dequant_matmul": model.unemb_chunks * b8}
+
+
+def check_launches(tag: str, launches: dict, cap: Capture, model,
+                   dmodel=None) -> None:
+    """B1, B2 and B8 launched exactly as the calls ``cap`` saw add up to,
+    per call of the target and (kinds ``draft*``) of the drafter."""
+    want = {k: 0 for k in per_call_launches(model)}
+    for kind, rows in cap.calls:
+        m = dmodel if kind.startswith("draft") else model
+        for k, n in per_call_launches(m, rows).items():
+            want[k] += n
+    for k, n in want.items():
+        if launches[k] <= 0 or launches[k] != n:
+            fail(f"{tag}: {k} launched {launches[k]} times, expected {n} "
+                 f"over {len(cap.calls)} model calls")
+
+
+def teacher_forced(model, params, prompt, toks) -> list:
+    """The request alone through the raw slab steps, fed ``toks``: row j is
+    the (V,) fp32 logits that predict ``toks[j]`` (the last position of a
+    raw prefill of ``prompt``, then one raw decode step per token)."""
+    ps, ds = steps.build_prefill_step(model), steps.build_decode_step(model)
+    logits, caches = ps.fn(params, {"tokens": torch.from_numpy(
+        prompt[None, :]).long().cuda()})
+    rows = [logits[0, -1].float()]
+    if not torch.isfinite(rows[0]).all() or \
+            rows[0].shape != (model.cfg.vocab,):
+        fail("standalone prefill logits bad")
+    caches = steps.pad_prefill_caches(model, caches, KV_LEN)
+    for j in range(1, len(toks)):
+        lg, caches = ds.fn(params, caches,
+                           {"tokens": torch.tensor([[toks[j - 1]]],
+                                                   device="cuda")},
+                           torch.tensor([len(prompt) + j - 1],
+                                        device="cuda"))
+        rows.append(lg[0, -1].float())
+    return rows
+
+
+def hold_stream(tag: str, rows: list, want: list, toks: list) -> dict:
+    """Hold an engine's logits rows (row j produced ``toks[j]``) against
+    the request alone (``want``): row 0 within LOGIT_ATOL, the later rows
+    within DECODE_ATOL; the witness is how far each row lies from the
+    alone row one position behind (what a one-position slip would give);
+    greedy tokens where the alone top-2 gap exceeds 2·DECODE_ATOL."""
+    err0 = (rows[0] - want[0]).abs().max().item()
+    if err0 > LOGIT_ATOL:
+        fail(f"{tag}: first-token logits differ from the request alone by "
+             f"{err0} > {LOGIT_ATOL}")
+    h = {"n": len(toks), "first": err0, "dec": 0.0, "shift": float("inf"),
+         "agree": int(int(want[0].argmax()) == toks[0]), "decisive": 0,
+         "decisive_agree": 0}
+    for j in range(1, len(toks)):
+        h["dec"] = max(h["dec"], (rows[j] - want[j]).abs().max().item())
+        h["shift"] = min(h["shift"],
+                         (rows[j] - want[j - 1]).abs().max().item())
+        same = int(int(want[j].argmax()) == toks[j])
+        h["agree"] += same
+        top2 = torch.topk(want[j], 2).values
+        if (top2[0] - top2[1]).item() > 2 * DECODE_ATOL:
+            h["decisive"] += 1
+            h["decisive_agree"] += same
+    return h
+
+
+def check_holds(tag: str, holds: list) -> None:
+    """Fail unless every held stream lies within DECODE_ATOL of its
+    request alone, the witness tells a one-position slip from rounding,
+    and every decisive greedy token agrees; prints the summary."""
+    dec = max(h["dec"] for h in holds)
+    shift = min(h["shift"] for h in holds)
+    agree = sum(h["agree"] for h in holds)
+    decisive = sum(h["decisive"] for h in holds)
+    decisive_agree = sum(h["decisive_agree"] for h in holds)
+    total = sum(h["n"] for h in holds)
+    print(f"{tag} vs each request alone (teacher-forced): logits max abs "
+          f"diff {dec:.4f} (bar {DECODE_ATOL}); a one-position slip would "
+          f"differ by at least {shift:.4f}; greedy agreement "
+          f"{agree}/{total}, {decisive_agree}/{decisive} where the top-2 "
+          f"gap exceeds {2 * DECODE_ATOL}", flush=True)
+    if dec > DECODE_ATOL:
+        fail(f"{tag}: logits differ from the request alone by {dec} > "
+             f"{DECODE_ATOL}")
+    if shift <= DECODE_ATOL:
+        fail(f"{tag}: the check cannot tell a one-position slip ({shift}) "
+             f"from rounding ({DECODE_ATOL})")
+    if decisive_agree != decisive:
+        fail(f"{tag}: greedy tokens differ at {decisive - decisive_agree} "
+             f"decisive steps")
+
+
+# ----------------------------------------------------------- paged serving
+
+def paged_run(tag: str, model, params, prompts, max_new: int,
+              **kw) -> tuple:
+    """A paged engine (``kw``: its drafter) on ``prompts``, all submitted
+    at once, ``max_new`` greedy tokens each; fails unless every request
+    finishes and B1, B2 and B8 launched as each model's calls add up to.
+    Returns (engine, capture, uids, launches, wall seconds)."""
+    cap = Capture()
+    eng = ServeEngine(model, params, n_slots=N_SLOTS, kv_len=KV_LEN,
+                      pool="paged", page_size=PAGE_SIZE, observer=cap, **kw)
+    uids = cap.submit(eng, prompts, max_new)
+    torch.cuda.synchronize()
+    platform.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(max_steps=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(platform.LAUNCHES)
+    for u, p in zip(uids, prompts):
+        if eng.status[u] != "done" or len(res[u]) != max_new:
+            fail(f"{tag}: request {u} (prompt {len(p)}) did not finish: "
+                 f"{eng.status[u]}, {len(res[u])} tokens")
+    check_launches(tag, launches, cap, model,
+                   kw["draft"][0] if "draft" in kw else None)
+    return eng, cap, uids, launches, wall
+
+
+def paged_phase(ctx: dict) -> tuple:
+    """The paged serving phase on phase 3's model, params and prompts
+    (``ctx``): a plain paged run, the prefix-cache wave and its
+    bit-identical resubmission, and speculative decoding under two
+    drafters; every engine's logits rows held against the request alone
+    (phase 3's rule).  Returns the launches of the paged path (plain run
+    and wave) and of the speculative path."""
+    t_phase = time.perf_counter()
+    model, params, prompts = ctx["model"], ctx["params"], ctx["prompts"]
+    cfg = model.cfg
+
+    def hold(tag, eng, cap, uids, idx):
+        holds = []
+        for u, i in zip(uids, idx):
+            toks, P = eng.results[u], len(prompts[i])
+            holds.append(hold_stream(
+                f"{tag} request {u} (prompt {P})", cap.stream(u, len(toks)),
+                teacher_forced(model, params, prompts[i], toks), toks))
+        check_holds(tag, holds)
+        print(f"{tag}: first-token logits vs the request's raw prefill max "
+              f"abs diff {max(h['first'] for h in holds):.4f} (bar "
+              f"{LOGIT_ATOL})", flush=True)
+
+    def add(total, launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # warm-up: the paged shapes (a chunk, a decode tick) outside the count
+    paged_run("paged warm-up", model, params, prompts[:1], 2)
+    # 1. the plain paged run on phase 3's requests
+    eng, cap, uids, launches, wall = paged_run(
+        "paged serving", model, params, prompts, MAX_NEW)
+    st = eng.stats()
+    paged_launches = dict(launches)
+    print(f"paged serving: {len(uids)} requests done, "
+          f"{st['prefill_chunks']} prefill chunks of {PAGED_CHUNK} + "
+          f"{cap.count('decode')} batched decode steps in {wall:.3f} s; "
+          f"launches {launches} (= the sum of each call's: a chunk "
+          f"{per_call_launches(model, PAGED_CHUNK)}, a decode step "
+          f"{per_call_launches(model, N_SLOTS)})", flush=True)
+    hold("paged serving: batched decode", eng, cap, uids,
+         range(len(prompts)))
+    arena = eng.pool.arena_bytes()
+    slab = ctx["stats"]
+    print(f"paged serving: TTFT p50 {st['ttft_ms']['p50']:.2f} ms (p90 "
+          f"{st['ttft_ms']['p90']:.2f}), {st['tok_latency_ms']['p50']:.3f} "
+          f"ms per decode step (p50), decode {st['tok_per_s']:.1f} tok/s; "
+          f"the slab engine on the same requests: TTFT p50 "
+          f"{slab['ttft_ms']['p50']:.2f} ms (p90 "
+          f"{slab['ttft_ms']['p90']:.2f}), "
+          f"{slab['tok_latency_ms']['p50']:.3f} ms per decode step, "
+          f"{slab['tok_per_s']:.1f} tok/s; page arena {arena} bytes "
+          f"({eng.pool.n_pages} pages of {PAGE_SIZE}), "
+          f"pool {st['pool']}", flush=True)
+    del eng, cap
+
+    # 2. the prefix cache: three prompts sharing PREFIX_LEN tokens, the
+    # second and third submitted once the first has registered its pages
+    # (at the end of its prefill), then the first again after it retired
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, PREFIX_LEN)
+    wave = [np.concatenate([prefix, rng.integers(0, cfg.vocab, n)]).astype(
+        np.int32) for n in PREFIX_SUFFIXES]
+    cap = Capture()
+    eng = ServeEngine(model, params, n_slots=N_SLOTS, kv_len=KV_LEN,
+                      pool="paged", page_size=PAGE_SIZE, observer=cap)
+    torch.cuda.synchronize()
+    platform.reset_launches()
+    u0, = cap.submit(eng, wave[:1], PREFIX_NEW)
+    while not eng.results[u0]:
+        eng.step()
+    later = cap.submit(eng, wave[1:], PREFIX_NEW)
+    eng.run(max_steps=1000)
+    hits = eng.pool.utilization()
+    again, = cap.submit(eng, wave[:1], PREFIX_NEW)
+    eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    launches = dict(platform.LAUNCHES)
+    check_launches("prefix wave", launches, cap, model)
+    add(paged_launches, launches)
+    for u in [u0, *later, again]:
+        if eng.status[u] != "done" or len(eng.results[u]) != PREFIX_NEW:
+            fail(f"prefix wave: request {u} did not finish")
+    u = eng.pool.utilization()
+    print(f"prefix wave: prompts {[len(w) for w in wave]} sharing "
+          f"{PREFIX_LEN} tokens: prefix_hits {hits['prefix_hits']}, "
+          f"prefix_tokens_reused {hits['prefix_tokens_reused']}; the first "
+          f"prompt again after it retired: "
+          f"{u['prefix_tokens_reused'] - hits['prefix_tokens_reused']} "
+          f"tokens reused; {eng.stats()['prefill_chunks']} prefill chunks "
+          f"in all", flush=True)
+    if hits["prefix_hits"] < 2 or \
+            hits["prefix_tokens_reused"] < 2 * PREFIX_LEN:
+        fail(f"prefix wave: {hits['prefix_hits']} hits reusing "
+             f"{hits['prefix_tokens_reused']} tokens, expected >= 2 and >= "
+             f"{2 * PREFIX_LEN}")
+    cold, hit = cap.stream(u0, 1)[0], cap.stream(again, 1)[0]
+    diff = (cold - hit).abs().max().item()
+    print(f"prefix wave: the prefix hit's first-token logits vs the cold "
+          f"run's: {'bit-identical' if torch.equal(cold, hit) else 'DIFFER'}"
+          f" (max abs diff {diff})", flush=True)
+    if not torch.equal(cold, hit):
+        fail(f"prefix wave: the prefix hit's first-token logits differ from "
+             f"the cold run's by {diff}")
+    if (eng.pool.refcount != 0).any():
+        fail(f"prefix wave: refcounts {eng.pool.refcount.max()} after the "
+             f"drain")
+    del eng, cap
+
+    # 3. speculative decoding on the first N_SLOTS prompts: self-drafted,
+    # then an independent drafter (qwen3-0.6b's widths at DRAFT_LAYERS
+    # layers, seed 1)
+    dmodel = Model(dataclasses.replace(cfg, n_layers=DRAFT_LAYERS),
+                   model.zcfg, world=1, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    spec_launches: dict = {}
+    idx = range(N_SLOTS)
+    for tag, draft in (("self-drafted", (model, params)),
+                       (f"{DRAFT_LAYERS}-layer drafter",
+                        (dmodel, dmodel.init_params(g)))):
+        tag = f"speculative ({tag}, spec_tokens {SPEC_TOKENS})"
+        eng, cap, uids, launches, wall = paged_run(
+            tag, model, params, [prompts[i] for i in idx], MAX_NEW,
+            draft=draft, spec_tokens=SPEC_TOKENS)
+        add(spec_launches, launches)
+        hold(tag, eng, cap, uids, idx)
+        st = eng.stats()
+        acc = st["spec_accepted"]
+        # tokens after the first, over the target's verify steps (each
+        # verifies every active row)
+        per_step = sum(len(eng.results[u]) - 1 for u in uids) / \
+            cap.count("verify")
+        print(f"{tag}: {len(uids)} requests in {wall:.3f} s, "
+              f"{cap.count('verify')} verify steps, "
+              f"{cap.count('draft', 'draft_prefill')} drafter calls; tokens a row a target step: mean {acc['mean']:.3f} "
+              f"(p50 {acc['p50']}, cap {SPEC_TOKENS}); {per_step:.3f} "
+              f"tokens emitted a target step over all rows; "
+              f"{st['tok_latency_ms']['p50']:.3f} ms per round (p50), "
+              f"{st['tok_per_s']:.1f} tok/s; arenas "
+              f"{eng.pool.arena_bytes()} + {eng.draft_pool.arena_bytes()} "
+              f"bytes", flush=True)
+        if draft[0] is model and not acc["mean"] > 1.0:
+            fail(f"{tag}: mean accepted {acc['mean']} <= 1")
+        del eng, cap, draft
+    del dmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"paged phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paged_launches, spec_launches
 
 
 def _int4_level(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
@@ -2990,14 +3277,10 @@ def serve_boot(path: Path) -> dict:
                for n in PROMPTS[:N_SLOTS]]
     toks, first = [], []
     for i, e in enumerate((eng, plain)):
-        pre = e._prefill
-
-        def prefill_fn(*a, pre=pre, i=i):
-            logits, caches = pre.fn(*a)
-            if len(first) == i:
+        def keep_first(kind, rows, logits, i=i):
+            if kind == "prefill" and len(first) == i:
                 first.append(logits.clone())
-            return logits, caches
-        e._prefill = steps.ServeStep(fn=prefill_fn, run_spec=pre.run_spec)
+        e.observer = keep_first
         uids = [e.submit(p, max_new_tokens=CKPT_MAX_NEW) for p in prompts]
         torch.cuda.synchronize()
         platform.reset_launches()
@@ -3249,7 +3532,13 @@ def main() -> None:
     rec.update(gemma3_flash_phase(flush))
     rec.update(qwen2_vl_flash_phase(flush))
     del flush
-    by_path = {"serve": engine_phase()}
+    by_path = {}
+    serve3 = engine_phase()
+    by_path["serve"] = serve3["launches"]
+    by_path["serve_paged"], by_path["serve_spec"] = paged_phase(serve3)
+    del serve3
+    gc.collect()
+    torch.cuda.empty_cache()
     train_parity_phase()
     # this slice's path, then the plain-attention run beside it (same seed
     # and batches) so that one call shows both step times
@@ -3263,7 +3552,8 @@ def main() -> None:
         fail("the two attention routes' step-1 losses differ beyond "
              f"{ROUTE_LOSS_ATOL}")
     # gemma3-4b: slab serving, the parity step and the training run
-    by_path["serve_gemma3"] = engine_phase(gemma3_config(), GEMMA_PROMPTS)
+    by_path["serve_gemma3"] = engine_phase(gemma3_config(),
+                                           GEMMA_PROMPTS)["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     gemma3_parity_phase()
@@ -3311,7 +3601,8 @@ def main() -> None:
              "train_ckpt_2x2_to_1") + tuple(
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
-    serve = ("serve", "serve_gemma3", "serve_qwen2_vl", "serve_ckpt")
+    serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",
+             "serve_qwen2_vl", "serve_ckpt")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)

@@ -42,8 +42,10 @@
 //     round robin with consecutive tiles on different blocks;
 //   * deterministic: every sum in a fixed order, no atomics.
 // T above 8 runs one launch per 8-row tile of x, and K above kTcSlab one per
-// slab of K, each adding its partial sums to out (no serving path does
-// either).
+// slab of K, each adding its partial sums to out.  Each launch reads all of
+// W again: the paged engine's prefill chunk (T 32) takes four launches and
+// its speculative verify at 4 slots (T 20) three (PERF.md).  The entry
+// point reports how many launches it made, and the wrapper counts those.
 //
 // fp32 x, or weights not rounded (the fp32 policy): dequant_matmul_kernel,
 // the first port's FFMA kernel: each block stages x in shared memory per
@@ -249,7 +251,7 @@ dequant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
 }
 
 cudaError_t launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scales, float* out,
-                      int T, int N, int K, int NB, cudaStream_t stream) {
+                      int T, int N, int K, int NB, cudaStream_t stream, int* launches) {
   static int resident = 0;         // blocks the card holds at once
   if (resident == 0) {
     int dev, sms, per_sm;
@@ -272,6 +274,7 @@ cudaError_t launch_tc(const __nv_bfloat16* x, const int8_t* w, const float* scal
           k0 > 0);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
+      ++*launches;
     }
   }
   return cudaSuccess;
@@ -406,25 +409,28 @@ extern "C" {
 // (N, NB) f32; out (T, N) f32.  Requires K % 16 == 0 and (K / NB) % 16 ==
 // 0; every pointer contiguous and 16-byte aligned (checked by the wrapper).
 // bf16 x with weights rounded to bf16 takes the tensor cores, the rest the
-// FFMA kernel.
+// FFMA kernel.  *launches is set to the number of kernel launches made.
 int repro_dequant_matmul(int device, const void* x, int x_dtype, const int8_t* w,
                          const float* scales, float* out, int T, int N, int K, int NB,
-                         int round_bf16, void* stream) {
+                         int round_bf16, void* stream, int* launches) {
+  *launches = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (K % 16 || NB <= 0 || K % NB || (K / NB) % 16) return (int)cudaErrorInvalidValue;
   if (T == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 1 && round_bf16)
-    err = launch_tc(static_cast<const __nv_bfloat16*>(x), w, scales, out, T, N, K, NB, s);
-  else if (x_dtype == 1)
+    return (int)launch_tc(static_cast<const __nv_bfloat16*>(x), w, scales, out, T, N, K, NB,
+                          s, launches);
+  if (x_dtype == 1)
     err = launch<__nv_bfloat16, false>(x, w, scales, out, T, N, K, NB, s);
   else if (x_dtype == 0 && round_bf16)
     err = launch<float, true>(x, w, scales, out, T, N, K, NB, s);
   else if (x_dtype == 0)
     err = launch<float, false>(x, w, scales, out, T, N, K, NB, s);
   else
-    err = cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
+  if (err == cudaSuccess) *launches = 1;   // the FFMA kernel: one launch
   return (int)err;
 }
 

@@ -27,7 +27,8 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "repro_dequant_matmul": [ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, _P],
+                             ctypes.c_int, ctypes.c_int, _P,
+                             ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -62,10 +63,14 @@ def dequant_matmul(x: torch.Tensor, payload: torch.Tensor,
     scales = platform.aligned(scales)
     out = torch.empty((T, N), dtype=torch.float32, device=x.device)
     lib = platform.library("dequant_matmul", _ARGTYPES)
+    launches = ctypes.c_int(0)
     err = lib.repro_dequant_matmul(
         x.device.index or 0, x.data_ptr(), platform.DTYPE_CODES[x.dtype],
         payload.data_ptr(), scales.data_ptr(), out.data_ptr(), T, N, K, nb,
-        int(compute_dtype == torch.bfloat16), platform.stream_of(x))
+        int(compute_dtype == torch.bfloat16), platform.stream_of(x),
+        ctypes.byref(launches))
     platform.check(lib, err, "dequant_matmul kernel")
-    platform.LAUNCHES["dequant_matmul"] += 1
+    # the tensor-core route launches once per 8 rows of x and per 1,024 of
+    # K; the entry point says how many it made
+    platform.LAUNCHES["dequant_matmul"] += launches.value
     return out

@@ -4,15 +4,17 @@ Port of the reference's ``models/attention.py`` (``mha`` — dense, and the
 chunked online-softmax ``flash_attention`` with its hand-written VJP —,
 its sequence-parallel KV gather ``_gather_seq`` and ``seq_shard_offset``,
 ``per_seq_pos``, ``decode_attend`` with its ring-buffer slot positions,
-``cache_insert``).  Every route takes the sliding ``window`` of
+``cache_insert``, and the paged arena's ``paged_insert`` and
+``paged_attend``).  Every route takes the sliding ``window`` of
 ``local`` layers as the reference's mask ``q_pos - k_pos < window``, and
 the ``logit_softcap`` c as the reference's ``c·tanh(logits / c)`` on the
 scaled logits before the mask (the chunked backward's chain factor
 ``1 - tanh²``).  Training may shard
 the sequence over ``seq_axes`` (``RunSpec.seq_axes``, the ranks of
 ``seq_group``): queries stay local, K/V are all-gathered in global shard
-order, and the backward reduce-scatters their cotangents.  Decode is not
-sharded, so the reference's pmax/psum combines are left out.  Under the
+order, and the backward reduce-scatters their cotangents.  Decode and
+the paged arena are not sharded, so the reference's pmax/psum combines
+are left out.  Under the
 default ``impl="xla"`` all of it is plain PyTorch, as the reference
 computes it outside any Pallas kernel; the dense path is differentiated by
 autograd.  Under ``impl="pallas"`` (the training step's
@@ -319,3 +321,85 @@ def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
         cur = cache[rows, idx]
         cache[rows, idx] = torch.where(mine, new[:, 0].to(cache.dtype), cur)
     return k_cache, v_cache
+
+
+def paged_write_plan(positions, table, page: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The writes of a (B, T) chunk at ``positions`` through a (B, Pm)
+    page table that land: (flat indices into B·T, their physical pages,
+    their offsets within the page), computed on the tensors' own device.
+    A write is dropped where its logical page is negative, at or past Pm,
+    or maps to -1 (an idle row, or a position past the reservation)."""
+    positions = torch.as_tensor(positions).long()
+    table = torch.as_tensor(table).long().to(positions.device)
+    lp = torch.div(positions, page, rounding_mode="floor")      # (B, T)
+    phys = torch.gather(table, 1, lp.clamp(0, table.shape[1] - 1))
+    ok = (phys >= 0) & (lp >= 0) & (lp < table.shape[1])
+    sel = ok.reshape(-1).nonzero().squeeze(1)
+    return (sel, phys.reshape(-1)[sel],
+            torch.remainder(positions, page).reshape(-1)[sel])
+
+
+def paged_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, positions,
+                 table, plan: Optional[tuple] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter new K/V (B, T, K, hd) into a (N_pages, page, K, hd) arena
+    through per-row page tables (B, Pm), IN PLACE (the reference returns
+    new arrays); the arena is returned for symmetry.  Token j of row b
+    lands at position ``positions[b, j]``: page ``table[b, p // page]``,
+    offset ``p % page``.  Writes that ``paged_write_plan`` drops are
+    masked out of the scatter, so an idle row (an all-(-1) table row) or
+    a speculative write past the reservation touches nothing.  ``plan``
+    is that function's result for these positions and table, on the
+    arena's device (the model computes it once per call for every
+    layer)."""
+    B, T, K, hd = k_new.shape
+    if plan is None:
+        plan = paged_write_plan(positions, table, k_cache.shape[1])
+    sel, rows, cols = (t.to(k_cache.device) for t in plan)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        flat = new.reshape(B * T, K, hd).index_select(0, sel)
+        cache[rows, cols] = flat.to(cache.dtype)
+    return k_cache, v_cache
+
+
+def paged_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, positions, table, *,
+                 softmax_scale: Optional[float] = None,
+                 logit_softcap: float = 0.0) -> torch.Tensor:
+    """Exact attention of (B, T, H, hd) queries at ``positions`` (B, T)
+    over a paged arena (N_pages, page, K, hd) through page tables (B, Pm).
+
+    Each row's pages are gathered into a (B, Pm·page) view in logical
+    order; a key's position is its logical page × page + its offset, -1
+    where the table holds -1.  The mask is causal per query (key position
+    <= query position), so a multi-token row (chunked prefill,
+    speculative verify) sees its own just-inserted keys up to itself.  The
+    normaliser is clamped at 1e-30: an all-(-1) row attends to nothing and
+    yields zeros, not NaN."""
+    B, T, H, hd = q.shape
+    page, K = k_cache.shape[1], k_cache.shape[2]
+    table = torch.as_tensor(table).long().to(q.device)
+    positions = torch.as_tensor(positions).long().to(q.device)
+    Pm = table.shape[1]
+    S = Pm * page
+    safe = table.clamp(min=0)
+    kk = k_cache[safe].reshape(B, S, K, hd)
+    vv = v_cache[safe].reshape(B, S, K, hd)
+    lpos = (torch.arange(Pm, device=q.device)[:, None] * page
+            + torch.arange(page, device=q.device)[None, :])      # (Pm, page)
+    kpos = torch.where((table >= 0)[:, :, None], lpos[None],
+                       -1).reshape(B, S)
+    logits = _cap(_logits(q, kk, softmax_scale or hd ** -0.5),
+                  logit_softcap)                                # (B, H, T, S)
+    valid = (kpos >= 0)[:, None, :] & \
+        (kpos[:, None, :] <= positions[:, :, None])              # (B, T, S)
+    vmask = valid[:, None]
+    logits = torch.where(vmask, logits, NEG_INF)
+    m = logits.amax(dim=-1)                                     # (B, H, T)
+    e = torch.where(vmask, torch.exp(logits - m[..., None]), 0.0)
+    denom = torch.clamp(e.sum(dim=-1), min=1e-30)
+    num = _pv(e.to(q.dtype), vv)                                # (B, T, H, hd)
+    out = num / denom.permute(0, 2, 1)[..., None].to(num.dtype)
+    return out.to(q.dtype)

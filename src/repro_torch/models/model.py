@@ -37,6 +37,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -55,6 +56,14 @@ from repro_torch.models.transformer import (RunSpec, _sub, apply_block,
                                             select_positions)
 
 Params = Dict[str, torch.Tensor]
+
+
+def _host_ints(x) -> torch.Tensor:
+    """An int64 CPU tensor of ``x`` (a tensor on any device, an array or a
+    sequence)."""
+    if torch.is_tensor(x):
+        return x.detach().long().cpu()
+    return torch.as_tensor(np.asarray(x, np.int64))
 
 
 class Model:
@@ -444,6 +453,70 @@ class Model:
                 self._group_fn(rs, pos, self.rem_spec, self.rem_kinds),
                 self.zcfg)(params["rem"], h, caches["rem"])
         return self._head_logits(params, h), caches
+
+    # -------------------------------------------------------------- paged
+
+    def _refuse_paged(self) -> None:
+        if set(self.period) != {"attn"}:
+            raise ValueError("paged serving supports dense attn-only "
+                             f"stacks; got period {self.period}")
+        if self.cfg.mrope:
+            raise ValueError("paged serving does not support mrope")
+
+    @torch.no_grad()
+    def paged_fn(self, params: Params, caches, batch: Dict[str, torch.Tensor],
+                 page_table, start_pos, rs: RunSpec
+                 ) -> Tuple[torch.Tensor, Any]:
+        """One paged-serving step: (B, T) tokens against a page arena.
+
+        ``caches`` hold a PAGE ARENA, (n_pages, page_size, K, hd) per layer
+        shared by every row (``init_paged_caches``), updated IN PLACE and
+        returned; ``page_table`` (B, Pm) maps each row's logical pages to
+        physical ones (-1: the row writes nothing there and attends to
+        nothing there).  Row r's token j sits at position ``start_pos[r] +
+        j``.  One step serves batched decode (T = 1), speculative verify
+        (T = g + 1) and chunked prefill (B = 1, T = chunk); the logits come
+        back for every position, (B, T, V), through the serving head (B8
+        where qwZ's GEMM route is eligible).  The table and positions are
+        read on the host once a call: the writes that land
+        (``attention.paged_write_plan``) are the same for every layer."""
+        self._refuse_paged()
+        cfg, z = self.cfg, self.zcfg
+        h = self._inputs(params, batch)
+        B, T = h.shape[0], h.shape[1]
+        table = _host_ints(page_table)
+        tpos = attn_lib.per_seq_pos(_host_ints(start_pos), B).long()[
+            :, None] + torch.arange(T)                           # (B, T)
+        page = caches["blocks"][0]["k"].shape[2]
+        dev = self.device
+        tpos_d = tpos.to(dev)
+        pos = {"rope": nn.rope_table(tpos_d, cfg.d_head, cfg.rope_theta),
+               "positions": tpos_d, "page_table": table.to(dev),
+               "write_plan": tuple(t.to(dev) for t in
+                                   attn_lib.paged_write_plan(tpos, table,
+                                                             page))}
+        per_period = [tuple({key: c[key][i] for key in ("k", "v")}
+                            for c in caches["blocks"])
+                      for i in range(self.n_periods)]
+        h, _ = zero_scan_inference(
+            self._group_fn(rs, pos, self.period_spec, self.period), z)(
+            params["blocks"], h, per_period)
+        if self.rem_spec:
+            h, _ = zero_apply_inference(
+                self._group_fn(rs, pos, self.rem_spec, self.rem_kinds), z)(
+                params["rem"], h, caches["rem"])
+        return self._head_logits(params, h), caches
+
+    def paged_cache_shapes(self, n_pages: int, page_size: int):
+        """The page arena's shapes: :meth:`cache_shapes` with (batch,
+        kv_len) read as (n_pages, page_size)."""
+        self._refuse_paged()
+        return self.cache_shapes(n_pages, page_size)
+
+    def init_paged_caches(self, n_pages: int, page_size: int,
+                          dtype: torch.dtype = torch.bfloat16):
+        self._refuse_paged()
+        return self.init_caches(n_pages, page_size, dtype)
 
     # ------------------------------------------------------------- caches
 

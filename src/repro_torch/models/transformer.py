@@ -1,4 +1,4 @@
-"""Decoder blocks: training, prefill and decode.
+"""Decoder blocks: training, prefill, decode and paged serving.
 
 Port of the reference's ``models/transformer.py`` for the dense block
 kinds ``attn`` (global causal attention) and ``local`` (sliding-window
@@ -6,10 +6,11 @@ attention over ``cfg.window`` positions): parameter entries (same names,
 shapes and order, so the flat layout matches; the ``bq``/``bk``/``bv``
 biases of ``cfg.qkv_bias`` after ``wo``), ``RunSpec``, the attention
 half (biases added before the head split, ``cfg.logit_softcap`` on every
-route) in its train/prefill and decode branches (a ``local`` layer's decode
-cache is a ring buffer of ``min(window, kv_len)`` slots: position t
-lives in slot t mod capacity, filled at prefill with the prompt's last
-``window`` positions), the MLP half with its ``cfg.act`` gate,
+route) in its train/prefill, decode and paged branches (a ``local``
+layer's decode cache is a ring buffer of ``min(window, kv_len)`` slots:
+position t lives in slot t mod capacity, filled at prefill with the
+prompt's last ``window`` positions; the paged branch serves ``attn``
+layers, the only kind ``Model.paged_fn`` admits), the MLP half with its ``cfg.act`` gate,
 ``apply_block`` and ``select_positions``.  Training may shard the sequence
 (``RunSpec.seq_axes``, ``mha``'s KV gather); serving does not, so the
 reference's ``_last_shard_value`` (replicate the last sequence shard's
@@ -52,7 +53,7 @@ def block_entries(cfg: ArchConfig, kind: str, pre: str
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
     """Static run-mode description."""
-    mode: str = "prefill"              # train | prefill | decode
+    mode: str = "prefill"              # train | prefill | decode | paged
     seq_axes: Tuple[str, ...] = ()     # activation sequence sharding
     seq_group: Any = None              # the process group of seq_axes
     attn_impl: str = "xla"             # xla | pallas (flash kernels B6/B7)
@@ -83,7 +84,18 @@ def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
     k = nn.apply_rope(k, cos, sin)
 
     window = cfg.window if kind == "local" else 0
-    if rs.mode == "decode":
+    if rs.mode == "paged":
+        # the cache is a page arena shared by every row, addressed through
+        # pos["page_table"]: insert the chunk's keys, then attend causally
+        # at pos["positions"] (decode T = 1, verify T = g + 1, prefill
+        # B = 1, T = chunk); Model.paged_fn admits attn layers only
+        kc, vc = attn.paged_insert(cache["k"], cache["v"], k, v,
+                                   pos["positions"], pos["page_table"],
+                                   plan=pos["write_plan"])
+        o = attn.paged_attend(q, kc, vc, pos["positions"], pos["page_table"],
+                              logit_softcap=cfg.logit_softcap)
+        new_cache = {"k": kc, "v": vc}
+    elif rs.mode == "decode":
         # position t in slot t mod capacity: slot == position for a full
         # cache (t < kv_len), the ring of a local layer's window
         cap = cache["k"].shape[1]

@@ -117,6 +117,15 @@ class FIFOScheduler:
             out.append((req, self.bucket_for(len(req.prompt))))
         return out
 
+    def peek(self) -> Optional[Request]:
+        """Head of the queue without popping: the paged engine checks the
+        head's page reservation before committing to a pop (strict FIFO
+        under head-of-line blocking)."""
+        return self._queue[0] if self._queue else None
+
+    def pop(self) -> Request:
+        return self._queue.popleft()
+
     def expire(self, now: float) -> List[Request]:
         """Drop queued requests whose deadline has passed: a request that
         timed out waiting must never occupy a KV slot."""

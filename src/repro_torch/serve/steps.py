@@ -1,7 +1,7 @@
-"""Serving steps: prefill and decode.
+"""Serving steps: prefill, decode and the paged step.
 
-Port of the reference's ``train/serve.py`` ``build_prefill_step`` and
-``build_decode_step`` for one device.
+Port of the reference's ``train/serve.py`` ``build_prefill_step``,
+``build_decode_step`` and ``build_paged_step`` for one device.
 The reference wraps ``Model.prefill_fn``/``decode_fn`` in shard_map and
 jit; here a step is the model call itself, run eagerly on the model's
 device, and ``build_*_step`` fixes the run mode.  Parameters stay in their
@@ -93,3 +93,19 @@ def pad_prefill_caches(model: Model, caches, kv_len: int):
         rem = tuple(grow(kind, c, 1)             # (B, S, K, hd)
                     for kind, c in zip(model.rem_kinds, rem))
     return {"blocks": blocks, "rem": rem}
+
+
+def build_paged_step(model: Model, device="cuda") -> ServeStep:
+    """Paged multi-token step: (params, arena, batch, page_table,
+    start_pos) -> ((B, T, V) logits, arena).  One step serves every paged
+    workload: T = 1 batched decode, T = g + 1 speculative verify and
+    B = 1, T = chunk chunked prefill.  The arena (``init_paged_caches``)
+    is updated in place; the (B, Pm) page table and (B,) start positions
+    may be host arrays (the engine's), read once a call."""
+    _check_device(model, device)
+    rs = RunSpec(mode="paged")
+
+    def fn(params, caches, batch, page_table, start_pos):
+        return model.paged_fn(params, caches, batch, page_table, start_pos,
+                              rs)
+    return ServeStep(fn=fn, run_spec=rs)

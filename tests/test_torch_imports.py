@@ -90,15 +90,22 @@ def test_entry_points_default_to_cuda():
 
 
 def test_engine_refuses_later_slices():
+    """``tune=`` is a later slice's and raises; the paged pool and the
+    speculative drafter construct."""
     from repro_torch.configs import get_config
     from repro_torch.core.zeropp import ZeroConfig
     from repro_torch.models.model import Model
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import PagedKVPool, ServeEngine
 
     model = Model(get_config("qwen3-0.6b").reduced(),
                   ZeroConfig(dp_axes=("model",)), device="cpu")
-    for kw in ({"pool": "paged"}, {"tune": "static"},
-               {"draft": (model, {})}):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu",
+                    tune="static")
+    for kw in ({"pool": "paged"},
+               {"pool": "paged", "draft": (model, {})}):
+        eng = ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu",
+                          **kw)
+        assert isinstance(eng.pool, PagedKVPool)
+        assert (eng.draft_pool is not None) == ("draft" in kw)
 

@@ -563,8 +563,9 @@ def test_launcher_restarts_where_it_saved(tmp_path):
 def test_engine_boots_from_a_checkpoint(tmp_path):
     """``from_checkpoint`` through ``load_serving_params``: bf16 bits of
     ``fit_to`` of the loaded global params (INT8: dequantized), greedy
-    tokens equal to an engine given those params; another arch's
-    checkpoint and the refused modes raise."""
+    tokens equal to an engine given those params, and a paged engine
+    booted from the same checkpoint serves the same tokens; another
+    arch's checkpoint and a missing one raise."""
     arch = get_config("gpt-350m").reduced()
     model, mesh, st = _tiny(seed=5)
     d = str(tmp_path / "q")
@@ -593,9 +594,11 @@ def test_engine_boots_from_a_checkpoint(tmp_path):
     with pytest.raises(ValueError, match="written for arch"):
         ServeEngine.from_checkpoint(other, d, n_slots=1, kv_len=64,
                                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine.from_checkpoint(serve, d, n_slots=1, kv_len=64,
-                                    device="cpu", pool="paged")
+    paged = ServeEngine.from_checkpoint(serve, d, n_slots=2, kv_len=64,
+                                        device="cpu", pool="paged")
+    uids = [paged.submit(p, max_new_tokens=4) for p in prompts]
+    res = paged.run(max_steps=100)
+    assert [res[u] for u in uids] == toks[1]
     with pytest.raises(FileNotFoundError):
         ServeEngine.from_checkpoint(serve, str(tmp_path / "none"),
                                     n_slots=1, kv_len=64, device="cpu")
