@@ -58,8 +58,9 @@ last line is printed.
    two launches on the same inputs must give the same bits.  Beside their
    times: SDPA's at the same shape (forward, and backward), a yardstick
    that the port never calls, and both routes' times at (B 1, S 1024).
-3. Engine phase: qwen3-0.6b at full width (28 layers, d 1024, vocab
-   151936), bf16 weights from a seeded generator, on
+3. Engine phase: qwen3-0.6b at full width (d 1024, vocab 151936) cut to
+   ``CUT_LAYERS`` = 7 of its 28 layers (to keep the script inside its
+   time; phase 13 serves all 28), bf16 weights from a seeded generator, on
    ``ServeEngine(n_slots=4, kv_len=2048)``: six greedy requests (prompts
    7, 33, 120, 257, 600 and 1500 tokens — the last prefills in the 2048
    bucket, through the chunked attention path — 32 new tokens each, so
@@ -98,7 +99,12 @@ last line is printed.
    reference (loss within 1e-5; a gradient element beyond rtol 1e-5 /
    atol 1e-6 only by at most one INT4 step of its block, in fewer than 1
    of 1,000 elements), with the step read on both sides' block scales,
-   which must agree to rtol 1e-5.
+   which must agree to rtol 1e-5.  The CPU halves of this phase's and
+   phases 10 and 12's parity steps run in a process of their own from
+   the script's start (``ParityCPU``, ``PARITY_THREADS`` threads), beside
+   the kernel, parity and single-card training phases; the serving
+   phases (3, 3b, 10's and 12's engines, then 11 and 13), whose time goes
+   to the host, start only after it has ended.
 5. Train phase: ``repro_torch.launch.train.train_loop`` at full width
    (28 layers, bf16 compute, fp32 master and moments, full ZeRO++ on a
    one-rank ("data", "model") world), 8 steps of ``SyntheticLM`` batches
@@ -148,6 +154,8 @@ last line is printed.
    (``zeropp.comm_volume_per_step``) with their cut.  The synchronous
    run saves a checkpoint after its last step (``--ckpt-dir
    --ckpt-every``: every rank its shard file); phase 11 restores it.
+   Phases 6, 7 and 8 run in one spawn of the four ranks (one start and
+   one warm-up for their seven runs); each is checked as set out here.
 7. Sequence-parallel phase: the 2 x 2 world at a global batch of
    ``SP_BATCH`` x 2048, which covers only ``data``: each rank holds one
    row's half of the sequence (1,024 tokens), ``mha`` all-gathers K/V
@@ -162,7 +170,7 @@ last line is printed.
    gathers and reduce-scatters); prints what phase 6 prints.
 8. Knob phase: the paper's ablation knobs on the 2 x 2 world (qwen3-0.6b
    full width, --attn pallas, batch 8, phase 6's seed, batches and lr),
-   ``KNOB_STEPS`` steps of each in one spawn of four ranks, passed to
+   ``KNOB_STEPS`` steps of each in phase 6's ranks, passed to
    ``train_loop`` as ``ZeroConfig`` overrides: ``qgz_2hop=False`` (the
    1-hop all-to-all: B1 and B5 at N = 4, no B3/B4), ``qgz_bits=8`` (B3/B4/
    B5 at INT8), ``qwz_blocked=False`` (one scale a shard, plain PyTorch:
@@ -180,13 +188,15 @@ last line is printed.
    equals ``quantize_global`` / ``dequantize_global`` of every shard on
    the host, bit for bit.
 9. Multi-pod phase: the 2 x 2 x 2 ("pod", "data", "model") world, eight
-   rank processes of qwen3-0.6b at full width on the one card, batch 8
+   rank processes of qwen3-0.6b at full width cut to ``CUT_LAYERS`` = 7
+   of its 28 layers, on the one card, batch 8
    (one row a rank), --attn pallas: ``MP_STEPS`` steps at the default
    config (qgZ's inter hop over ("pod", "data"): B5 at N = 4), then
    ``MP_HPZ_STEPS`` with ``hpz_axes=("data", "model")`` (one pod), in one
    spawn.  The gate on every rank (``MP_MIB``, ``MP_HPZ_MIB``), finite
-   losses, the step-1 loss within ``MR_LOSS1_ATOL`` of phase 5's on the
-   same rows and the hpZ run's equal to the default's; prints each rank's
+   losses, the step-1 loss within ``MR_LOSS1_ATOL`` of a world-1 run of
+   the same cut model on the same rows (run first, in this process) and
+   the hpZ run's equal to the default's; prints each rank's
    step times and peak, and rank 0's profiled step (host wall, device
    busy share, gloo host time by label).
 
@@ -256,24 +266,40 @@ last line is printed.
    positions plus 4 decode steps against one prefill of 128, relative
    2e-2 and the same argmax; then the bf16 path (B8 in the head) at 4
    rows, its decode step timed and profiled.
+13. Sharded serving phase (after phase 11, booted from its world-1 INT8
+   checkpoint): four ranks of a 2 x 2 world over gloo, qwen3-0.6b at
+   full width, ``ServeEngine.from_checkpoint(mesh=)`` (each rank its
+   shard of every buffer) serving phase 3's first four prompts,
+   ``CKPT_MAX_NEW`` greedy tokens each, through the slab engine (slots
+   over "data", each slot's cache sequence over "model": B8 at 2 rows a
+   rank) and the paged engine (page 16, chunks of 32, each page's tokens
+   over "model").  Every rank must emit the same tokens, launch B1, B2
+   and B8 as its calls add up to, and count a call's qwZ bytes at the
+   training forward's 546.025 MiB; every logits row rank 0 saw is held
+   against the world-1 model on the same checkpoint teacher-forced
+   (phase 3's rule).  Prints ms a decode tick, TTFT, tokens/s, MiB a
+   rank a call by label and rank 0's profiled decode step.  Phase 2 also
+   times B1 on a rank's layer-group shard there (3,932,928 elements)
+   and B8 at T = 2.
 
-The kernel phase also holds B1-B5 at the knobs' shapes and widths
-(``knob_kernel_phase``): the INT8 qgZ chain of a 2 x 2 rank at a layer
-group, B5 at N = 4 (the 2 x 2 x 2 inter hop), the 1-hop's B1 on (4, L)
-INT4 slices and its B5 over 4 contributions, and B5 with ``init`` (the
-quantized ring's dequantize-and-add), each bit-identical and timed.
+Every phase prints its seconds. The kernel phase also holds B1-B5 at the
+knobs' shapes and widths (``knob_kernel_phase``): the INT8 qgZ chain of
+a 2 x 2 rank at a layer group, B5 at N = 4 (the 2 x 2 x 2 inter hop),
+the 1-hop's B1 on (4, L) INT4 slices and its B5 over 4 contributions,
+and B5 with ``init`` (the quantized ring's dequantize-and-add), each
+bit-identical and timed.
 
 The line before the last is the kernels' JSON record (every kernel: its
-launches on each path — B1, B2 and B8 on ``serve_paged`` and
-``serve_spec`` too —, its error against the plain version, its time, the
-plain version's, its bound and, for B6/B7, SDPA's; B6/B7 at hd 256 as
+launches on each path — B1, B2 and B8 on ``serve_paged``,
+``serve_spec``, ``serve_sharded`` and ``serve_sharded_paged`` too —, its
+error against the plain version, its time, the plain version's, its
+bound and, for B6/B7, SDPA's; B6/B7 at hd 256 as
 ``flash_fwd_hd256``/``flash_bwd_hd256``, the same wrappers and counters
-on the gemma3 path; at GQA 8 as ``flash_fwd_gqa8``/``flash_bwd_gqa8`` and
-B8 at K 8192 as ``dequant_matmul_k8192`` on the qwen2-vl paths; B1-B5's
-records carry qwen2-vl's group shapes in their extras); the whole run's
-seconds come before it; the last
-line is
-``{"ok": true, "device": {...}}``.
+on the gemma3 path; at GQA 8 as ``flash_fwd_gqa8``/``flash_bwd_gqa8``
+and B8 at K 8192 as ``dequant_matmul_k8192`` on the qwen2-vl paths;
+B1-B5's records carry qwen2-vl's group shapes in their extras); the
+whole run's seconds come before it; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -400,6 +426,9 @@ QWEN2VL_TRAIN_BATCH, QWEN2VL_TRAIN_SEQ, QWEN2VL_TRAIN_STEPS = 4, 2048, 4
 QWEN2VL_PARITY_VOCAB, QWEN2VL_PARITY_SEQ = 4096, 512
 QWEN2VL_PROMPT, QWEN2VL_EXTRA, QWEN2VL_SERVE_REL = 124, 4, 2e-2
 QWEN2VL_DECODE_ROWS, QWEN2VL_DECODE_STEPS = 4, 8
+# the CPU halves of the parity steps run in a process of their own from
+# the script's start, on this many threads, beside the card's phases
+PARITY_THREADS, PARITY_TIMEOUT_S = 4, 900
 # step-1 losses of the two attention routes: bf16 through 28 layers, with
 # kv tiles summed in other orders (64-wide vs 1024-wide chunks)
 ROUTE_LOSS_ATOL = 1e-2
@@ -419,6 +448,15 @@ MR_TIMEOUT_S = 600
 # the same world's synchronous schedule (--prefetch 0), held bit for bit
 # against the ring's first steps
 MR_SYNC_STEPS = 2
+# the world-1 serving phases (3 and 3b) and the 2 x 2 x 2 phase run
+# qwen3-0.6b at full width cut to CUT_LAYERS, a quarter of its 28 layers,
+# to keep the script inside its time: phases 3 and 3b hold every stream
+# against the same cut model alone, phase 9 its step-1 loss against a
+# world-1 run of the cut model, run here first.  Phase 6, the
+# sequence-parallel phase, the knobs and the checkpoints keep the 28
+# layers (the sequence-parallel phase's loss did not fall over its 3 steps
+# at 7 layers on an H100: 12.4214, 12.3965, 12.4461)
+CUT_LAYERS = 7
 # the sequence-parallel phase: a global batch of 2 rows on 2 x 2 (the
 # sequence over "model", 1,024 tokens a rank), steps
 SP_BATCH, SP_STEPS = 2, 3
@@ -453,14 +491,26 @@ KNOB_MIB = {
                        "zero.qgz_reduce": 277.213},
     "hpz_world": {"zero.qwz_gather": 546.025, "zero.hpz_gather": 1075.25,
                   "zero.qgz_reduce": 277.213}}
+# the sharded serving phase (after phase 11, booted from its world-1 INT8
+# checkpoint): qwen3-0.6b at full width on four ranks of a (2, 2) world,
+# the slab engine's slots over "data" and each slot's cache sequence over
+# "model", then the paged engine (the batch whole, each page's tokens over
+# "model"); phase 3's first N_SLOTS prompts, CKPT_MAX_NEW tokens each.  A
+# call gathers every flat group once, as the training forward does: the
+# same qwZ MiB a rank (KNOB_MIB's 546.025 at 2 x 2); B1's input is a
+# rank's shard of each group, MR_L at a layer group
+SHARD_MESH, SHARD_TIMEOUT_S = (2, 2), 900
+SHARD_QWZ_MIB = 546.025
 # the 2 x 2 x 2 ("pod", "data", "model") world: eight ranks on the one
 # card, one row each, MP_STEPS at the default config, then MP_HPZ_STEPS
 # with the secondary group widened to a pod; the MiB a rank a step of the
 # reference projection
 MP_MESH, MP_STEPS, MP_HPZ_STEPS = (2, 2, 2), 3, 2
-MP_MIB = {"zero.qwz_gather": 637.055, "zero.hpz_gather": 716.861,
-          "zero.qgz_reduce": 323.428}
-MP_HPZ_MIB = dict(MP_MIB, **{"zero.hpz_gather": 1075.292})
+# at CUT_LAYERS (the reference's step_wire_by_label of its comm_events, the
+# port's to the byte; at 28 layers 637.055, 716.861, 323.428 and 1075.292)
+MP_MIB = {"zero.qwz_gather": 357.05, "zero.hpz_gather": 401.779,
+          "zero.qgz_reduce": 181.272}
+MP_HPZ_MIB = dict(MP_MIB, **{"zero.hpz_gather": 602.669})
 # the checkpoint phase: qwen3-0.6b at full width, --attn pallas, phase 5's
 # seed, batch and lr: CKPT_STEPS steps at world 1 through the launcher's
 # loop, saved fp32 (--ckpt-every), then saved INT8, both restored; the
@@ -493,6 +543,7 @@ QUANT_KERNELS = {"quantize_kernel": "B1 quantize",
 # d/256 scale groups), the broadcast layout (NB = 1) and the paged
 # engine's row counts; then edge shapes
 B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1),
+           (2, 37984, 1024, 4),           # a rank's rows, sharded decode
            (32, 37984, 1024, 4),          # a paged prefill chunk
            (20, 37984, 1024, 4),          # a speculative verify, 4 x 5
            (4, 65536, 2560, 10),          # gemma3-4b's head chunk, decode
@@ -564,8 +615,9 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     # 671 M elements)
     q_err = d_err = 0.0
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
+    shard = {}
     for n in (1024, 15_730_944, 38_895_616, 155_582_464,
-              *gemma3_group_sizes(), vl_layer, vl_chunk):
+              *gemma3_group_sizes(), vl_layer, vl_chunk, MR_L):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
         pp, sp = quant.quantize_blockwise(x, cfg)
@@ -591,6 +643,10 @@ def kernel_phase(flush: torch.Tensor) -> dict:
             rec.setdefault("qwen2_vl", {})[("quantize_blockwise", n)] = dict(
                 ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
                 shape=[1, n], dtype="bf16")
+        if n == MR_L:     # a rank's layer-group shard at 2 x 2 (serving)
+            shard["serve_shard_w4"] = dict(
+                ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
+                bound_by=q_bound[1], shape=[1, n], dtype="bf16")
         d = qb.dequantize(p, s, cfg, torch.bfloat16)
         dp = quant.dequantize_blockwise(p, s, cfg, torch.bfloat16)
         err = (d.float() - dp.float()).abs().max().item()
@@ -636,6 +692,7 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     print("B1/B2 INT4, f32 input and u-field cases: bit-identical",
           flush=True)
 
+    rec["quantize_blockwise"].setdefault("extra", {}).update(shard)
     rec["dequant_matmul"] = b8_kernel_phase(g, flush)
     rec["quantize_blockwise"]["max_abs_err"] = q_err
     rec["dequantize_blockwise"]["max_abs_err"] = d_err
@@ -1437,11 +1494,11 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
 # ----------------------------------------------------------------- engine
 
 def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
-    """Phase 3 on ``cfg`` (default qwen3-0.6b at full width; the gemma3
-    phase passes its 8-layer stack) with prompts of ``prompt_lens``
-    tokens.  Returns the run's launches, and what the paged phase reuses:
-    the model, its params, the prompts and the engine's stats."""
-    cfg = cfg or get_config("qwen3-0.6b")
+    """Phase 3 on ``cfg`` (default qwen3-0.6b at full width cut to
+    CUT_LAYERS; the gemma3 phase passes its 8-layer stack) with prompts of
+    ``prompt_lens`` tokens.  Returns the run's launches, and what the paged
+    phase reuses: the model, its params, the prompts and the engine's stats."""
+    cfg = cfg or cut_config()
     z = ZeroConfig(dp_axes=("model",))            # qwZ on, world 1, bf16
     model = Model(cfg, z, world=1, device="cuda")
     g = torch.Generator(device="cuda")
@@ -1592,9 +1649,11 @@ def teacher_forced(model, params, prompt, toks) -> list:
     """The request alone through the raw slab steps, fed ``toks``: row j is
     the (V,) fp32 logits that predict ``toks[j]`` (the last position of a
     raw prefill of ``prompt``, then one raw decode step per token)."""
-    ps, ds = steps.build_prefill_step(model), steps.build_decode_step(model)
+    dev = model.device
+    ps = steps.build_prefill_step(model, device=dev.type)
+    ds = steps.build_decode_step(model, device=dev.type)
     logits, caches = ps.fn(params, {"tokens": torch.from_numpy(
-        prompt[None, :]).long().cuda()})
+        prompt[None, :]).long().to(dev)})
     rows = [logits[0, -1].float()]
     if not torch.isfinite(rows[0]).all() or \
             rows[0].shape != (model.cfg.vocab,):
@@ -1603,9 +1662,8 @@ def teacher_forced(model, params, prompt, toks) -> list:
     for j in range(1, len(toks)):
         lg, caches = ds.fn(params, caches,
                            {"tokens": torch.tensor([[toks[j - 1]]],
-                                                   device="cuda")},
-                           torch.tensor([len(prompt) + j - 1],
-                                        device="cuda"))
+                                                   device=dev)},
+                           torch.tensor([len(prompt) + j - 1], device=dev))
         rows.append(lg[0, -1].float())
     return rows
 
@@ -1863,9 +1921,9 @@ def _grads_within_one_int4_step(got: dict, want: dict) -> tuple:
     7·step."""
     n_far = n = n_loose = 0
     worst = 0.0
-    for k in want:
-        a = got[k].detach().float().cpu().reshape(-1, 256)
-        b = want[k].detach().float().cpu().reshape(-1, 256)
+    for k in want:      # on the card's device: the same IEEE arithmetic
+        a = got[k].detach().float().reshape(-1, 256)
+        b = want[k].detach().to(a.device, torch.float32).reshape(-1, 256)
         sa = a.abs().amax(dim=1, keepdim=True) / 7
         sb = b.abs().amax(dim=1, keepdim=True) / 7
         ds = (7 * (sa - sb)).abs()
@@ -1917,52 +1975,139 @@ def step_launches(cfg, model, attn: str) -> dict:
     return want
 
 
+def parity_cases() -> dict:
+    """name -> (cfg, attn, rows, seq, bias_seed) of every parity step:
+    qwen3-0.6b's widths at 2 layers and a vocabulary of 8192 in 4 chunks
+    (2 x 256 plain, 2 x 512 under --attn pallas: the flash kernels need S
+    a multiple of 512, the reference's rule), gemma3-4b's (phase 10) and
+    qwen2-vl-72b's (phase 12)."""
+    q = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                            vocab=8192, unemb_chunks=4)
+    g = dataclasses.replace(get_config("gemma3-4b"), n_layers=3,
+                            pattern=("local", "attn"), vocab=8192,
+                            unemb_chunks=4)
+    v = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1,
+                            vocab=QWEN2VL_PARITY_VOCAB, unemb_chunks=4)
+    return {"qwen3_xla": (q, "xla", 2, 256, None),
+            "qwen3_pallas": (q, "pallas", 2, 512, None),
+            "gemma3": (g, "pallas", 1, GEMMA_PARITY_SEQ, None),
+            "qwen2_vl": (v, "pallas", 1, QWEN2VL_PARITY_SEQ, 3)}
+
+
+def parity_run(cfg, attn: str, rows: int, seq: int, bias_seed, dev: str
+               ) -> tuple:
+    """One full-ZeRO++ ``loss_and_grads`` of ``cfg`` in fp32 on ``dev``
+    from the seeded parameters (drawn on the host; ``bias_seed``: the QKV
+    biases drawn nonzero from it) and batch (rows x seq): (loss, grads,
+    seconds, launches, model)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    pol = make_policy(cfg, variant="zeropp", param_dtype=torch.float32,
+                      compute_dtype=torch.float32, reduce_dtype=torch.float32)
+    cpu_model = Model(cfg, pol.zcfg, device="cpu")
+    params = cpu_model.init_params(torch.Generator().manual_seed(0),
+                                   dtype=torch.float32)
+    if bias_seed is not None:
+        _seed_biases(cpu_model, params, bias_seed)
+    model = cpu_model if dev == "cpu" else Model(cfg, pol.zcfg, device=dev)
+    lm = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=7)
+    st = build_train_step(model, AdamWConfig(), device=dev, attn_impl=attn)
+    batch = train_launch.device_batch(cfg, lm, 0, rows, 1, dev)
+    p = {k: v.to(dev) for k, v in params.items()}
+    platform.reset_launches()
+    t0 = time.perf_counter()
+    loss, _, grads = st.loss_and_grads(p, batch)
+    secs = time.perf_counter() - t0
+    return float(loss), grads, secs, dict(platform.LAUNCHES), model
+
+
+def parity_cpu_main(outdir: str) -> None:
+    """The CPU half of every parity step, in a process of its own (on
+    PARITY_THREADS threads) beside the card's phases: each case's loss,
+    gradients and seconds saved to ``outdir/<name>.pt`` when done.  It
+    runs at the lowest scheduling priority, so that the card's phases
+    beside it keep the host's cores they ask for."""
+    os.nice(19)
+    torch.set_num_threads(PARITY_THREADS)
+    for name, case in parity_cases().items():
+        loss, grads, secs, _, _ = parity_run(*case, "cpu")
+        tmp = os.path.join(outdir, name + ".tmp")
+        torch.save({"loss": loss, "grads": grads, "secs": secs}, tmp)
+        os.replace(tmp, os.path.join(outdir, name + ".pt"))
+        del grads
+
+
+class ParityCPU:
+    """The CPU halves of the parity steps, computed by ``parity_cpu_main``
+    in a spawned process from the script's start; :meth:`get` waits for
+    one (failing if the process died) and hands it over, :meth:`close`
+    waits for the process to end after its last case."""
+
+    def __init__(self):
+        import torch.multiprocessing as tmp
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+        self.proc = tmp.get_context("spawn").Process(
+            target=parity_cpu_main, args=(self.dir,), daemon=True)
+        self.proc.start()
+
+    def get(self, name: str) -> dict:
+        path = os.path.join(self.dir, name + ".pt")
+        deadline = time.monotonic() + PARITY_TIMEOUT_S
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.exitcode not in (None, 0):
+                fail(f"the CPU parity process died (exit code "
+                     f"{self.proc.exitcode}) before {name}")
+            if time.monotonic() > deadline:
+                fail(f"the CPU parity step {name} did not finish in "
+                     f"{PARITY_TIMEOUT_S} s")
+            time.sleep(0.5)
+        waited = time.perf_counter() - t0
+        out = torch.load(path)
+        os.remove(path)
+        out["waited"] = waited
+        return out
+
+    def close(self) -> None:
+        t0 = time.perf_counter()
+        self.proc.join(PARITY_TIMEOUT_S)
+        if self.proc.exitcode != 0:
+            fail(f"the CPU parity process ended with exit code "
+                 f"{self.proc.exitcode}")
+        shutil.rmtree(self.dir, ignore_errors=True)
+        print(f"CPU parity process ended ({time.perf_counter() - t0:.1f} s "
+              f"waited)", flush=True)
+
+
+PARITY = None        # main's ParityCPU
+
+
 def train_parity_phase() -> None:
     """One loss_and_grads of the full ZeRO++ step on the card and on the
     CPU, same fp32 parameters and batch (qwen3-0.6b widths, 2 layers,
     vocab 8192 in 4 chunks, fp32 compute): batch 2 x 256 with plain
     attention, and 2 x 512 with --attn pallas (the flash kernels need S a
     multiple of 512, the reference's rule)."""
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
-                              vocab=8192, unemb_chunks=4)
-    for attn, seq in (("xla", 256), ("pallas", 512)):
-        parity_step(cfg, attn, 2, seq)
+    for name in ("qwen3_xla", "qwen3_pallas"):
+        parity_step(name)
 
 
-def parity_step(cfg, attn: str, rows: int, seq: int,
-                bias_seed: int = None) -> None:
-    """One full-ZeRO++ ``loss_and_grads`` of ``cfg`` in fp32 on the card
-    and on the CPU from the same parameters and batch (rows x seq), held
-    to phase 4's rule; the card's launches must be ``step_launches``.
-    ``bias_seed``: draw the QKV biases nonzero from it."""
-    from repro_torch.data.synthetic import SyntheticLM
-    pol = make_policy(cfg, variant="zeropp", param_dtype=torch.float32,
-                      compute_dtype=torch.float32, reduce_dtype=torch.float32)
-    cpu_model = Model(cfg, pol.zcfg, device="cpu")
-    cuda_model = Model(cfg, pol.zcfg, device="cuda")
-    params = cpu_model.init_params(torch.Generator().manual_seed(0),
-                                   dtype=torch.float32)
-    if bias_seed is not None:
-        _seed_biases(cpu_model, params, bias_seed)
-    lm = SyntheticLM(vocab=cfg.vocab, seq_len=seq, seed=7)
+def parity_step(name: str) -> None:
+    """Parity case ``name`` (``parity_cases``): one full-ZeRO++
+    ``loss_and_grads`` in fp32 on the card, held to phase 4's rule against
+    the CPU's from the same parameters and batch (``PARITY``'s, computed
+    beside the earlier phases); the card's launches must be
+    ``step_launches``."""
+    cfg, attn, rows, seq, bias_seed = parity_cases()[name]
     out, secs = {}, {}
-    for dev in ("cuda", "cpu"):
-        model = cpu_model if dev == "cpu" else cuda_model
-        st = build_train_step(model, AdamWConfig(), device=dev,
-                              attn_impl=attn)
-        batch = train_launch.device_batch(cfg, lm, 0, rows, 1, dev)
-        p = {k: v.to(dev) for k, v in params.items()}
-        platform.reset_launches()
-        t0 = time.perf_counter()
-        loss, _, grads = st.loss_and_grads(p, batch)
-        out[dev] = (float(loss), grads)
-        secs[dev] = time.perf_counter() - t0
-        launches = dict(platform.LAUNCHES)
-        if dev == "cuda":
-            want = step_launches(cfg, model, attn)
-            if launches != want:
-                fail(f"train parity --attn {attn}: launches {launches}, "
-                     f"expected {want}")
+    loss, grads, secs["cuda"], launches, model = parity_run(
+        cfg, attn, rows, seq, bias_seed, "cuda")
+    out["cuda"] = (loss, grads)
+    want = step_launches(cfg, model, attn)
+    if launches != want:
+        fail(f"train parity --attn {attn}: launches {launches}, expected "
+             f"{want}")
+    cpu = PARITY.get(name)
+    out["cpu"], secs["cpu"] = (cpu["loss"], cpu["grads"]), cpu["secs"]
     dl = abs(out["cuda"][0] - out["cpu"][0])
     if not (np.isfinite(out["cuda"][0]) and dl <= 1e-5):
         fail(f"train parity --attn {attn}: loss {out['cuda'][0]} (card) "
@@ -1984,7 +2129,8 @@ def parity_step(cfg, attn: str, rows: int, seq: int,
           f"1e-5 / atol 1e-6, max abs diff {worst:.3e}, none beyond one INT4 "
           f"step; {n_loose} blocks' steps apart by more than rtol 1e-5 "
           f"(within atol 1e-6 on 7·step); card {secs['cuda']:.1f} s, CPU "
-          f"{secs['cpu']:.1f} s", flush=True)
+          f"{secs['cpu']:.1f} s, waited {cpu['waited']:.1f} s for it",
+          flush=True)
 
 
 def train_phase(attn: str) -> tuple:
@@ -2210,10 +2356,7 @@ def gemma3_parity_phase() -> None:
     3 layers (one period and a rem layer), vocab 8192, window 1024, fp32,
     batch 1 x GEMMA_PARITY_SEQ under --attn pallas (B6/B7 at hd 256 on
     the card, their plain versions on the CPU)."""
-    cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=3,
-                              pattern=("local", "attn"), vocab=8192,
-                              unemb_chunks=4)
-    parity_step(cfg, "pallas", 1, GEMMA_PARITY_SEQ)
+    parity_step("gemma3")
 
 
 def gemma3_train_phase() -> dict:
@@ -2463,9 +2606,7 @@ def qwen2_vl_parity_phase() -> None:
     chunks, fp32, batch 1 x 512 under --attn pallas (B6/B7 at GQA 8 on
     the card, their plain versions on the CPU), the QKV biases seeded
     nonzero, the stub's positions (three different streams)."""
-    cfg = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1,
-                              vocab=QWEN2VL_PARITY_VOCAB, unemb_chunks=4)
-    parity_step(cfg, "pallas", 1, QWEN2VL_PARITY_SEQ, bias_seed=3)
+    parity_step("qwen2_vl")
 
 
 def _vl_inputs(batch: dict, sl) -> dict:
@@ -2635,7 +2776,8 @@ def overhead_reading(tag: str, fn, params, opt, batch) -> None:
 def _run_spec(run) -> dict:
     """A multi-rank run: an argv list, or {"argv", "zero": ZeroConfig
     overrides (the paper's knobs), "profile": whether rank 0 profiles a
-    step after the run (default True)}."""
+    step after the run (default True), "layers": the arch's depth cut to
+    this many layers (default: its own)}."""
     return run if isinstance(run, dict) else {"argv": run}
 
 
@@ -2648,6 +2790,9 @@ def multirank_rank(rank: int, world: int, runs: list) -> list:
     for run in runs:
         spec = _run_spec(run)
         args = train_launch.parser().parse_args(spec["argv"])
+        if spec.get("layers"):       # a depth cut of the arch
+            args.arch = dataclasses.replace(get_config(args.arch),
+                                            n_layers=spec["layers"])
         torch.cuda.reset_peak_memory_stats()
         res = train_launch.train_loop(args, overrides=spec.get("zero"))
         built = res["built"]
@@ -2840,13 +2985,22 @@ def _mr_report(tag: str, outs: list, rows: int) -> dict:
             for k in platform.LAUNCHES}
 
 
-def multirank_phase(world1_losses: list, ckpt_dir: str) -> tuple:
+def multirank_runs(ckpt_dir: str) -> list:
+    """Phase 6's runs: MR_STEPS steps at the default prefetch ring (depth
+    1), then MR_SYNC_STEPS at --prefetch 0, which saves a checkpoint into
+    ``ckpt_dir`` after its last step (``--ckpt-every``: every rank its own
+    shard file)."""
+    return [_mr_argv(TRAIN_BATCH, MR_STEPS),
+            _mr_argv(TRAIN_BATCH, MR_SYNC_STEPS, "--prefetch", "0",
+                     "--ckpt-dir", ckpt_dir, "--ckpt-every",
+                     str(MR_SYNC_STEPS))]
+
+
+def multirank_phase(world1_losses: list, ring: list, sync: list) -> tuple:
     """qwen3-0.6b at full width on a Y x X = 2 x 2 world: four rank
     processes sharing the card over a gloo group, full ZeRO++ under --attn
-    pallas, the world-1 pallas phase's seed, batches and lr: MR_STEPS
-    steps at the default prefetch ring (depth 1), then MR_SYNC_STEPS at
-    --prefetch 0, which saves a checkpoint into ``ckpt_dir`` after its
-    last step (``--ckpt-every``: every rank its own shard file).  Holds
+    pallas, the world-1 pallas phase's seed, batches and lr, the runs of
+    ``multirank_runs`` (every rank's results: ``ring``, ``sync``).  Holds
     the ring's losses against that phase's (``world1_losses``), the
     synchronous run's against the ring's first steps bit for bit, and
     every rank's launches; returns the launches summed over the ranks, of
@@ -2854,11 +3008,6 @@ def multirank_phase(world1_losses: list, ckpt_dir: str) -> tuple:
     0's first step by tier and every rank's save seconds."""
     y, x = MR_MESH
     tag = f"train {y}x{x}"
-    ring, sync = _mr_spawn([_mr_argv(TRAIN_BATCH, MR_STEPS),
-                            _mr_argv(TRAIN_BATCH, MR_SYNC_STEPS,
-                                     "--prefetch", "0", "--ckpt-dir",
-                                     ckpt_dir, "--ckpt-every",
-                                     str(MR_SYNC_STEPS))], tag)
     if ring[0]["prefetch"] != 1 or sync[0]["prefetch"] != 0:
         fail(f"{tag}: prefetch {ring[0]['prefetch']} / {sync[0]['prefetch']}"
              f", expected 1 / 0")
@@ -2910,17 +3059,45 @@ def multirank_phase(world1_losses: list, ckpt_dir: str) -> tuple:
             ring[0]["tiers"][0], [out["save_s"] for out in sync])
 
 
-def seq_parallel_phase() -> dict:
-    """The 2 x 2 world at a global batch of SP_BATCH rows: the batch covers
-    only ``data``, so every rank holds one row's half of the sequence
-    (1,024 tokens) and ``mha`` gathers K/V over the intra pair; --attn
-    pallas (which a sharded sequence keeps out of the flash kernels, the
-    reference's rule), SP_STEPS steps at the default ring.  Its step-1
-    loss is held against a world-1 --attn xla step on the same rows from
-    the same seed, run here first; returns the launches summed over the
-    ranks."""
-    y, x = MR_MESH
-    tag = f"train {y}x{x} sequence-parallel"
+def cut_config():
+    """qwen3-0.6b at full width, cut to CUT_LAYERS layers."""
+    return dataclasses.replace(get_config("qwen3-0.6b"), n_layers=CUT_LAYERS)
+
+
+def cut_world1_losses() -> list:
+    """The world-1 pallas run of the cut model (phase 5's seed, batches and
+    lr, MP_STEPS steps), the 2 x 2 x 2 phase's step-1 reference."""
+    args = train_launch.parser().parse_args([
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+        str(MP_STEPS), "--lr", str(TRAIN_LR), "--lr-schedule", "constant",
+        "--device", "cuda", "--attn", "pallas", "--log-every", "0"])
+    args.arch = cut_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = train_launch.train_loop(args)
+    per_step = step_launches(res["built"].arch, res["built"].model, "pallas")
+    if any(c != per_step for c in res["launches"]):
+        fail(f"world 1 at {CUT_LAYERS} layers: launches {res['launches']}, "
+             f"expected {per_step}")
+    losses = res["losses"]
+    print(f"world 1, qwen3-0.6b at {CUT_LAYERS} of its 28 layers, --attn "
+          f"pallas, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses!r}",
+          flush=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def seq_parallel_run() -> list:
+    """Phase 7's run: the 2 x 2 world at a global batch of SP_BATCH rows,
+    SP_STEPS steps at the default ring."""
+    return _mr_argv(SP_BATCH, SP_STEPS)
+
+
+def seq_world1_loss() -> float:
+    """The world-1 --attn xla step on phase 7's rows from the same seed:
+    phase 7's step-1 reference."""
     args = train_launch.parser().parse_args([
         "--arch", "qwen3-0.6b", "--batch", str(SP_BATCH), "--seq",
         str(TRAIN_SEQ), "--steps", "1", "--lr", str(TRAIN_LR),
@@ -2931,7 +3108,19 @@ def seq_parallel_phase() -> dict:
     one = train_launch.train_loop(args)["losses"][0]
     gc.collect()
     torch.cuda.empty_cache()
-    (outs,) = _mr_spawn([_mr_argv(SP_BATCH, SP_STEPS)], tag)
+    return one
+
+
+def seq_parallel_phase(one: float, outs: list) -> dict:
+    """The 2 x 2 world at a global batch of SP_BATCH rows (``outs``: every
+    rank's results of ``seq_parallel_run``): the batch covers only
+    ``data``, so every rank holds one row's half of the sequence (1,024
+    tokens) and ``mha`` gathers K/V over the intra pair; --attn pallas
+    (which a sharded sequence keeps out of the flash kernels, the
+    reference's rule).  Its step-1 loss is held against ``one``
+    (``seq_world1_loss``); returns the launches summed over the ranks."""
+    y, x = MR_MESH
+    tag = f"train {y}x{x} sequence-parallel"
     if outs[0]["seq_axes"] != ("model",):
         fail(f"{tag}: the sequence went over {outs[0]['seq_axes']}, "
              f"expected ('model',)")
@@ -2954,12 +3143,18 @@ def seq_parallel_phase() -> dict:
     return _mr_report(tag, outs, SP_BATCH)
 
 
-def knob_phase(losses_2x2: list, tiers_2x2: dict) -> dict:
-    """The paper's ablation knobs on the 2 x 2 world: qwen3-0.6b at full
-    width, --attn pallas, batch 8, phase 6's seed, batches and lr, in one
-    spawn of four ranks, KNOB_STEPS steps of each of KNOBS (ZeroConfig
+def knob_runs() -> list:
+    """Phase 8's runs: KNOB_STEPS steps of each of KNOBS (ZeroConfig
     overrides through ``train_loop(overrides=)``, as the reference's
-    convergence benchmark passes them to make_policy).  Each run's
+    convergence benchmark passes them to make_policy), unprofiled."""
+    return [{"argv": _mr_argv(TRAIN_BATCH, KNOB_STEPS), "zero": over,
+             "profile": False} for over in KNOBS.values()]
+
+
+def knob_phase(losses_2x2: list, tiers_2x2: dict, per_run: list) -> dict:
+    """The paper's ablation knobs on the 2 x 2 world: qwen3-0.6b at full
+    width, --attn pallas, batch 8, phase 6's seed, batches and lr
+    (``per_run``: every rank's results of ``knob_runs``).  Each run's
     launcher gate must pass on every rank with the reference projection's
     MiB (KNOB_MIB) to the byte, its losses be finite, and its step-1 and
     step-2 losses hold phase 6's (``losses_2x2``) as the KNOBS note says.
@@ -2970,9 +3165,6 @@ def knob_phase(losses_2x2: list, tiers_2x2: dict) -> dict:
     summed over the ranks}."""
     y, x = MR_MESH
     tag = f"train {y}x{x} knobs"
-    runs = [{"argv": _mr_argv(TRAIN_BATCH, KNOB_STEPS), "zero": over,
-             "profile": False} for over in KNOBS.values()]
-    per_run = _mr_spawn(runs, tag)
     out = {}
     for (name, over), outs in zip(KNOBS.items(), per_run):
         losses = outs[0]["losses"]
@@ -3016,27 +3208,33 @@ def knob_phase(losses_2x2: list, tiers_2x2: dict) -> dict:
 
 def multipod_phase(world1_losses: list) -> tuple:
     """The 2 x 2 x 2 ("pod", "data", "model") world: eight rank processes
-    of qwen3-0.6b at full width sharing the card over gloo, --attn
-    pallas, batch 8 (one row a rank), phase 5's seed, batches and lr:
+    of qwen3-0.6b at full width cut to CUT_LAYERS, sharing the card over
+    gloo, --attn pallas, batch 8 (one row a rank), phase 5's seed,
+    batches and lr:
     MP_STEPS steps at the default config (hpZ on the intra pair, qgZ's
     inter hop over ("pod", "data"): B5 at N = 4), then MP_HPZ_STEPS with
     ``hpz_axes=("data", "model")`` (the secondary group one pod), in one
     spawn.  The gate on every rank (MP_MIB, MP_HPZ_MIB), finite losses,
-    the step-1 loss within MR_LOSS1_ATOL of world 1's on the same rows
-    (``world1_losses``) and the hpZ run's equal to the default's bit for
-    bit (the same forward); prints each rank's steps and peak and rank 0's
-    profiled step (wall, busy share, gloo time by label).  Returns the
-    launches summed over the ranks of both runs."""
+    the step-1 loss within MR_LOSS1_ATOL of world 1's on the same rows and
+    model (``world1_losses``: ``cut_world1_losses``) and the hpZ run's
+    equal to the default's bit for bit (the same forward); prints each
+    rank's steps and peak and rank 0's profiled step (wall, busy share,
+    gloo time by label). Returns the launches summed over the ranks of
+    both runs.
+    """
     tag = "train " + "x".join(map(str, MP_MESH))
     base, hpz = _mr_spawn(
-        [_mr_argv(TRAIN_BATCH, MP_STEPS, mesh=MP_MESH),
+        [{"argv": _mr_argv(TRAIN_BATCH, MP_STEPS, mesh=MP_MESH),
+          "layers": CUT_LAYERS},
          {"argv": _mr_argv(TRAIN_BATCH, MP_HPZ_STEPS, mesh=MP_MESH),
-          "zero": {"hpz_axes": ("data", "model")}, "profile": False}],
+          "zero": {"hpz_axes": ("data", "model")}, "profile": False,
+          "layers": CUT_LAYERS}],
         tag, mesh=MP_MESH)
     losses, hl = base[0]["losses"], hpz[0]["losses"]
     d1 = abs(losses[0] - world1_losses[0])
     print(f"{tag}: 8 ranks (pod 2 x data 2 x model 2) sharing one card over "
-          f"gloo, qwen3-0.6b full width, full ZeRO++ (hpZ on the model "
+          f"gloo, qwen3-0.6b full width at {CUT_LAYERS} of its 28 layers, "
+          f"full ZeRO++ (hpZ on the model "
           f"pair, qgZ's inter hop over (pod, data): B5 at N = 4), --attn "
           f"pallas, global batch {TRAIN_BATCH} x {TRAIN_SEQ} (1 row a "
           f"rank); losses {[round(v, 4) for v in losses]}, step 1 vs world "
@@ -3122,7 +3320,9 @@ def checkpoint_phase(root: str, losses_pallas: list) -> dict:
     next two losses at the reference's bars; then ``ServeEngine.
     from_checkpoint`` on the INT8 checkpoint against an engine given
     ``load_global`` -> ``fit_to`` -> bf16 of it in memory.  Returns the
-    launches of the restored steps and of the booted engine's run."""
+    launches of the restored steps and of the booted engine's run, and the
+    INT8 checkpoint's path (kept) with the world-1 model and params booted
+    from it, for the sharded serving phase."""
     from repro_torch.train.state import (ZeroState, fit_to, load_global,
                                          read_manifest)
     tag = "checkpoint world 1"
@@ -3239,10 +3439,10 @@ def checkpoint_phase(root: str, losses_pallas: list) -> dict:
     del res, built, params, opt, st, r8, batch
     gc.collect()
     torch.cuda.empty_cache()
-    serve = serve_boot(p8)
+    serve, model1, params1 = serve_boot(p8)
     shutil.rmtree(d32)
-    shutil.rmtree(d8)
-    return {"train_ckpt": launches, "serve_ckpt": serve}
+    return {"train_ckpt": launches, "serve_ckpt": serve}, (p8, model1,
+                                                          params1)
 
 
 def serve_boot(path: Path) -> dict:
@@ -3251,7 +3451,9 @@ def serve_boot(path: Path) -> dict:
     the same bf16 params, the first N_SLOTS prompts of phase 3 served
     greedily to the same tokens, the first prefill's logits bit-identical;
     a model of another arch refuses the checkpoint.  Returns the booted
-    engine's launches over its run."""
+    engine's launches over its run, and its world-1 model and params
+    (bf16 of ``fit_to`` of ``load_global``: the sharded phase's
+    reference)."""
     from repro_torch.train.state import fit_to, load_global
     tag = "checkpoint serving boot"
     cfg = get_config("qwen3-0.6b")
@@ -3311,10 +3513,168 @@ def serve_boot(path: Path) -> dict:
     else:
         fail(f"{tag}: a {other.cfg.name} engine booted from a "
              f"{cfg.name} checkpoint")
-    del eng, plain, mem
+    del eng, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, model, mem
+
+
+def sharded_serve_rank(rank: int, world: int, path: str, prompts: list,
+                       cfg) -> dict:
+    """One rank of the sharded serving phase (a spawned process on device
+    0): ``ServeEngine.from_checkpoint(mesh=)`` on the INT8 checkpoint
+    ``path``, the slab engine (slots over "data", the cache sequence over
+    "model"), then the paged engine on the same params (each page's tokens
+    over "model"), ``prompts`` with CKPT_MAX_NEW greedy tokens each; B1,
+    B2 and B8 launched as every call adds up to on this rank (the slab
+    decode's head runs on this rank's rows); rank 0 profiles a slab
+    decode step (the others make the same calls).  Returns, per pool, the
+    tokens, statuses, launches and their expectation, the wire bytes by
+    label, the engine's stats and, from rank 0, every stream's logits
+    rows."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh(SHARD_MESH)
+    model = Model(cfg, make_policy(cfg, mesh.axes, mesh=mesh).zcfg,
+                  world=world, device="cuda")
+    b_world = mesh.sizes["data"]
+    out, params, slab = {}, None, None
+    for pool in ("slab", "paged"):
+        cap = Capture()
+        kw = dict(n_slots=N_SLOTS, kv_len=KV_LEN, mesh=mesh,
+                  kv_axes=("model",), observer=cap, device="cuda")
+        if pool == "slab":
+            kw["batch_axes"] = ("data",)
+        else:
+            kw.update(pool="paged", page_size=PAGE_SIZE,
+                      chunk_size=PAGED_CHUNK)
+        t0 = time.perf_counter()
+        eng = ServeEngine.from_checkpoint(model, path, **kw) \
+            if params is None else ServeEngine(model, params, **kw)
+        boot = time.perf_counter() - t0
+        params = eng.params
+        uids = cap.submit(eng, prompts, CKPT_MAX_NEW)
+        torch.cuda.synchronize()
+        dist.barrier()
+        platform.reset_launches()
+        sent = train_launch.comm_bytes()
+        t0 = time.perf_counter()
+        res = eng.run(max_steps=2000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = {k: 0 for k in per_call_launches(model)}
+        for kind, rows in cap.calls:
+            r = rows // b_world if pool == "slab" and kind == "decode" \
+                else rows
+            for k, n in per_call_launches(model, r).items():
+                want[k] += n
+        st = eng.stats()
+        o = {"tokens": [res[u] for u in uids],
+             "status": [eng.status[u] for u in uids],
+             "launches": {k: platform.LAUNCHES[k] for k in want},
+             "want": want, "calls": len(cap.calls),
+             "kinds": {k: cap.count(k) for k in ("prefill", "decode")},
+             "comm": train_launch.comm_since(sent), "wall": wall,
+             "boot": boot, "ttft_p50": st["ttft_ms"]["p50"],
+             "tick_p50": st["tok_latency_ms"]["p50"],
+             "tok_per_s": st["tok_per_s"]}
+        if rank == 0:
+            o["rows"] = [torch.stack(cap.stream(u, len(res[u]))).cpu()
+                         .numpy() for u in uids]
+        out[pool] = o
+        if pool == "slab":
+            slab = eng
+    decode = steps.build_decode_step(model, device="cuda", mesh=mesh,
+                                     batch_axes=("data",),
+                                     kv_axes=("model",)).fn
+    batch = {"tokens": torch.zeros((N_SLOTS, 1), dtype=torch.long,
+                                   device="cuda")}
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device="cuda")
+    out["profile"] = profile_step(
+        lambda: decode(params, slab.pool.caches, batch, pos),
+        f"sharded decode step, rank {rank} of {world} (2 x 2: rows over "
+        f"data, cache sequence over model), {N_SLOTS} slots",
+        n=1, show=rank == 0)
+    return out
+
+
+def sharded_serve_phase(path: Path, model, params) -> dict:
+    """Sharded serving: four ranks of a 2 x 2 world boot from the world-1
+    INT8 checkpoint ``path`` (the elastic cut: each its shard of every buffer)
+    and serve phase 3's first N_SLOTS prompts through the slab and then the
+    paged engine (``sharded_serve_rank``).  Every rank must emit the same
+    tokens and statuses, and launch B1, B2 and B8 as its calls add up to; every
+    logits row rank 0 saw is held against the world-1 engine's model on the
+    same checkpoint, teacher-forced on the sharded engine's tokens (phase 3's
+    DECODE_ATOL rule, decisive tokens equal: ``model`` and ``params``, the
+    world-1 engine's); a call's qwZ bytes a rank must be the training forward's
+    at 2 x 2.  Prints ms a decode tick, TTFT, tokens/s, rank 0's busy share and
+    the MiB a rank a call by label.  Returns the launches summed over the
+    ranks, per engine."""
+    from repro_torch.launch import mesh as mesh_lib
+    tag = "sharded serving 2x2"
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in PROMPTS[:N_SLOTS]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_lib.spawn(sharded_serve_rank, int(np.prod(SHARD_MESH)),
+                           str(path), prompts, cfg, device="cuda",
+                           timeout=SHARD_TIMEOUT_S)
+    print(f"{tag}: spawn to exit {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out = {}
+    for pool in ("slab", "paged"):
+        outs = [r[pool] for r in ranks]
+        o = outs[0]
+        for r, x in enumerate(outs):
+            if x["tokens"] != o["tokens"] or x["status"] != o["status"]:
+                fail(f"{tag} {pool}: rank {r}'s streams differ from rank "
+                     f"0's")
+            if any(x["launches"][k] != n or n <= 0
+                   for k, n in x["want"].items()):
+                fail(f"{tag} {pool} rank {r}: launches {x['launches']}, "
+                     f"expected {x['want']} over {x['calls']} calls")
+        if o["status"] != ["done"] * N_SLOTS or any(
+                len(t) != CKPT_MAX_NEW for t in o["tokens"]):
+            fail(f"{tag} {pool}: requests did not finish: {o['status']}")
+        holds = []
+        for i, (p, toks) in enumerate(zip(prompts, o["tokens"])):
+            want = teacher_forced(model, params, p, toks)
+            rows = [torch.from_numpy(x).to("cuda") for x in o["rows"][i]]
+            holds.append(hold_stream(f"{tag} {pool} request {i + 1} "
+                                     f"(prompt {len(p)})", rows, want, toks))
+        check_holds(f"{tag}: {pool} engine", holds)
+        mib = {k: b / o["calls"] / 2 ** 20 for k, b in o["comm"].items()}
+        print(f"{tag}: {pool} engine on 4 ranks, {o['calls']} model calls "
+              f"({o['kinds']['prefill']} prefill, {o['kinds']['decode']} "
+              f"decode) in {o['wall']:.3f} s (boot {o['boot']:.2f} s): "
+              f"{o['tick_p50']:.3f} ms a decode tick (p50), TTFT p50 "
+              f"{o['ttft_p50']:.2f} ms, {o['tok_per_s']:.1f} tok/s; MiB a "
+              f"rank a call: " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in sorted(mib.items()))
+              + f"; launches a rank {o['launches']} (as counted, every "
+              f"rank)", flush=True)
+        if round(mib.get("zero.qwz_gather", 0), 3) != SHARD_QWZ_MIB:
+            fail(f"{tag} {pool}: qwZ {mib.get('zero.qwz_gather')} MiB a "
+                 f"rank a call, the training forward's {SHARD_QWZ_MIB}")
+        out["serve_sharded" if pool == "slab" else "serve_sharded_paged"] = {
+            k: sum(x["launches"].get(k, 0) for x in outs)
+            for k in platform.LAUNCHES}
+    prof = ranks[0]["profile"]
+    print(f"{tag}: rank 0's profiled decode step: host wall "
+          f"{prof['wall']:.1f} ms, device busy {prof['busy']:.1f} ms "
+          f"({100 * prof['busy'] / prof['wall']:.1f}%), gloo "
+          f"{prof['gloo']:.1f} ms of host time "
+          f"({100 * prof['gloo'] / prof['wall']:.1f}%)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag} phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def elastic_phase(ckpt_dir: str, losses_2x2: list, save_s: list) -> dict:
@@ -3466,12 +3826,22 @@ def _template_args(mangled: str) -> str:
     return re.sub(r"Li(\d+)E", r" \1,", out).strip(" ,").replace(",,", ",")
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, printing its seconds as "<name> phase: X s"."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{name} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs the card")
     print(device_line(), flush=True)
+    global PARITY
     t0 = time.perf_counter()
     table = stub_table_thread()
+    PARITY = ParityCPU()
     logs = platform.build()
     print(f"built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3518,32 +3888,29 @@ def main() -> None:
               flush=True)
     sass_census("dequant_matmul", r"dequant_matmul_tc_kernel")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    rec = kernel_phase(flush)
+    rec = timed("kernel", kernel_phase, flush)
     vl_kernels = rec.pop("qwen2_vl")
-    qgz = qgz_kernel_phase(flush)
+    qgz = timed("qgZ kernel", qgz_kernel_phase, flush)
     vl_kernels.update(qgz.pop("qwen2_vl"))
     rec.update(qgz)
-    for name, extra in knob_kernel_phase(flush).items():
+    for name, extra in timed("knob kernel", knob_kernel_phase, flush).items():
         rec[name].setdefault("extra", {}).update(extra)
     rec["quantize_blockwise"]["max_abs_err"] = max(
         rec["quantize_blockwise"]["max_abs_err"],
         rec["quantize_blockwise_f32"]["max_abs_err"])
-    rec.update(flash_kernel_phase(flush))
-    rec.update(gemma3_flash_phase(flush))
-    rec.update(qwen2_vl_flash_phase(flush))
+    rec.update(timed("flash kernel", flash_kernel_phase, flush))
+    rec.update(timed("gemma3 flash kernel", gemma3_flash_phase, flush))
+    rec.update(timed("qwen2-vl flash kernel", qwen2_vl_flash_phase, flush))
     del flush
     by_path = {}
-    serve3 = engine_phase()
-    by_path["serve"] = serve3["launches"]
-    by_path["serve_paged"], by_path["serve_spec"] = paged_phase(serve3)
-    del serve3
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_parity_phase()
+    # the device-bound phases first, beside the CPU parity process; the
+    # host-bound serving phases once it has ended
+    timed("train parity", train_parity_phase)
     # this slice's path, then the plain-attention run beside it (same seed
     # and batches) so that one call shows both step times
-    by_path["train"], losses_pallas = train_phase("pallas")
-    by_path["train_xla"], losses_xla = train_phase("xla")
+    by_path["train"], losses_pallas = timed("train pallas", train_phase,
+                                            "pallas")
+    by_path["train_xla"], losses_xla = timed("train xla", train_phase, "xla")
     loss_pallas, loss_xla = losses_pallas[0], losses_xla[0]
     print(f"train: step-1 loss --attn pallas {loss_pallas:.6f} vs --attn "
           f"xla {loss_xla:.6f} (|diff| {abs(loss_pallas - loss_xla):.2e}, "
@@ -3551,45 +3918,67 @@ def main() -> None:
     if not abs(loss_pallas - loss_xla) <= ROUTE_LOSS_ATOL:
         fail("the two attention routes' step-1 losses differ beyond "
              f"{ROUTE_LOSS_ATOL}")
-    # gemma3-4b: slab serving, the parity step and the training run
-    by_path["serve_gemma3"] = engine_phase(gemma3_config(),
-                                           GEMMA_PROMPTS)["launches"]
+    # gemma3-4b and qwen2-vl-72b (QKV bias, M-RoPE, embedding inputs):
+    # the parity steps and the training runs
+    timed("gemma3 parity", gemma3_parity_phase)
+    by_path["train_gemma3"] = timed("gemma3 train", gemma3_train_phase)
+    by_path["train_qwen2_vl"] = timed("qwen2-vl train", qwen2_vl_train_phase,
+                                      table)
+    timed("qwen2-vl parity", qwen2_vl_parity_phase)
+    # that was the last parity case: the serving phases below, whose time
+    # goes to the host, do not share it with the CPU parity process
+    PARITY.close()
+    serve3 = timed("engine", engine_phase)
+    by_path["serve"] = serve3["launches"]
+    by_path["serve_paged"], by_path["serve_spec"] = paged_phase(serve3)
+    del serve3
+    by_path["serve_gemma3"] = timed("gemma3 engine", engine_phase,
+                                    gemma3_config(), GEMMA_PROMPTS)[
+        "launches"]
+    by_path["serve_qwen2_vl"] = timed("qwen2-vl serve", qwen2_vl_serve_phase)
     gc.collect()
     torch.cuda.empty_cache()
-    gemma3_parity_phase()
-    by_path["train_gemma3"] = gemma3_train_phase()
-    # qwen2-vl-72b (QKV bias, M-RoPE, embedding inputs) at full width
-    t12 = time.perf_counter()
-    by_path["train_qwen2_vl"] = qwen2_vl_train_phase(table)
-    qwen2_vl_parity_phase()
-    by_path["serve_qwen2_vl"] = qwen2_vl_serve_phase()
-    print(f"qwen2-vl phase: {time.perf_counter() - t12:.1f} s", flush=True)
     # the same run on four ranks of a 2 x 2 world, at the default ring
     # depth and at the synchronous schedule, which saves a checkpoint
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         check_disk(ckpt_root)
         mr_ckpt = str(Path(ckpt_root) / "mr")
+        # phases 6, 7 and 8 in one spawn of the 2 x 2 world: one start and
+        # one warm-up of the four ranks for their seven runs
+        t_mr = time.perf_counter()
+        sp_one = seq_world1_loss()
+        per_run = _mr_spawn(multirank_runs(mr_ckpt) + [seq_parallel_run()]
+                            + knob_runs(), "train 2x2 (phases 6-8)")
         (by_path["train_2x2"], by_path["train_2x2_sync"], losses_2x2,
-         tiers_2x2, mr_save_s) = multirank_phase(losses_pallas, mr_ckpt)
-        # this slice's path: checkpoints. phase 6's 2 x 2 checkpoint
-        # restored at world 1, then world 1's fp32 and INT8 checkpoints,
-        # their restores and the engine booted from INT8
+         tiers_2x2, mr_save_s) = multirank_phase(losses_pallas,
+                                                 *per_run[:2])
+        by_path["train_2x2_seq"] = seq_parallel_phase(sp_one, per_run[2])
+        by_path.update(knob_phase(losses_2x2, tiers_2x2, per_run[3:]))
+        print(f"multi-rank phase (6-8): {time.perf_counter() - t_mr:.1f} s",
+              flush=True)
+        # checkpoints: phase 6's 2 x 2 checkpoint restored at world 1, then
+        # world 1's fp32 and INT8 checkpoints, their restores and the
+        # engine booted from INT8
         t_ck = time.perf_counter()
         by_path["train_ckpt_2x2_to_1"] = elastic_phase(mr_ckpt, losses_2x2,
                                                        mr_save_s)
-        by_path.update(checkpoint_phase(ckpt_root, losses_pallas))
+        ck_paths, (p8, model1, params1) = checkpoint_phase(ckpt_root,
+                                                           losses_pallas)
+        by_path.update(ck_paths)
         print(f"checkpoint phase: {time.perf_counter() - t_ck:.1f} s",
               flush=True)
+        # this slice's path: the world-1 INT8 checkpoint booted on four
+        # ranks of a 2 x 2 world, slab and paged engines, held against the
+        # world-1 model booted from it
+        by_path.update(sharded_serve_phase(p8, model1, params1))
+        del model1, params1
+        shutil.rmtree(Path(p8).parent)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    # the 2 x 2 world with the sequence sharded
-    by_path["train_2x2_seq"] = seq_parallel_phase()
-    # the paper's knobs at 2 x 2 (with the bytes by tier), and the
-    # 2 x 2 x 2 world
-    by_path.update(knob_phase(losses_2x2, tiers_2x2))
-    by_path["train_2x2x2"], by_path["train_2x2x2_hpz"] = multipod_phase(
-        losses_pallas)
+    # the 2 x 2 x 2 world
+    by_path["train_2x2x2"], by_path["train_2x2x2_hpz"] = timed(
+        "multi-pod", multipod_phase, timed("world 1 cut", cut_world1_losses))
 
     # each kernel's path(s): it must have launched in every one of them
     quant_train = ("train", "train_xla", "train_gemma3", "train_qwen2_vl",
@@ -3602,7 +3991,8 @@ def main() -> None:
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
     serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",
-             "serve_qwen2_vl", "serve_ckpt")
+             "serve_qwen2_vl", "serve_ckpt", "serve_sharded",
+             "serve_sharded_paged")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)

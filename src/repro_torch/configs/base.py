@@ -1,10 +1,12 @@
 """ArchConfig: static description of a decoder (own copy of the
 reference's ``configs/base.py``, cut to the fields the port's ``attn`` and
-``local`` blocks, its inputs and its flat parameter layout read)."""
+``local`` blocks, its inputs and its flat parameter layout read), and the
+named workload shapes the serving shape policy reads (``ShapeConfig``,
+``SHAPES``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +56,20 @@ class ArchConfig:
                      unemb_chunks=2, name=self.name + "-reduced")
         scale.update(overrides)
         return dataclasses.replace(self, **scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One cell of the (arch × shape) matrix."""
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}

@@ -52,26 +52,25 @@ The synchronous functions are ``finish`` of their hops.
 
 Every collective is counted where it is issued: its wire bytes per rank
 (all-gather out − in, reduce-scatter in − out, all-to-all in·(g−1)/g,
-all-reduce 2·in·(g−1)/g, a ring hop the bytes it sends — the
-reference's ``launch/jaxpr_analysis.py`` rules) go to the metrics
-registry as ``comm.<label>.bytes``, and its issue and its wait run under
-the profiler ranges ``<label>`` and ``<label>.wait``
-(``obs.trace.annotate``).  Each ``*_hops`` function passes its label
-down explicitly — ``zero.qwz_gather``, ``zero.baseline_gather``,
-``zero.hpz_gather``, ``zero.qgz_reduce``, ``zero.qgz_reduce1hop``,
-``zero.baseline_reduce`` (``zeropp.WIRE_LABELS``) — because the ring
-advances a collective's hops while other collectives are in flight: no
-label can be "current" then.  The quantized ring counts under
-``zero.qgz_ring``, the reference's name for it; collectives outside the
-ZeRO engine (the sequence gather, the metric and norm all-reduces) take
-:data:`OTHER`.  The same bytes also go to ``comm.tier.<tier>.bytes``,
-the interconnect tier of the group's mesh axes (``obs.metrics.tier``:
-the slowest of ``model`` < ``data`` < ``pod``), and ``other``'s share to
-``comm.tier.<tier>.other.bytes``; :func:`axis_group` records each group's
-axes, :func:`set_world_axes` the default group's (``launch.mesh.make_mesh``
-sets them; ``("data", "model")`` until then).  A world of 1 issues
-nothing and counts nothing.
-"""
+all-reduce 2·in·(g−1)/g, a ring hop the bytes it sends — the reference's
+``launch/jaxpr_analysis.py`` rules) go to the metrics registry as
+``comm.<label>.bytes``, and its issue and its wait run under the profiler
+ranges ``<label>`` and ``<label>.wait`` (``obs.trace.annotate``).  Each
+``*_hops`` function passes its label down explicitly — ``zero.qwz_gather``,
+``zero.baseline_gather``, ``zero.hpz_gather``, ``zero.qgz_reduce``,
+``zero.qgz_reduce1hop``, ``zero.baseline_reduce`` (``zeropp.WIRE_LABELS``) —
+because the ring advances a collective's hops while other collectives are in
+flight: no label can be "current" then.  The quantized ring counts under
+``zero.qgz_ring``, the reference's name for it; collectives outside the ZeRO
+engine (the sequence gather, the metric and norm all-reduces, and serving's
+split-KV combines, sequence hand-offs, logits-row gathers and clock) take
+:data:`OTHER`.  The same bytes also go to ``comm.tier.<tier>.bytes``, the
+interconnect tier of the group's mesh axes (``obs.metrics.tier``: the slowest
+of ``model`` < ``data`` < ``pod``), and ``other``'s share to
+``comm.tier.<tier>.other.bytes``; :func:`axis_group` records each group's axes,
+:func:`set_world_axes` the default group's (``launch.mesh.make_mesh`` sets
+them; ``("data", "model")`` until then).  A world of 1 issues nothing and
+counts nothing."""
 from __future__ import annotations
 
 from typing import Any, Dict, Generator, Optional, Sequence, Tuple
@@ -210,15 +209,33 @@ def _gather(shard: torch.Tensor, group=None, label: str = OTHER
     return out
 
 
-def all_reduce(x: torch.Tensor, group=None, label: str = OTHER) -> None:
-    """In-place sum of ``x`` over ``group``, counted as 2·in·(g−1)/g
-    bytes (a ring all-reduce; the reference's psum rule)."""
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group=None, label: str = OTHER,
+               op: str = "sum") -> None:
+    """In-place ``op`` ("sum" or "max": the reference's psum / pmax) of
+    ``x`` over ``group``, counted as 2·in·(g−1)/g bytes (a ring
+    all-reduce)."""
     world = world_size(group)
     if world == 1:
         return
+    if not x.is_contiguous():
+        raise ValueError("all_reduce works in place on a contiguous tensor")
     with annotate(label):
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
     _count(label, 2 * x.nbytes * (world - 1) / world, group)
+
+
+def gather_rows(x: torch.Tensor, group=None, label: str = OTHER
+                ) -> torch.Tensor:
+    """All-gather ``x`` along dim 0 over ``group`` in rank order (each
+    rank's rows after the previous rank's), counted as out − in bytes: a
+    sharded batch's rows made whole on every rank."""
+    if world_size(group) == 1:
+        return x
+    full = gather_bf16(x.contiguous().reshape(-1), group, label)
+    return full.reshape((-1,) + tuple(x.shape[1:]))
 
 
 def axis_group(shape: Sequence[int], names: Sequence[str],

@@ -5,16 +5,22 @@ chunked online-softmax ``flash_attention`` with its hand-written VJP —,
 its sequence-parallel KV gather ``_gather_seq`` and ``seq_shard_offset``,
 ``per_seq_pos``, ``decode_attend`` with its ring-buffer slot positions,
 ``cache_insert``, and the paged arena's ``paged_insert`` and
-``paged_attend``).  Every route takes the sliding ``window`` of
-``local`` layers as the reference's mask ``q_pos - k_pos < window``, and
+``paged_attend``, with the split-KV combine of both).  Every route takes
+the sliding ``window`` of ``local`` layers as the reference's mask
+``q_pos - k_pos < window``, and
 the ``logit_softcap`` c as the reference's ``c·tanh(logits / c)`` on the
 scaled logits before the mask (the chunked backward's chain factor
 ``1 - tanh²``).  Training may shard
 the sequence over ``seq_axes`` (``RunSpec.seq_axes``, the ranks of
 ``seq_group``): queries stay local, K/V are all-gathered in global shard
-order, and the backward reduce-scatters their cotangents.  Decode and
-the paged arena are not sharded, so the reference's pmax/psum combines
-are left out.  Under the
+order, and the backward reduce-scatters their cotangents.  Serving may
+shard the cache's sequence over ``kv_axes`` (the ranks of ``kv_group``):
+a decode cache's slots, a paged arena's offsets within a page.  Each rank
+writes only the slots it owns and scores only its keys; the exact
+two-pass combine is the reference's: a MAX all-reduce of the row
+maxima, then a SUM all-reduce of the normaliser and the weighted values
+(one message, in fp32; the reference psums the values in the query
+dtype).  Under the
 default ``impl="xla"`` all of it is plain PyTorch, as the reference
 computes it outside any Pallas kernel; the dense path is differentiated by
 autograd.  Under ``impl="pallas"`` (the training step's
@@ -260,6 +266,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  softcap)
 
 
+def kv_shard(kv_axes: Sequence[str], kv_group: Any = None, *,
+             n_loc: int = 0, n: int = 0) -> Tuple[int, int, int]:
+    """(world, n_loc, offset) of this rank's block of the cache's sequence
+    sharded over ``kv_axes`` (the ranks of ``kv_group``), given its local
+    length ``n_loc`` or its global length ``n`` (cut ``world`` ways): rank
+    r owns the global slots [r·n_loc, (r + 1)·n_loc), in the rank order
+    of ``seq_shard_offset``.  Unsharded: (1, n_loc or n, 0)."""
+    world, rank = (cl.world_size(kv_group), cl.flat_rank(kv_group)) \
+        if kv_axes else (1, 0)
+    n_loc = n // world if n else n_loc
+    return world, n_loc, rank * n_loc
+
+
+def _combine(logits: torch.Tensor, vmask: torch.Tensor, v: torch.Tensor,
+             dtype: torch.dtype, kv_axes: Sequence[str], kv_group: Any,
+             clamp: bool) -> torch.Tensor:
+    """Softmax-weighted values of masked (B, H, T, S_loc) fp32 logits over
+    this rank's keys v (B, S_loc, K, hd), combined exactly over the kv
+    shards: the row maxima by a MAX all-reduce, then the normaliser and
+    the weighted values by one SUM all-reduce (fp32).  ``clamp`` floors
+    the normaliser at 1e-30 after the combine (a row with no key yields
+    zeros)."""
+    combine = kv_shard(kv_axes, kv_group)[0] > 1
+    logits = torch.where(vmask, logits, NEG_INF)
+    m = logits.amax(dim=-1)                               # (B, H, T)
+    if combine:
+        cl.all_reduce(m, kv_group, op="max")
+    e = torch.where(vmask, torch.exp(logits - m[..., None]), 0.0)
+    denom = e.sum(dim=-1)                                 # (B, H, T)
+    num = _pv(e.to(dtype), v)                             # (B, T, H, hd)
+    if combine:
+        both = torch.cat([denom.reshape(-1),
+                          num.to(torch.float32).reshape(-1)])
+        cl.all_reduce(both, kv_group)
+        n = denom.numel()
+        denom = both[:n].reshape(denom.shape)
+        num = both[n:].reshape(num.shape).to(num.dtype)
+    if clamp:
+        denom = torch.clamp(denom, min=1e-30)
+    out = num / denom.permute(0, 2, 1)[..., None].to(num.dtype)
+    return out.to(dtype)
+
+
 def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
     """Normalize ``cache_pos`` to a per-sequence (B,) int32 vector (a
     scalar broadcasts): rows of a continuously batched decode sit at
@@ -274,14 +323,18 @@ def per_seq_pos(cache_pos, batch: int) -> torch.Tensor:
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, cache_pos: torch.Tensor, *,
                   window: int = 0, logit_softcap: float = 0.0,
-                  slot_positions: Optional[torch.Tensor] = None
+                  slot_positions: Optional[torch.Tensor] = None,
+                  kv_axes: Sequence[str] = (), kv_group: Any = None
                   ) -> torch.Tensor:
-    """Exact decode attention of (B, 1, H, hd) queries over a (B, S, K, hd)
-    cache.  Slot s holds position s, or ``slot_positions[b, s]`` (a ring
-    buffer: a sliding-window layer's cache; negative = empty).  Each row
-    attends to the slots whose position p satisfies 0 <= p <= its
-    ``cache_pos`` t and, with a ``window``, p > t - window; its logits are
-    capped at ±``logit_softcap`` when > 0."""
+    """Exact decode attention of (B, 1, H, hd) queries over a (B, S_loc,
+    K, hd) cache: this rank's shard of the cache's sequence over
+    ``kv_axes`` (the whole cache when unsharded), combined over
+    ``kv_group``.  Slot s holds position ``slot_positions[b, s]`` (global
+    positions, which a sharded cache must pass; a ring buffer: a
+    sliding-window layer's cache; negative = empty), or s.  Each row attends to the slots whose
+    position p satisfies 0 <= p <= its ``cache_pos`` t and, with a
+    ``window``, p > t - window; its logits are capped at
+    ±``logit_softcap`` when > 0."""
     B, _, H, hd = q.shape
     S = k_cache.shape[1]
     cache_pos = per_seq_pos(cache_pos, B).to(q.device)
@@ -293,27 +346,23 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     valid = (pos >= 0) & (pos <= t)
     if window:
         valid &= pos > t - window
-    vmask = valid[:, None, None, :]                       # (B, 1, 1, S)
-    logits = torch.where(vmask, logits, NEG_INF)
-    m = logits.amax(dim=-1)                               # (B, H, 1)
-    e = torch.where(vmask, torch.exp(logits - m[..., None]), 0.0)
-    denom = e.sum(dim=-1)                                 # (B, H, 1)
-    num = _pv(e.to(q.dtype), v_cache)                     # (B, 1, H, hd)
-    out = num / denom.permute(0, 2, 1)[..., None].to(num.dtype)
-    return out.to(q.dtype)
+    return _combine(logits, valid[:, None, None, :], v_cache, q.dtype,
+                    kv_axes, kv_group, clamp=False)
 
 
 def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
-                 cache_pos: torch.Tensor
+                 cache_pos: torch.Tensor, offset: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write each sequence's new K/V (B, 1, K, hd) at its own slot
+    """Write each sequence's new K/V (B, 1, K, hd) at its own global slot
     ``cache_pos`` (a ring cache passes position mod capacity) of the (B,
-    S, K, hd) caches.  Unlike the reference (immutable arrays, donated
-    buffers) the write is IN PLACE; the caches are returned for symmetry.
-    Rows whose position lies outside [0, S) are left untouched."""
+    S_loc, K, hd) caches, whose first slot is global slot ``offset`` (this
+    rank's shard of a sharded cache sequence).  Unlike the reference
+    (immutable arrays, donated buffers) the write is IN PLACE; the caches
+    are returned for symmetry.  Rows whose slot lies outside [offset,
+    offset + S_loc) are left untouched: another rank owns it."""
     B, S = k_cache.shape[0], k_cache.shape[1]
-    pos = per_seq_pos(cache_pos, B).to(k_cache.device).long()
+    pos = per_seq_pos(cache_pos, B).to(k_cache.device).long() - offset
     idx = pos.clamp(0, S - 1)
     mine = ((pos >= 0) & (pos < S))[:, None, None]
     rows = torch.arange(B, device=k_cache.device)
@@ -323,37 +372,45 @@ def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
     return k_cache, v_cache
 
 
-def paged_write_plan(positions, table, page: int
+def paged_write_plan(positions, table, page: int, d_off: int = 0,
+                     page_loc: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The writes of a (B, T) chunk at ``positions`` through a (B, Pm)
-    page table that land: (flat indices into B·T, their physical pages,
-    their offsets within the page), computed on the tensors' own device.
-    A write is dropped where its logical page is negative, at or past Pm,
-    or maps to -1 (an idle row, or a position past the reservation)."""
+    page table that land on this rank: (flat indices into B·T, their
+    physical pages, their offsets within this rank's slice of the page),
+    computed on the tensors' own device.  A page holds ``page`` tokens;
+    this rank owns the offsets [d_off, d_off + page_loc) of each
+    (``page_loc`` default: all of them).  A write is dropped where its
+    logical page is negative, at or past Pm, or maps to -1 (an idle row,
+    or a position past the reservation), or where its offset belongs to
+    another rank."""
+    page_loc = page if page_loc is None else page_loc
     positions = torch.as_tensor(positions).long()
     table = torch.as_tensor(table).long().to(positions.device)
     lp = torch.div(positions, page, rounding_mode="floor")      # (B, T)
     phys = torch.gather(table, 1, lp.clamp(0, table.shape[1] - 1))
-    ok = (phys >= 0) & (lp >= 0) & (lp < table.shape[1])
+    loc = torch.remainder(positions, page) - d_off
+    ok = (phys >= 0) & (lp >= 0) & (lp < table.shape[1]) & (loc >= 0) \
+        & (loc < page_loc)
     sel = ok.reshape(-1).nonzero().squeeze(1)
-    return (sel, phys.reshape(-1)[sel],
-            torch.remainder(positions, page).reshape(-1)[sel])
+    return sel, phys.reshape(-1)[sel], loc.reshape(-1)[sel]
 
 
 def paged_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor, positions,
                  table, plan: Optional[tuple] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter new K/V (B, T, K, hd) into a (N_pages, page, K, hd) arena
-    through per-row page tables (B, Pm), IN PLACE (the reference returns
-    new arrays); the arena is returned for symmetry.  Token j of row b
-    lands at position ``positions[b, j]``: page ``table[b, p // page]``,
-    offset ``p % page``.  Writes that ``paged_write_plan`` drops are
-    masked out of the scatter, so an idle row (an all-(-1) table row) or
-    a speculative write past the reservation touches nothing.  ``plan``
-    is that function's result for these positions and table, on the
-    arena's device (the model computes it once per call for every
-    layer)."""
+    """Scatter new K/V (B, T, K, hd) into a (N_pages, page_loc, K, hd)
+    arena through per-row page tables (B, Pm), IN PLACE (the reference
+    returns new arrays); the arena is returned for symmetry.  Token j of
+    row b lands at position ``positions[b, j]``: page ``table[b, p //
+    page]``, offset ``p % page``.  Writes that ``paged_write_plan`` drops
+    are masked out of the scatter, so an idle row (an all-(-1) table row)
+    or a speculative write past the reservation touches nothing, and a
+    rank writes only the offsets it owns.  ``plan`` is that function's
+    result for these positions and table, on the arena's device (the
+    model computes it once per call for every layer; default: an
+    unsharded arena, page = page_loc)."""
     B, T, K, hd = k_new.shape
     if plan is None:
         plan = paged_write_plan(positions, table, k_cache.shape[1])
@@ -367,39 +424,41 @@ def paged_insert(k_cache: torch.Tensor, v_cache: torch.Tensor,
 def paged_attend(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, positions, table, *,
                  softmax_scale: Optional[float] = None,
-                 logit_softcap: float = 0.0) -> torch.Tensor:
+                 logit_softcap: float = 0.0,
+                 kv_axes: Sequence[str] = (), kv_group: Any = None
+                 ) -> torch.Tensor:
     """Exact attention of (B, T, H, hd) queries at ``positions`` (B, T)
-    over a paged arena (N_pages, page, K, hd) through page tables (B, Pm).
+    over a paged arena (N_pages, page_loc, K, hd) through page tables (B,
+    Pm).  The arena holds this rank's offsets [d_off, d_off + page_loc) of
+    every page of page_loc · (kv world) tokens (the within-page dim
+    sharded over ``kv_axes``; all of them unsharded), combined over
+    ``kv_group``.
 
-    Each row's pages are gathered into a (B, Pm·page) view in logical
-    order; a key's position is its logical page × page + its offset, -1
-    where the table holds -1.  The mask is causal per query (key position
-    <= query position), so a multi-token row (chunked prefill,
-    speculative verify) sees its own just-inserted keys up to itself.  The
-    normaliser is clamped at 1e-30: an all-(-1) row attends to nothing and
-    yields zeros, not NaN."""
+    Each row's pages are gathered into a (B, Pm·page_loc) view in logical
+    order; a key's position is its logical page × page + d_off + its
+    offset, -1 where the table holds -1.  The mask is causal per query
+    (key position <= query position), so a multi-token row (chunked
+    prefill, speculative verify) sees its own just-inserted keys up to
+    itself.  The normaliser is clamped at 1e-30 after the combine: an
+    all-(-1) row attends to nothing and yields zeros, not NaN."""
     B, T, H, hd = q.shape
-    page, K = k_cache.shape[1], k_cache.shape[2]
+    page_loc, K = k_cache.shape[1], k_cache.shape[2]
+    world, _, d_off = kv_shard(kv_axes, kv_group, n_loc=page_loc)
+    page = page_loc * world
     table = torch.as_tensor(table).long().to(q.device)
     positions = torch.as_tensor(positions).long().to(q.device)
     Pm = table.shape[1]
-    S = Pm * page
+    S = Pm * page_loc
     safe = table.clamp(min=0)
     kk = k_cache[safe].reshape(B, S, K, hd)
     vv = v_cache[safe].reshape(B, S, K, hd)
-    lpos = (torch.arange(Pm, device=q.device)[:, None] * page
-            + torch.arange(page, device=q.device)[None, :])      # (Pm, page)
+    lpos = (torch.arange(Pm, device=q.device)[:, None] * page + d_off
+            + torch.arange(page_loc, device=q.device)[None, :])  # (Pm, pl)
     kpos = torch.where((table >= 0)[:, :, None], lpos[None],
                        -1).reshape(B, S)
     logits = _cap(_logits(q, kk, softmax_scale or hd ** -0.5),
                   logit_softcap)                                # (B, H, T, S)
     valid = (kpos >= 0)[:, None, :] & \
         (kpos[:, None, :] <= positions[:, :, None])              # (B, T, S)
-    vmask = valid[:, None]
-    logits = torch.where(vmask, logits, NEG_INF)
-    m = logits.amax(dim=-1)                                     # (B, H, T)
-    e = torch.where(vmask, torch.exp(logits - m[..., None]), 0.0)
-    denom = torch.clamp(e.sum(dim=-1), min=1e-30)
-    num = _pv(e.to(q.dtype), vv)                                # (B, T, H, hd)
-    out = num / denom.permute(0, 2, 1)[..., None].to(num.dtype)
-    return out.to(q.dtype)
+    return _combine(logits, valid[:, None], vv, q.dtype, kv_axes, kv_group,
+                    clamp=True)

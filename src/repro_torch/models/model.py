@@ -53,6 +53,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as nn
 from repro_torch.models.transformer import (RunSpec, _sub, apply_block,
                                             block_entries, init_cache_shapes,
+                                            last_shard_value,
                                             select_positions)
 
 Params = Dict[str, torch.Tensor]
@@ -405,7 +406,10 @@ class Model:
         """Forward over a prompt; returns (last-token logits (B, 1, V),
         caches).  ``last_pos`` (B,) selects each sequence's logits position
         — the last REAL token of a right-padded prompt; default: the final
-        position."""
+        position.  Under a sequence sharded over ``rs.seq_axes`` the batch
+        is this rank's slice, the caches keep that layout
+        (``rs.kv_axes`` == ``rs.seq_axes``) and the logits are every
+        sequence rank's (the position's owner hands its value over)."""
         z = self.zcfg
         h = self._inputs(params, batch)
         pos = {"rope": self._rope_tables(batch, rs, h.shape[1])}
@@ -422,8 +426,10 @@ class Model:
             h, rem = zero_apply_inference(
                 self._group_fn(rs, pos, self.rem_spec, self.rem_kinds),
                 z)(params["rem"], h, None)
-        h_last = h[:, -1:, :] if last_pos is None \
-            else select_positions(h, last_pos)
+        h_last = last_shard_value(h[:, -1:, :], rs.seq_axes, rs.seq_group) \
+            if last_pos is None else select_positions(h, last_pos,
+                                                      rs.seq_axes,
+                                                      rs.seq_group)
         return self._head_logits(params, h_last), {"blocks": caches,
                                                    "rem": rem}
 
@@ -436,8 +442,9 @@ class Model:
         (``cfg.embed_inputs``), and with ``cfg.mrope`` the new token's
         positions (3, B, 1).  ``cache_pos`` is PER-SEQUENCE (B,) (a scalar
         broadcasts), so rows admitted at different steps decode together.
-        The caches are updated IN PLACE (the reference returns new arrays)
-        and returned."""
+        The caches (this rank's slice of the cache sequence over
+        ``rs.kv_axes``) are updated IN PLACE (the reference returns new
+        arrays) and returned."""
         h = self._inputs(params, batch)
         cache_pos = attn_lib.per_seq_pos(cache_pos, h.shape[0]).to(self.device)
         pos = {"rope": self._rope_tables(batch, rs, 1, cache_pos=cache_pos),
@@ -469,16 +476,17 @@ class Model:
                  ) -> Tuple[torch.Tensor, Any]:
         """One paged-serving step: (B, T) tokens against a page arena.
 
-        ``caches`` hold a PAGE ARENA, (n_pages, page_size, K, hd) per layer
-        shared by every row (``init_paged_caches``), updated IN PLACE and
-        returned; ``page_table`` (B, Pm) maps each row's logical pages to
-        physical ones (-1: the row writes nothing there and attends to
-        nothing there).  Row r's token j sits at position ``start_pos[r] +
-        j``.  One step serves batched decode (T = 1), speculative verify
-        (T = g + 1) and chunked prefill (B = 1, T = chunk); the logits come
-        back for every position, (B, T, V), through the serving head (B8
-        where qwZ's GEMM route is eligible).  The table and positions are
-        read on the host once a call: the writes that land
+        ``caches`` hold a PAGE ARENA, (n_pages, page_loc, K, hd) per layer
+        shared by every row (``init_paged_caches``; page_loc = page_size / kv
+        world: this rank's offsets within each page under ``rs.kv_axes``),
+        updated IN PLACE and returned; ``page_table`` (B, Pm) maps each row's
+        logical pages to physical ones (-1: the row writes nothing there and
+        attends to nothing there).  Row r's token j sits at position
+        ``start_pos[r] + j``.  One step serves batched decode (T = 1),
+        speculative verify (T = g + 1) and chunked prefill (B = 1, T = chunk);
+        the logits come back for every position, (B, T, V), through the serving
+        head (B8 where qwZ's GEMM route is eligible).  The table and positions
+        are read on the host once a call: the writes that land
         (``attention.paged_write_plan``) are the same for every layer."""
         self._refuse_paged()
         cfg, z = self.cfg, self.zcfg
@@ -487,14 +495,15 @@ class Model:
         table = _host_ints(page_table)
         tpos = attn_lib.per_seq_pos(_host_ints(start_pos), B).long()[
             :, None] + torch.arange(T)                           # (B, T)
-        page = caches["blocks"][0]["k"].shape[2]
+        world, page_loc, d_off = attn_lib.kv_shard(
+            rs.kv_axes, rs.kv_group, n_loc=caches["blocks"][0]["k"].shape[2])
         dev = self.device
         tpos_d = tpos.to(dev)
+        plan = attn_lib.paged_write_plan(tpos, table, page_loc * world,
+                                         d_off, page_loc)
         pos = {"rope": nn.rope_table(tpos_d, cfg.d_head, cfg.rope_theta),
                "positions": tpos_d, "page_table": table.to(dev),
-               "write_plan": tuple(t.to(dev) for t in
-                                   attn_lib.paged_write_plan(tpos, table,
-                                                             page))}
+               "write_plan": tuple(t.to(dev) for t in plan)}
         per_period = [tuple({key: c[key][i] for key in ("k", "v")}
                             for c in caches["blocks"])
                       for i in range(self.n_periods)]
@@ -507,37 +516,43 @@ class Model:
                 params["rem"], h, caches["rem"])
         return self._head_logits(params, h), caches
 
-    def paged_cache_shapes(self, n_pages: int, page_size: int):
-        """The page arena's shapes: :meth:`cache_shapes` with (batch,
-        kv_len) read as (n_pages, page_size)."""
+    def paged_cache_shapes(self, n_pages: int, page_size: int,
+                           kv_world: int = 1):
+        """This rank's page arena shapes: :meth:`cache_shapes` with (batch,
+        kv_len) read as (n_pages, page_size), the within-page dim cut
+        ``kv_world`` ways."""
         self._refuse_paged()
-        return self.cache_shapes(n_pages, page_size)
+        return self.cache_shapes(n_pages, page_size, kv_world)
 
     def init_paged_caches(self, n_pages: int, page_size: int,
-                          dtype: torch.dtype = torch.bfloat16):
+                          dtype: torch.dtype = torch.bfloat16,
+                          kv_world: int = 1):
         self._refuse_paged()
-        return self.init_caches(n_pages, page_size, dtype)
+        return self.init_caches(n_pages, page_size, dtype, kv_world)
 
     # ------------------------------------------------------------- caches
 
-    def cache_shapes(self, batch: int, kv_len: int):
-        """GLOBAL cache shapes matching decode_fn's layout: for each block
-        of the period a (n_periods, ...) stack, for each ``rem`` layer its
-        own (None without one)."""
+    def cache_shapes(self, batch: int, kv_len: int, kv_world: int = 1):
+        """This rank's cache shapes matching decode_fn's layout, ``batch``
+        its rows and each block's cache sequence cut ``kv_world`` ways
+        (S_loc = kv_len / kv_world; a ``kv_len`` that does not divide is
+        refused): for each block of the period a (n_periods, ...) stack,
+        for each ``rem`` layer its own (None without one)."""
         blocks = tuple({k: (self.n_periods,) + s for k, s in
-                        init_cache_shapes(self.cfg, kind, batch,
-                                          kv_len).items()}
+                        init_cache_shapes(self.cfg, kind, batch, kv_len,
+                                          kv_world).items()}
                        for kind in self.period)
-        rem = tuple(init_cache_shapes(self.cfg, kind, batch, kv_len)
+        rem = tuple(init_cache_shapes(self.cfg, kind, batch, kv_len,
+                                      kv_world)
                     for kind in self.rem_kinds) if self.rem_spec else None
         return {"blocks": blocks, "rem": rem}
 
     def init_caches(self, batch: int, kv_len: int,
-                    dtype: torch.dtype = torch.bfloat16):
+                    dtype: torch.dtype = torch.bfloat16, kv_world: int = 1):
         def zeros(per):
             return {k: torch.zeros(s, dtype=dtype, device=self.device)
                     for k, s in per.items()}
-        shapes = self.cache_shapes(batch, kv_len)
+        shapes = self.cache_shapes(batch, kv_len, kv_world)
         rem = shapes["rem"]
         return {"blocks": tuple(zeros(per) for per in shapes["blocks"]),
                 "rem": None if rem is None else tuple(zeros(p) for p in rem)}

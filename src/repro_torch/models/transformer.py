@@ -11,19 +11,24 @@ layer's decode cache is a ring buffer of ``min(window, kv_len)`` slots:
 position t lives in slot t mod capacity, filled at prefill with the
 prompt's last ``window`` positions; the paged branch serves ``attn``
 layers, the only kind ``Model.paged_fn`` admits), the MLP half with its ``cfg.act`` gate,
-``apply_block`` and ``select_positions``.  Training may shard the sequence
-(``RunSpec.seq_axes``, ``mha``'s KV gather); serving does not, so the
-reference's ``_last_shard_value`` (replicate the last sequence shard's
-value) is the identity and has no counterpart here.
+``apply_block``, ``select_positions`` and ``last_shard_value``.  Training
+and prefill may shard the sequence (``RunSpec.seq_axes``/``seq_group``,
+``mha``'s KV gather); serving may shard the cache's sequence
+(``RunSpec.kv_axes``/``kv_group``): a decode cache's slots (global
+capacity S_loc × kv world, rank r owning slots [r·S_loc, (r+1)·S_loc)),
+a paged arena's offsets within each page.  A prefill cache keeps the
+activations' layout (kv_axes == seq_axes), a ``local`` ring built from
+the sequence gathered over ``seq_axes``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import collectives as cl
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 
@@ -56,6 +61,8 @@ class RunSpec:
     mode: str = "prefill"              # train | prefill | decode | paged
     seq_axes: Tuple[str, ...] = ()     # activation sequence sharding
     seq_group: Any = None              # the process group of seq_axes
+    kv_axes: Tuple[str, ...] = ()      # cache sequence sharding
+    kv_group: Any = None               # the process group of kv_axes
     attn_impl: str = "xla"             # xla | pallas (flash kernels B6/B7)
 
 
@@ -86,52 +93,63 @@ def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
     window = cfg.window if kind == "local" else 0
     if rs.mode == "paged":
         # the cache is a page arena shared by every row, addressed through
-        # pos["page_table"]: insert the chunk's keys, then attend causally
-        # at pos["positions"] (decode T = 1, verify T = g + 1, prefill
-        # B = 1, T = chunk); Model.paged_fn admits attn layers only
+        # pos["page_table"]: insert the chunk's keys (the offsets this rank
+        # owns: pos["write_plan"]), then attend causally at
+        # pos["positions"] (decode T = 1, verify T = g + 1, prefill B = 1,
+        # T = chunk); Model.paged_fn admits attn layers only
         kc, vc = attn.paged_insert(cache["k"], cache["v"], k, v,
                                    pos["positions"], pos["page_table"],
                                    plan=pos["write_plan"])
         o = attn.paged_attend(q, kc, vc, pos["positions"], pos["page_table"],
-                              logit_softcap=cfg.logit_softcap)
+                              logit_softcap=cfg.logit_softcap,
+                              kv_axes=rs.kv_axes, kv_group=rs.kv_group)
         new_cache = {"k": kc, "v": vc}
     elif rs.mode == "decode":
-        # position t in slot t mod capacity: slot == position for a full
-        # cache (t < kv_len), the ring of a local layer's window
-        cap = cache["k"].shape[1]
+        # global slot t mod capacity: slot == position for a full cache
+        # (t < kv_len), the ring of a local layer's window; this rank holds
+        # the global slots [off, off + S_loc)
+        world, s_loc, off = attn.kv_shard(rs.kv_axes, rs.kv_group,
+                                          n_loc=cache["k"].shape[1])
+        cap = s_loc * world                              # global capacity
         t = attn.per_seq_pos(pos["cache_pos"], B).to(h.device).long()
         slot = torch.remainder(t, cap)
-        kc, vc = attn.cache_insert(cache["k"], cache["v"], k, v, slot)
-        s = torch.arange(cap, device=h.device)
-        spos = t[:, None] - torch.remainder(t[:, None] - s[None, :], cap)
+        kc, vc = attn.cache_insert(cache["k"], cache["v"], k, v, slot, off)
+        gslot = off + torch.arange(s_loc, device=h.device)
+        spos = t[:, None] - torch.remainder(t[:, None] - gslot[None, :], cap)
         o = attn.decode_attend(q, kc, vc, t, window=window,
                                logit_softcap=cfg.logit_softcap,
-                               slot_positions=spos)
+                               slot_positions=spos, kv_axes=rs.kv_axes,
+                               kv_group=rs.kv_group)
         new_cache = {"k": kc, "v": vc}
     else:
         o = attn.mha(q, k, v, seq_axes=rs.seq_axes, seq_group=rs.seq_group,
                      impl=rs.attn_impl, window=window,
                      logit_softcap=cfg.logit_softcap)
-        new_cache = _build_prefill_cache(cfg, kind, k, v) \
+        new_cache = _build_prefill_cache(cfg, kind, k, v, rs) \
             if rs.mode == "prefill" else None
     o = o.reshape(B, S, H * hd) @ p["wo"]
     return o, new_cache
 
 
 def _build_prefill_cache(cfg: ArchConfig, kind: str, k: torch.Tensor,
-                         v: torch.Tensor):
-    """Prefill K/V (B, S, K, hd) in the decode cache layout: the whole
-    sequence for ``attn`` (slot == position), the ring of the last
-    ``window`` positions for ``local``: slot s holds position
-    (S - 1) - ((S - 1 - s) mod window), the slot decode writes it to.  A
-    prompt shorter than the window leaves slots of negative positions,
-    which decode masks; the reference fills them with whatever its gather
-    reads there (values of the prompt, or NaN below -S), here they are
-    zeros, so a masked slot adds an exact 0."""
+                         v: torch.Tensor, rs: RunSpec):
+    """Prefill K/V (B, S_loc, K, hd) in the decode cache layout: for
+    ``attn`` this rank's slice of the sequence as it stands (slot ==
+    position; the cache inherits the activations' layout), for ``local``
+    the ring of the last ``window`` positions of the sequence gathered over
+    ``seq_axes``, of which this rank keeps its slice over ``kv_axes``: slot
+    s holds position (S - 1) - ((S - 1 - s) mod window), the slot decode
+    writes it to.  A prompt shorter than the window leaves slots of
+    negative positions, which decode masks; the reference fills them with
+    whatever its gather reads there (values of the prompt, or NaN below
+    -S), here they are zeros, so a masked slot adds an exact 0."""
     if kind == "attn":
         return {"k": k, "v": v}
+    k = attn._gather_seq(k, rs.seq_axes, rs.seq_group)
+    v = attn._gather_seq(v, rs.seq_axes, rs.seq_group)
     S, W = k.shape[1], cfg.window
-    slots = torch.arange(W, device=k.device)
+    _, loc, off = attn.kv_shard(rs.kv_axes, rs.kv_group, n=W)
+    slots = off + torch.arange(loc, device=k.device)
     src = (S - 1) - torch.remainder((S - 1) - slots, W)
     keep = (src >= 0)[None, :, None, None]
     idx = src.clamp(min=0)
@@ -145,13 +163,41 @@ def _mlp_block(cfg: ArchConfig, p, h: torch.Tensor) -> torch.Tensor:
                      act=cfg.act)
 
 
-def select_positions(h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def select_positions(h: torch.Tensor, pos: torch.Tensor,
+                     seq_axes: Sequence[str] = (),
+                     seq_group: Any = None) -> torch.Tensor:
     """Per-sequence select h[b, pos[b], :] -> (B, 1, d): the last REAL
-    token of each right-padded prompt.  (The reference does a one-hot
-    reduce so it can psum over sequence shards; on one device it is this
-    gather, and exact either way.)"""
+    token of each right-padded prompt, ``pos`` GLOBAL positions.  Under a
+    sequence sharded over ``seq_axes`` each rank reads its own positions
+    (zeros elsewhere) and the owner's value is summed over ``seq_group``
+    in fp32 (exact: one value and zeros), as the reference psums its
+    one-hot reduce."""
+    S_loc = h.shape[1]
     rows = torch.arange(h.shape[0], device=h.device)
-    return h[rows, pos.to(h.device).long()][:, None, :]
+    idx = pos.to(h.device).long() - attn.seq_shard_offset(
+        S_loc, seq_axes, seq_group)
+    v = h[rows, idx.clamp(0, S_loc - 1)][:, None, :]
+    if not seq_axes or cl.world_size(seq_group) == 1:
+        return v
+    mine = ((idx >= 0) & (idx < S_loc))[:, None, None]
+    v = torch.where(mine, v.to(torch.float32), 0.0).contiguous()
+    cl.all_reduce(v, seq_group)
+    return v.to(h.dtype)
+
+
+def last_shard_value(x: torch.Tensor, seq_axes: Sequence[str] = (),
+                     seq_group: Any = None) -> torch.Tensor:
+    """The LAST sequence shard's ``x`` on every rank of ``seq_group`` (the
+    reference's ``_last_shard_value``: a psum of x times "am I last", here
+    in fp32, exact); ``x`` itself unsharded."""
+    w = cl.world_size(seq_group) if seq_axes else 1
+    if w == 1:
+        return x
+    v = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    if cl.flat_rank(seq_group) == w - 1:
+        v.copy_(x)
+    cl.all_reduce(v, seq_group)
+    return v.to(x.dtype)
 
 
 def apply_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
@@ -164,11 +210,17 @@ def apply_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
 
 
 def init_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
-                      kv_len: int) -> Dict[str, Tuple[int, ...]]:
-    """Per-layer K/V cache shapes of a block: ``kv_len`` slots for
-    ``attn``, the ring's ``min(window, kv_len)`` for ``local``."""
+                      kv_len: int, kv_world: int = 1
+                      ) -> Dict[str, Tuple[int, ...]]:
+    """Per-layer K/V cache shapes of a block on one rank of a cache
+    sequence sharded ``kv_world`` ways: ``kv_len`` slots for ``attn``, the
+    ring's ``min(window, kv_len)`` for ``local``, each cut into
+    ``kv_world`` equal slices (refused where they do not divide)."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     n = kv_len if kind == "attn" else min(cfg.window, kv_len)
-    s = (batch, n, cfg.n_kv_heads, cfg.d_head)
+    if n % kv_world:
+        raise ValueError(f"{kind} cache of {n} slots does not divide over "
+                         f"the {kv_world}-way kv sharding")
+    s = (batch, n // kv_world, cfg.n_kv_heads, cfg.d_head)
     return {"k": s, "v": s}

@@ -1,10 +1,10 @@
 """Continuous-batching inference engine (slab and paged KV pools).
 
-Port of the reference's ``serve/engine.py`` at world 1: requests are
-admitted whenever the KV pool has room, prefilled, then decoded TOGETHER
-with every other in-flight request by one batched step — the
-per-sequence position contract lets rows sit at different positions.
-Retired slots recycle to queued requests.
+Port of the reference's ``serve/engine.py``: requests are admitted
+whenever the KV pool has room, prefilled, then decoded TOGETHER with
+every other in-flight request by one batched step — the per-sequence
+position contract lets rows sit at different positions.  Retired slots
+recycle to queued requests.
 
 Step anatomy of the slab pool (``ServeEngine.step``):
 
@@ -40,6 +40,22 @@ refuses any other).
 Weights stay in their flat ZeRO buffers and every layer group moves
 through the qwZ INT8 gather on every step, as in the reference; the
 layer loop's ring depth is the model's ``ZeroConfig.prefetch``.
+
+Sharded serving (``mesh=``, a ``launch.mesh.Mesh`` of gloo ranks, one
+process a rank, each holding its shard of every flat buffer): the slab
+pool cuts its slots over ``batch_axes`` and each slot's cache sequence
+over ``kv_axes``; the paged pool keeps the batch whole and cuts each
+page's tokens over ``kv_axes``, every other axis a replica.  Prefill
+runs replicated (batch 1, the whole prompt, as the reference's engine
+builds it), each rank keeping its cut of the caches.  The reference's
+global arrays keep its one host loop in step for free; here EVERY rank
+runs the host loop, so every decision must come out the same on each:
+every rank must be given the same requests in the same order
+(``submit``), every model call's logits come back whole on every rank
+(the decode step gathers its rows over the batch group), so each rank
+samples the same tokens with the request's own seeded generator, and a
+tick reads rank 0's clock, shared over the world, so deadlines expire
+on the same tick everywhere.
 ``observer=`` sees every model call's logits (for checks that hold the
 engine against a request run alone).
 :meth:`ServeEngine.from_checkpoint` boots from a checkpoint (fp32 or
@@ -59,6 +75,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import collectives as cl
 from repro_torch.kernels import platform
 from repro_torch.obs.metrics import Histogram
 from repro_torch.serve import steps
@@ -123,10 +140,19 @@ class ServeEngine:
     also ``"verify"``, and with a drafter ``"draft_prefill"`` and
     ``"draft"``), the requests it served as (uid, row, position) triples
     (``logits[row, j]`` is the output at the token in ``position + j``)
-    and its (B, T, V) logits, which it must not modify."""
+    and its (B, T, V) logits, which it must not modify (every row, on
+    every rank of a mesh).
+
+    ``mesh`` (default None: world 1) serves on a world of ranks, the
+    model's world, with ``params`` this rank's shards
+    (``train.state.load_serving_params(mesh=)``): slots cut over
+    ``batch_axes`` (``n_slots`` must divide over them; the paged pool
+    refuses any) and the cache sequence over ``kv_axes``."""
 
     def __init__(self, model, params: Dict[str, torch.Tensor], *,
-                 n_slots: int, kv_len: int,
+                 n_slots: int, kv_len: int, mesh=None,
+                 batch_axes: Tuple[str, ...] = (),
+                 kv_axes: Tuple[str, ...] = ("model",),
                  scheduler: Optional[FIFOScheduler] = None,
                  cache_dtype: Optional[torch.dtype] = None,
                  device="cuda", tune: str = "off", pool: str = "slab",
@@ -156,6 +182,12 @@ class ServeEngine:
         if draft is not None and pool != "paged":
             raise ValueError("speculative decoding rides the paged step; "
                              "pass pool='paged'")
+        if pool == "paged" and batch_axes:
+            raise ValueError(
+                "paged serving keeps the batch unsharded: the page arena is "
+                "one global pool any slot may reference, incompatible with "
+                f"batch_axes={tuple(batch_axes)}")
+        self.world = 1 if mesh is None else mesh.world
         self.model = model
         self.params = params
         self.device = model.device
@@ -181,11 +213,13 @@ class ServeEngine:
                                  f"{page_size}")
             self.pool = PagedKVPool(model, n_slots, kv_len,
                                     page_size=page_size, n_pages=n_pages,
-                                    dtype=cdtype, prefix_cache=prefix_cache)
+                                    dtype=cdtype, prefix_cache=prefix_cache,
+                                    mesh=mesh, kv_axes=kv_axes)
             # one step for every (B, T): (n_slots, 1) decode, (1, chunk)
             # prefill, (n_slots, g + 1) verify
-            self._target = _Side(steps.build_paged_step(model, device=dev),
-                                 self.pool, params)
+            self._target = _Side(steps.build_paged_step(
+                model, device=dev, mesh=mesh, kv_axes=kv_axes), self.pool,
+                params)
             self._sides = [self._target]
             if draft is not None:
                 dmodel, dparams = draft
@@ -202,19 +236,26 @@ class ServeEngine:
                 # its slot ids always mirror the target pool's
                 self.draft_pool = PagedKVPool(
                     dmodel, n_slots, kv_len, page_size=page_size,
-                    dtype=cdtype, prefix_cache=prefix_cache)
+                    dtype=cdtype, prefix_cache=prefix_cache, mesh=mesh,
+                    kv_axes=kv_axes)
                 self._drafter = _Side(
-                    steps.build_paged_step(dmodel, device=dev),
+                    steps.build_paged_step(dmodel, device=dev, mesh=mesh,
+                                           kv_axes=kv_axes),
                     self.draft_pool, dparams)
                 self._sides.append(self._drafter)
                 self._spec_hist = Histogram("serve.spec_accepted",
                                             window=512)
         else:
-            self.pool = KVPool(model, n_slots, kv_len, dtype=cdtype)
-            self._prefill = steps.build_prefill_step(model,
-                                                     with_last_pos=True,
-                                                     device=dev)
-            self._decode = steps.build_decode_step(model, device=dev)
+            self.pool = KVPool(model, n_slots, kv_len, dtype=cdtype,
+                               mesh=mesh, batch_axes=batch_axes,
+                               kv_axes=kv_axes)
+            # prefill: batch 1, the whole prompt on every rank; decode: ONE
+            # step for the whole pool, its rows over batch_axes
+            self._prefill = steps.build_prefill_step(
+                model, with_last_pos=True, device=dev, mesh=mesh)
+            self._decode = steps.build_decode_step(
+                model, device=dev, mesh=mesh, batch_axes=batch_axes,
+                kv_axes=kv_axes)
         self.clock = clock                       # injectable for tests
         self.slots: List[Optional[_Active]] = [None] * n_slots
         self.results: Dict[int, List[int]] = {}
@@ -232,24 +273,26 @@ class ServeEngine:
 
     @classmethod
     def from_checkpoint(cls, model, ckpt: str, *, dtype=torch.bfloat16,
-                        **kw) -> "ServeEngine":
-        """Boot from a checkpoint (per-shard fp32 or INT8, or a legacy
-        npz; ``ckpt`` a checkpoint or a directory of them, the latest
-        taken) via the params-only bf16 serving load, which refuses a
-        checkpoint written for another arch.  ``kw``: the constructor's
-        (``n_slots``, ``kv_len``, ``pool``, ...)."""
+                        mesh=None, **kw) -> "ServeEngine":
+        """Boot from a checkpoint (per-shard fp32 or INT8 saved at any
+        world, or a legacy npz; ``ckpt`` a checkpoint or a directory of
+        them, the latest taken) via the params-only bf16 serving load,
+        which refuses a checkpoint written for another arch; on a
+        ``mesh`` each rank loads its shards.  ``kw``: the constructor's
+        (``n_slots``, ``kv_len``, ``batch_axes``, ``pool``, ...)."""
         from repro_torch.train.state import load_serving_params
         _refuse_stub_inputs(model.cfg)
         params = load_serving_params(model, ckpt, dtype=dtype,
-                                     expect_arch=model.cfg.name)
-        return cls(model, params, **kw)
+                                     expect_arch=model.cfg.name, mesh=mesh)
+        return cls(model, params, mesh=mesh, **kw)
 
     # ---------------------------------------------------------- requests
 
     def submit(self, prompt, **kw) -> int:
         """Queue a request; returns its uid.  Keyword args mirror
         ``scheduler.Request`` (max_new_tokens, temperature, top_k, top_p,
-        seed, eos_id, on_token, deadline)."""
+        seed, eos_id, on_token, deadline).  On a mesh every rank must
+        submit the same requests in the same order."""
         if self._drafter is not None and kw.get("temperature", 0.0) > 0:
             raise ValueError(
                 "speculative decoding verifies greedily: temperature>0 "
@@ -585,7 +628,7 @@ class ServeEngine:
         speculative) tick."""
         emitted: List[Tuple[int, int]] = []
         self._tick += 1
-        self._expire(self.clock())
+        self._expire(self._now())
         if self.pool_kind == "paged":
             self._admit_paged()
             self._prefill_tick(emitted)
@@ -601,6 +644,18 @@ class ServeEngine:
         else:
             self._decode_paged(active, emitted)
         return emitted
+
+    def _now(self) -> float:
+        """The tick's clock reading: rank 0's ``clock()`` on every rank of
+        a mesh (a MAX all-reduce to which only rank 0 contributes), so
+        that every rank expires the same requests at the same tick."""
+        t = self.clock()
+        if self.world == 1:
+            return t
+        x = torch.tensor([t if cl.flat_rank() == 0 else -float("inf")],
+                         dtype=torch.float64)
+        cl.all_reduce(x, op="max")
+        return float(x[0])
 
     def stats(self) -> Dict[str, Any]:
         """Lifecycle counts, occupancy and sliding-window latency quantiles

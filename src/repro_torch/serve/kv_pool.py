@@ -1,6 +1,11 @@
 """KV cache pools: whole-slot slabs and the paged block arena.
 
-Port of the reference's ``serve/kv_pool.py`` at world 1.
+Port of the reference's ``serve/kv_pool.py``.  On a mesh of gloo ranks
+(``launch.mesh.Mesh``) each rank holds its cut of the device caches
+(``steps.cache_specs``, ``steps.paged_cache_specs``) and the whole of the
+host bookkeeping (free lists, lengths, page tables, chain hashes,
+refcounts, LRU), which every rank computes identically from the same
+calls: the reference keeps one copy of it beside its global arrays.
 
 ``KVPool`` — fixed-capacity whole slots with FIFO recycling.  The
 pool owns ONE cache tree of batch size ``n_slots`` (the decode batch),
@@ -12,7 +17,8 @@ request occupies one slot for its lifetime:
   admit  -> ``alloc()`` hands out the oldest retired slot (FIFO recycling)
   prefill-> ``write_prefill`` copies the request's padded prefill caches
             into the slot (the FULL slot, so a recycled slot never leaks
-            its previous occupant)
+            its previous occupant); on a mesh the rank whose rows hold the
+            slot keeps its slice of the cache sequence, the others nothing
   decode -> the decode step updates all slots in place (inactive slots
             write their own slot's position 0, which the next prefill
             overwrites)
@@ -41,12 +47,25 @@ from repro_torch.serve import steps
 
 
 class KVPool:
+    """Slot rows cut over ``batch_axes`` and each slot's cache sequence
+    over ``kv_axes`` of ``mesh`` (none: the whole pool on this rank)."""
+
     def __init__(self, model, n_slots: int, kv_len: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, *, mesh=None,
+                 batch_axes: Sequence[str] = (),
+                 kv_axes: Sequence[str] = ()):
         self.model = model
+        self.mesh = mesh
         self.n_slots = n_slots
         self.kv_len = kv_len
-        self.caches = model.init_caches(n_slots, kv_len, dtype)
+        bw, self._b_rank, _ = steps.axes_group(mesh, batch_axes)
+        if n_slots % bw:
+            raise ValueError(f"n_slots={n_slots} must divide over batch "
+                             f"axes {tuple(batch_axes)} (world {bw})")
+        self._rows = n_slots // bw                   # slots on this rank
+        kw, _, _ = steps.axes_group(mesh, kv_axes)
+        self._kv_specs = steps.cache_specs(model, (), kv_axes)
+        self.caches = model.init_caches(self._rows, kv_len, dtype, kw)
         self.lengths = np.zeros(n_slots, np.int32)   # valid tokens per slot
         self._free: Deque[int] = deque(range(n_slots))
 
@@ -66,18 +85,27 @@ class KVPool:
 
     def write_prefill(self, slot: int, prefill_caches: Any,
                       prompt_len: int) -> None:
-        """Grow a request's batch=1 prefill caches to pool capacity and copy
-        them into batch index ``slot`` (in place)."""
+        """Grow a request's batch=1 prefill caches (whole, as every rank
+        computes them) to pool capacity and copy this rank's slice of
+        their cache sequence into batch index ``slot`` (in place), if the
+        slot's row is this rank's."""
+        self.lengths[slot] = prompt_len
+        row = slot - self._b_rank * self._rows
+        if not 0 <= row < self._rows:
+            return
         grown = steps.pad_prefill_caches(self.model, prefill_caches,
                                          self.kv_len)
-        for pool_c, new_c in zip(self.caches["blocks"], grown["blocks"]):
+        specs = self._kv_specs
+        for pool_c, new_c, sp in zip(self.caches["blocks"], grown["blocks"],
+                                     specs["blocks"]):
             for key in ("k", "v"):           # (n_periods, B, S, K, hd)
-                pool_c[key][:, slot] = new_c[key][:, 0]
-        for pool_c, new_c in zip(self.caches["rem"] or (),
-                                 grown["rem"] or ()):
+                pool_c[key][:, row] = steps.shard_cut(
+                    new_c[key], sp[key], self.mesh)[:, 0]
+        for pool_c, new_c, sp in zip(self.caches["rem"] or (),
+                                     grown["rem"] or (), specs["rem"] or ()):
             for key in ("k", "v"):           # (B, S, K, hd)
-                pool_c[key][slot] = new_c[key][0]
-        self.lengths[slot] = prompt_len
+                pool_c[key][row] = steps.shard_cut(
+                    new_c[key], sp[key], self.mesh)[0]
 
 
 def _page_hash(prev: bytes, tokens: np.ndarray) -> bytes:
@@ -109,8 +137,13 @@ class PagedKVPool:
     def __init__(self, model, n_slots: int, kv_len: int,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, *, mesh=None,
+                 kv_axes: Sequence[str] = ()):
         # a model that is not dense attn-only refuses init_paged_caches
+        kw, _, _ = steps.axes_group(mesh, kv_axes)
+        if page_size % kw:
+            raise ValueError(f"page_size {page_size} must divide over the "
+                             f"{kw}-way kv sharding {tuple(kv_axes)}")
         if kv_len % page_size:
             raise ValueError(f"kv_len {kv_len} % page_size {page_size} != 0")
         self.model = model
@@ -121,7 +154,9 @@ class PagedKVPool:
         self.n_pages = n_pages if n_pages is not None \
             else n_slots * self.pages_per_slot
         self.prefix_enabled = prefix_cache
-        self.caches = model.init_paged_caches(self.n_pages, page_size, dtype)
+        # the page dim whole, each page's tokens cut over kv_axes
+        self.caches = model.init_paged_caches(self.n_pages, page_size, dtype,
+                                              kw)
 
         self.table = np.full((n_slots, self.pages_per_slot), -1, np.int32)
         self.lengths = np.zeros(n_slots, np.int32)

@@ -23,7 +23,8 @@ so that a checkpoint either side writes is one the other reads:
     Every rank reads the global buffers (O(model) host RAM a rank on
     restore, as in the reference).
   * **Serving load** — :func:`load_serving_params`: params only, re-fit
-    and cast to bf16 (the engine serves at world 1).
+    and cast to bf16, this rank's shard of each buffer on a mesh (the
+    global buffers at world 1).
 
 Where the port departs from the reference:
 
@@ -884,18 +885,27 @@ class ZeroState:
 # ---------------------------------------------------------------------------
 
 def load_serving_params(model, ckpt: str, dtype=torch.bfloat16,
-                        expect_arch: Optional[str] = None
+                        expect_arch: Optional[str] = None, mesh=None
                         ) -> Dict[str, torch.Tensor]:
     """Params-only load for the serving stack: elastic re-fit onto
     ``model`` and cast to ``dtype`` (bf16 default — serving never needs
-    the fp32 master or the optimizer moments), on the model's device.  The
-    port's engine serves at world 1, so the result is the global buffers.
+    the fp32 master or the optimizer moments), on the model's device.  On
+    a ``mesh`` (``launch.mesh.Mesh``, world ``model.world``) the result is
+    this rank's shard of every flat buffer, cut as :meth:`ZeroState.restore`
+    places them (``partition.shard_of``), so a checkpoint saved at any
+    world boots an engine of any world; without one (or at world 1) the
+    global buffers.
 
     ``expect_arch`` guards engine boots: if the checkpoint's meta records
     an architecture name and it differs, fail loudly instead of fitting a
     foreign model's buffers into this one's layout (``fit_to`` would
     silently truncate/zero-extend them).  A manifest's meta is read before
     any shard."""
+    world = 1 if mesh is None else mesh.world
+    if world != model.world:
+        raise ValueError(f"the model's flat layout is for world "
+                         f"{model.world}, the mesh holds {world} ranks")
+    rank = cl.flat_rank() if world > 1 else 0
     path = ZeroState._resolve(ckpt)
     if path is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt!r}")
@@ -915,6 +925,7 @@ def load_serving_params(model, ckpt: str, dtype=torch.bfloat16,
     want = model.param_shapes()
     out = {}
     for k, arr in tree["params"].items():
-        out[k] = torch.tensor(fit_to(np.asarray(arr), want[k]),
+        out[k] = torch.tensor(shard_of(fit_to(np.asarray(arr), want[k]),
+                                       rank, world),
                               device=model.device, dtype=dtype)
     return out

@@ -109,3 +109,33 @@ def test_engine_refuses_later_slices():
         assert isinstance(eng.pool, PagedKVPool)
         assert (eng.draft_pool is not None) == ("draft" in kw)
 
+
+
+def test_sharded_serving_entry_points_default_to_cuda():
+    """The paged step and the mesh-taking builders ask for the card
+    without ``device="cpu"``; at world 1 (``mesh=None``) the layouts are
+    the whole caches (no cut) and a model of another world is refused."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the cuda default is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.core.zeropp import ZeroConfig
+    from repro_torch.models.model import Model
+    from repro_torch.serve import steps
+
+    cfg, z = get_config("qwen3-0.6b").reduced(), ZeroConfig(dp_axes=("model",))
+    model = Model(cfg, z, device="cpu")
+    for build in (lambda: steps.build_paged_step(model),
+                  lambda: steps.build_decode_step(model, kv_axes=("model",)),
+                  lambda: steps.build_prefill_step(model,
+                                                   seq_axes=("model",))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    x = torch.arange(24.0).reshape(1, 2, 3, 4)
+    spec = steps.cache_specs(model, ("data",), ("model",))["blocks"][0]["k"]
+    assert spec == (None, ("data",), ("model",), None, None)
+    assert steps.paged_cache_specs(model, ("model",))["blocks"][0]["v"] == \
+        (None, None, ("model",), None, None)
+    assert steps.shard_cut(x, spec[1:], None) is x
+    with pytest.raises(ValueError, match="world 2"):
+        steps.build_decode_step(Model(cfg, z, world=2, device="cpu"),
+                                device="cpu")
