@@ -281,6 +281,28 @@ last line is printed.
    rank a call by label and rank 0's profiled decode step.  Phase 2 also
    times B1 on a rank's layer-group shard there (3,932,928 elements)
    and B8 at T = 2.
+14. MoE phase: deepseek-moe-16b (d 2048, 16/16 heads of 128, 64 routed
+   experts top-6 in 4 chunks of 16, 2 shared, moe_ff 1408, vocab 102,400)
+   at full width cut to ``MOE_LAYERS`` = 4 of its 28 layers (2.77 B
+   parameters).  In phase 2: B1-B5 at its layer group, its expert chunk
+   (138,412,032 elements) and its unembedding chunk, bit-identical; B8 at
+   its head (T 4, N 25,600, K 2048); after the qwen2-vl flash phase B6/B7
+   in bf16 at (4, 2048, 16/16, 128) causal, held and timed as the others.
+   After the qwen2-vl parity step: ``train_loop`` (bf16, full ZeRO++,
+   world 1, ring depth 1, --attn pallas) for ``MOE_TRAIN_STEPS`` steps of
+   4 x 2048 (the layer ring, each layer's expert-chunk ring, the
+   routing-ahead chunk-0 gather and the hpZ nested recompute): finite
+   losses, the last below the first, finite ``moe_aux``, every step's
+   launches what ``comm_events`` counts (B1/B2 a qwZ gather, B3-B5 a
+   reduce) with B6 twice and B7 once a layer; step p50, tokens/s, peak
+   memory and a profiled step (the expert GEMMs' device ms under
+   ``aten::bmm``); then ``MOE_SYNC_STEPS`` steps at ``--prefetch 0``
+   whose losses must equal the ring's bit for bit.  Phase 4's rule on
+   deepseek-moe-16b reduced (vocab 8192, 2 x 512 under --attn pallas),
+   with every router call's expert indices equal on the card and the CPU.
+   After the qwen2-vl serving phase: phase 3 on the cut model in bf16
+   (4 slots, kv_len 2048, phase 3's first four prompts, ``MOE_MAX_NEW``
+   tokens each), each request's router margins alone printed.
 
 Every phase prints its seconds. The kernel phase also holds B1-B5 at the
 knobs' shapes and widths (``knob_kernel_phase``): the INT8 qgZ chain of
@@ -297,7 +319,10 @@ bound and, for B6/B7, SDPA's; B6/B7 at hd 256 as
 ``flash_fwd_hd256``/``flash_bwd_hd256``, the same wrappers and counters
 on the gemma3 path; at GQA 8 as ``flash_fwd_gqa8``/``flash_bwd_gqa8``
 and B8 at K 8192 as ``dequant_matmul_k8192`` on the qwen2-vl paths;
-B1-B5's records carry qwen2-vl's group shapes in their extras); the
+at deepseek-moe-16b's shape as ``flash_fwd_moe``/``flash_bwd_moe`` and
+B8 at K 2048 as ``dequant_matmul_k2048`` on the MoE paths, ``train_moe``,
+``train_moe_sync`` and ``serve_moe``; B1-B5's records carry qwen2-vl's
+and deepseek-moe-16b's group shapes in their extras); the
 whole run's seconds come before it; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -426,6 +451,22 @@ QWEN2VL_TRAIN_BATCH, QWEN2VL_TRAIN_SEQ, QWEN2VL_TRAIN_STEPS = 4, 2048, 4
 QWEN2VL_PARITY_VOCAB, QWEN2VL_PARITY_SEQ = 4096, 512
 QWEN2VL_PROMPT, QWEN2VL_EXTRA, QWEN2VL_SERVE_REL = 124, 4, 2e-2
 QWEN2VL_DECODE_ROWS, QWEN2VL_DECODE_STEPS = 4, 8
+# deepseek-moe-16b (d 2048, 16/16 heads of 128, 64 routed experts top-6 in
+# 4 chunks of 16, 2 shared, moe_ff 1408, vocab 102,400): full width cut to
+# MOE_LAYERS of its 28 layers, 587.9 M parameters each (an expert chunk
+# 138,412,032), and the 419.4 M of embedding and unembedding: 2.77 B
+# parameters, 44 GB of fp32 master, moments and gradients at world 1.
+# Training at 4 x 2048 (the expert chunks through their ring, routing-ahead
+# and the hpZ recompute), MOE_SYNC_STEPS of the synchronous schedule held
+# bit for bit against it; its attention; the parity step at reduced width
+# (2 x 512 under --attn pallas); the slab engine on phase 3's first four
+# prompts, MOE_MAX_NEW tokens each
+MOE_LAYERS = 4
+MOE_FLASH_SHAPE = (4, 2048, 16, 16, 128)
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 2048, 4
+MOE_SYNC_STEPS = 2
+MOE_PROMPTS, MOE_MAX_NEW = PROMPTS[:4], 16
+MOE_PARITY_ROWS, MOE_PARITY_SEQ = 2, 512
 # the CPU halves of the parity steps run in a process of their own from
 # the script's start, on this many threads, beside the card's phases
 PARITY_THREADS, PARITY_TIMEOUT_S = 4, 900
@@ -547,7 +588,8 @@ B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1),
            (32, 37984, 1024, 4),          # a paged prefill chunk
            (20, 37984, 1024, 4),          # a speculative verify, 4 x 5
            (4, 65536, 2560, 10),          # gemma3-4b's head chunk, decode
-           (4, 25344, 8192, 32))          # qwen2-vl-72b's, decode (K 8192)
+           (4, 25344, 8192, 32),          # qwen2-vl-72b's, decode (K 8192)
+           (4, 25600, 2048, 8))           # deepseek-moe-16b's, decode
 B8_EDGE_T = (*range(1, 10), 17)
 B8_EDGE_N = (1, 31, 4097)
 B8_EDGE_KNB = ((64, 1), (1024, 4), (4096, 16))
@@ -615,9 +657,11 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     # 671 M elements)
     q_err = d_err = 0.0
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
+    moe = moe_group_sizes()
     shard = {}
     for n in (1024, 15_730_944, 38_895_616, 155_582_464,
-              *gemma3_group_sizes(), vl_layer, vl_chunk, MR_L):
+              *gemma3_group_sizes(), vl_layer, vl_chunk, MR_L,
+              *moe.values()):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
         pp, sp = quant.quantize_blockwise(x, cfg)
@@ -643,6 +687,12 @@ def kernel_phase(flush: torch.Tensor) -> dict:
             rec.setdefault("qwen2_vl", {})[("quantize_blockwise", n)] = dict(
                 ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
                 shape=[1, n], dtype="bf16")
+        for key, size in moe.items():   # deepseek-moe-16b's groups
+            if n == size:
+                rec.setdefault("deepseek_moe", {})[(
+                    "quantize_blockwise", key + "_bf16")] = dict(
+                    ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
+                    shape=[1, n])
         if n == MR_L:     # a rank's layer-group shard at 2 x 2 (serving)
             shard["serve_shard_w4"] = dict(
                 ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
@@ -670,6 +720,11 @@ def kernel_phase(flush: torch.Tensor) -> dict:
             rec["qwen2_vl"][("dequantize_blockwise", n)] = dict(
                 ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
                 shape=[1, n])
+        for key, size in moe.items():
+            if n == size:
+                rec["deepseek_moe"][("dequantize_blockwise", key)] = dict(
+                    ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
+                    shape=[1, n])
         del x, p, s
 
     # small INT4 and stochastic-rounding (u field) cases, bit-identical
@@ -758,6 +813,10 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
                                           shape=[T, N, K, NB])
             elif (T, K) == (4, 8192):  # qwen2-vl-72b's head (K 8192)
                 extra["qwen2_vl_t4"] = dict(
+                    ms=ms, plain_ms=plain, bound_ms=b8[0], bound_by=b8[1],
+                    library_ms=lib, shape=[T, N, K, NB], max_abs_err=err)
+            elif (T, K) == (4, 2048):  # deepseek-moe-16b's head (K 2048)
+                extra["deepseek_moe_t4"] = dict(
                     ms=ms, plain_ms=plain, bound_ms=b8[0], bound_by=b8[1],
                     library_ms=lib, shape=[T, N, K, NB], max_abs_err=err)
             elif T == 4:              # the decode step's: the record's
@@ -878,7 +937,9 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
         return dict(ms=ms, plain_ms=plain_ms, bound=b)
 
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
-    for n in (*PATH_NS, *gemma3_group_sizes(), vl_layer, vl_chunk):
+    moe = moe_group_sizes()
+    for n in (*PATH_NS, *gemma3_group_sizes(), vl_layer, vl_chunk,
+              *moe.values()):
         nb = n // 256
         # B1: the qwZ quantize of an fp32 master shard (training)
         x = torch.randn(1, n, generator=g, device=dev) * 0.02
@@ -954,6 +1015,16 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
                     ("dequant_reduce", r5, [1, n // 2])):
                 vl[(name, n)] = dict(ms=r_["ms"], plain_ms=r_["plain_ms"],
                                      bound_ms=r_["bound"][0], shape=shape)
+        for key, size in moe.items():   # deepseek-moe-16b's groups
+            if n == size:
+                for name, r_, shape, tag in (
+                        ("quantize_blockwise", r, [1, n], "_f32"),
+                        ("quantize_reordered", r3, [1, 1, n], ""),
+                        ("dequant_reduce_quant", r4, [1, n // 2], ""),
+                        ("dequant_reduce", r5, [1, n // 2], "")):
+                    rec.setdefault("deepseek_moe", {})[(name, key + tag)] = \
+                        dict(ms=r_["ms"], plain_ms=r_["plain_ms"],
+                             bound_ms=r_["bound"][0], shape=shape)
         del p3, p4, pay, sc, pay5, sc5, out
 
     # B3 where a wrong index would show: Y, X > 1, with and without a u field
@@ -1493,10 +1564,14 @@ def flash_kernel_phase(flush: torch.Tensor) -> dict:
 
 # ----------------------------------------------------------------- engine
 
-def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
+def engine_phase(cfg=None, prompt_lens=PROMPTS, max_new: int = MAX_NEW,
+                 margins: bool = False) -> dict:
     """Phase 3 on ``cfg`` (default qwen3-0.6b at full width cut to
-    CUT_LAYERS; the gemma3 phase passes its 8-layer stack) with prompts of
-    ``prompt_lens`` tokens.  Returns the run's launches, and what the paged
+    CUT_LAYERS; the gemma3 phase passes its 8-layer stack, the MoE phase
+    its cut deepseek-moe-16b) with prompts of ``prompt_lens`` tokens,
+    ``max_new`` tokens each; with ``margins`` (MoE) the smallest router
+    margin of each request alone is printed, and of the step where a
+    stream misses the bar.  Returns the run's launches, and what the paged
     phase reuses: the model, its params, the prompts and the engine's stats."""
     cfg = cfg or cut_config()
     z = ZeroConfig(dp_axes=("model",))            # qwZ on, world 1, bf16
@@ -1523,7 +1598,7 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
     cap = Capture()
     eng = ServeEngine(model, params, n_slots=N_SLOTS, kv_len=KV_LEN,
                       observer=cap)
-    uids = cap.submit(eng, prompts, MAX_NEW)
+    uids = cap.submit(eng, prompts, max_new)
     torch.cuda.synchronize()
     platform.reset_launches()
     t0 = time.perf_counter()
@@ -1533,7 +1608,7 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
     launches = dict(platform.LAUNCHES)
 
     for u, n in zip(uids, prompt_lens):
-        if eng.status[u] != "done" or len(res[u]) != MAX_NEW:
+        if eng.status[u] != "done" or len(res[u]) != max_new:
             fail(f"request {u} (prompt {n}) did not finish: "
                  f"{eng.status[u]}, {len(res[u])} tokens")
     check_launches("engine", launches, cap, model)
@@ -1549,14 +1624,26 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS) -> dict:
     holds = []
     for u, p in zip(uids, prompts):
         toks = res[u]
-        want = teacher_forced(model, params, p, toks)
+        if margins:
+            with Routes() as routes:
+                want = teacher_forced(model, params, p, toks)
+        else:
+            want = teacher_forced(model, params, p, toks)
         h = hold_stream(f"request {u} (prompt {len(p)})",
                         cap.stream(u, len(toks)), want, toks)
         holds.append(h)
         print(f"  request {u} prompt {len(p):5d}: first-token logits max "
               f"abs diff {h['first']:.4f}; teacher-forced decode logits max "
               f"abs diff {h['dec']:.4f}; greedy agreement "
-              f"{h['agree']}/{MAX_NEW}", flush=True)
+              f"{h['agree']}/{max_new}", flush=True)
+        if margins:
+            # the router calls alone: per model call one a layer
+            per = model.n_periods
+            steps_m = [min(routes.margins[i:i + per])
+                       for i in range(0, len(routes.margins), per)]
+            print(f"    router margins alone: smallest {min(steps_m):.3e}; "
+                  f"at the step of the largest logits diff (step "
+                  f"{h['worst']}): {steps_m[h['worst']]:.3e}", flush=True)
     check_holds("engine: batched decode", holds)
     profile_decode(steps.build_decode_step(model).fn, params,
                    eng.pool.caches,
@@ -1622,8 +1709,12 @@ def per_call_launches(model, rows: int = 1) -> dict:
     period, and the rem group) and the head norm (quantize + dequantize
     each) and of every unembedding chunk (quantize only, consumed by one
     dequant-GEMM each, which launches once per 8 rows of x and per 1,024
-    of K = d_model: csrc/dequant_matmul.cu's kMaxTile and kTcSlab)."""
+    of K = d_model: csrc/dequant_matmul.cu's kMaxTile and kTcSlab); an
+    MoE model also gathers each layer's expert chunks (chunk 0 by the
+    routing-ahead gather where the rings are on)."""
     groups = 1 + model.n_periods + int(model.rem > 0) + 1
+    if model.is_moe:
+        groups += model.n_periods * model.cfg.expert_chunks
     b8 = -(-rows // 8) * -(-model.cfg.d_model // 1024)
     return {"quantize_blockwise": groups + model.unemb_chunks,
             "dequantize_blockwise": groups,
@@ -1673,16 +1764,19 @@ def hold_stream(tag: str, rows: list, want: list, toks: list) -> dict:
     the request alone (``want``): row 0 within LOGIT_ATOL, the later rows
     within DECODE_ATOL; the witness is how far each row lies from the
     alone row one position behind (what a one-position slip would give);
-    greedy tokens where the alone top-2 gap exceeds 2·DECODE_ATOL."""
+    greedy tokens where the alone top-2 gap exceeds 2·DECODE_ATOL;
+    ``worst``: the step of the largest decode difference."""
     err0 = (rows[0] - want[0]).abs().max().item()
     if err0 > LOGIT_ATOL:
         fail(f"{tag}: first-token logits differ from the request alone by "
              f"{err0} > {LOGIT_ATOL}")
     h = {"n": len(toks), "first": err0, "dec": 0.0, "shift": float("inf"),
          "agree": int(int(want[0].argmax()) == toks[0]), "decisive": 0,
-         "decisive_agree": 0}
+         "decisive_agree": 0, "worst": 0}
     for j in range(1, len(toks)):
-        h["dec"] = max(h["dec"], (rows[j] - want[j]).abs().max().item())
+        d = (rows[j] - want[j]).abs().max().item()
+        if d > h["dec"]:
+            h["dec"], h["worst"] = d, j
         h["shift"] = min(h["shift"],
                          (rows[j] - want[j - 1]).abs().max().item())
         same = int(int(want[j].argmax()) == toks[j])
@@ -1955,19 +2049,29 @@ def step_launches(cfg, model, attn: str) -> dict:
     and the layer's recompute) and B7 once.  The knobs move B1-B5: non-blocked
     qwZ quantizes in plain PyTorch (no B1, no B2, as the reference
     computes it outside its kernels); the 1-hop qgZ runs B1 and B5 once
-    per group and no B3 or B4."""
+    per group and no B3 or B4.  An MoE model's gathers and reduces are
+    those its ``comm_events`` count (the expert chunks', the routing-ahead
+    gather's), B1 and B2 once per qwZ gather, B3-B5 once per reduce."""
     groups = (int(model.embed_spec is not None) + model.n_periods
               + int(model.rem > 0) + 1 + model.unemb_chunks)
     z = model.zcfg
+    reduces = groups
+    if model.is_moe:
+        ev = model.comm_events()
+        groups = int(sum(e["count"] for e in ev
+                         if e["kind"] == "fwd_gather"
+                         or (e["kind"] == "bwd_gather" and not z.hpz)))
+        reduces = int(sum(e["count"] for e in ev
+                          if e["kind"] == "grad_reduce"))
     qwz = int(z.qwz and z.qwz_blocked)
     two_hop = int(z.qgz and z.qgz_2hop)
     want = {k: groups for k in platform.LAUNCHES}
-    want["quantize_blockwise"] = groups * (qwz + int(z.qgz and not
-                                                     z.qgz_2hop))
+    want["quantize_blockwise"] = groups * qwz + reduces * int(
+        z.qgz and not z.qgz_2hop)
     want["dequantize_blockwise"] = groups * qwz
     want["quantize_reordered"] = want["dequant_reduce_quant"] = \
-        groups * two_hop
-    want["dequant_reduce"] = groups * int(z.qgz)
+        reduces * two_hop
+    want["dequant_reduce"] = reduces * int(z.qgz)
     want["dequant_matmul"] = 0
     flash = attn == "pallas"
     want["flash_fwd"] = 2 * cfg.n_layers if flash else 0
@@ -1991,7 +2095,34 @@ def parity_cases() -> dict:
     return {"qwen3_xla": (q, "xla", 2, 256, None),
             "qwen3_pallas": (q, "pallas", 2, 512, None),
             "gemma3": (g, "pallas", 1, GEMMA_PARITY_SEQ, None),
-            "qwen2_vl": (v, "pallas", 1, QWEN2VL_PARITY_SEQ, 3)}
+            "qwen2_vl": (v, "pallas", 1, QWEN2VL_PARITY_SEQ, 3),
+            "moe": (moe_parity_config(), "pallas", MOE_PARITY_ROWS,
+                    MOE_PARITY_SEQ, None)}
+
+
+class Routes:
+    """While open, records every ``models.moe.route_topk`` call's expert
+    indices (on the host) and its smallest top-k margin: the gap between a
+    token's k-th and (k+1)-th router probability."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+        self.mod, self.real = moe_lib, moe_lib.route_topk
+        self.idx, self.margins = [], []
+
+        def rec(logits, top_k, norm_topk=True):
+            gates, idx = self.real(logits, top_k, norm_topk)
+            p = torch.softmax(logits.float(), dim=-1).sort(
+                dim=-1, descending=True).values
+            self.idx.append(idx.cpu())
+            self.margins.append(
+                (p[:, top_k - 1] - p[:, top_k]).min().item())
+            return gates, idx
+        moe_lib.route_topk = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_topk = self.real
 
 
 def parity_run(cfg, attn: str, rows: int, seq: int, bias_seed, dev: str
@@ -2015,23 +2146,26 @@ def parity_run(cfg, attn: str, rows: int, seq: int, bias_seed, dev: str
     p = {k: v.to(dev) for k, v in params.items()}
     platform.reset_launches()
     t0 = time.perf_counter()
-    loss, _, grads = st.loss_and_grads(p, batch)
+    with Routes() as routes:
+        loss, _, grads = st.loss_and_grads(p, batch)
     secs = time.perf_counter() - t0
-    return float(loss), grads, secs, dict(platform.LAUNCHES), model
+    return float(loss), grads, secs, dict(platform.LAUNCHES), model, routes
 
 
 def parity_cpu_main(outdir: str) -> None:
     """The CPU half of every parity step, in a process of its own (on
     PARITY_THREADS threads) beside the card's phases: each case's loss,
-    gradients and seconds saved to ``outdir/<name>.pt`` when done.  It
+    gradients and seconds (an MoE case's also its routing) saved to
+    ``outdir/<name>.pt`` when done.  It
     runs at the lowest scheduling priority, so that the card's phases
     beside it keep the host's cores they ask for."""
     os.nice(19)
     torch.set_num_threads(PARITY_THREADS)
     for name, case in parity_cases().items():
-        loss, grads, secs, _, _ = parity_run(*case, "cpu")
+        loss, grads, secs, _, _, routes = parity_run(*case, "cpu")
         tmp = os.path.join(outdir, name + ".tmp")
-        torch.save({"loss": loss, "grads": grads, "secs": secs}, tmp)
+        torch.save({"loss": loss, "grads": grads, "secs": secs,
+                    "routes": routes.idx}, tmp)
         os.replace(tmp, os.path.join(outdir, name + ".pt"))
         del grads
 
@@ -2099,7 +2233,7 @@ def parity_step(name: str) -> None:
     ``step_launches``."""
     cfg, attn, rows, seq, bias_seed = parity_cases()[name]
     out, secs = {}, {}
-    loss, grads, secs["cuda"], launches, model = parity_run(
+    loss, grads, secs["cuda"], launches, model, routes = parity_run(
         cfg, attn, rows, seq, bias_seed, "cuda")
     out["cuda"] = (loss, grads)
     want = step_launches(cfg, model, attn)
@@ -2115,6 +2249,18 @@ def parity_step(name: str) -> None:
     n_far, n, worst, n_loose = _grads_within_one_int4_step(
         out["cuda"][1], out["cpu"][1])
     extra = f" window {cfg.window}," if "local" in cfg.pattern else ""
+    if model.is_moe:
+        same = len(routes.idx) == len(cpu["routes"]) and all(
+            torch.equal(a, b) for a, b in zip(routes.idx, cpu["routes"]))
+        print(f"train parity {cfg.name}: routing of {len(routes.idx)} "
+              f"router calls (forward and recompute, {cfg.n_experts} experts "
+              f"top-{cfg.top_k}) {'equal' if same else 'DIFFERENT'} on the "
+              f"card and the CPU; smallest top-k margin "
+              f"{min(routes.margins):.3e}", flush=True)
+        if not same:
+            fail(f"train parity {cfg.name}: the card routes differently")
+        extra += (f" {cfg.n_experts} experts top-{cfg.top_k} in "
+                  f"{cfg.expert_chunks} chunks,")
     if cfg.qkv_bias:
         extra += " QKV bias seeded nonzero,"
     if cfg.mrope:
@@ -2471,14 +2617,29 @@ def _seed_biases(model, params: dict, seed: int) -> None:
 def qwen2_vl_flash_phase(flush: torch.Tensor) -> dict:
     """B6/B7 in bf16 at qwen2-vl-72b's training shape (q (4, 2048, 64,
     128), k/v (4, 2048, 8, 128): a GQA group of 8, dk/dv summed over 8
-    heads), causal, held as phase 2 holds FLASH_SHAPE and twice with the
-    same bits, timed beside the bound, the plain versions and SDPA."""
+    heads) (``path_flash_phase``)."""
+    return path_flash_phase(QWEN2VL_FLASH_SHAPE, "GQA 8", "gqa8", 12, flush)
+
+
+def moe_flash_phase(flush: torch.Tensor) -> dict:
+    """B6/B7 in bf16 at deepseek-moe-16b's training shape (q/k/v (4, 2048,
+    16, 128): GQA group 1) (``path_flash_phase``)."""
+    return path_flash_phase(MOE_FLASH_SHAPE, "deepseek-moe-16b, GQA 1",
+                            "moe", 13, flush)
+
+
+def path_flash_phase(shape, what: str, key: str, seed: int,
+                     flush: torch.Tensor) -> dict:
+    """B6/B7 in bf16 at a training path's shape (B, S, H, K, hd), causal,
+    held as phase 2 holds FLASH_SHAPE and twice with the same bits, timed
+    beside the bound, the plain versions and SDPA; the records
+    ``flash_fwd_<key>``/``flash_bwd_<key>``."""
     g = torch.Generator(device="cuda")
-    g.manual_seed(12)
-    B, S, H, K, hd = QWEN2VL_FLASH_SHAPE
-    q, k, v, do = _flash_inputs(g, QWEN2VL_FLASH_SHAPE, torch.bfloat16)
+    g.manual_seed(seed)
+    B, S, H, K, hd = shape
+    q, k, v, do = _flash_inputs(g, shape, torch.bfloat16)
     kw = dict(scale=hd ** -0.5, causal=True)
-    tag = f"{QWEN2VL_FLASH_SHAPE} causal (GQA 8)"
+    tag = f"{shape} causal ({what})"
     (out, m, l), want, bar, fe, be = _hold_bf16(tag, q, k, v, do, kw)
     del want, bar
     prod = 2 * hd * B * H * _causal_pairs(S)
@@ -2495,15 +2656,15 @@ def qwen2_vl_flash_phase(flush: torch.Tensor) -> dict:
     b_plain = median_ms(lambda: ref.flash_bwd_ref(q, k, v, out, m, l, do,
                                                   **kw), flush, n=3, warmup=1)
     if f_ms < b6[0] or b_ms < b7[0]:
-        fail(f"GQA 8: a flash kernel reads faster than its bound (B6 {f_ms} "
-             f"< {b6[0]} or B7 {b_ms} < {b7[0]})")
+        fail(f"{what}: a flash kernel reads faster than its bound (B6 "
+             f"{f_ms} < {b6[0]} or B7 {b_ms} < {b7[0]})")
     sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     sdo = do.transpose(1, 2)
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            sq, sk, sv, is_causal=True, enable_gqa=True)
+            sq, sk, sv, is_causal=True, enable_gqa=H != K)
     with torch.no_grad():
         lib_f = median_ms(sdpa, flush)
         backend = _sdpa_backend(sdpa)
@@ -2522,12 +2683,12 @@ def qwen2_vl_flash_phase(flush: torch.Tensor) -> dict:
     del q, k, v, do, out, m, l
     torch.cuda.synchronize()
     extra = {"sdpa_backend": backend}
-    return {"flash_fwd_gqa8": dict(ms=f_ms, plain_ms=f_plain, bound=b6,
-                                   library_ms=lib_f, max_abs_err=fe,
-                                   shape=QWEN2VL_FLASH_SHAPE, extra=extra),
-            "flash_bwd_gqa8": dict(ms=b_ms, plain_ms=b_plain, bound=b7,
-                                   library_ms=lib_b, max_abs_err=be,
-                                   shape=QWEN2VL_FLASH_SHAPE, extra=extra)}
+    return {f"flash_fwd_{key}": dict(ms=f_ms, plain_ms=f_plain, bound=b6,
+                                     library_ms=lib_f, max_abs_err=fe,
+                                     shape=shape, extra=extra),
+            f"flash_bwd_{key}": dict(ms=b_ms, plain_ms=b_plain, bound=b7,
+                                     library_ms=lib_b, max_abs_err=be,
+                                     shape=shape, extra=extra)}
 
 
 def qwen2_vl_train_phase(table) -> dict:
@@ -2706,6 +2867,155 @@ def qwen2_vl_serve_phase() -> dict:
     profile_step(lambda: ds.fn(params, caches, step, pos),
                  f"qwen2-vl decode step, {B} rows at position {t}", n=3)
     del model, params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- MoE
+
+def moe_config():
+    """deepseek-moe-16b at full width, cut in depth only (MOE_LAYERS of 28
+    layers: 28 layers' fp32 state is 262 GB)."""
+    return dataclasses.replace(get_config("deepseek-moe-16b"),
+                               n_layers=MOE_LAYERS)
+
+
+def moe_parity_config():
+    """The parity step's model: deepseek-moe-16b reduced (d 64, 4/2 heads
+    of 16, 8 experts top-2 in 2 chunks, 1 shared expert), vocab 8192 in 4
+    chunks."""
+    return get_config("deepseek-moe-16b").reduced(vocab=8192,
+                                                  unemb_chunks=4)
+
+
+def moe_group_sizes() -> dict:
+    """Elements of the cut deepseek-moe-16b's flat groups at world 1, each
+    a (1, N) row of B1-B5 on its paths: a layer group (attention, router,
+    shared experts), an expert chunk (16 experts) and an unembedding
+    chunk."""
+    cfg = moe_config()
+    shapes = Model(cfg, ZeroConfig(), device="cuda").param_shapes()
+    return {"blocks": shapes["blocks"][1],
+            "expert_chunk": shapes["experts"][2],
+            "unemb_chunk": shapes["unemb"][1]}
+
+
+def _moe_train_run(cfg, steps: int, prefetch: int) -> tuple:
+    """``train_loop`` on the cut deepseek-moe-16b at ring depth
+    ``prefetch`` for ``steps`` steps (bf16, full ZeRO++, world 1, --attn
+    pallas, MOE_TRAIN_BATCH x MOE_TRAIN_SEQ, constant lr): (result, the
+    run's launches, peak bytes)."""
+    args = train_launch.parser().parse_args([
+        "--batch", str(MOE_TRAIN_BATCH), "--seq", str(MOE_TRAIN_SEQ),
+        "--steps", str(steps), "--lr", str(TRAIN_LR), "--lr-schedule",
+        "constant", "--device", "cuda", "--attn", "pallas", "--prefetch",
+        str(prefetch), "--log-every", "0"])
+    args.arch = cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    platform.reset_launches()
+    res = train_launch.train_loop(args)
+    return res, dict(platform.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def moe_train_phase() -> tuple:
+    """``train_loop`` on the cut deepseek-moe-16b: MOE_TRAIN_STEPS steps at
+    the default ring depth 1 (the layer ring, each layer's expert-chunk
+    ring, the routing-ahead chunk-0 gather and the hpZ nested recompute
+    all run on the one-rank ("data", "model") world), then MOE_SYNC_STEPS
+    steps of the synchronous schedule (--prefetch 0) from the same seed
+    and batches, whose losses must equal the ring's bit for bit.  Finite
+    losses, the last below the first, finite ``moe_aux``; every step's
+    launches ``step_launches`` (B1-B5 as ``comm_events`` counts the
+    gathers and reduces, B6 twice and B7 once a layer); prints step p50,
+    tokens/s, peak memory and one profiled step (device busy share, the
+    expert GEMMs' ms, B1-B5 and the flash kernels).  Returns both runs'
+    launches."""
+    cfg = moe_config()
+    res, launches, peak = _moe_train_run(cfg, MOE_TRAIN_STEPS, 1)
+    built = res["built"]
+    model = built.model
+    per_step = step_launches(cfg, model, "pallas")
+    for i, c in enumerate(res["launches"]):
+        if c != per_step:
+            fail(f"moe train step {i}: launches {c}, expected {per_step}")
+    losses, aux = res["losses"], res["moe_aux"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"moe train: losses not finite and falling: {losses}")
+    if len(aux) != len(losses) or not all(np.isfinite(aux)):
+        fail(f"moe train: moe_aux not finite: {aux}")
+    p50 = statistics.median(res["step_s"][1:])
+    tokens = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+    total = torch.cuda.get_device_properties(0).total_memory
+    tag = "train deepseek-moe-16b --attn pallas"
+    print(f"{tag}: full width (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, {cfg.n_experts} experts "
+          f"top-{cfg.top_k} in {cfg.expert_chunks} chunks of "
+          f"{model.expert_spec.padded_size:,}, {cfg.n_shared} shared, moe_ff "
+          f"{cfg.moe_ff}, vocab {cfg.vocab} in {model.unemb_chunks} chunks), "
+          f"{cfg.n_layers} of 28 layers, {model.n_params()} params "
+          f"({model.n_active_params()} active a token) fp32 master + fp32 "
+          f"moments, full ZeRO++ on a one-rank world at ring depth 1, batch "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}, constant lr {TRAIN_LR}",
+          flush=True)
+    print(f"{tag}: losses {[round(x, 4) for x in losses]} (drop "
+          f"{losses[0] - losses[-1]:.4f}); moe_aux "
+          f"{[round(x, 4) for x in aux]}; entropy bound "
+          f"{res['entropy_bound']:.4f}", flush=True)
+    print(f"{tag}: step p50 (steps 2-{MOE_TRAIN_STEPS}) {p50 * 1e3:.1f} ms, "
+          f"{tokens / p50:,.0f} tokens/s, first step "
+          f"{res['step_s'][0] * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated); launches per step {per_step}",
+          flush=True)
+    batch = train_launch.device_batch(built.arch, built.lm, MOE_TRAIN_STEPS,
+                                      MOE_TRAIN_BATCH, 1, model.device)
+    profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
+                 f"{tag} step", ops=("aten::bmm",))
+    del res, built, batch, model
+    # the synchronous schedule: the same losses, bit for bit
+    sync, sync_launches, _ = _moe_train_run(cfg, MOE_SYNC_STEPS, 0)
+    want = step_launches(cfg, sync["built"].model, "pallas")
+    for i, c in enumerate(sync["launches"]):
+        if c != want:
+            fail(f"moe train --prefetch 0 step {i}: launches {c}, expected "
+                 f"{want}")
+    same = sync["losses"] == losses[:MOE_SYNC_STEPS]
+    print(f"{tag} --prefetch 0: losses {sync['losses']} vs ring depth 1 "
+          f"{losses[:MOE_SYNC_STEPS]}: {'bit-identical' if same else 'DIFFERENT'}"
+          f"; step p50 {statistics.median(sync['step_s']) * 1e3:.1f} ms; "
+          f"launches per step {want}", flush=True)
+    if not same:
+        fail("moe train: the synchronous schedule's losses differ from the "
+             "ring's")
+    del sync
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, sync_launches
+
+
+def moe_parity_phase() -> None:
+    """Phase 4's rule on deepseek-moe-16b reduced (``moe_parity_config``),
+    fp32, MOE_PARITY_ROWS x MOE_PARITY_SEQ under --attn pallas, at ring
+    depth 1: the loss, the gradients, and every router call's expert
+    indices equal on the card and the CPU."""
+    parity_step("moe")
+
+
+def moe_serve_phase() -> dict:
+    """Phase 3 on the cut deepseek-moe-16b in bf16: the slab engine (4
+    slots, kv_len 2048) on MOE_PROMPTS, MOE_MAX_NEW greedy tokens each
+    (prefill at each prompt's own length, decode drop-free at
+    ``serve_capacity``; the serving ring with its routing-ahead gather),
+    held by phase 3's teacher-forced rule against each request alone;
+    where a step misses it, the router margin of that step is printed.
+    Returns the run's launches."""
+    out = engine_phase(moe_config(), MOE_PROMPTS, MOE_MAX_NEW,
+                       margins=True)
+    launches = out["launches"]
+    del out
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3738,12 +4048,15 @@ def profile_decode(decode, params, caches, positions) -> None:
                  n=3)
 
 
-def profile_step(step, what: str, n: int = 1, show: bool = True):
+def profile_step(step, what: str, n: int = 1, show: bool = True,
+                 ops: tuple = ()):
     """Host wall per ``step()`` (synchronized, no profiler, after one
     warm-up call), then device busy time, device kernels, the host time of
     the gloo collectives (their ``gloo:*`` spans, copies to and from the
-    card included) and the top device ops per step from torch.profiler
-    over n more calls.  Returns {"wall", "busy", "gloo"} in ms per step.
+    card included), the device time under each of the PyTorch ``ops``
+    (e.g. ``aten::bmm``: the MoE expert GEMMs, forward and backward) and
+    the top device ops per step from torch.profiler over n more calls.
+    Returns {"wall", "busy", "gloo"} in ms per step.
     With ``show`` False it only makes the same calls (a rank whose peers
     are profiled must match their collectives) and returns None."""
     from torch.profiler import ProfilerActivity, profile
@@ -3810,6 +4123,14 @@ def profile_step(step, what: str, n: int = 1, show: bool = True):
         print(f"  quant kernels {sum(quant_ms.values()):.3f} ms/step: "
               + ", ".join(f"{b} {ms:.3f}" for b, ms in quant_ms.items()),
               flush=True)
+    if ops:
+        avg = {a.key: a for a in prof.key_averages()}
+        dt = {op: (getattr(avg[op], "device_time_total", None) or
+                   getattr(avg[op], "cuda_time_total", 0.0)) / 1e3 / n
+              if op in avg else 0.0 for op in ops}
+        print("  device ms/step under " + ", ".join(
+            f"{op} {ms:.3f} ({100 * ms / busy:.1f}% of busy)"
+            for op, ms in dt.items()), flush=True)
     for name, ms in top:
         print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
     return {"wall": wall, "busy": busy, "gloo": sum(gloo.values()),
@@ -3890,8 +4211,10 @@ def main() -> None:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = timed("kernel", kernel_phase, flush)
     vl_kernels = rec.pop("qwen2_vl")
+    moe_kernels = rec.pop("deepseek_moe")
     qgz = timed("qgZ kernel", qgz_kernel_phase, flush)
     vl_kernels.update(qgz.pop("qwen2_vl"))
+    moe_kernels.update(qgz.pop("deepseek_moe"))
     rec.update(qgz)
     for name, extra in timed("knob kernel", knob_kernel_phase, flush).items():
         rec[name].setdefault("extra", {}).update(extra)
@@ -3901,6 +4224,7 @@ def main() -> None:
     rec.update(timed("flash kernel", flash_kernel_phase, flush))
     rec.update(timed("gemma3 flash kernel", gemma3_flash_phase, flush))
     rec.update(timed("qwen2-vl flash kernel", qwen2_vl_flash_phase, flush))
+    rec.update(timed("moe flash kernel", moe_flash_phase, flush))
     del flush
     by_path = {}
     # the device-bound phases first, beside the CPU parity process; the
@@ -3925,6 +4249,11 @@ def main() -> None:
     by_path["train_qwen2_vl"] = timed("qwen2-vl train", qwen2_vl_train_phase,
                                       table)
     timed("qwen2-vl parity", qwen2_vl_parity_phase)
+    # deepseek-moe-16b: the expert chunks' rings, routing-ahead and the hpZ
+    # recompute; then its parity step
+    by_path["train_moe"], by_path["train_moe_sync"] = timed(
+        "moe train", moe_train_phase)
+    timed("moe parity", moe_parity_phase)
     # that was the last parity case: the serving phases below, whose time
     # goes to the host, do not share it with the CPU parity process
     PARITY.close()
@@ -3936,6 +4265,7 @@ def main() -> None:
                                     gemma3_config(), GEMMA_PROMPTS)[
         "launches"]
     by_path["serve_qwen2_vl"] = timed("qwen2-vl serve", qwen2_vl_serve_phase)
+    by_path["serve_moe"] = timed("moe engine", moe_serve_phase)
     gc.collect()
     torch.cuda.empty_cache()
     # the same run on four ranks of a 2 x 2 world, at the default ring
@@ -3982,7 +4312,7 @@ def main() -> None:
 
     # each kernel's path(s): it must have launched in every one of them
     quant_train = ("train", "train_xla", "train_gemma3", "train_qwen2_vl",
-                   "train_2x2",
+                   "train_moe", "train_moe_sync", "train_2x2",
                    "train_2x2_sync", "train_ckpt", "train_ckpt_2x2_to_1",
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
@@ -3991,7 +4321,7 @@ def main() -> None:
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
     serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",
-             "serve_qwen2_vl", "serve_ckpt", "serve_sharded",
+             "serve_qwen2_vl", "serve_moe", "serve_ckpt", "serve_sharded",
              "serve_sharded_paged")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
@@ -4013,10 +4343,17 @@ def main() -> None:
              # at its K 8192
              "flash_fwd_gqa8": ("train_qwen2_vl",),
              "flash_bwd_gqa8": ("train_qwen2_vl",),
-             "dequant_matmul_k8192": ("serve_qwen2_vl",)}
+             "dequant_matmul_k8192": ("serve_qwen2_vl",),
+             # and at deepseek-moe-16b's (16 / 16 heads of 128), and B8 at
+             # its K 2048
+             "flash_fwd_moe": ("train_moe", "train_moe_sync"),
+             "flash_bwd_moe": ("train_moe", "train_moe_sync"),
+             "dequant_matmul_k2048": ("serve_moe",)}
     counter = {"flash_fwd_hd256": "flash_fwd", "flash_bwd_hd256": "flash_bwd",
                "flash_fwd_gqa8": "flash_fwd", "flash_bwd_gqa8": "flash_bwd",
-               "dequant_matmul_k8192": "dequant_matmul"}
+               "dequant_matmul_k8192": "dequant_matmul",
+               "flash_fwd_moe": "flash_fwd", "flash_bwd_moe": "flash_bwd",
+               "dequant_matmul_k2048": "dequant_matmul"}
     for name, ps in paths.items():
         for pth in ps:
             if by_path[pth][counter.get(name, name)] <= 0:
@@ -4049,6 +4386,12 @@ def main() -> None:
             "flash_bwd_gqa8": (cu + "flash_attention_tc.cu",
                                "src/repro/kernels/flash_attention.py:194"),
             "dequant_matmul_k8192": (cu + "dequant_matmul.cu",
+                                     "src/repro/kernels/dequant_matmul.py:58"),
+            "flash_fwd_moe": (cu + "flash_attention_tc.cu",
+                              "src/repro/kernels/flash_attention.py:76"),
+            "flash_bwd_moe": (cu + "flash_attention_tc.cu",
+                              "src/repro/kernels/flash_attention.py:194"),
+            "dequant_matmul_k2048": (cu + "dequant_matmul.cu",
                                      "src/repro/kernels/dequant_matmul.py:58")}
     # B8 at K 8192 is its own entry; B1-B5 at qwen2-vl-72b's layer group
     # and unembedding chunk ride in their records' extras
@@ -4057,6 +4400,15 @@ def main() -> None:
         k8, bound=(k8["bound_ms"], k8["bound_by"]),
         extra={"library_call": rec["dequant_matmul"]["extra"][
             "library_call"]})
+    k2 = rec["dequant_matmul"]["extra"]["deepseek_moe_t4"]
+    rec["dequant_matmul_k2048"] = dict(
+        k2, bound=(k2["bound_ms"], k2["bound_by"]),
+        extra={"library_call": rec["dequant_matmul"]["extra"][
+            "library_call"]})
+    # B1-B5 at deepseek-moe-16b's layer group, expert chunk and
+    # unembedding chunk ride in their records' extras
+    for (name, key), r in moe_kernels.items():
+        rec[name].setdefault("extra", {})[f"deepseek_moe_{key}"] = r
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
     for (name, n), r in vl_kernels.items():
         key = "blocks" if n == vl_layer else "unemb_chunk"

@@ -1,6 +1,7 @@
 """ArchConfig: static description of a decoder (own copy of the
-reference's ``configs/base.py``, cut to the fields the port's ``attn`` and
-``local`` blocks, its inputs and its flat parameter layout read), and the
+reference's ``configs/base.py``, cut to the fields the port's ``attn``,
+``local`` and ``moe`` blocks, its inputs and its flat parameter layout
+read), and the
 named workload shapes the serving shape policy reads (``ShapeConfig``,
 ``SHAPES``)."""
 from __future__ import annotations
@@ -21,7 +22,8 @@ class ArchConfig:
     head_dim: int
     # block pattern, tiled over n_layers: one period of it per layer group,
     # the n_layers % len(pattern) leftover layers in a group of their own.
-    # kinds: attn (global causal GQA + MLP), local (sliding-window GQA + MLP)
+    # kinds: attn (global causal GQA + MLP), local (sliding-window GQA +
+    # MLP), moe (global causal GQA + a mixture-of-experts MLP)
     pattern: Tuple[str, ...] = ("attn",)
     qkv_bias: bool = False           # bq/bk/bv added before the head split
     qk_norm: bool = False
@@ -32,6 +34,16 @@ class ArchConfig:
     # mlp (gated: act(gate) * up)
     d_ff: int = 0
     act: str = "silu"                # silu | gelu (tanh approximation)
+    # moe: n_shared always-on experts + n_experts routed, top_k a token
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    moe_ff: int = 0                  # per-routed-expert hidden size
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    # the routed experts are gathered expert_chunks at a time (one flat
+    # group per chunk): bounds the gathered working set
+    expert_chunks: int = 1
     # the unembedding is stored TRANSPOSED (V, d) in this many vocab-row
     # chunks, each gathered on its own; 0 = auto (<= 512 MB per chunk)
     unemb_chunks: int = 0
@@ -46,13 +58,19 @@ class ArchConfig:
     def reduced(self, **overrides) -> "ArchConfig":
         """Tiny config of the same shape family for CPU tests (the
         reference's rule: a multi-kind pattern keeps one whole period;
-        qkv_bias, mrope, logit_softcap and embed_inputs are kept)."""
+        qkv_bias, mrope, logit_softcap and embed_inputs are kept; an MoE
+        keeps 8 experts, top_k <= 2, n_shared <= 1, in 2 chunks)."""
         scale = dict(n_layers=max(len(self.pattern), 2)
                      if len(self.pattern) > 1 else min(self.n_layers, 2),
                      d_model=64, vocab=128,
                      n_heads=4, n_kv_heads=min(self.n_kv_heads, 2),
                      head_dim=16, d_ff=96,
                      window=min(self.window, 8) if self.window else 0,
+                     n_experts=8 if self.n_experts else 0,
+                     top_k=min(self.top_k, 2) if self.top_k else 0,
+                     n_shared=min(self.n_shared, 1),
+                     moe_ff=32 if self.moe_ff else 0,
+                     expert_chunks=2 if self.n_experts else 1,
                      unemb_chunks=2, name=self.name + "-reduced")
         scale.update(overrides)
         return dataclasses.replace(self, **scale)

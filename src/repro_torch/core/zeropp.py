@@ -217,17 +217,36 @@ def saved_for_bwd(W: torch.Tensor, primary: torch.Tensor,
     return primary
 
 
-def ring(srcs: Sequence, start: Callable[[Any], cl.Hops], k: int
-         ) -> Iterator[torch.Tensor]:
+def _ready(t: torch.Tensor) -> cl.Hops:
+    """A collective that has already finished: no hop, result ``t``."""
+    yield
+    return t
+
+
+def together(*hops: cl.Hops) -> cl.Hops:
+    """Several one-hop collectives as one: each issued when this begins,
+    all waited for when it finishes; the result is the tuple of theirs."""
+    hops = tuple(cl.begin(h) for h in hops)
+    yield
+    return tuple(cl.finish(h) for h in hops)
+
+
+def ring(srcs: Sequence, start: Callable[[Any], cl.Hops], k: int,
+         first: Optional[torch.Tensor] = None) -> Iterator[Any]:
     """The depth-k prefetch ring: yields ``finish(start(srcs[i]))`` for
     i = 0, 1, …, with item i+k's collective begun before item i's is
     finished (so it is in flight while the consumer computes with item
-    i).  k = 0 is the synchronous schedule."""
-    pending = deque(cl.begin(start(srcs[j]))
-                    for j in range(min(k, len(srcs))))
+    i).  k = 0 is the synchronous schedule.  ``first``, where given, is
+    item 0 already gathered (the routing-ahead buffer): its collective is
+    not issued."""
+    def begun(j):
+        if j == 0 and first is not None:
+            return cl.begin(_ready(first))
+        return cl.begin(start(srcs[j]))
+    pending = deque(begun(j) for j in range(min(k, len(srcs))))
     for i in range(len(srcs)):
         if i + k < len(srcs):
-            pending.append(cl.begin(start(srcs[i + k])))
+            pending.append(begun(i + k))
         yield cl.finish(pending.popleft())
 
 
@@ -351,23 +370,45 @@ def zero_apply_inference(f: Callable, z: ZeroConfig) -> Callable:
     return apply
 
 
-def zero_scan_inference(f: Callable, z: ZeroConfig) -> Callable:
+def zero_scan_inference(f: Callable, z: ZeroConfig, *,
+                        spec: Optional[Callable] = None) -> Callable:
     """The layer loop of the serving path, with the depth-k prefetch ring
     (the reference's ``core/schedule.py`` ``zero_scan_inference``).
 
-    ``f(W_full, h, x) -> (h_next, y)``; returns ``run(stacked, h0, xs) ->
-    (h_final, ys)`` where ``stacked`` is (n, P) flat layer groups, ``xs``
-    a sequence of n per-layer inputs (or None) and ``ys`` the list of the
-    n per-layer outputs.  Layer i+k's gather is issued before layer i's
-    compute (k = ``z.effective_prefetch(n)``; 0: each group gathered right
-    before its layer).
+    ``f(W_full, h, x) -> (h_next, y)``; returns ``run(stacked, h0, xs=None,
+    W0=None) -> (h_final, ys)`` where ``stacked`` is (n, P) flat layer
+    groups, ``xs`` a sequence of n per-layer inputs (or None) and ``ys``
+    the list of the n per-layer outputs.  Layer i+k's gather is issued
+    before layer i's compute (k = ``z.effective_prefetch(n)``; 0: each
+    group gathered right before its layer).  ``W0`` is layer 0's group
+    already gathered (its gather is not issued).  With ``spec(xs, i) ->
+    shard`` (routing-ahead: an MoE layer's first expert chunk) the ring
+    also gathers ``spec(xs, i + k)`` beside layer i+k's group and the body
+    is called ``f(W, W_spec, h, x)`` (W_spec None on the synchronous
+    schedule, where nothing is gathered ahead).
     """
-    def run(stacked: torch.Tensor, h0, xs: Optional[Sequence] = None):
+    def run(stacked, h0, xs: Optional[Sequence] = None,
+            W0: Optional[torch.Tensor] = None):
         h, ys = h0, []
-        k = z.effective_prefetch(stacked.shape[0])
-        for i, W in enumerate(ring(stacked, lambda p: fwd_gather_hops(p, z),
-                                   k)):
-            h, y = f(W, h, None if xs is None else xs[i])
+        n = len(stacked)
+        k = z.effective_prefetch(n)
+        ahead = spec is not None and k >= 1
+        if ahead:
+            def start(i):
+                return together(fwd_gather_hops(stacked[i], z),
+                                fwd_gather_hops(spec(xs, i), z))
+        else:
+            def start(i):
+                return fwd_gather_hops(stacked[i], z)
+        for i, W in enumerate(ring(range(n), start, k,
+                                   None if ahead else W0)):
+            x = None if xs is None else xs[i]
+            if spec is None:
+                h, y = f(W, h, x)
+            elif ahead:
+                h, y = f(W[0], W[1], h, x)
+            else:
+                h, y = f(W, None, h, x)
             ys.append(y)
         return h, ys
     return run
@@ -466,17 +507,57 @@ def event_wire_bytes(kind: str, n_elems: int, z: ZeroConfig,
             if not z.qgz_2hop:
                 w = _group(sizes, z.dp_axes)
                 return float((pb(n) + 4.0 * (n // b)) * (w - 1) / w)
-            X = _group(sizes, (z.intra_axis,))
-            Y = _group(sizes, z.inter_axes) if z.inter_axes else 1
-            wire = (pb(n) + 4.0 * (n // b)) * (X - 1) / X
-            if Y > 1:
-                m = n // X
-                wire += (pb(m) + 4.0 * (m // b)) * (Y - 1) / Y
-            return float(wire)
+            return float(sum(_qgz_2hop_bytes(n, z, sizes)))
         w = _group(sizes, z.dp_axes)
         eb = z.reduce_dtype.itemsize
         return float(eb * n - eb * (n // w))
     raise ValueError(f"unknown comm event kind {kind!r}")
+
+
+def _qgz_2hop_bytes(n: int, z: ZeroConfig, sizes: dict) -> tuple:
+    """The 2-hop qgZ's bytes a rank: (its intra all-to-all, its inter
+    one), each INT4 payload with its fp32 scales."""
+    pb, b = z.qgz_cfg.payload_bytes, z.qgz_block
+    X = _group(sizes, (z.intra_axis,))
+    Y = _group(sizes, z.inter_axes) if z.inter_axes else 1
+    m = n // X
+    return ((pb(n) + 4.0 * (n // b)) * (X - 1) / X,
+            (pb(m) + 4.0 * (m // b)) * (Y - 1) / Y if Y > 1 else 0.0)
+
+
+def event_wire_by_tier(kind: str, n_elems: int, z: ZeroConfig,
+                       sizes: dict) -> dict:
+    """:func:`event_wire_bytes` split by the interconnect tier each hop
+    crosses (``obs.metrics.tier`` of its group's axes, as the counters
+    attribute it): the gathers over the ZeRO world or hpZ's secondary
+    axes, the 2-hop qgZ's first all-to-all on the intra axis and its
+    second on the inter axes, every other reduce over the world."""
+    from repro_torch.obs.metrics import tier
+    if not z.distributed:
+        return {}
+    n = int(n_elems)
+    if kind == "bwd_gather" and z.hpz:
+        out = {tier(z.secondary_axes): event_wire_bytes(kind, n, z, sizes)}
+    elif kind == "grad_reduce" and z.qgz and z.qgz_2hop:
+        hop1, hop2 = _qgz_2hop_bytes(n, z, sizes)
+        out = {tier((z.intra_axis,)): hop1}
+        t2 = tier(z.inter_axes)
+        out[t2] = out.get(t2, 0.0) + hop2
+    else:
+        out = {tier(z.dp_axes): event_wire_bytes(kind, n, z, sizes)}
+    return {t: float(v) for t, v in out.items() if v}
+
+
+def step_wire_by_tier(events, z: ZeroConfig, sizes: dict) -> dict:
+    """Fold a comm-event list into per-tier, per-rank wire bytes: the
+    projection of the ``comm.tier.<tier>.bytes`` counters (``other``
+    aside)."""
+    out: dict = {}
+    for ev in events:
+        for t, b in event_wire_by_tier(ev["kind"], ev["elems"], z,
+                                       sizes).items():
+            out[t] = out.get(t, 0.0) + b * ev.get("count", 1)
+    return out
 
 
 def step_wire_by_label(events, z: ZeroConfig, sizes: dict) -> dict:

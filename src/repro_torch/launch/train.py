@@ -12,12 +12,15 @@ elastic supervisor yet).  Runs on the card by default:
         [--ckpt-dir D [--ckpt-every N] [--ckpt-format fp32|int8]]
 
 (``--arch``: any name of ``repro_torch.configs.list_archs()``:
-gemma3-4b, gpt-18b, gpt-350m, musicgen-large, qwen1.5-110b,
-qwen2-vl-72b, qwen3-0.6b or starcoder2-3b; musicgen-large and
-qwen2-vl-72b train on the frontend stub's embeddings, qwen2-vl-72b with
-its M-RoPE positions (accum 1 only).  No flag cuts the depth, as in the
+deepseek-moe-16b, gemma3-4b, gpt-18b, gpt-350m, musicgen-large,
+qwen1.5-110b, qwen2-vl-72b, qwen3-0.6b, qwen3-moe-235b-a22b or
+starcoder2-3b; musicgen-large and qwen2-vl-72b train on the frontend
+stub's embeddings, qwen2-vl-72b with its M-RoPE positions (accum 1
+only).  ``--moe-chunks N`` regroups an MoE config's experts into N
+chunks, as the reference's flag does.  No flag cuts the depth, as in the
 reference: ``train_loop`` takes an ``ArchConfig`` for ``args.arch`` as
-well as a name.)
+well as a name, e.g. deepseek-moe-16b at full width cut to 4 of its 28
+layers, which is what fits the card at world 1.)
 
 ``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
 one rank process per position over a gloo group (``launch/mesh.py``; on
@@ -100,7 +103,8 @@ def build_everything(arch_name: Union[str, ArchConfig],
                      batch: int = 8, seq: int = 2048, lr: float = 3e-4,
                      accum: int = 1, lr_schedule: str = "warmup_cosine",
                      device="cuda", attn_impl: str = "xla",
-                     prefetch: Optional[int] = None, **overrides) -> Built:
+                     prefetch: Optional[int] = None, moe_chunks: int = 0,
+                     **overrides) -> Built:
     """Construct (mesh, arch, model, train step, data) for this rank of a
     ``mesh_shape`` world, for ``arch_name`` (a registered name, or an
     ``ArchConfig`` such as a depth-cut copy of one), ``(Y, X)`` or ``(P, Y, X)`` (a process group of
@@ -108,12 +112,15 @@ def build_everything(arch_name: Union[str, ArchConfig],
     (rows per microbatch); ``lr_schedule`` is the reference's
     ``warmup_cosine(lr, 10, 10_000)`` or ``constant``; ``attn_impl`` the
     attention route ("pallas": the flash kernels); ``prefetch`` the ring
-    depth (None: the policy's); ``overrides`` further ``ZeroConfig``
-    fields (the paper's knobs)."""
+    depth (None: the policy's); ``moe_chunks`` (> 0) an MoE model's
+    expert chunks; ``overrides`` further ``ZeroConfig`` fields (the
+    paper's knobs)."""
     arch = arch_name if isinstance(arch_name, ArchConfig) \
         else get_config(arch_name)
     if reduced:
         arch = arch.reduced()
+    if moe_chunks:
+        arch = dataclasses.replace(arch, expert_chunks=moe_chunks)
     mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"))
     over = dict(overrides)
     if prefetch is not None:
@@ -242,12 +249,13 @@ def train_loop(args, on_step: Optional[Callable] = None,
     (``save_s``), the restored checkpoint's meta (``restored``, None), and
     the built run with this rank's final params/opt.  ``on_step(i,
     metrics)`` is called after each step; only rank 0 prints and writes
-    telemetry."""
+    telemetry.  An MoE model's steps also give ``moe_aux`` (its
+    load-balance loss per layer, averaged over the world)."""
     built = build_everything(args.arch, mesh_lib.parse_mesh(args.mesh),
                              args.variant, args.reduced, args.batch,
                              args.seq, args.lr, args.accum, args.lr_schedule,
                              args.device, args.attn, args.prefetch,
-                             **(overrides or {}))
+                             args.moe_chunks, **(overrides or {}))
     model = built.model
     z = model.zcfg
     dev = model.device
@@ -277,6 +285,7 @@ def train_loop(args, on_step: Optional[Callable] = None,
                      "qgz_block", "qwz_blocked", "qgz_bits", "qgz_2hop"):
             reg.gauge(f"tune.{knob}").set(int(getattr(z, knob)))
     losses, step_s, launches, comm_steps, tier_steps = [], [], [], [], []
+    moe_aux = []
     save_s = []
     try:
         for i in range(start, args.steps):
@@ -296,13 +305,17 @@ def train_loop(args, on_step: Optional[Callable] = None,
             comm_steps.append(comm_since(sent))
             tier_steps.append(tier_since(sent_t))
             losses.append(loss)
+            if "moe_aux" in metrics:
+                moe_aux.append(float(metrics["moe_aux"]))
             if telemetry:
                 record_step(reg, tracer, i, step_s[-1], metrics,
                             comm_steps[-1])
             if on_step is not None:
                 on_step(i, metrics)
             if log and (i % args.log_every == 0 or i == args.steps - 1):
-                print(f"[train] step {i} loss {loss:.4f} gnorm "
+                aux = (f" moe_aux {float(metrics['moe_aux']):.4f}"
+                       if "moe_aux" in metrics else "")
+                print(f"[train] step {i} loss {loss:.4f}{aux} gnorm "
                       f"{float(metrics['grad_norm']):.3f} lr "
                       f"{float(metrics['lr']):.2e} {step_s[-1]:.3f} s "
                       f"{metrics['tokens'] / step_s[-1]:,.0f} tok/s",
@@ -325,7 +338,8 @@ def train_loop(args, on_step: Optional[Callable] = None,
             tracer.close()
             set_registry(old_reg)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    return {"losses": losses, "step_s": step_s, "launches": launches,
+    return {"losses": losses, "moe_aux": moe_aux, "step_s": step_s,
+            "launches": launches,
             "comm_steps": comm_steps, "tier_steps": tier_steps,
             "start": start, "restored": restored, "save_s": save_s,
             "peak_bytes": peak,
@@ -391,7 +405,8 @@ def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
     """``train_loop`` in one rank of a spawned world: what a host process
     can receive (the run's params stay in the rank)."""
     out = train_loop(args)
-    return {k: out[k] for k in ("losses", "step_s", "launches", "comm_steps",
+    return {k: out[k] for k in ("losses", "moe_aux", "step_s", "launches",
+                                "comm_steps",
                                 "tier_steps", "start", "restored", "save_s",
                                 "peak_bytes", "entropy_bound", "gate",
                                 "ranks_agree")}
@@ -433,6 +448,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefetch", type=int, default=None,
                     help="layer-loop ring depth (default: the policy's, 1; "
                          "0: synchronous)")
+    ap.add_argument("--moe-chunks", type=int, default=0,
+                    help="an MoE config's expert chunks (0: the config's)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--metrics-dir", default=None,

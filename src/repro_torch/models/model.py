@@ -1,7 +1,8 @@
 """The Model: parameter groups, init, training loss, prefill, decode.
 
-Port of the reference's ``models/model.py`` ``Model`` for dense stacks of
-``attn`` and ``local`` blocks tiled from ``cfg.pattern``: one period of the
+Port of the reference's ``models/model.py`` ``Model`` for stacks of
+``attn`` and ``local`` blocks tiled from ``cfg.pattern``, and for MoE
+stacks (``pattern=("moe",)``): one period of the
 pattern per layer group (its blocks named ``0.*``, ``1.*``, ... in the
 flat layout; ``("attn",)`` is one block a group) and the ``n_layers %
 len(pattern)`` leftover layers, the first kinds of a period, in a group of
@@ -22,6 +23,9 @@ Groups (flat buffers):
                                ``cfg.embed_inputs``: the batch brings
                                ``embeds``, (B, S, d), from the stub)
   blocks : (n_periods, P_pad)  one period of the pattern per loop step
+  experts: (n_periods, nc, E_pad)  MoE only: each layer's routed experts
+                               in ``expert_chunks`` chunk groups, gathered
+                               one chunk at a time (``_moe_layer``)
   rem    : (R_pad,)            the leftover layers (only when there are)
   head   : (H_pad,)            final norm
   unemb  : (nv, U_pad)         unembedding, TRANSPOSED (V, d), nv chunks
@@ -31,6 +35,18 @@ this rank's sequence shard), or with ``cfg.mrope`` from the batch's
 ``positions`` (3, B, S) in every mode (already this rank's slice, so no
 offset is added).  The model runs on ``device`` ("cuda" unless the
 caller asks for "cpu").
+
+An MoE layer (``_moe_layer``) runs attention, the router and the shared
+experts under its layer group's gather (``transformer.moe_pre_block``),
+dispatches the tokens by sorting (``models/moe.py``), then runs the
+expert chunks through their own ring (``core/schedule.py``
+``zero_chunk_scan``): chunk c+k's gather in flight under chunk c's
+grouped GEMMs, each chunk's slot buffer rebuilt from the token
+activations inside its own gather.  With the layer ring on, layer i+k's
+first chunk is gathered beside its group (routing-ahead), and under hpZ
+the backward's recompute replays the chunks from their saved secondary
+slices on the hpZ tier.  The load-balance loss joins the training loss
+as ``aux_loss_weight · aux / (n_moe_layers · dp_world)``.
 """
 from __future__ import annotations
 
@@ -42,7 +58,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partition import ParamSpec
-from repro_torch.core.schedule import zero_apply_scan
+from repro_torch.core.schedule import (zero_apply_scan, zero_chunk_scan,
+                                       zero_chunk_scan_hpz,
+                                       zero_chunk_scan_inference)
 from repro_torch.core.zeropp import (ZeroConfig, fwd_gather_quant,
                                      qwz_gemm_eligible, zero_apply,
                                      zero_apply_inference,
@@ -51,9 +69,11 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import platform
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import (RunSpec, _sub, apply_block,
-                                            block_entries, init_cache_shapes,
-                                            last_shard_value,
+                                            block_entries, expert_entries,
+                                            init_cache_shapes,
+                                            last_shard_value, moe_pre_block,
                                             select_positions)
 
 Params = Dict[str, torch.Tensor]
@@ -65,6 +85,24 @@ def _host_ints(x) -> torch.Tensor:
     if torch.is_tensor(x):
         return x.detach().long().cpu()
     return torch.as_tensor(np.asarray(x, np.int64))
+
+
+def _spec_chunk0(xs, i):
+    """Routing-ahead source of the training ring: layer ``i``'s first
+    expert-chunk primary shard (its inputs are its chunk shards)."""
+    return xs[i][0]
+
+
+def _serve_spec_chunk0(xs, i):
+    """The serving ring's: layer ``i``'s inputs are (its (nc, P) expert
+    stack, its cache)."""
+    return xs[i][0][0]
+
+
+def _bwd_spec_chunk0(auxs, i):
+    """The reverse ring's mirror: layer ``i``'s first chunk's secondary
+    slice, kept by the forward."""
+    return auxs[i][0]
 
 
 class Model:
@@ -79,6 +117,14 @@ class Model:
         self.rem = cfg.n_layers % len(self.period)
         self.rem_kinds = self.period[:self.rem]   # the leftover layers
         align = zcfg.align(world) if zcfg.distributed else zcfg.align(1)
+        self.is_moe = "moe" in self.period
+        if self.is_moe and self.period != ("moe",):
+            # the chunked expert path runs one MoE layer per loop step
+            raise ValueError(f"moe must be the whole pattern, got "
+                             f"{self.period}")
+        self.expert_spec = ParamSpec(tuple(expert_entries(cfg)),
+                                     align=align) if self.is_moe else None
+        self.n_moe_layers = cfg.n_layers if self.is_moe else 0
         self.period_spec = ParamSpec(self._entries(self.period), align=align)
         self.rem_spec = ParamSpec(self._entries(self.rem_kinds),
                                   align=align) if self.rem else None
@@ -120,6 +166,9 @@ class Model:
         out = {"embed": (self.embed_spec.padded_size,)} \
             if self.embed_spec else {}
         out["blocks"] = (self.n_periods, self.period_spec.padded_size)
+        if self.is_moe:
+            out["experts"] = (self.n_periods, self.cfg.expert_chunks,
+                              self.expert_spec.padded_size)
         if self.rem_spec:
             out["rem"] = (self.rem_spec.padded_size,)
         out["head"] = (self.head_spec.padded_size,)
@@ -130,9 +179,19 @@ class Model:
         """Parameters in the flat groups, padding excluded."""
         return ((self.embed_spec.size if self.embed_spec else 0)
                 + self.period_spec.size * self.n_periods
+                + (self.expert_spec.size * self.cfg.expert_chunks
+                   * self.n_periods if self.is_moe else 0)
                 + (self.rem_spec.size if self.rem_spec else 0)
                 + self.head_spec.size
                 + self.unemb_spec.size * self.unemb_chunks)
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE: shared + top_k experts)."""
+        cfg = self.cfg
+        if not cfg.n_experts:
+            return self.n_params()
+        inactive = (cfg.n_experts - cfg.top_k) * 3 * cfg.d_model * cfg.moe_ff
+        return self.n_params() - inactive * cfg.n_layers
 
     def comm_events(self, accum: int = 1) -> list:
         """Every ZeRO engine collective one training step issues:
@@ -150,14 +209,27 @@ class Model:
         gradients); the port's ring (``core/schedule.py``) issues neither,
         so its bytes at every depth are the reference's at depth 0.  Each
         of ``accum`` microbatches runs the whole forward, backward and
-        reduce, so every count is multiplied by it."""
+        reduce, so every count is multiplied by it.
+
+        An MoE stack adds its n·nc expert chunks (E_pad each): a forward
+        gather each, where the routing-ahead gather (``blocks.spec``, on
+        whenever both the layer and the chunk rings are) takes chunk 0's
+        place; a re-gather and a reduce each in the backward, whose
+        recompute runs the chunks' forward again: at depth 0 each chunk's
+        ``zero_apply`` gathers it on the qwZ tier, then on the hpZ one (the
+        reference's counts); on the ring with hpZ the recompute replays
+        from the saved secondary slices on the hpZ tier, chunk 0 from the
+        reverse ring's ``blocks.bwd_spec``; without hpZ it gathers on the
+        qwZ tier.  The reference's rings add k and kc wrap-around terms
+        (n + k, n·(nc + kc)); the port's issue none."""
         ev: list = []
         if not self.zcfg.distributed:
             return ev
 
         def add(kind, elems, count, site):
-            ev.append({"kind": kind, "elems": int(elems),
-                       "count": float(count) * accum, "site": site})
+            if count > 0:
+                ev.append({"kind": kind, "elems": int(elems),
+                           "count": float(count) * accum, "site": site})
 
         sites = [("embed", self.embed_spec.padded_size, 1)] \
             if self.embed_spec else []
@@ -172,6 +244,21 @@ class Model:
         add("fwd_gather", P, n, "blocks.fwd")
         add("bwd_gather", P, n, "blocks.bwd")
         add("grad_reduce", P, n, "blocks.reduce")
+        if not self.is_moe:
+            return ev
+        z = self.zcfg
+        nc, E = self.cfg.expert_chunks, self.expert_spec.padded_size
+        k = z.effective_prefetch(n)
+        spec = int(k >= 1 and z.effective_prefetch(nc) >= 1)
+        add("fwd_gather", E, n * spec, "blocks.spec")
+        add("fwd_gather", E, n * (nc - spec), "experts.fwd")
+        if k >= 1 and z.hpz:
+            add("bwd_gather", E, n * spec, "blocks.bwd_spec")
+            add("bwd_gather", E, n * (nc - spec), "experts.bwd_recompute")
+        else:
+            add("fwd_gather", E, n * nc, "experts.bwd_recompute")
+        add("bwd_gather", E, n * nc, "experts.bwd")
+        add("grad_reduce", E, n * nc, "experts.reduce")
         return ev
 
     @staticmethod
@@ -182,8 +269,10 @@ class Model:
             return 0.02
         if base == "unemb":                 # stored (V_chunk, d)
             return shape[-1] ** -0.5
-        if base in ("wq", "wk", "wv", "wgu", "wo", "wdn"):
+        if base in ("wq", "wk", "wv", "wgu", "wo", "wdn", "router", "sdn"):
             return shape[0] ** -0.5
+        if base in ("egu", "sgu", "edn"):
+            return shape[-2] ** -0.5
         return None                         # norms and biases
 
     def _init_flat(self, spec: ParamSpec, gen: torch.Generator,
@@ -214,6 +303,14 @@ class Model:
         for g in range(self.n_periods):
             blocks[g] = self._init_flat(self.period_spec, gen, dtype)
         out["blocks"] = blocks
+        if self.is_moe:
+            experts = torch.empty(self.param_shapes()["experts"], dtype=dtype,
+                                  device=self.device)
+            for g in range(self.n_periods):
+                for c in range(self.cfg.expert_chunks):
+                    experts[g, c] = self._init_flat(self.expert_spec, gen,
+                                                    dtype)
+            out["experts"] = experts
         if self.rem_spec:
             out["rem"] = self._init_flat(self.rem_spec, gen, dtype)
         out["head"] = self._init_flat(self.head_spec, gen, dtype)
@@ -267,8 +364,10 @@ class Model:
         ``attn_impl`` picks the attention route (the flash kernels run in
         the forward and again in each layer's recompute).
         ``params["blocks"]`` and ``params["unemb"]`` may be (n, P) tensors
-        or sequences of per-group (P,) shards.  Returns (loss, {"nll_sum",
-        "tokens"})."""
+        or sequences of per-group (P,) shards, ``params["experts"]`` (MoE)
+        an (n, nc, E) tensor or n sequences of nc shards.  Returns (loss,
+        {"nll_sum", "tokens"}, and for MoE "moe_aux": the layers' summed
+        load-balance losses)."""
         cfg, z = self.cfg, self.zcfg
         if rs.mode != "train":
             raise ValueError(f"loss_fn needs a train RunSpec, got {rs}")
@@ -283,9 +382,13 @@ class Model:
                                 {"rope": (cos, sin)}, None)[0]
             return h
 
-        h = zero_apply_scan(partial(group_fn, spec=self.period_spec,
-                                    kinds=self.period), z)(
-            params["blocks"], h, cos, sin)
+        aux = None
+        if self.is_moe:
+            h, aux = self._moe_stack(params, h, rs, cos, sin)
+        else:
+            h = zero_apply_scan(partial(group_fn, spec=self.period_spec,
+                                        kinds=self.period), z)(
+                params["blocks"], h, cos, sin)
         if self.rem_spec:
             h = zero_apply(partial(group_fn, spec=self.rem_spec,
                                    kinds=self.rem_kinds), z)(
@@ -300,7 +403,134 @@ class Model:
                                        hn.reshape(-1, cfg.d_model),
                                        batch["targets"].reshape(-1))
         loss = nll_sum / float(B * S * dp_world)
-        return loss, {"nll_sum": nll_sum.detach(), "tokens": float(B * S)}
+        mets = {"nll_sum": nll_sum.detach(), "tokens": float(B * S)}
+        if aux is not None:
+            loss = loss + cfg.aux_loss_weight * aux / (self.n_moe_layers
+                                                       * dp_world)
+            mets["moe_aux"] = aux.detach()
+        return loss, mets
+
+    # ------------------------------------------------------------- moe
+
+    def _moe_layer(self, rs: RunSpec, train: bool, W, eflat, h, cos, sin,
+                   cache_pos, cache, W_spec=None, sec=None,
+                   collect_sec: bool = False):
+        """One MoE layer from its gathered group ``W`` and its nc expert
+        chunk shards ``eflat`` (the reference's ``_moe_layer``): attention,
+        router and shared experts (``moe_pre_block``), the sort-based
+        dispatch (indices only), the chunk pipeline (each chunk rebuilds
+        its slot buffer from the token activations, runs the grouped GEMMs
+        and applies its gates, so the router's gradient comes from the
+        chunk's recompute), then the index-only combine.  Serving takes
+        ``serve_capacity`` (drop-free at decode).  ``W_spec``: chunk 0
+        already gathered (the routing-ahead buffer; in the recompute, the
+        reverse ring's); ``collect_sec``: also return the chunks'
+        secondary slices; ``sec``: replay the chunks from them on the hpZ
+        tier.  Returns (h, new cache, aux loss, secondary slices or
+        None)."""
+        cfg, z = self.cfg, self.zcfg
+        B, S, d = h.shape
+        Ec = cfg.n_experts // cfg.expert_chunks
+        p = _sub(self.period_spec.unpack(W.to(z.compute_dtype)), "0.")
+        h2, hn2, logits, shared_y, new_cache = moe_pre_block(
+            cfg, p, h, rs, {"rope": (cos, sin), "cache_pos": cache_pos},
+            cache)
+        capacity = None if train else moe_lib.serve_capacity(
+            hn2.shape[0], cfg.top_k, cfg.n_experts)
+        disp = moe_lib.moe_dispatch(hn2, logits, top_k=cfg.top_k,
+                                    capacity_factor=cfg.capacity_factor,
+                                    capacity=capacity)
+        slots = Ec * disp.cap
+
+        def chunk_f(Wc, c, hn2, g_sorted):
+            pc = self.expert_spec.unpack(Wc.to(z.compute_dtype))
+            buf = moe_lib.build_chunk_buf(hn2, disp, c * slots, slots)
+            out = moe_lib.expert_ffn(buf.reshape(Ec, disp.cap, d),
+                                     pc["egu"], pc["edn"])
+            g = moe_lib.build_chunk_gates(g_sorted, disp.dest, c * slots,
+                                          slots)
+            return out * g.reshape(Ec, disp.cap, 1).to(out.dtype)
+
+        chunks = [eflat[c] for c in range(cfg.expert_chunks)]
+        sec_out = None
+        if not train:
+            outs = zero_chunk_scan_inference(chunk_f, z)(
+                chunks, hn2, disp.g_sorted, W0=W_spec)
+        elif sec is not None:
+            outs = zero_chunk_scan_hpz(chunk_f, z)(
+                chunks, sec, hn2, disp.g_sorted, W0=W_spec)
+        elif collect_sec:
+            outs, sec_out = zero_chunk_scan(chunk_f, z,
+                                            collect_secondary=True)(
+                chunks, hn2, disp.g_sorted, W0=W_spec)
+        else:
+            outs = zero_chunk_scan(chunk_f, z)(chunks, hn2, disp.g_sorted,
+                                               W0=W_spec)
+        y = moe_lib.moe_combine(
+            torch.stack(outs).reshape(cfg.n_experts, disp.cap, d), disp)
+        h3 = h2 + shared_y + y.reshape(B, S, d).to(h2.dtype)
+        return h3, new_cache, disp.aux_loss, sec_out
+
+    def _moe_stack(self, params: Params, h, rs: RunSpec, cos, sin):
+        """The training loop over the MoE layers: the layer ring carries
+        each layer's chunk shards as its inputs and its aux loss as its
+        output; routing-ahead (``spec``) wherever the chunk ring can start
+        from it, and with hpZ the recompute's chunks replayed from the
+        saved secondary slices (``f_fwd``/``f_bwd``/``bwd_spec``).
+        Returns (h, the layers' summed aux loss)."""
+        cfg, z = self.cfg, self.zcfg
+        hpz_remat = z.hpz and z.distributed
+        spec = _spec_chunk0 \
+            if z.effective_prefetch(cfg.expert_chunks) >= 1 else None
+
+        def moe_f(W, h, x, cos, sin):
+            h2, _, aux, _ = self._moe_layer(rs, True, W, x, h, cos, sin,
+                                            None, None)
+            return h2, aux
+
+        def moe_f_fwd(W, W_spec, h, x, cos, sin):
+            h2, _, aux, sec = self._moe_layer(
+                rs, True, W, x, h, cos, sin, None, None, W_spec=W_spec,
+                collect_sec=hpz_remat)
+            return h2, aux, sec
+
+        def moe_f_bwd(W, h, x, sec, cos, sin, W0=None):
+            h2, _, aux, _ = self._moe_layer(rs, True, W, x, h, cos, sin,
+                                            None, None, sec=sec, W_spec=W0)
+            return h2, aux
+
+        ap = zero_apply_scan(
+            moe_f, z, f_fwd=moe_f_fwd,
+            f_bwd=moe_f_bwd if hpz_remat else None, spec=spec,
+            bwd_spec=_bwd_spec_chunk0
+            if hpz_remat and spec is not None else None)
+        ex = params["experts"]
+        xs = [tuple(ex[i][c] for c in range(cfg.expert_chunks))
+              for i in range(self.n_periods)]
+        h, auxs = ap(params["blocks"], h, cos, sin, xs=xs)
+        return h, torch.stack(auxs).sum()
+
+    def _moe_serve(self, params: Params, h, rs: RunSpec, cos, sin,
+                   cache_pos=None, caches=None):
+        """The serving loop over the MoE layers (routing-ahead wherever
+        the chunk ring can start from it): (h, [each layer's (cache,)])."""
+        z = self.zcfg
+
+        def moe_f(W, W_spec, h, x):
+            eflat, cache = x
+            h2, c, _, _ = self._moe_layer(
+                rs, False, W, eflat, h, cos, sin, cache_pos,
+                None if cache is None else cache[0], W_spec=W_spec)
+            return h2, (c,)
+
+        xs = [(params["experts"][i], None if caches is None else caches[i])
+              for i in range(self.n_periods)]
+        if z.effective_prefetch(self.cfg.expert_chunks) >= 1:
+            run = zero_scan_inference(moe_f, z, spec=_serve_spec_chunk0)
+        else:
+            run = zero_scan_inference(
+                lambda W, h, x: moe_f(W, None, h, x), z)
+        return run(params["blocks"], h, xs)
 
     def _streaming_xent(self, unemb, hn2: torch.Tensor,
                         targets: torch.Tensor) -> torch.Tensor:
@@ -413,9 +643,12 @@ class Model:
         z = self.zcfg
         h = self._inputs(params, batch)
         pos = {"rope": self._rope_tables(batch, rs, h.shape[1])}
-        h, ys = zero_scan_inference(
-            self._group_fn(rs, pos, self.period_spec, self.period), z)(
-            params["blocks"], h)
+        if self.is_moe:
+            h, ys = self._moe_serve(params, h, rs, *pos["rope"])
+        else:
+            h, ys = zero_scan_inference(
+                self._group_fn(rs, pos, self.period_spec, self.period), z)(
+                params["blocks"], h)
         # per-period caches -> one (n_periods, B, S, K, hd) stack for each
         # block of the period (S: the prompt, or a local layer's window)
         caches = tuple({key: torch.stack([y[j][key] for y in ys])
@@ -452,9 +685,13 @@ class Model:
         per_period = [tuple({key: c[key][i] for key in ("k", "v")}
                             for c in caches["blocks"])
                       for i in range(self.n_periods)]
-        h, _ = zero_scan_inference(
-            self._group_fn(rs, pos, self.period_spec, self.period),
-            self.zcfg)(params["blocks"], h, per_period)
+        if self.is_moe:
+            h, _ = self._moe_serve(params, h, rs, *pos["rope"], cache_pos,
+                                   per_period)
+        else:
+            h, _ = zero_scan_inference(
+                self._group_fn(rs, pos, self.period_spec, self.period),
+                self.zcfg)(params["blocks"], h, per_period)
         if self.rem_spec:
             h, _ = zero_apply_inference(
                 self._group_fn(rs, pos, self.rem_spec, self.rem_kinds),

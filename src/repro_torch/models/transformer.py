@@ -1,8 +1,11 @@
 """Decoder blocks: training, prefill, decode and paged serving.
 
-Port of the reference's ``models/transformer.py`` for the dense block
-kinds ``attn`` (global causal attention) and ``local`` (sliding-window
-attention over ``cfg.window`` positions): parameter entries (same names,
+Port of the reference's ``models/transformer.py`` for the block kinds
+``attn`` (global causal attention), ``local`` (sliding-window attention
+over ``cfg.window`` positions) and ``moe`` (global causal attention and a
+mixture-of-experts MLP, driven by the Model: :func:`moe_pre_block` here,
+the routed experts in ``Model._moe_layer``; its decode cache is
+``attn``'s): parameter entries (same names,
 shapes and order, so the flat layout matches; the ``bq``/``bk``/``bv``
 biases of ``cfg.qkv_bias`` after ``wo``), ``RunSpec``, the attention
 half (biases added before the head split, ``cfg.logit_softcap`` on every
@@ -31,15 +34,36 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as cl
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_lib
 
 
-KINDS = ("attn", "local")
+KINDS = ("attn", "local", "moe")
+
+
+def _moe_entries(cfg: ArchConfig, pre: str
+                 ) -> List[Tuple[str, Tuple[int, ...]]]:
+    """Router and shared experts only: the routed experts live in their
+    own chunked groups (:func:`expert_entries`)."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_ff
+    e = [(pre + "ln2", (d,)), (pre + "router", (d, E))]
+    if cfg.n_shared:
+        e += [(pre + "sgu", (d, 2 * f * cfg.n_shared)),
+              (pre + "sdn", (f * cfg.n_shared, d))]
+    return e
+
+
+def expert_entries(cfg: ArchConfig) -> List[Tuple[str, Tuple[int, ...]]]:
+    """One expert CHUNK's parameters (n_experts / expert_chunks experts)."""
+    d, f = cfg.d_model, cfg.moe_ff
+    ec = cfg.n_experts // cfg.expert_chunks
+    return [("egu", (ec, d, 2 * f)), ("edn", (ec, f, d))]
 
 
 def block_entries(cfg: ArchConfig, kind: str, pre: str
                   ) -> List[Tuple[str, Tuple[int, ...]]]:
-    """Parameter entries of one ``attn`` or ``local`` block (the same
-    weights), in the reference's order."""
+    """Parameter entries of one block, in the reference's order: ``attn``
+    and ``local`` hold the same weights, ``moe`` the attention's, then its
+    router and shared experts."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -51,6 +75,8 @@ def block_entries(cfg: ArchConfig, kind: str, pre: str
               (pre + "bv", (K * hd,))]
     if cfg.qk_norm:
         e += [(pre + "qn", (hd,)), (pre + "kn", (hd,))]
+    if kind == "moe":
+        return e + _moe_entries(cfg, pre)
     return e + [(pre + "ln2", (d,)), (pre + "wgu", (d, 2 * cfg.d_ff)),
                 (pre + "wdn", (cfg.d_ff, d))]
 
@@ -143,7 +169,7 @@ def _build_prefill_cache(cfg: ArchConfig, kind: str, k: torch.Tensor,
     negative positions, which decode masks; the reference fills them with
     whatever its gather reads there (values of the prompt, or NaN below
     -S), here they are zeros, so a masked slot adds an exact 0."""
-    if kind == "attn":
+    if kind != "local":                   # attn, moe
         return {"k": k, "v": v}
     k = attn._gather_seq(k, rs.seq_axes, rs.seq_group)
     v = attn._gather_seq(v, rs.seq_axes, rs.seq_group)
@@ -200,10 +226,32 @@ def last_shard_value(x: torch.Tensor, seq_axes: Sequence[str] = (),
     return v.to(x.dtype)
 
 
+def moe_pre_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
+                  cache):
+    """An MoE layer up to (and excluding) the routed experts, all under
+    the layer group's one gather: attention, the post-attention norm, the
+    router logits and the shared experts.  Returns (h after attention,
+    hn2 (B·S, d), router logits (B·S, E), shared_y (B, S, d), new cache)."""
+    B, S, d = h.shape
+    mix, new_cache = _attn_block(cfg, "moe", p, h, rs, pos, cache)
+    h = h + mix
+    hn2 = nn.rms_norm(h, p["ln2"]).reshape(B * S, d)
+    logits = hn2 @ p["router"]
+    if cfg.n_shared:
+        shared_y = moe_lib.shared_ffn(hn2, p["sgu"], p["sdn"]).reshape(
+            B, S, d)
+    else:
+        shared_y = torch.zeros_like(h)
+    return h, hn2, logits, shared_y, new_cache
+
+
 def apply_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
                 pos, cache):
     """One ``attn`` or ``local`` block with residuals; returns (h,
-    new_cache)."""
+    new_cache).  ``moe`` blocks are driven by the Model
+    (:func:`moe_pre_block`, the expert chunks, the combine)."""
+    if kind == "moe":
+        raise ValueError("moe blocks run through Model._moe_layer")
     mix, new_cache = _attn_block(cfg, kind, p, h, rs, pos, cache)
     h = h + mix
     return h + _mlp_block(cfg, p, h), new_cache
@@ -215,10 +263,11 @@ def init_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
     """Per-layer K/V cache shapes of a block on one rank of a cache
     sequence sharded ``kv_world`` ways: ``kv_len`` slots for ``attn``, the
     ring's ``min(window, kv_len)`` for ``local``, each cut into
-    ``kv_world`` equal slices (refused where they do not divide)."""
+    ``kv_world`` equal slices (refused where they do not divide); a
+    ``moe`` layer's cache is ``attn``'s."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    n = kv_len if kind == "attn" else min(cfg.window, kv_len)
+    n = min(cfg.window, kv_len) if kind == "local" else kv_len
     if n % kv_world:
         raise ValueError(f"{kind} cache of {n} slots does not divide over "
                          f"the {kv_world}-way kv sharding")

@@ -12,9 +12,10 @@ its ``LARGE_PARAMS`` (the only ones the port's policy carries).
 Unlike the reference (immutable arrays), :func:`apply_update` updates the
 parameters and moments IN PLACE: at full width it saves a second copy of
 the 12 bytes per parameter of master and moments.  A buffer stacked over
-layer groups or unembedding chunks is updated one row at a time (the same
-elementwise arithmetic), so the update's fp32 temporaries are a row's,
-not the stack's: 3.5 GB each, not 7 GB, for qwen2-vl-72b's 2-layer stack.
+layer groups, expert chunks or unembedding chunks is updated one row at
+a time (the same elementwise arithmetic), so the update's fp32
+temporaries are a row's, not the stack's: 3.5 GB each, not 7 GB, for
+qwen2-vl-72b's 2-layer stack.
 """
 from __future__ import annotations
 
@@ -78,8 +79,9 @@ def apply_update(grads: Mapping[str, torch.Tensor], params: Tensors,
     c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
     c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
     for k in sorted(grads):
-        rows = zip(*(t.unbind(0) if t.dim() > 1 else (t,) for t in (
-            params[k], opt["m"][k], opt["v"][k], grads[k])))
+        rows = zip(*(t.reshape(-1, t.shape[-1]).unbind(0) if t.dim() > 1
+                     else (t,) for t in (params[k], opt["m"][k],
+                                         opt["v"][k], grads[k])))
         for w, m, v, g in rows:
             g = g.to(torch.float32) * scale
             m32 = cfg.b1 * m + (1 - cfg.b1) * g

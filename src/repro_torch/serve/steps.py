@@ -265,7 +265,7 @@ def pad_prefill_caches(model: Model, caches, kv_len: int,
                        kv_axes: Sequence[str] = ()):
     """Grow prefill KV caches (length = prompt) to decode capacity.
 
-    Full-attention (``attn``) caches use slot == position, so
+    Full-attention (``attn``, ``moe``) caches use slot == position, so
     zero-padding the sequence dim to ``kv_len`` is exact: padded slots are
     masked out by decode_attend's position-validity test.  Ring buffers
     (``local`` layers) are already capacity-sized.  On a ``mesh`` the
@@ -279,9 +279,9 @@ def pad_prefill_caches(model: Model, caches, kv_len: int,
         (tuple(kv_axes) if kg is not None else ())
 
     def grow(kind, cache, axis):
-        if kind != "attn" and same:
+        if kind == "local" and same:
             return cache
-        n = kv_len if kind == "attn" else model.cfg.window
+        n = model.cfg.window if kind == "local" else kv_len
         return {key: _relayout(cache[key], axis, sg, n, kw, kr)
                 for key in ("k", "v")}
 

@@ -235,7 +235,8 @@ def moments_within_int4(to: Mapping, jo: Mapping, far: float = 1e-3,
 def global_params(model, seed: int) -> dict:
     """GLOBAL fp32 buffers of ``model``'s flat layout, numpy normal draws
     at the reference's per-name scales (norms, biases and padding zero;
-    no ``embed`` where the model has none): the state both sides of a
+    no ``embed`` where the model has none; an MoE model's ``experts``
+    after ``blocks``): the state both sides of a
     step comparison start from."""
     rng = np.random.default_rng(seed)
 
@@ -250,6 +251,11 @@ def global_params(model, seed: int) -> dict:
     out = {"embed": flat(model.embed_spec)} if model.embed_spec else {}
     out["blocks"] = np.stack([flat(model.period_spec)
                               for _ in range(model.n_periods)])
+    if model.expert_spec is not None:
+        out["experts"] = np.stack([
+            np.stack([flat(model.expert_spec)
+                      for _ in range(model.cfg.expert_chunks)])
+            for _ in range(model.n_periods)])
     if model.rem_spec:
         out["rem"] = flat(model.rem_spec)
     out["head"] = flat(model.head_spec)

@@ -138,11 +138,11 @@ _SHARD_READ_ERRORS = (OSError, ValueError, EOFError,
 
 
 def model_param_layout(model) -> Dict[str, Any]:
-    """JSON-able ``ParamSpec`` layout of every buffer group (manifest).
-    The port has no MoE, so no ``experts`` group."""
+    """JSON-able ``ParamSpec`` layout of every buffer group (manifest)."""
     out: Dict[str, Any] = {}
     for group, spec in (("embed", model.embed_spec),
                         ("blocks", model.period_spec),
+                        ("experts", model.expert_spec),
                         ("rem", model.rem_spec),
                         ("head", model.head_spec),
                         ("unemb", model.unemb_spec)):

@@ -24,7 +24,9 @@ reference, an axis of size 1 carries no sequence, so the flash kernels
 stay in at world 1.  The layer
 loop's schedule is the model's ``ZeroConfig.prefetch`` ring
 (``core/schedule.py``).  Loss, NLL and tokens are summed over the world
-after the update, as the reference's ``lax.psum``s do.
+after the update, as the reference's ``lax.psum``s do, and an MoE
+model's ``moe_aux``, then divided by its layers, the world and the
+microbatches, as the reference does.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.optim.adamw import AdamWConfig, apply_update
 
 Tensors = Dict[str, torch.Tensor]
 _ROWS = ("blocks", "unemb")    # buffers stacked over layer groups / chunks
+_GRID = ("experts",)           # stacked over layers and expert chunks
 AXES = ("data", "model")       # the world's axes, slowest first
 
 
@@ -57,13 +60,18 @@ class TrainStep:
 
 
 def _leaves(params: Tensors) -> Dict[str, Any]:
-    """Gradient leaves sharing storage with ``params``: one per layer group
-    and per unembedding chunk, so each group's reduced gradient lands in
-    its own tensor (no full-buffer scatter per group)."""
+    """Gradient leaves sharing storage with ``params``: one per layer
+    group, per (layer, expert chunk) and per unembedding chunk, so each
+    group's reduced gradient lands in its own tensor (no full-buffer
+    scatter per group)."""
     out: Dict[str, Any] = {}
     for k, v in params.items():
         if k in _ROWS:
             out[k] = [v[i].detach().requires_grad_(True)
+                      for i in range(v.shape[0])]
+        elif k in _GRID:
+            out[k] = [[v[i, c].detach().requires_grad_(True)
+                       for c in range(v.shape[1])]
                       for i in range(v.shape[0])]
         else:
             out[k] = v.detach().requires_grad_(True)
@@ -189,14 +197,18 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         keys = sorted(leaves)
         flat: List[torch.Tensor] = []
         for k in keys:
-            flat += leaves[k] if k in _ROWS else [leaves[k]]
+            if k in _GRID:
+                flat += [t for row in leaves[k] for t in row]
+            else:
+                flat += leaves[k] if k in _ROWS else [leaves[k]]
         gs = list(torch.autograd.grad(loss, flat))
         del flat, leaves
         grads: Tensors = {}
         for k in keys:
-            if k in _ROWS:
-                n = params[k].shape[0]
-                grads[k] = torch.stack(gs[:n])
+            if k in _ROWS or k in _GRID:
+                n = params[k].shape[0] * (params[k].shape[1]
+                                          if k in _GRID else 1)
+                grads[k] = torch.stack(gs[:n]).reshape(params[k].shape)
                 del gs[:n]
             else:
                 grads[k] = gs.pop(0)
@@ -208,6 +220,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
             return one(params, batch)
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
         nll = torch.zeros((), dtype=torch.float32, device=model.device)
+        aux = torch.zeros((), dtype=torch.float32, device=model.device)
         toks = 0.0
         grads = {k: torch.zeros(v.shape, dtype=torch.float32,
                                 device=v.device) for k, v in params.items()}
@@ -219,20 +232,32 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
             loss = loss + l
             nll = nll + m["nll_sum"]
             toks += m["tokens"]
+            if "moe_aux" in m:
+                aux = aux + m["moe_aux"]
         for g in grads.values():
             g.div_(accum)
-        return loss / accum, {"nll_sum": nll, "tokens": toks}, grads
+        mets = {"nll_sum": nll, "tokens": toks}
+        if model.n_moe_layers:
+            mets["moe_aux"] = aux
+        return loss / accum, mets, grads
 
     def fn(params: Tensors, opt: Dict, batch: Tensors) -> Dict[str, Any]:
         loss, mets, grads = loss_and_grads(params, batch)
         stats = apply_update(grads, params, opt, opt_cfg, z.group)
         nll, toks = mets["nll_sum"], mets["tokens"]
+        aux = mets.get("moe_aux")
         if world > 1:       # the reference's psums, as one message
             tot = torch.stack([loss, nll, torch.tensor(
-                toks, dtype=torch.float32, device=loss.device)])
+                toks, dtype=torch.float32, device=loss.device)]
+                + ([aux] if aux is not None else []))
             cl.all_reduce(tot, z.group)
             loss, nll, toks = tot[0], tot[1], float(tot[2])
-        return {"loss": loss, "nll": nll / toks, "tokens": toks,
-                "grad_norm": stats["grad_norm"], "lr": stats["lr"]}
+            aux = tot[3] if aux is not None else None
+        out = {"loss": loss, "nll": nll / toks, "tokens": toks,
+               "grad_norm": stats["grad_norm"], "lr": stats["lr"]}
+        if aux is not None:
+            # the layers' aux summed over the world, per layer and rank
+            out["moe_aux"] = aux / (model.n_moe_layers * world * accum)
+        return out
 
     return TrainStep(fn=fn, loss_and_grads=loss_and_grads, run_spec=rs)

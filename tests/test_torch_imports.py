@@ -30,6 +30,7 @@ def _modules():
 def test_importing_every_module_loads_no_jax_and_no_reference():
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    assert "repro_torch.models.moe" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
