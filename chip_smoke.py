@@ -303,6 +303,31 @@ last line is printed.
    After the qwen2-vl serving phase: phase 3 on the cut model in bf16
    (4 slots, kv_len 2048, phase 3's first four prompts, ``MOE_MAX_NEW``
    tokens each), each request's router margins alone printed.
+15. SSM phase: mamba2-130m at full width and depth (24 ``ssd`` layers,
+   d 768, d_inner 1536, 24 heads of 64, state 128, chunk 128, vocab
+   50,280: 167,555,520 parameters) and recurrentgemma-2b at full width
+   (d 2560, ``rec``/``rec``/``local`` with 10/1 heads of 256, window 2048,
+   d_ff 7680, vocab 256,000) cut to ``RG_LAYERS`` = 8 of its 26 layers
+   (two periods and the two-layer rem group: 2,008,174,080 parameters).
+   In phase 2: B1-B5 at their layer groups (3,763,712 and 256,952,320
+   elements), bit-identical; B8 at their heads (T 4; N 12,570, K 768 and
+   N 64,000, K 2560) beside cuBLAS; after the moe flash phase B6/B7 in
+   bf16 at (2, 4096, 10/1, 256) causal under the 2048 window (a GQA
+   group of 10), held and timed beside SDPA.  After the moe parity step:
+   ``train_loop`` (bf16, full ZeRO++, world 1, --attn pallas) on mamba2
+   at ``SSM_TRAIN["mamba2"]`` (8 x 2048, 4 steps, chunk 128: where the
+   reference's segment sum overflows its gradient) and on recurrentgemma
+   (``--layers 8``) at 2 x 4096, 3 steps (the window bites): finite
+   losses, the last below the first, every gradient of one more
+   ``loss_and_grads`` finite, every step's launches ``step_launches`` (B1-
+   B5 a flat group, B6/B7 on the ``local`` layers only); step p50,
+   tokens/s, peak memory and a profiled step.  Phase 4's rule on each at
+   full width cut in depth (mamba2 2 layers, 2 x 512; recurrentgemma one
+   period, 1 x 2048; vocab 8192 in 4 chunks).  After the moe engine:
+   phase 3 on each in bf16 (4 slots, kv_len 2048, ``SSM_MAX_NEW`` tokens
+   a request; mamba2 on phase 3's six prompts, 257 among them, which the
+   SSD scans in 257 one-token chunks, recurrentgemma on the first four),
+   every prompt prefilled at its exact length.
 
 Every phase prints its seconds. The kernel phase also holds B1-B5 at the
 knobs' shapes and widths (``knob_kernel_phase``): the INT8 qgZ chain of
@@ -321,8 +346,13 @@ on the gemma3 path; at GQA 8 as ``flash_fwd_gqa8``/``flash_bwd_gqa8``
 and B8 at K 8192 as ``dequant_matmul_k8192`` on the qwen2-vl paths;
 at deepseek-moe-16b's shape as ``flash_fwd_moe``/``flash_bwd_moe`` and
 B8 at K 2048 as ``dequant_matmul_k2048`` on the MoE paths, ``train_moe``,
-``train_moe_sync`` and ``serve_moe``; B1-B5's records carry qwen2-vl's
-and deepseek-moe-16b's group shapes in their extras); the
+``train_moe_sync`` and ``serve_moe``; at recurrentgemma-2b's (GQA 10
+under the window) as ``flash_fwd_recurrentgemma``/``flash_bwd_recurrentgemma``
+on ``train_recurrentgemma``, B8 at its head and mamba2-130m's as
+``dequant_matmul_recurrentgemma`` and ``dequant_matmul_mamba2`` on
+``serve_recurrentgemma`` and ``serve_mamba2``; B1-B5's records carry
+qwen2-vl's, deepseek-moe-16b's, mamba2-130m's and recurrentgemma-2b's
+group shapes in their extras); the
 whole run's seconds come before it; the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -467,6 +497,18 @@ MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 2048, 4
 MOE_SYNC_STEPS = 2
 MOE_PROMPTS, MOE_MAX_NEW = PROMPTS[:4], 16
 MOE_PARITY_ROWS, MOE_PARITY_SEQ = 2, 512
+# mamba2-130m at full width and depth, recurrentgemma-2b at full width cut
+# to RG_LAYERS (26 layers' fp32 state, 3.55 B parameters x 16 B, is 56.8
+# GB before activations): training (rows, seq, steps), the parity step
+# (layers, rows, seq; vocab 8192 in 4 chunks), the serving prompts, and
+# recurrentgemma's attention at its training batch (GQA 10 under the
+# window)
+RG_LAYERS = 8
+SSM_TRAIN = {"mamba2": (8, 2048, 4), "recurrentgemma": (2, 4096, 3)}
+SSM_PARITY = {"mamba2": (2, 2, 512), "recurrentgemma": (3, 1, 2048)}
+SSM_PROMPTS = {"mamba2": PROMPTS, "recurrentgemma": PROMPTS[:4]}
+SSM_MAX_NEW = 16
+RG_FLASH_SHAPE, RG_WINDOW = (2, 4096, 10, 1, 256), 2048
 # the CPU halves of the parity steps run in a process of their own from
 # the script's start, on this many threads, beside the card's phases
 PARITY_THREADS, PARITY_TIMEOUT_S = 4, 900
@@ -589,7 +631,9 @@ B8_PATH = ((4, 37984, 1024, 4), (1, 37984, 1024, 4), (3, 4096, 64, 1),
            (20, 37984, 1024, 4),          # a speculative verify, 4 x 5
            (4, 65536, 2560, 10),          # gemma3-4b's head chunk, decode
            (4, 25344, 8192, 32),          # qwen2-vl-72b's, decode (K 8192)
-           (4, 25600, 2048, 8))           # deepseek-moe-16b's, decode
+           (4, 25600, 2048, 8),           # deepseek-moe-16b's, decode
+           (4, 12570, 768, 3),            # mamba2-130m's, decode
+           (4, 64000, 2560, 10))          # recurrentgemma-2b's, decode
 B8_EDGE_T = (*range(1, 10), 17)
 B8_EDGE_N = (1, 31, 4097)
 B8_EDGE_KNB = ((64, 1), (1024, 4), (4096, 16))
@@ -657,11 +701,11 @@ def kernel_phase(flush: torch.Tensor) -> dict:
     # 671 M elements)
     q_err = d_err = 0.0
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
-    moe = moe_group_sizes()
+    groups = path_group_sizes()
     shard = {}
     for n in (1024, 15_730_944, 38_895_616, 155_582_464,
               *gemma3_group_sizes(), vl_layer, vl_chunk, MR_L,
-              *moe.values()):
+              *(n for sizes in groups.values() for n in sizes.values())):
         x = torch.randn(1, n, generator=g, device=dev).to(torch.bfloat16)
         p, s = qb.quantize(x, cfg)
         pp, sp = quant.quantize_blockwise(x, cfg)
@@ -687,12 +731,11 @@ def kernel_phase(flush: torch.Tensor) -> dict:
             rec.setdefault("qwen2_vl", {})[("quantize_blockwise", n)] = dict(
                 ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
                 shape=[1, n], dtype="bf16")
-        for key, size in moe.items():   # deepseek-moe-16b's groups
-            if n == size:
-                rec.setdefault("deepseek_moe", {})[(
-                    "quantize_blockwise", key + "_bf16")] = dict(
-                    ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
-                    shape=[1, n])
+        for path, key in _path_keys(groups, n):   # the MoE's, the SSMs'
+            rec.setdefault(path, {})[("quantize_blockwise",
+                                      key + "_bf16")] = dict(
+                ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
+                shape=[1, n])
         if n == MR_L:     # a rank's layer-group shard at 2 x 2 (serving)
             shard["serve_shard_w4"] = dict(
                 ms=q_ms, plain_ms=q_plain, bound_ms=q_bound[0],
@@ -720,11 +763,10 @@ def kernel_phase(flush: torch.Tensor) -> dict:
             rec["qwen2_vl"][("dequantize_blockwise", n)] = dict(
                 ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
                 shape=[1, n])
-        for key, size in moe.items():
-            if n == size:
-                rec["deepseek_moe"][("dequantize_blockwise", key)] = dict(
-                    ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
-                    shape=[1, n])
+        for path, key in _path_keys(groups, n):
+            rec[path][("dequantize_blockwise", key)] = dict(
+                ms=d_ms, plain_ms=d_plain, bound_ms=d_bound[0],
+                shape=[1, n])
         del x, p, s
 
     # small INT4 and stochastic-rounding (u field) cases, bit-identical
@@ -807,7 +849,7 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
                     f"weights and scales), plain {plain:.4f} ms, bound " \
                     f"{b8[0]:.4f} ms ({b8[1]}), cuBLAS bf16 x @ W_bf16.T on " \
                     f"dequantized weights {lib:.4f} ms"
-            if (T, K) == (4, 2560):   # gemma3-4b's head, beside it
+            if (T, N, K) == (4, 65536, 2560):   # gemma3-4b's head, beside it
                 extra["gemma3_t4"] = dict(ms=ms, plain_ms=plain,
                                           bound_ms=b8[0], library_ms=lib,
                                           shape=[T, N, K, NB])
@@ -817,6 +859,11 @@ def b8_kernel_phase(g, flush: torch.Tensor) -> dict:
                     library_ms=lib, shape=[T, N, K, NB], max_abs_err=err)
             elif (T, K) == (4, 2048):  # deepseek-moe-16b's head (K 2048)
                 extra["deepseek_moe_t4"] = dict(
+                    ms=ms, plain_ms=plain, bound_ms=b8[0], bound_by=b8[1],
+                    library_ms=lib, shape=[T, N, K, NB], max_abs_err=err)
+            elif (T, K) == (4, 768) or N == 64000:   # the SSM phase's heads
+                key = "mamba2_t4" if K == 768 else "recurrentgemma_t4"
+                extra[key] = dict(
                     ms=ms, plain_ms=plain, bound_ms=b8[0], bound_by=b8[1],
                     library_ms=lib, shape=[T, N, K, NB], max_abs_err=err)
             elif T == 4:              # the decode step's: the record's
@@ -937,9 +984,9 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
         return dict(ms=ms, plain_ms=plain_ms, bound=b)
 
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
-    moe = moe_group_sizes()
+    groups = path_group_sizes()
     for n in (*PATH_NS, *gemma3_group_sizes(), vl_layer, vl_chunk,
-              *moe.values()):
+              *(n for sizes in groups.values() for n in sizes.values())):
         nb = n // 256
         # B1: the qwZ quantize of an fp32 master shard (training)
         x = torch.randn(1, n, generator=g, device=dev) * 0.02
@@ -1015,16 +1062,15 @@ def qgz_kernel_phase(flush: torch.Tensor) -> dict:
                     ("dequant_reduce", r5, [1, n // 2])):
                 vl[(name, n)] = dict(ms=r_["ms"], plain_ms=r_["plain_ms"],
                                      bound_ms=r_["bound"][0], shape=shape)
-        for key, size in moe.items():   # deepseek-moe-16b's groups
-            if n == size:
-                for name, r_, shape, tag in (
-                        ("quantize_blockwise", r, [1, n], "_f32"),
-                        ("quantize_reordered", r3, [1, 1, n], ""),
-                        ("dequant_reduce_quant", r4, [1, n // 2], ""),
-                        ("dequant_reduce", r5, [1, n // 2], "")):
-                    rec.setdefault("deepseek_moe", {})[(name, key + tag)] = \
-                        dict(ms=r_["ms"], plain_ms=r_["plain_ms"],
-                             bound_ms=r_["bound"][0], shape=shape)
+        for path, key in _path_keys(groups, n):   # the MoE's, the SSMs'
+            for name, r_, shape, tag in (
+                    ("quantize_blockwise", r, [1, n], "_f32"),
+                    ("quantize_reordered", r3, [1, 1, n], ""),
+                    ("dequant_reduce_quant", r4, [1, n // 2], ""),
+                    ("dequant_reduce", r5, [1, n // 2], "")):
+                rec.setdefault(path, {})[(name, key + tag)] = \
+                    dict(ms=r_["ms"], plain_ms=r_["plain_ms"],
+                         bound_ms=r_["bound"][0], shape=shape)
         del p3, p4, pay, sc, pay5, sc5, out
 
     # B3 where a wrong index would show: Y, X > 1, with and without a u field
@@ -1649,11 +1695,14 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS, max_new: int = MAX_NEW,
                    eng.pool.caches,
                    [len(p) for p in prompts[:N_SLOTS]])
     if model.rem or model.period != ("attn",):
-        rings = [c["k"].shape[-3] for c in eng.pool.caches["blocks"]]
+        rings = [c["k"].shape[-3] if "k" in c else
+                 f"state {tuple(c['h'].shape[2:])} fp32 + conv "
+                 f"{tuple(c['conv'].shape[2:])}"
+                 for c in eng.pool.caches["blocks"]]
         print(f"engine: every prompt prefilled at its exact length "
-              f"({cap.count('prefill')} prefills); pool cache slots per block "
-              f"of the period {rings} (local rings of the window), kv_len "
-              f"{KV_LEN}", flush=True)
+              f"({cap.count('prefill')} prefills); pool cache per block of "
+              f"the period {rings} (local rings of the window, recurrent "
+              f"states a slot), kv_len {KV_LEN}", flush=True)
     st = eng.stats()
     print(f"engine: first-token logits vs standalone prefill max abs diff "
           f"{max(h['first'] for h in holds):.4f} (bar {LOGIT_ATOL})",
@@ -2045,8 +2094,9 @@ def step_launches(cfg, model, attn: str) -> dict:
     flat group (embedding where the model has one, layer groups — a
     period of the pattern each, and the leftover layers' rem group —,
     head norm, unembedding chunks),
-    none of B8, and under --attn pallas B6 twice per layer (the forward
-    and the layer's recompute) and B7 once.  The knobs move B1-B5: non-blocked
+    none of B8, and under --attn pallas B6 twice per attention layer (the
+    forward and the layer's recompute) and B7 once.  The knobs move B1-B5:
+    non-blocked
     qwZ quantizes in plain PyTorch (no B1, no B2, as the reference
     computes it outside its kernels); the 1-hop qgZ runs B1 and B5 once
     per group and no B3 or B4.  An MoE model's gathers and reduces are
@@ -2073,9 +2123,13 @@ def step_launches(cfg, model, attn: str) -> dict:
         reduces * two_hop
     want["dequant_reduce"] = reduces * int(z.qgz)
     want["dequant_matmul"] = 0
-    flash = attn == "pallas"
-    want["flash_fwd"] = 2 * cfg.n_layers if flash else 0
-    want["flash_bwd"] = cfg.n_layers if flash else 0
+    # the flash pair runs on the attention layers only (none in an ssd
+    # stack, one in three of recurrentgemma's)
+    kinds = model.period * model.n_periods + model.rem_kinds
+    n_attn = sum(k in ("attn", "local", "moe") for k in kinds) \
+        if attn == "pallas" else 0
+    want["flash_fwd"] = 2 * n_attn
+    want["flash_bwd"] = n_attn
     return want
 
 
@@ -2083,8 +2137,9 @@ def parity_cases() -> dict:
     """name -> (cfg, attn, rows, seq, bias_seed) of every parity step:
     qwen3-0.6b's widths at 2 layers and a vocabulary of 8192 in 4 chunks
     (2 x 256 plain, 2 x 512 under --attn pallas: the flash kernels need S
-    a multiple of 512, the reference's rule), gemma3-4b's (phase 10) and
-    qwen2-vl-72b's (phase 12)."""
+    a multiple of 512, the reference's rule), gemma3-4b's (phase 10),
+    qwen2-vl-72b's (phase 12), deepseek-moe-16b's (phase 14), mamba2-130m's
+    and recurrentgemma-2b's (phase 15)."""
     q = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
                             vocab=8192, unemb_chunks=4)
     g = dataclasses.replace(get_config("gemma3-4b"), n_layers=3,
@@ -2092,12 +2147,16 @@ def parity_cases() -> dict:
                             unemb_chunks=4)
     v = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1,
                             vocab=QWEN2VL_PARITY_VOCAB, unemb_chunks=4)
+    ssm = {name: (dataclasses.replace(cfg, n_layers=SSM_PARITY[name][0],
+                                      vocab=8192, unemb_chunks=4),
+                  "pallas", *SSM_PARITY[name][1:], None)
+           for name, cfg in ssm_configs().items()}
     return {"qwen3_xla": (q, "xla", 2, 256, None),
             "qwen3_pallas": (q, "pallas", 2, 512, None),
             "gemma3": (g, "pallas", 1, GEMMA_PARITY_SEQ, None),
             "qwen2_vl": (v, "pallas", 1, QWEN2VL_PARITY_SEQ, 3),
             "moe": (moe_parity_config(), "pallas", MOE_PARITY_ROWS,
-                    MOE_PARITY_SEQ, None)}
+                    MOE_PARITY_SEQ, None), **ssm}
 
 
 class Routes:
@@ -2629,20 +2688,23 @@ def moe_flash_phase(flush: torch.Tensor) -> dict:
 
 
 def path_flash_phase(shape, what: str, key: str, seed: int,
-                     flush: torch.Tensor) -> dict:
-    """B6/B7 in bf16 at a training path's shape (B, S, H, K, hd), causal,
-    held as phase 2 holds FLASH_SHAPE and twice with the same bits, timed
-    beside the bound, the plain versions and SDPA; the records
+                     flush: torch.Tensor, window: int = 0) -> dict:
+    """B6/B7 in bf16 at a training path's shape (B, S, H, K, hd), causal
+    (under a sliding ``window`` where > 0), held as phase 2 holds
+    FLASH_SHAPE and twice with the same bits, timed beside the bound, the
+    plain versions and SDPA; the records
     ``flash_fwd_<key>``/``flash_bwd_<key>``."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     B, S, H, K, hd = shape
     q, k, v, do = _flash_inputs(g, shape, torch.bfloat16)
     kw = dict(scale=hd ** -0.5, causal=True)
-    tag = f"{shape} causal ({what})"
+    if window:
+        kw["window"] = window
+    tag = f"{shape} causal{f' window {window}' if window else ''} ({what})"
     (out, m, l), want, bar, fe, be = _hold_bf16(tag, q, k, v, do, kw)
     del want, bar
-    prod = 2 * hd * B * H * _causal_pairs(S)
+    prod = 2 * hd * B * H * _window_pairs(S, window)
     qb_, kb_ = B * S * H * hd * 2, B * S * K * hd * 2
     b6 = bound_mixed(2 * qb_ + 2 * kb_ + 8 * B * H * S,
                      ((2 * prod, BF16_OPS_S),))
@@ -2661,17 +2723,21 @@ def path_flash_phase(shape, what: str, key: str, seed: int,
     sq, sk, sv = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     sdo = do.transpose(1, 2)
+    pos = torch.arange(S, device="cuda")
+    band = ((pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < window)) if window else None
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            sq, sk, sv, is_causal=True, enable_gqa=H != K)
+            sq, sk, sv, attn_mask=band, is_causal=band is None,
+            enable_gqa=H != K)
     with torch.no_grad():
         lib_f = median_ms(sdpa, flush)
         backend = _sdpa_backend(sdpa)
     so = sdpa()
     lib_b = median_ms(lambda: torch.autograd.grad(
         so, (sq, sk, sv), sdo, retain_graph=True), flush)
-    del so, sq, sk, sv, sdo
+    del so, sq, sk, sv, sdo, band
     print(f"B6 flash_fwd {tag} bf16: kernel {f_ms:.4f} ms "
           f"({100 * b6[0] / f_ms:.1f} % of its bound), plain {f_plain:.4f} "
           f"ms, bound {b6[0]:.4f} ms ({b6[1]}), SDPA ({backend}) "
@@ -2901,6 +2967,24 @@ def moe_group_sizes() -> dict:
             "unemb_chunk": shapes["unemb"][1]}
 
 
+def path_group_sizes() -> dict:
+    """path -> {group: elements} of the flat groups whose B1-B5 rows ride
+    in the records' extras as ``<path>_<group>``: deepseek-moe-16b's
+    (``moe_group_sizes``), and the layer group of mamba2-130m (24 of
+    them) and of the cut recurrentgemma-2b (a (rec, rec, local) period)."""
+    out = {"deepseek_moe": moe_group_sizes()}
+    for name, cfg in ssm_configs().items():
+        shapes = Model(cfg, ZeroConfig(), device="cuda").param_shapes()
+        out[name] = {"blocks": shapes["blocks"][1]}
+    return out
+
+
+def _path_keys(groups: dict, n: int) -> list:
+    """The (path, group) pairs of ``path_group_sizes`` whose size is n."""
+    return [(path, key) for path, sizes in groups.items()
+            for key, size in sizes.items() if size == n]
+
+
 def _moe_train_run(cfg, steps: int, prefetch: int) -> tuple:
     """``train_loop`` on the cut deepseek-moe-16b at ring depth
     ``prefetch`` for ``steps`` steps (bf16, full ZeRO++, world 1, --attn
@@ -3014,6 +3098,121 @@ def moe_serve_phase() -> dict:
     Returns the run's launches."""
     out = engine_phase(moe_config(), MOE_PROMPTS, MOE_MAX_NEW,
                        margins=True)
+    launches = out["launches"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- SSM
+
+def ssm_configs() -> dict:
+    """mamba2-130m at full width and depth; recurrentgemma-2b at full
+    width cut to RG_LAYERS (two (rec, rec, local) periods and the two-layer
+    rem group)."""
+    return {"mamba2": get_config("mamba2-130m"),
+            "recurrentgemma": dataclasses.replace(
+                get_config("recurrentgemma-2b"), n_layers=RG_LAYERS)}
+
+
+def rg_flash_phase(flush: torch.Tensor) -> dict:
+    """B6/B7 in bf16 at recurrentgemma-2b's training shape (q (2, 4096, 10,
+    256), k/v (2, 4096, 1, 256): a GQA group of 10) causal under its
+    2048 window (``path_flash_phase``)."""
+    return path_flash_phase(RG_FLASH_SHAPE, "recurrentgemma-2b, GQA 10",
+                            "recurrentgemma", 14, flush, window=RG_WINDOW)
+
+
+def ssm_train_phase(name: str) -> dict:
+    """``train_loop`` on ``ssm_configs()[name]`` (bf16, full ZeRO++, world
+    1, --attn pallas, constant lr) at ``SSM_TRAIN[name]``: finite losses,
+    the last below the first, every step's launches ``step_launches``
+    (B6/B7 on the ``local`` layers only); then one more
+    ``loss_and_grads`` whose every gradient must be finite; prints step
+    p50, tokens/s, peak memory and one profiled step.  Returns the run's
+    launches."""
+    cfg = ssm_configs()[name]
+    rows, seq, n_steps = SSM_TRAIN[name]
+    args = train_launch.parser().parse_args([
+        "--arch", cfg.name, "--batch", str(rows), "--seq", str(seq),
+        "--steps", str(n_steps), "--lr", str(TRAIN_LR), "--lr-schedule",
+        "constant", "--device", "cuda", "--attn", "pallas", "--log-every",
+        "0"] + (["--layers", str(cfg.n_layers)]
+                if cfg != get_config(cfg.name) else []))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    platform.reset_launches()
+    res = train_launch.train_loop(args)
+    launches = dict(platform.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    built = res["built"]
+    model = built.model
+    if built.arch != cfg:
+        fail(f"{name} train: the launcher built {built.arch}, not {cfg}")
+    per_step = step_launches(cfg, model, "pallas")
+    for i, c in enumerate(res["launches"]):
+        if c != per_step:
+            fail(f"{name} train step {i}: launches {c}, expected {per_step}")
+    losses = res["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{name} train: losses not finite and falling: {losses}")
+    batch = train_launch.device_batch(built.arch, built.lm, n_steps, rows, 1,
+                                      model.device)
+    _, _, grads = built.step.loss_and_grads(res["params"], batch)
+    bad = [k for k, g in grads.items() if not torch.isfinite(g).all()]
+    if bad:
+        fail(f"{name} train: non-finite gradients in {bad}")
+    gmax = max(g.abs().max().item() for g in grads.values())
+    del grads
+    p50 = statistics.median(res["step_s"][1:])
+    total = torch.cuda.get_device_properties(0).total_memory
+    tag = f"train {cfg.name} --attn pallas"
+    extra = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+             f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+             f"{cfg.ssm_chunk}" if "ssd" in cfg.pattern else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, window "
+             f"{cfg.window}, rnn width {cfg.d_rnn}, d_ff {cfg.d_ff}")
+    print(f"{tag}: full width (d {cfg.d_model}, {extra}, vocab {cfg.vocab} "
+          f"in {model.unemb_chunks} chunks), {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers ({model.n_periods} x "
+          f"{model.period}{f' + rem {model.rem_kinds}' if model.rem else ''}),"
+          f" {model.n_params()} params fp32 master + fp32 moments, full "
+          f"ZeRO++ on a one-rank world, batch {rows} x {seq}, constant lr "
+          f"{TRAIN_LR}", flush=True)
+    print(f"{tag}: losses {[round(x, 4) for x in losses]} (drop "
+          f"{losses[0] - losses[-1]:.4f}); entropy bound "
+          f"{res['entropy_bound']:.4f}; one more step's gradients all finite "
+          f"(max |g| {gmax:.3e})", flush=True)
+    print(f"{tag}: step p50 (steps 2-{n_steps}) {p50 * 1e3:.1f} ms, "
+          f"{rows * seq / p50:,.0f} tokens/s, first step "
+          f"{res['step_s'][0] * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated); launches per step {per_step}",
+          flush=True)
+    profile_step(lambda: built.step.fn(res["params"], res["opt"], batch),
+                 f"{tag} step")
+    del res, built, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssm_parity_phase() -> None:
+    """Phase 4's rule on mamba2-130m and recurrentgemma-2b at full width
+    cut in depth (``SSM_PARITY``), fp32, under --attn pallas."""
+    for name in SSM_PARITY:
+        parity_step(name)
+
+
+def ssm_serve_phase(name: str) -> dict:
+    """Phase 3 on ``ssm_configs()[name]`` in bf16: the slab engine (4
+    slots, kv_len 2048) on ``SSM_PROMPTS[name]``, SSM_MAX_NEW greedy tokens
+    each, every prompt prefilled at its exact length, held by phase 3's
+    teacher-forced rule against each request alone.  Returns the run's
+    launches."""
+    out = engine_phase(ssm_configs()[name], SSM_PROMPTS[name], SSM_MAX_NEW)
     launches = out["launches"]
     del out
     gc.collect()
@@ -4211,10 +4410,13 @@ def main() -> None:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rec = timed("kernel", kernel_phase, flush)
     vl_kernels = rec.pop("qwen2_vl")
-    moe_kernels = rec.pop("deepseek_moe")
+    # B1-B5 at deepseek-moe-16b's, mamba2-130m's and recurrentgemma-2b's
+    # groups, by path
+    path_kernels = {path: rec.pop(path) for path in path_group_sizes()}
     qgz = timed("qgZ kernel", qgz_kernel_phase, flush)
     vl_kernels.update(qgz.pop("qwen2_vl"))
-    moe_kernels.update(qgz.pop("deepseek_moe"))
+    for path, kernels in path_kernels.items():
+        kernels.update(qgz.pop(path))
     rec.update(qgz)
     for name, extra in timed("knob kernel", knob_kernel_phase, flush).items():
         rec[name].setdefault("extra", {}).update(extra)
@@ -4225,6 +4427,7 @@ def main() -> None:
     rec.update(timed("gemma3 flash kernel", gemma3_flash_phase, flush))
     rec.update(timed("qwen2-vl flash kernel", qwen2_vl_flash_phase, flush))
     rec.update(timed("moe flash kernel", moe_flash_phase, flush))
+    rec.update(timed("recurrentgemma flash kernel", rg_flash_phase, flush))
     del flush
     by_path = {}
     # the device-bound phases first, beside the CPU parity process; the
@@ -4254,6 +4457,12 @@ def main() -> None:
     by_path["train_moe"], by_path["train_moe_sync"] = timed(
         "moe train", moe_train_phase)
     timed("moe parity", moe_parity_phase)
+    # mamba2-130m and recurrentgemma-2b: the SSD and RG-LRU scans in
+    # training, then their parity steps
+    for name in ssm_configs():
+        by_path[f"train_{name}"] = timed(f"{name} train", ssm_train_phase,
+                                         name)
+    timed("ssm parity", ssm_parity_phase)
     # that was the last parity case: the serving phases below, whose time
     # goes to the host, do not share it with the CPU parity process
     PARITY.close()
@@ -4266,6 +4475,9 @@ def main() -> None:
         "launches"]
     by_path["serve_qwen2_vl"] = timed("qwen2-vl serve", qwen2_vl_serve_phase)
     by_path["serve_moe"] = timed("moe engine", moe_serve_phase)
+    for name in ssm_configs():
+        by_path[f"serve_{name}"] = timed(f"{name} engine", ssm_serve_phase,
+                                         name)
     gc.collect()
     torch.cuda.empty_cache()
     # the same run on four ranks of a 2 x 2 world, at the default ring
@@ -4312,7 +4524,8 @@ def main() -> None:
 
     # each kernel's path(s): it must have launched in every one of them
     quant_train = ("train", "train_xla", "train_gemma3", "train_qwen2_vl",
-                   "train_moe", "train_moe_sync", "train_2x2",
+                   "train_moe", "train_moe_sync", "train_mamba2",
+                   "train_recurrentgemma", "train_2x2",
                    "train_2x2_sync", "train_ckpt", "train_ckpt_2x2_to_1",
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
@@ -4321,7 +4534,8 @@ def main() -> None:
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
     serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",
-             "serve_qwen2_vl", "serve_moe", "serve_ckpt", "serve_sharded",
+             "serve_qwen2_vl", "serve_moe", "serve_mamba2",
+             "serve_recurrentgemma", "serve_ckpt", "serve_sharded",
              "serve_sharded_paged")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
@@ -4348,12 +4562,23 @@ def main() -> None:
              # its K 2048
              "flash_fwd_moe": ("train_moe", "train_moe_sync"),
              "flash_bwd_moe": ("train_moe", "train_moe_sync"),
-             "dequant_matmul_k2048": ("serve_moe",)}
+             "dequant_matmul_k2048": ("serve_moe",),
+             # and at recurrentgemma-2b's (10 / 1 heads of 256 under the
+             # 2048 window, its local layers only), and B8 at its head and
+             # mamba2-130m's
+             "flash_fwd_recurrentgemma": ("train_recurrentgemma",),
+             "flash_bwd_recurrentgemma": ("train_recurrentgemma",),
+             "dequant_matmul_mamba2": ("serve_mamba2",),
+             "dequant_matmul_recurrentgemma": ("serve_recurrentgemma",)}
     counter = {"flash_fwd_hd256": "flash_fwd", "flash_bwd_hd256": "flash_bwd",
                "flash_fwd_gqa8": "flash_fwd", "flash_bwd_gqa8": "flash_bwd",
                "dequant_matmul_k8192": "dequant_matmul",
                "flash_fwd_moe": "flash_fwd", "flash_bwd_moe": "flash_bwd",
-               "dequant_matmul_k2048": "dequant_matmul"}
+               "dequant_matmul_k2048": "dequant_matmul",
+               "flash_fwd_recurrentgemma": "flash_fwd",
+               "flash_bwd_recurrentgemma": "flash_bwd",
+               "dequant_matmul_mamba2": "dequant_matmul",
+               "dequant_matmul_recurrentgemma": "dequant_matmul"}
     for name, ps in paths.items():
         for pth in ps:
             if by_path[pth][counter.get(name, name)] <= 0:
@@ -4392,7 +4617,19 @@ def main() -> None:
             "flash_bwd_moe": (cu + "flash_attention_tc.cu",
                               "src/repro/kernels/flash_attention.py:194"),
             "dequant_matmul_k2048": (cu + "dequant_matmul.cu",
-                                     "src/repro/kernels/dequant_matmul.py:58")}
+                                     "src/repro/kernels/dequant_matmul.py:58"),
+            "flash_fwd_recurrentgemma": (
+                cu + "flash_attention_tc.cu",
+                "src/repro/kernels/flash_attention.py:76"),
+            "flash_bwd_recurrentgemma": (
+                cu + "flash_attention_tc.cu",
+                "src/repro/kernels/flash_attention.py:194"),
+            "dequant_matmul_mamba2": (
+                cu + "dequant_matmul.cu",
+                "src/repro/kernels/dequant_matmul.py:58"),
+            "dequant_matmul_recurrentgemma": (
+                cu + "dequant_matmul.cu",
+                "src/repro/kernels/dequant_matmul.py:58")}
     # B8 at K 8192 is its own entry; B1-B5 at qwen2-vl-72b's layer group
     # and unembedding chunk ride in their records' extras
     k8 = rec["dequant_matmul"]["extra"]["qwen2_vl_t4"]
@@ -4400,15 +4637,20 @@ def main() -> None:
         k8, bound=(k8["bound_ms"], k8["bound_by"]),
         extra={"library_call": rec["dequant_matmul"]["extra"][
             "library_call"]})
-    k2 = rec["dequant_matmul"]["extra"]["deepseek_moe_t4"]
-    rec["dequant_matmul_k2048"] = dict(
-        k2, bound=(k2["bound_ms"], k2["bound_by"]),
-        extra={"library_call": rec["dequant_matmul"]["extra"][
-            "library_call"]})
+    for name, head in (("dequant_matmul_k2048", "deepseek_moe_t4"),
+                       ("dequant_matmul_mamba2", "mamba2_t4"),
+                       ("dequant_matmul_recurrentgemma",
+                        "recurrentgemma_t4")):
+        r = rec["dequant_matmul"]["extra"][head]
+        rec[name] = dict(r, bound=(r["bound_ms"], r["bound_by"]),
+                         extra={"library_call": rec["dequant_matmul"][
+                             "extra"]["library_call"]})
     # B1-B5 at deepseek-moe-16b's layer group, expert chunk and
-    # unembedding chunk ride in their records' extras
-    for (name, key), r in moe_kernels.items():
-        rec[name].setdefault("extra", {})[f"deepseek_moe_{key}"] = r
+    # unembedding chunk, and at mamba2-130m's and recurrentgemma-2b's layer
+    # groups, ride in their records' extras
+    for path, kernels in path_kernels.items():
+        for (name, key), r in kernels.items():
+            rec[name].setdefault("extra", {})[f"{path}_{key}"] = r
     vl_layer, vl_chunk = qwen2_vl_group_sizes()[:2]
     for (name, n), r in vl_kernels.items():
         key = "blocks" if n == vl_layer else "unemb_chunk"

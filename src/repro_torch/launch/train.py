@@ -12,15 +12,16 @@ elastic supervisor yet).  Runs on the card by default:
         [--ckpt-dir D [--ckpt-every N] [--ckpt-format fp32|int8]]
 
 (``--arch``: any name of ``repro_torch.configs.list_archs()``:
-deepseek-moe-16b, gemma3-4b, gpt-18b, gpt-350m, musicgen-large,
-qwen1.5-110b, qwen2-vl-72b, qwen3-0.6b, qwen3-moe-235b-a22b or
-starcoder2-3b; musicgen-large and qwen2-vl-72b train on the frontend
-stub's embeddings, qwen2-vl-72b with its M-RoPE positions (accum 1
-only).  ``--moe-chunks N`` regroups an MoE config's experts into N
-chunks, as the reference's flag does.  No flag cuts the depth, as in the
-reference: ``train_loop`` takes an ``ArchConfig`` for ``args.arch`` as
-well as a name, e.g. deepseek-moe-16b at full width cut to 4 of its 28
-layers, which is what fits the card at world 1.)
+deepseek-moe-16b, gemma3-4b, gpt-18b, gpt-350m, mamba2-130m,
+musicgen-large, qwen1.5-110b, qwen2-vl-72b, qwen3-0.6b,
+qwen3-moe-235b-a22b, recurrentgemma-2b or starcoder2-3b; musicgen-large
+and qwen2-vl-72b train on the frontend stub's embeddings, qwen2-vl-72b
+with its M-RoPE positions (accum 1 only).  ``--moe-chunks N`` regroups
+an MoE config's experts into N chunks, as the reference's flag does.
+``--layers N`` cuts the config to its first N layers at full width, e.g.
+recurrentgemma-2b at 8 of its 26 (two periods and the rem group), which
+is what fits the card at world 1; the reference has no such flag, and
+``train_loop`` also takes an ``ArchConfig`` for ``args.arch``.)
 
 ``--mesh 1x1`` (the default) trains in this process; a larger mesh spawns
 one rank process per position over a gloo group (``launch/mesh.py``; on
@@ -104,7 +105,7 @@ def build_everything(arch_name: Union[str, ArchConfig],
                      accum: int = 1, lr_schedule: str = "warmup_cosine",
                      device="cuda", attn_impl: str = "xla",
                      prefetch: Optional[int] = None, moe_chunks: int = 0,
-                     **overrides) -> Built:
+                     layers: int = 0, **overrides) -> Built:
     """Construct (mesh, arch, model, train step, data) for this rank of a
     ``mesh_shape`` world, for ``arch_name`` (a registered name, or an
     ``ArchConfig`` such as a depth-cut copy of one), ``(Y, X)`` or ``(P, Y, X)`` (a process group of
@@ -113,14 +114,17 @@ def build_everything(arch_name: Union[str, ArchConfig],
     ``warmup_cosine(lr, 10, 10_000)`` or ``constant``; ``attn_impl`` the
     attention route ("pallas": the flash kernels); ``prefetch`` the ring
     depth (None: the policy's); ``moe_chunks`` (> 0) an MoE model's
-    expert chunks; ``overrides`` further ``ZeroConfig`` fields (the
-    paper's knobs)."""
+    expert chunks; ``layers`` (> 0) the depth, the config cut to its
+    first ``layers`` layers; ``overrides`` further ``ZeroConfig`` fields
+    (the paper's knobs)."""
     arch = arch_name if isinstance(arch_name, ArchConfig) \
         else get_config(arch_name)
     if reduced:
         arch = arch.reduced()
     if moe_chunks:
         arch = dataclasses.replace(arch, expert_chunks=moe_chunks)
+    if layers:
+        arch = dataclasses.replace(arch, n_layers=layers)
     mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"))
     over = dict(overrides)
     if prefetch is not None:
@@ -255,7 +259,8 @@ def train_loop(args, on_step: Optional[Callable] = None,
                              args.variant, args.reduced, args.batch,
                              args.seq, args.lr, args.accum, args.lr_schedule,
                              args.device, args.attn, args.prefetch,
-                             args.moe_chunks, **(overrides or {}))
+                             args.moe_chunks, args.layers,
+                             **(overrides or {}))
     model = built.model
     z = model.zcfg
     dev = model.device
@@ -450,6 +455,9 @@ def parser() -> argparse.ArgumentParser:
                          "0: synchronous)")
     ap.add_argument("--moe-chunks", type=int, default=0,
                     help="an MoE config's expert chunks (0: the config's)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to its first N layers (0: its "
+                         "own depth)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--metrics-dir", default=None,

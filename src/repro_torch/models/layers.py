@@ -2,12 +2,12 @@
 
 Port of the reference's ``models/layers.py`` (``rms_norm``, ``swiglu``
 with its silu and gelu gates, ``rope_table``, ``mrope_tables``,
-``apply_rope``) with its dtype rules: norms compute in fp32 and cast
-back, rotary tables are fp32.
+``apply_rope``, ``causal_conv1d``) with its dtype rules: norms compute in
+fp32 and cast back, rotary tables are fp32.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,3 +89,24 @@ def mrope_tables(positions_thw: torch.Tensor, head_dim: int, theta: float,
     p = positions_thw.to(torch.float32).movedim(0, -1)[..., sec_of]
     ang = p * freqs
     return torch.cos(ang), torch.sin(ang)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  carry: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal temporal convolution (the Mamba / Griffin stem).
+
+    x: (B, S, C); w: (W, C) taps, tap W - 1 on the current position.
+    ``carry``: (B, W - 1, C), the inputs before x (the previous sequence
+    shard's tail, or the decode history; zeros when None).  Returns (y,
+    new carry: the last W - 1 inputs), the taps summed in order in x's
+    dtype, as the reference does."""
+    W = w.shape[0]
+    B, S, C = x.shape
+    if carry is None:
+        carry = x.new_zeros((B, W - 1, C))
+    xp = torch.cat([carry.to(x.dtype), x], dim=1)        # (B, S + W - 1, C)
+    y = torch.zeros_like(x)
+    for i in range(W):
+        y = y + xp[:, i:i + S, :] * w[i].to(x.dtype)
+    return y, xp[:, S:, :]

@@ -1,10 +1,10 @@
 """The Model: parameter groups, init, training loss, prefill, decode.
 
 Port of the reference's ``models/model.py`` ``Model`` for stacks of
-``attn`` and ``local`` blocks tiled from ``cfg.pattern``, and for MoE
-stacks (``pattern=("moe",)``): one period of the
-pattern per layer group (its blocks named ``0.*``, ``1.*``, ... in the
-flat layout; ``("attn",)`` is one block a group) and the ``n_layers %
+``attn``, ``local``, ``ssd`` and ``rec`` blocks tiled from
+``cfg.pattern``, and for MoE stacks (``pattern=("moe",)``): one period of
+the pattern per layer group (its blocks named ``0.*``, ``1.*``, ... in
+the flat layout; ``("attn",)`` is one block a group) and the ``n_layers %
 len(pattern)`` leftover layers, the first kinds of a period, in a group of
 their own (``rem``) applied after the loop.  ``Model`` owns the flat ZeRO
 parameter groups — same specs, offsets and padding as the reference, so
@@ -33,8 +33,11 @@ Groups (flat buffers):
 Rotary tables come from the positions 0..S-1 of the sequence (offset by
 this rank's sequence shard), or with ``cfg.mrope`` from the batch's
 ``positions`` (3, B, S) in every mode (already this rank's slice, so no
-offset is added).  The model runs on ``device`` ("cuda" unless the
-caller asks for "cpu").
+offset is added); a stack without attention (mamba2) builds them at the
+reference's ``d_head`` (d_model) and reads none.  Decode caches carry a
+dtype per leaf: K/V and conv histories in the cache dtype, recurrent
+states in fp32 (``transformer.init_cache_shapes``).  The model runs on
+``device`` ("cuda" unless the caller asks for "cpu").
 
 An MoE layer (``_moe_layer``) runs attention, the router and the shared
 experts under its layer group's gather (``transformer.moe_pre_block``),
@@ -75,6 +78,9 @@ from repro_torch.models.transformer import (RunSpec, _sub, apply_block,
                                             init_cache_shapes,
                                             last_shard_value, moe_pre_block,
                                             select_positions)
+
+# the reference's init range of dtb: softplus⁻¹(1e-3) .. softplus⁻¹(0.1)
+_DT_LO, _DT_HI = float(np.log(np.expm1(1e-3))), float(np.log(np.expm1(0.1)))
 
 Params = Dict[str, torch.Tensor]
 
@@ -262,17 +268,29 @@ class Model:
         return ev
 
     @staticmethod
-    def _init_std(name: str, shape: Tuple[int, ...]) -> Optional[float]:
-        """The reference's per-name init scale (None = zeros: norms)."""
+    def _init_rule(name: str, shape: Tuple[int, ...]) -> Optional[tuple]:
+        """The reference's per-name init (``_init_fn``): ("normal", std),
+        ("uniform", lo, hi), ("log_uniform", lo, hi) (the log of a uniform
+        draw: ``alog``), ("ones",) (``dskip``), or None (zeros: norms and
+        biases)."""
         base = name.split(".")[-1]
         if base == "emb":
-            return 0.02
+            return ("normal", 0.02)
         if base == "unemb":                 # stored (V_chunk, d)
-            return shape[-1] ** -0.5
-        if base in ("wq", "wk", "wv", "wgu", "wo", "wdn", "router", "sdn"):
-            return shape[0] ** -0.5
+            return ("normal", shape[-1] ** -0.5)
+        if base in ("wq", "wk", "wv", "wgu", "wo", "wdn", "router", "sdn",
+                    "px", "pg", "wa", "wx", "inp", "po", "outp", "cw"):
+            return ("normal", shape[0] ** -0.5)
         if base in ("egu", "sgu", "edn"):
-            return shape[-2] ** -0.5
+            return ("normal", shape[-2] ** -0.5)
+        if base == "alog":
+            return ("log_uniform", 1.0, 16.0)
+        if base == "dskip":
+            return ("ones",)
+        if base == "dtb":
+            return ("uniform", _DT_LO, _DT_HI)
+        if base == "loga":
+            return ("uniform", -0.8, -0.01)
         return None                         # norms and biases
 
     def _init_flat(self, spec: ParamSpec, gen: torch.Generator,
@@ -280,11 +298,22 @@ class Model:
         flat = torch.zeros(spec.padded_size, dtype=torch.float32,
                            device=self.device)
         for name, shape in spec.entries:
-            std = self._init_std(name, shape)
-            if std is not None:
-                off, n = spec.offsets[name]
-                flat[off:off + n] = torch.randn(
-                    n, generator=gen, device=self.device) * std
+            rule = self._init_rule(name, shape)
+            if rule is None:
+                continue
+            off, n = spec.offsets[name]
+            kind, *arg = rule
+            if kind == "normal":
+                v = torch.randn(n, generator=gen, device=self.device) * arg[0]
+            elif kind == "ones":
+                v = 1.0
+            else:
+                lo, hi = arg
+                v = torch.rand(n, generator=gen, device=self.device) \
+                    * (hi - lo) + lo
+                if kind == "log_uniform":
+                    v = torch.log(v)
+            flat[off:off + n] = v
         return flat.to(dtype)
 
     def init_params(self, gen: torch.Generator,
@@ -649,10 +678,11 @@ class Model:
             h, ys = zero_scan_inference(
                 self._group_fn(rs, pos, self.period_spec, self.period), z)(
                 params["blocks"], h)
-        # per-period caches -> one (n_periods, B, S, K, hd) stack for each
-        # block of the period (S: the prompt, or a local layer's window)
+        # per-period caches -> one (n_periods, ...) stack of each leaf for
+        # each block of the period: K/V (B, S, K, hd) with S the prompt or
+        # a local layer's window, an ssd/rec layer's state and conv history
         caches = tuple({key: torch.stack([y[j][key] for y in ys])
-                        for key in ("k", "v")}
+                        for key in ys[0][j]}
                        for j in range(len(self.period)))
         rem = None
         if self.rem_spec:
@@ -682,7 +712,7 @@ class Model:
         cache_pos = attn_lib.per_seq_pos(cache_pos, h.shape[0]).to(self.device)
         pos = {"rope": self._rope_tables(batch, rs, 1, cache_pos=cache_pos),
                "cache_pos": cache_pos}
-        per_period = [tuple({key: c[key][i] for key in ("k", "v")}
+        per_period = [tuple({key: t[i] for key, t in c.items()}
                             for c in caches["blocks"])
                       for i in range(self.n_periods)]
         if self.is_moe:
@@ -754,12 +784,13 @@ class Model:
         return self._head_logits(params, h), caches
 
     def paged_cache_shapes(self, n_pages: int, page_size: int,
-                           kv_world: int = 1):
+                           kv_world: int = 1,
+                           dtype: torch.dtype = torch.bfloat16):
         """This rank's page arena shapes: :meth:`cache_shapes` with (batch,
         kv_len) read as (n_pages, page_size), the within-page dim cut
         ``kv_world`` ways."""
         self._refuse_paged()
-        return self.cache_shapes(n_pages, page_size, kv_world)
+        return self.cache_shapes(n_pages, page_size, kv_world, dtype)
 
     def init_paged_caches(self, n_pages: int, page_size: int,
                           dtype: torch.dtype = torch.bfloat16,
@@ -769,27 +800,31 @@ class Model:
 
     # ------------------------------------------------------------- caches
 
-    def cache_shapes(self, batch: int, kv_len: int, kv_world: int = 1):
-        """This rank's cache shapes matching decode_fn's layout, ``batch``
-        its rows and each block's cache sequence cut ``kv_world`` ways
-        (S_loc = kv_len / kv_world; a ``kv_len`` that does not divide is
-        refused): for each block of the period a (n_periods, ...) stack,
-        for each ``rem`` layer its own (None without one)."""
-        blocks = tuple({k: (self.n_periods,) + s for k, s in
-                        init_cache_shapes(self.cfg, kind, batch, kv_len,
-                                          kv_world).items()}
+    def cache_shapes(self, batch: int, kv_len: int, kv_world: int = 1,
+                     dtype: torch.dtype = torch.bfloat16):
+        """This rank's cache leaves (``transformer.CacheLeaf``: shape and
+        dtype) matching decode_fn's layout, ``batch`` its rows and each
+        block's cache sequence cut ``kv_world`` ways (S_loc = kv_len /
+        kv_world; a ``kv_len`` that does not divide is refused), K/V and
+        conv histories in ``dtype``, recurrent states in fp32: for each
+        block of the period a (n_periods, ...) stack, for each ``rem``
+        layer its own (None without one)."""
+        blocks = tuple({k: l._replace(shape=(self.n_periods,) + l.shape)
+                        for k, l in init_cache_shapes(
+                            self.cfg, kind, batch, kv_len, kv_world,
+                            dtype).items()}
                        for kind in self.period)
         rem = tuple(init_cache_shapes(self.cfg, kind, batch, kv_len,
-                                      kv_world)
+                                      kv_world, dtype)
                     for kind in self.rem_kinds) if self.rem_spec else None
         return {"blocks": blocks, "rem": rem}
 
     def init_caches(self, batch: int, kv_len: int,
                     dtype: torch.dtype = torch.bfloat16, kv_world: int = 1):
         def zeros(per):
-            return {k: torch.zeros(s, dtype=dtype, device=self.device)
-                    for k, s in per.items()}
-        shapes = self.cache_shapes(batch, kv_len, kv_world)
+            return {k: torch.zeros(l.shape, dtype=l.dtype, device=self.device)
+                    for k, l in per.items()}
+        shapes = self.cache_shapes(batch, kv_len, kv_world, dtype)
         rem = shapes["rem"]
         return {"blocks": tuple(zeros(per) for per in shapes["blocks"]),
                 "rem": None if rem is None else tuple(zeros(p) for p in rem)}

@@ -2,11 +2,21 @@
 
 Port of the reference's ``models/transformer.py`` for the block kinds
 ``attn`` (global causal attention), ``local`` (sliding-window attention
-over ``cfg.window`` positions) and ``moe`` (global causal attention and a
+over ``cfg.window`` positions), ``moe`` (global causal attention and a
 mixture-of-experts MLP, driven by the Model: :func:`moe_pre_block` here,
 the routed experts in ``Model._moe_layer``; its decode cache is
-``attn``'s): parameter entries (same names,
-shapes and order, so the flat layout matches; the ``bq``/``bk``/``bv``
+``attn``'s), ``ssd`` (a Mamba-2 block: its input projection, the causal
+conv over x, B and C, the SSD scan and the gated norm; no separate MLP)
+and ``rec`` (a Griffin recurrent block: the RG-LRU under a tanh-gelu
+gate, then the dense MLP).  An ``ssd`` or ``rec`` layer's decode cache is
+its recurrent state ``h`` (fp32) and the conv's last ``conv_width - 1``
+inputs ``conv`` (compute dtype); training and prefill scan the sequence
+(``models/ssm.py``; under a sharded sequence each rank's state and conv
+history come from the ranks before it), prefill hands on the last
+shard's state and history (:func:`last_shard_value`), decode steps the
+recurrence one token and updates the cache in place.  Parameter entries
+(same names, shapes and order, so the flat layout matches; the
+``bq``/``bk``/``bv``
 biases of ``cfg.qkv_bias`` after ``wo``), ``RunSpec``, the attention
 half (biases added before the head split, ``cfg.logit_softcap`` on every
 route) in its train/prefill, decode and paged branches (a ``local``
@@ -26,18 +36,20 @@ the sequence gathered over ``seq_axes``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as cl
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 
 
-KINDS = ("attn", "local", "moe")
+KINDS = ("attn", "local", "moe", "ssd", "rec")
 
 
 def _moe_entries(cfg: ArchConfig, pre: str
@@ -59,13 +71,8 @@ def expert_entries(cfg: ArchConfig) -> List[Tuple[str, Tuple[int, ...]]]:
     return [("egu", (ec, d, 2 * f)), ("edn", (ec, f, d))]
 
 
-def block_entries(cfg: ArchConfig, kind: str, pre: str
+def _attn_entries(cfg: ArchConfig, pre: str
                   ) -> List[Tuple[str, Tuple[int, ...]]]:
-    """Parameter entries of one block, in the reference's order: ``attn``
-    and ``local`` hold the same weights, ``moe`` the attention's, then its
-    router and shared experts."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown block kind {kind!r}")
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     e = [(pre + "ln1", (d,)),
          (pre + "wq", (d, H * hd)), (pre + "wk", (d, K * hd)),
@@ -75,10 +82,55 @@ def block_entries(cfg: ArchConfig, kind: str, pre: str
               (pre + "bv", (K * hd,))]
     if cfg.qk_norm:
         e += [(pre + "qn", (hd,)), (pre + "kn", (hd,))]
+    return e
+
+
+def _mlp_entries(cfg: ArchConfig, pre: str
+                 ) -> List[Tuple[str, Tuple[int, ...]]]:
+    d = cfg.d_model
+    return [(pre + "ln2", (d,)), (pre + "wgu", (d, 2 * cfg.d_ff)),
+            (pre + "wdn", (cfg.d_ff, d))]
+
+
+def _ssd_entries(cfg: ArchConfig, pre: str
+                 ) -> List[Tuple[str, Tuple[int, ...]]]:
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_groups * cfg.ssm_state
+    return [(pre + "ln", (d,)),
+            (pre + "inp", (d, 2 * di + 2 * gn + nh)),
+            (pre + "cw", (cfg.conv_width, cfg.conv_dim)),
+            (pre + "alog", (nh,)), (pre + "dskip", (nh,)),
+            (pre + "dtb", (nh,)),
+            (pre + "onrm", (di,)), (pre + "outp", (di, d))]
+
+
+def _rec_entries(cfg: ArchConfig, pre: str
+                 ) -> List[Tuple[str, Tuple[int, ...]]]:
+    d, dr = cfg.d_model, cfg.d_rnn
+    return [(pre + "ln1", (d,)),
+            (pre + "px", (d, dr)), (pre + "pg", (d, dr)),
+            (pre + "cw", (cfg.conv_width, dr)),
+            (pre + "wa", (dr, dr)), (pre + "ba", (dr,)),
+            (pre + "wx", (dr, dr)), (pre + "bx", (dr,)),
+            (pre + "loga", (dr,)),
+            (pre + "po", (dr, d))] + _mlp_entries(cfg, pre)
+
+
+def block_entries(cfg: ArchConfig, kind: str, pre: str
+                  ) -> List[Tuple[str, Tuple[int, ...]]]:
+    """Parameter entries of one block, in the reference's order: ``attn``
+    and ``local`` hold the same weights, ``moe`` the attention's, then its
+    router and shared experts; ``ssd`` and ``rec`` their mixers' (``rec``
+    then the MLP's)."""
+    if kind in ("attn", "local"):
+        return _attn_entries(cfg, pre) + _mlp_entries(cfg, pre)
     if kind == "moe":
-        return e + _moe_entries(cfg, pre)
-    return e + [(pre + "ln2", (d,)), (pre + "wgu", (d, 2 * cfg.d_ff)),
-                (pre + "wdn", (cfg.d_ff, d))]
+        return _attn_entries(cfg, pre) + _moe_entries(cfg, pre)
+    if kind == "ssd":
+        return _ssd_entries(cfg, pre)
+    if kind == "rec":
+        return _rec_entries(cfg, pre)
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +207,14 @@ def _attn_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
             if rs.mode == "prefill" else None
     o = o.reshape(B, S, H * hd) @ p["wo"]
     return o, new_cache
+
+
+def _chunk_for(S: int, chunk: int) -> int:
+    """Largest divisor of S that is <= chunk (the SSD chunk must tile S)."""
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return c
 
 
 def _build_prefill_cache(cfg: ArchConfig, kind: str, k: torch.Tensor,
@@ -245,31 +305,140 @@ def moe_pre_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, pos,
     return h, hn2, logits, shared_y, new_cache
 
 
+def _conv(cfg: ArchConfig, w: torch.Tensor, x: torch.Tensor, rs: RunSpec,
+          cache):
+    """The block's causal conv over x (B, S, C) and its new history: from
+    the cache's in decode, else from the previous sequence shard's
+    tail."""
+    if rs.mode == "decode":
+        return nn.causal_conv1d(x, w, cache["conv"])
+    halo = ssm_lib.gather_conv_halo(x, cfg.conv_width - 1, rs.seq_axes,
+                                    rs.seq_group)
+    return nn.causal_conv1d(x, w, halo)
+
+
+def _state_cache(rs: RunSpec, cache, h_new: torch.Tensor,
+                 conv: torch.Tensor, h_fin: torch.Tensor):
+    """The recurrent cache after the block: decode writes the new state
+    and conv history into ``cache`` in place; prefill hands on the last
+    sequence shard's; training keeps none."""
+    if rs.mode == "decode":
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(conv)
+        return cache
+    if rs.mode == "prefill":
+        return {"h": last_shard_value(h_fin, rs.seq_axes, rs.seq_group),
+                "conv": last_shard_value(conv, rs.seq_axes, rs.seq_group)}
+    return None
+
+
+def _ssd_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, cache):
+    """Mamba-2 mixer; returns (mix_out, new_cache)."""
+    B, S, _ = h.shape
+    di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    hn = nn.rms_norm(h, p["ln"])
+    z, xBC, dt_raw = torch.split(hn @ p["inp"], [di, cfg.conv_dim, nh],
+                                 dim=-1)
+    # x (di), B (G·N) and C (G·N) pass through the causal conv together
+    y_c, conv = _conv(cfg, p["cw"], xBC, rs, cache)
+    x, Bm, Cm = torch.split(F.silu(y_c), [di, G * N, G * N], dim=-1)
+    x = x.reshape(B, S, nh, hp)
+    Bm = Bm.reshape(B, S, G, N)
+    Cm = Cm.reshape(B, S, G, N)
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dtb"].to(torch.float32))
+    A = -torch.exp(p["alog"])
+    h_new = h_fin = None
+    if rs.mode == "decode":
+        y, h_new = ssm_lib.ssd_step(x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
+                                    cache["h"])
+        y = y[:, None]
+    else:
+        h0 = cache["h"] if cache and "h" in cache else None
+        y, h_fin = ssm_lib.ssd_scan(x, dt, A, Bm, Cm,
+                                    chunk=_chunk_for(S, cfg.ssm_chunk),
+                                    h0=h0, seq_axes=rs.seq_axes,
+                                    seq_group=rs.seq_group)
+    new_cache = _state_cache(rs, cache, h_new, conv, h_fin)
+    y = y + p["dskip"].to(torch.float32)[:, None] * x.to(torch.float32)
+    y = y.reshape(B, S, di).to(h.dtype)
+    y = nn.rms_norm(y * F.silu(z), p["onrm"])
+    return y @ p["outp"], new_cache
+
+
+def _rec_block(cfg: ArchConfig, p, h: torch.Tensor, rs: RunSpec, cache):
+    """RG-LRU mixer under its gelu gate; returns (mix_out, new_cache)."""
+    hn = nn.rms_norm(h, p["ln1"])
+    xc, conv = _conv(cfg, p["cw"], hn @ p["px"], rs, cache)
+    gate = hn @ p["pg"]
+    r = torch.sigmoid(xc @ p["wa"] + p["ba"])
+    i = torch.sigmoid(xc @ p["wx"] + p["bx"])
+    h_new = h_fin = None
+    if rs.mode == "decode":
+        y, h_new = ssm_lib.rglru_step(xc[:, 0], r[:, 0], i[:, 0], p["loga"],
+                                      cache["h"])
+        y = y[:, None]
+    else:
+        h0 = cache["h"] if cache and "h" in cache else None
+        y, h_fin = ssm_lib.rglru_scan(xc, r, i, p["loga"], h0=h0,
+                                      seq_axes=rs.seq_axes,
+                                      seq_group=rs.seq_group)
+    new_cache = _state_cache(rs, cache, h_new, conv, h_fin)
+    return (y * F.gelu(gate, approximate="tanh")) @ p["po"], new_cache
+
+
 def apply_block(cfg: ArchConfig, kind: str, p, h: torch.Tensor, rs: RunSpec,
                 pos, cache):
-    """One ``attn`` or ``local`` block with residuals; returns (h,
-    new_cache).  ``moe`` blocks are driven by the Model
+    """One ``attn``, ``local``, ``ssd`` or ``rec`` block with residuals;
+    returns (h, new_cache).  ``moe`` blocks are driven by the Model
     (:func:`moe_pre_block`, the expert chunks, the combine)."""
+    if kind in ("attn", "local"):
+        mix, new_cache = _attn_block(cfg, kind, p, h, rs, pos, cache)
+        h = h + mix
+        return h + _mlp_block(cfg, p, h), new_cache
+    if kind == "ssd":
+        mix, new_cache = _ssd_block(cfg, p, h, rs, cache)
+        return h + mix, new_cache
+    if kind == "rec":
+        mix, new_cache = _rec_block(cfg, p, h, rs, cache)
+        h = h + mix
+        return h + _mlp_block(cfg, p, h), new_cache
     if kind == "moe":
         raise ValueError("moe blocks run through Model._moe_layer")
-    mix, new_cache = _attn_block(cfg, kind, p, h, rs, pos, cache)
-    h = h + mix
-    return h + _mlp_block(cfg, p, h), new_cache
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+class CacheLeaf(NamedTuple):
+    """One decode-cache tensor's shape and dtype."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def init_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
-                      kv_len: int, kv_world: int = 1
-                      ) -> Dict[str, Tuple[int, ...]]:
-    """Per-layer K/V cache shapes of a block on one rank of a cache
-    sequence sharded ``kv_world`` ways: ``kv_len`` slots for ``attn``, the
-    ring's ``min(window, kv_len)`` for ``local``, each cut into
-    ``kv_world`` equal slices (refused where they do not divide); a
-    ``moe`` layer's cache is ``attn``'s."""
+                      kv_len: int, kv_world: int = 1,
+                      dtype: torch.dtype = torch.bfloat16
+                      ) -> Dict[str, CacheLeaf]:
+    """Per-layer decode-cache leaves of a block on one rank of a cache
+    sequence sharded ``kv_world`` ways: K/V of ``kv_len`` slots for
+    ``attn`` (and ``moe``), the ring's ``min(window, kv_len)`` for
+    ``local``, each cut into ``kv_world`` equal slices (refused where they
+    do not divide), in ``dtype``; an ``ssd`` or ``rec`` layer's state
+    ``h`` in fp32 and conv history ``conv`` in ``dtype``, whole on every
+    kv rank."""
+    if kind == "ssd":
+        return {"h": CacheLeaf((batch, cfg.ssm_heads, cfg.ssm_state,
+                                cfg.ssm_headdim), torch.float32),
+                "conv": CacheLeaf((batch, cfg.conv_width - 1, cfg.conv_dim),
+                                  dtype)}
+    if kind == "rec":
+        return {"h": CacheLeaf((batch, cfg.d_rnn), torch.float32),
+                "conv": CacheLeaf((batch, cfg.conv_width - 1, cfg.d_rnn),
+                                  dtype)}
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     n = min(cfg.window, kv_len) if kind == "local" else kv_len
     if n % kv_world:
         raise ValueError(f"{kind} cache of {n} slots does not divide over "
                          f"the {kv_world}-way kv sharding")
-    s = (batch, n // kv_world, cfg.n_kv_heads, cfg.d_head)
+    s = CacheLeaf((batch, n // kv_world, cfg.n_kv_heads, cfg.d_head), dtype)
     return {"k": s, "v": s}

@@ -11,7 +11,9 @@ calls: the reference keeps one copy of it beside its global arrays.
 pool owns ONE cache tree of batch size ``n_slots`` (the decode batch),
 laid out exactly like ``Model.cache_shapes``: each block kind's own cache
 length (``kv_len`` for ``attn``, the ring's ``min(window, kv_len)`` for
-``local``), stacked over periods, and the ``rem`` layers' caches.  A
+``local``; an ``ssd``/``rec`` layer's fp32 state and conv history),
+stacked over periods, and the ``rem`` layers' caches, each leaf in its
+own dtype.  A
 request occupies one slot for its lifetime:
 
   admit  -> ``alloc()`` hands out the oldest retired slot (FIFO recycling)
@@ -96,14 +98,16 @@ class KVPool:
         grown = steps.pad_prefill_caches(self.model, prefill_caches,
                                          self.kv_len)
         specs = self._kv_specs
+        # every leaf of the slot: K/V, and an ssd/rec layer's state and
+        # conv history, which a recycled slot must not keep
         for pool_c, new_c, sp in zip(self.caches["blocks"], grown["blocks"],
                                      specs["blocks"]):
-            for key in ("k", "v"):           # (n_periods, B, S, K, hd)
+            for key in pool_c:               # (n_periods, B, ...)
                 pool_c[key][:, row] = steps.shard_cut(
                     new_c[key], sp[key], self.mesh)[:, 0]
         for pool_c, new_c, sp in zip(self.caches["rem"] or (),
                                      grown["rem"] or (), specs["rem"] or ()):
-            for key in ("k", "v"):           # (B, S, K, hd)
+            for key in pool_c:               # (B, ...)
                 pool_c[key][row] = steps.shard_cut(
                     new_c[key], sp[key], self.mesh)[0]
 

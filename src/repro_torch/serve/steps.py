@@ -203,16 +203,24 @@ def _opt(axes: Sequence[str]) -> Optional[Tuple[str, ...]]:
 def cache_specs(model: Model, batch_axes: Sequence[str],
                 kv_axes: Sequence[str]) -> Dict[str, Any]:
     """Layout tree matching ``model.cache_shapes``: per leaf the axes
-    each dim is cut over, rows over ``batch_axes`` and the cache sequence
-    over ``kv_axes`` (the reference's ``cache_specs``)."""
+    each dim is cut over, rows over ``batch_axes`` and a K/V cache's
+    sequence over ``kv_axes``; an ``ssd``/``rec`` layer's state and conv
+    history are cut over the rows only and whole on every kv rank (the
+    reference's ``cache_specs``)."""
     b, kv = _opt(batch_axes), _opt(kv_axes)
 
-    def per(stacked: bool) -> Dict[str, Spec]:
-        s = ((None,) if stacked else ()) + (b, kv, None, None)
+    def per(kind: str, stacked: bool) -> Dict[str, Spec]:
+        L = (None,) if stacked else ()
+        if kind == "ssd":
+            return {"h": L + (b, None, None, None),
+                    "conv": L + (b, None, None)}
+        if kind == "rec":
+            return {"h": L + (b, None), "conv": L + (b, None, None)}
+        s = L + (b, kv, None, None)
         return {"k": s, "v": s}
 
-    blocks = tuple(per(True) for _ in model.period)
-    rem = tuple(per(False) for _ in model.rem_kinds) \
+    blocks = tuple(per(kind, True) for kind in model.period)
+    rem = tuple(per(kind, False) for kind in model.rem_kinds) \
         if model.rem_spec else None
     return {"blocks": blocks, "rem": rem}
 
@@ -268,7 +276,9 @@ def pad_prefill_caches(model: Model, caches, kv_len: int,
     Full-attention (``attn``, ``moe``) caches use slot == position, so
     zero-padding the sequence dim to ``kv_len`` is exact: padded slots are
     masked out by decode_attend's position-validity test.  Ring buffers
-    (``local`` layers) are already capacity-sized.  On a ``mesh`` the
+    (``local`` layers) are already capacity-sized, and an ``ssd``/``rec``
+    layer's state and conv history are left as they are (every sequence
+    rank holds the last shard's, the decode layout).  On a ``mesh`` the
     caches arrive cut over ``seq_axes`` (the prefill's layout) and leave
     cut over ``kv_axes`` (the decode step's): the slices are gathered over
     the sequence group and re-cut (the reference re-places its global
@@ -279,7 +289,7 @@ def pad_prefill_caches(model: Model, caches, kv_len: int,
         (tuple(kv_axes) if kg is not None else ())
 
     def grow(kind, cache, axis):
-        if kind == "local" and same:
+        if kind in ("ssd", "rec") or (kind == "local" and same):
             return cache
         n = model.cfg.window if kind == "local" else kv_len
         return {key: _relayout(cache[key], axis, sg, n, kw, kr)

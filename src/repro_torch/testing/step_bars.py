@@ -233,8 +233,9 @@ def moments_within_int4(to: Mapping, jo: Mapping, far: float = 1e-3,
 
 
 def global_params(model, seed: int) -> dict:
-    """GLOBAL fp32 buffers of ``model``'s flat layout, numpy normal draws
-    at the reference's per-name scales (norms, biases and padding zero;
+    """GLOBAL fp32 buffers of ``model``'s flat layout, numpy draws by the
+    reference's per-name rules (``Model._init_rule``: normal at its scale,
+    the SSM's uniform ranges; norms, biases and padding zero;
     no ``embed`` where the model has none; an MoE model's ``experts``
     after ``blocks``): the state both sides of a
     step comparison start from."""
@@ -243,10 +244,18 @@ def global_params(model, seed: int) -> dict:
     def flat(spec):
         out = np.zeros(spec.padded_size, np.float32)
         for name, shape in spec.entries:
-            std = type(model)._init_std(name, shape)
-            if std is not None:
-                off, n = spec.offsets[name]
-                out[off:off + n] = rng.standard_normal(n) * std
+            rule = type(model)._init_rule(name, shape)
+            if rule is None:
+                continue
+            off, n = spec.offsets[name]
+            kind, *arg = rule
+            if kind == "normal":
+                out[off:off + n] = rng.standard_normal(n) * arg[0]
+            elif kind == "ones":
+                out[off:off + n] = 1.0
+            else:
+                v = rng.uniform(arg[0], arg[1], n)
+                out[off:off + n] = np.log(v) if kind == "log_uniform" else v
         return out
     out = {"embed": flat(model.embed_spec)} if model.embed_spec else {}
     out["blocks"] = np.stack([flat(model.period_spec)

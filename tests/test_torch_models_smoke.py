@@ -83,8 +83,10 @@ KV = S + N_DECODE + 1
 
 def test_the_registry_is_the_references_dense_set():
     # the dense set beside the two MoE configs (tests/test_torch_moe.py)
+    # and the SSM and hybrid ones (tests/test_torch_ssm_models.py)
     assert tuple(list_archs()) == tuple(sorted(
-        ARCHS + ("deepseek-moe-16b", "qwen3-moe-235b-a22b")))
+        ARCHS + ("deepseek-moe-16b", "qwen3-moe-235b-a22b", "mamba2-130m",
+                 "recurrentgemma-2b")))
     from repro.configs import list_archs as jax_list_archs
     assert set(ARCHS) <= set(jax_list_archs())
 

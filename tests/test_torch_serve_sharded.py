@@ -9,8 +9,12 @@ saved at (2, 4).
 
   (a) ``check_serve_prefill_decode_consistency`` (``checks.py:607``),
       fp32: qwen3 at (2, 2) (rows over ``data``, the prompt and cache
-      sequence over ``model``) and gemma3 at (1, 2) (its ``local`` rings
-      built under the sharded prefill).  The port's prefill(P) + decode
+      sequence over ``model``), gemma3 at (1, 2) (its ``local`` rings
+      built under the sharded prefill), and the counterparts of
+      ``check_serve_consistency_ssm`` and ``_hybrid`` (``:672, 676``):
+      mamba2 at (2, 2) and recurrentgemma at (1, 2) (their states and conv
+      histories handed on from the prefill's last sequence shard, whole
+      on every kv rank).  The port's prefill(P) + decode
       steps against its prefill(P + n): rel 2e-2 and the same argmax;
       every rank's logits against the reference's at the same mesh within
       rtol = atol = 1e-5.
@@ -76,7 +80,8 @@ JOBS_B = [(5, 6), (11, 4), (8, 5), (16, 3), (3, 7), (9, 4)]
 # (c): its four
 JOBS_C = [(5, 6), (11, 4), (8, 5), (3, 7)]
 # (a)'s worlds and archs
-A_CASES = {"qwen3-0.6b": (2, 2), "gemma3-4b": (1, 2)}
+A_CASES = {"qwen3-0.6b": (2, 2), "gemma3-4b": (1, 2),
+           "mamba2-130m": (2, 2), "recurrentgemma-2b": (1, 2)}
 F32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
 
 _REF_SNIPPET = r"""
@@ -366,9 +371,15 @@ def _refusals(model, mesh, params):
     return out
 
 
+def _a_cases(world):
+    """(a)'s archs on a world of ``world`` ranks."""
+    return [n for n, (y, x) in A_CASES.items() if y * x == world]
+
+
 def _rank4(rank, world, P, R):
-    """(2, 2): (a) qwen3, (e), (f), (h); (1, 4): (d)."""
-    out = {"a": _consistency(rank, world, P, "qwen3-0.6b")}
+    """(2, 2): (a) qwen3 and mamba2, (e), (f), (h); (1, 4): (d)."""
+    out = {"a": {n: _consistency(rank, world, P, n)
+                 for n in _a_cases(world)}}
     arch, mesh, model = _build("qwen3-0.6b", (2, 2), **F32)
     params = _load(P, "a_qwen3-0.6b", model, rank, world)
     out["e"] = _lockstep(model, mesh, params, _Clock(3.0 * rank))
@@ -409,8 +420,9 @@ def _consistency(rank, world, P, name):
 
 
 def _rank2(rank, world, P):
-    """(1, 2): (a) gemma3."""
-    return {"a": _consistency(rank, world, P, "gemma3-4b")}
+    """(1, 2): (a) gemma3 and recurrentgemma."""
+    return {"a": {n: _consistency(rank, world, P, n)
+                  for n in _a_cases(world)}}
 
 
 def _draw(P, name, arch, world, seed):
@@ -476,10 +488,11 @@ def _same_on_every_rank(ranks, key):
 
 @pytest.mark.parametrize("arch", sorted(A_CASES))
 def test_prefill_decode_consistency(world, arch):
-    ranks = world["r4"] if arch == "qwen3-0.6b" else world["r2"]
+    y, x = A_CASES[arch]
+    ranks = world["r4"] if y * x == 4 else world["r2"]
     rref, rgot = world["ref"]["a_ref_" + arch], world["ref"]["a_got_" + arch]
     for r in ranks:
-        ref, got = r["a"]["ref"], r["a"]["got"]
+        ref, got = r["a"][arch]["ref"], r["a"][arch]["got"]
         assert ref.shape == got.shape == (A_ROWS, 1, _arch(arch).vocab)
         err = np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9)
         assert err < 2e-2, f"prefill/decode mismatch rel {err}"
