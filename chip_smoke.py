@@ -328,6 +328,28 @@ last line is printed.
    a request; mamba2 on phase 3's six prompts, 257 among them, which the
    SSD scans in 257 one-token chunks, recurrentgemma on the first four),
    every prompt prefilled at its exact length.
+16. Supervisor phase (after phase 13, once phase 11's checkpoints are
+   deleted; ``check_disk`` first): ``train/elastic.Supervisor`` on
+   qwen3-0.6b at full width cut to ``CUT_LAYERS`` = 7, --attn pallas,
+   batch 8 x 2048, phase 5's seed and lr (the supervisor's warmup-cosine
+   schedule), fp32 checkpoints (about 5.1 GB each, in the checkpoints'
+   temporary directory, deleted after): (a) the oracle, ``SUP_STEPS``
+   steps, no checkpoint dir; (b) the same with async checkpoints every
+   ``SUP_EVERY`` steps and a death injected at step ``SUP_DIE``: one
+   restart from the newest committed checkpoint (the one in flight at the
+   death is abandoned), every loss bit-identical to the oracle's, or, if
+   the first attempt's steps (the oracle's steps run again from the same
+   seed) differ from the oracle's, each replayed loss within that spread;
+   prints each write's seconds, each ``submit`` stall, the steps
+   overlapped, step p50 with a write in flight against none, the
+   checkpoint resumed from, the restore seconds, the time to recover
+   (from the death to the end of the first replayed step) and the peak
+   memory against the oracle's; (c) a live reshard world 1 -> 1 x 2 at
+   step 2 -> world 1 at step 4 (the two ranks share the card over gloo,
+   the state handed over in shared host memory), no checkpoint dir: steps
+   0-1 bit-identical to the oracle's, every loss within ``SUP_REL``, each
+   reshard's seconds printed.  (b) and (c) count as paths of B1-B7, their
+   launches every step's ``step_launches``.
 
 Every phase prints its seconds. The kernel phase also holds B1-B5 at the
 knobs' shapes and widths (``knob_kernel_phase``): the INT8 qgZ chain of
@@ -610,6 +632,13 @@ CKPT_STEPS = 2
 CKPT_INT8_SIZE, CKPT_REL_INT8, CKPT_REL_ELASTIC = 0.35, 0.05, 0.02
 CKPT_FREE_GB = 25
 CKPT_MAX_NEW = 16
+# the supervisor phase (after phase 13; CUT_LAYERS, --attn pallas, fp32
+# checkpoints of ~5.1 GB): SUP_STEPS steps, a checkpoint every SUP_EVERY,
+# a death at SUP_DIE; the live reshard plan and its loss bar (the
+# reference's, checks.py:1357)
+SUP_STEPS, SUP_EVERY, SUP_DIE = 6, 2, 5
+SUP_RESHARD = {2: (1, 2), 4: (1, 1)}
+SUP_REL = 2e-2
 # phase 5's telemetry-overhead reading: steps with telemetry on
 # alternating with as many with it off (printed, not gated: a wall-clock
 # bar would fail on noise)
@@ -4237,6 +4266,140 @@ def elastic_phase(ckpt_dir: str, losses_2x2: list, save_s: list) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- supervisor
+
+def _sup_config(**kw):
+    from repro_torch.train.elastic import ElasticConfig
+    return ElasticConfig(arch=cut_config(), reduced=False, mesh=(1, 1),
+                         steps=SUP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         lr=TRAIN_LR, device="cuda", attn="pallas", **kw)
+
+
+def _sup_run(tag: str, cfg, **kw) -> tuple:
+    """One supervised run of ``cfg`` from a clean card: (its result, the
+    peak device memory it took, its launches)."""
+    from repro_torch.train.elastic import Supervisor
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    platform.reset_launches()
+    t0 = time.perf_counter()
+    out = Supervisor(cfg, **kw).run_supervised()
+    wall = time.perf_counter() - t0
+    launches = dict(platform.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag}: {wall:.1f} s, status {out['status']}, final step "
+          f"{out['final_step']}, losses {[out['losses'][i] for i in range(SUP_STEPS)]!r}",
+          flush=True)
+    if out["status"] != "complete" or out["final_step"] != SUP_STEPS:
+        fail(f"{tag}: ended {out['status']} at step {out['final_step']}")
+    if not all(np.isfinite(list(out["losses"].values()))):
+        fail(f"{tag}: non-finite losses {out['losses']}")
+    return out, peak, launches
+
+
+def _p50_ms(xs) -> str:
+    return f"{statistics.median(xs) * 1e3:.1f} ms ({len(xs)} steps)" \
+        if xs else "none"
+
+
+def supervisor_phase(root: str) -> dict:
+    """Phase 16: the elastic supervisor's oracle, its async checkpoints
+    through a death, and a live reshard onto a 1 x 2 world and back.
+    Returns the launches of (b) and (c)."""
+    from repro_torch.testing.faults import StepFaults
+    tag = "supervisor"
+    check_disk(root)
+    t_phase = time.perf_counter()
+    cfg0 = _sup_config()
+    oracle, peak0, _ = _sup_run(f"{tag} (a) oracle", cfg0)
+    want = [oracle["losses"][i] for i in range(SUP_STEPS)]
+    built_arch = cut_config()
+    model = Model(built_arch, make_policy(built_arch, ("data", "model")).zcfg,
+                  device="cpu")
+    per_step = step_launches(built_arch, model, "pallas")
+    print(f"{tag}: qwen3-0.6b full width at {CUT_LAYERS} of its 28 layers, "
+          f"{model.n_params():,} params (fp32 master + fp32 moments), "
+          f"--attn pallas, batch {TRAIN_BATCH} x {TRAIN_SEQ}, warmup-cosine "
+          f"from lr {TRAIN_LR}; launches per step {per_step}", flush=True)
+
+    # (b) async checkpoints and a death
+    d = Path(root) / "supervisor"
+    died, peak_b, launches_b = _sup_run(
+        f"{tag} (b) death at step {SUP_DIE}",
+        _sup_config(ckpt_dir=str(d), ckpt_every=SUP_EVERY),
+        faults=StepFaults({SUP_DIE: "die"}))
+    if died["restarts"] != 1 or died["fired"] != [(SUP_DIE, "die")]:
+        fail(f"{tag} (b): restarts {died['restarts']}, fired "
+             f"{died['fired']}")
+    steps = died["steps"]
+    cut = next(k for k in range(1, len(steps))
+               if steps[k][0] <= steps[k - 1][0])
+    first, replay = steps[:cut], steps[cut:]
+    resumed = replay[0][0]
+    spread = max(abs(loss - want[i]) for i, loss, _, _ in first)
+    got = [died["losses"][i] for i in range(SUP_STEPS)]
+    same = got == want
+    print(f"{tag} (b): resumed from ckpt_{resumed} (the newest committed; "
+          f"the first attempt ran steps {[s[0] for s in first]}, the "
+          f"replay steps {[s[0] for s in replay]}); losses vs the oracle's: "
+          + ("bit-identical" if same else
+             f"differ by up to {max(abs(a - b) for a, b in zip(got, want)):.3e}"
+             f" (the first attempt's in-memory spread {spread:.3e})"),
+          flush=True)
+    if spread == 0.0 and not same:
+        fail(f"{tag} (b): the replayed losses differ from the oracle's "
+             f"{got} vs {want}")
+    if spread > 0.0 and max(abs(a - b) for a, b in zip(got, want)) > spread:
+        fail(f"{tag} (b): a replayed loss is outside the in-memory spread")
+    if launches_b != {k: n * len(steps) for k, n in per_step.items()}:
+        fail(f"{tag} (b): launches {launches_b}, expected {per_step} x "
+             f"{len(steps)} steps")
+    for k, w in enumerate(died["writers"]):
+        print(f"{tag} (b): writer {k + 1}: submitted {w['submitted']}, "
+              f"committed {w['completed']}, abandoned {w['abandoned']}, "
+              f"failed {w['failed']}, steps overlapped "
+              f"{w['steps_overlapped']}; each write "
+              f"{[round(x, 2) for x in w['write_s']]} s, each submit's "
+              f"stall {[round(x, 3) for x in w['submit_s']]} s", flush=True)
+    if [w["failed"] for w in died["writers"]] != [0, 0]:
+        fail(f"{tag} (b): a write failed: {died['writers']}")
+    busy = [s[2] for s in steps if s[3]]
+    idle = [s[2] for s in steps if not s[3]]
+    print(f"{tag} (b): step p50 with a write in flight at its end "
+          f"{_p50_ms(busy)}, with none {_p50_ms(idle)} (the oracle's "
+          f"{_p50_ms([s[2] for s in oracle['steps'][1:]])}); restore "
+          f"{[round(x, 2) for x in died['restore_s']]} s; time to recover "
+          f"(the death to the end of the first replayed step) "
+          f"{[round(x, 2) for x in died['recover_s']]} s; peak memory "
+          f"{peak_b / 2 ** 30:.2f} GiB against the oracle's "
+          f"{peak0 / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
+    shutil.rmtree(d)
+
+    # (c) a live reshard: world 1 -> 1 x 2 -> world 1
+    rs, _, _ = _sup_run(f"{tag} (c) reshard {SUP_RESHARD}", cfg0,
+                        reshard_plan=dict(SUP_RESHARD))
+    launches_c = rs["launches"]
+    rel = [abs(rs["losses"][i] - w) / abs(w) for i, w in enumerate(want)]
+    print(f"{tag} (c): resharded {rs['resharded']}, each in "
+          f"{[round(x, 2) for x in rs['reshard_s']]} s (the old world's stop "
+          f"to the state placed on the new); steps 0-1 "
+          f"{'bit-identical' if rel[:2] == [0.0, 0.0] else 'DIFFER'}; "
+          f"relative to the oracle {[f'{x:.2e}' for x in rel]} (bar "
+          f"{SUP_REL})", flush=True)
+    if rs["resharded"] != [(2, 1, 2), (4, 2, 1)]:
+        fail(f"{tag} (c): resharded {rs['resharded']}")
+    if rel[:2] != [0.0, 0.0] or not max(rel) < SUP_REL:
+        fail(f"{tag} (c): losses {rs['losses']} vs the oracle's {want}")
+    # steps 0-1 and 4-5 here, 2-3 on each of the two ranks
+    if launches_c != {k: n * (SUP_STEPS + 2) for k, n in per_step.items()}:
+        fail(f"{tag} (c): launches {launches_c}, expected {per_step} x "
+             f"{SUP_STEPS + 2} rank steps")
+    print(f"supervisor phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"train_elastic": launches_b, "train_elastic_reshard": launches_c}
+
+
 def profile_decode(decode, params, caches, positions) -> None:
     """Where a batched decode step's time goes (see profile_step)."""
     batch = {"tokens": torch.zeros((N_SLOTS, 1), dtype=torch.long,
@@ -4516,6 +4679,9 @@ def main() -> None:
         by_path.update(sharded_serve_phase(p8, model1, params1))
         del model1, params1
         shutil.rmtree(Path(p8).parent)
+        # this slice's path: the elastic supervisor (phase 11's
+        # checkpoints are gone: its own take their room)
+        by_path.update(supervisor_phase(ckpt_root))
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # the 2 x 2 x 2 world
@@ -4528,9 +4694,11 @@ def main() -> None:
                    "train_recurrentgemma", "train_2x2",
                    "train_2x2_sync", "train_ckpt", "train_ckpt_2x2_to_1",
                    "train_2x2_seq", "train_2x2_qgz_int8",
-                   "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz")
+                   "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz",
+                   "train_elastic", "train_elastic_reshard")
     flash = ("train", "train_2x2", "train_2x2_sync", "train_ckpt",
-             "train_ckpt_2x2_to_1") + tuple(
+             "train_ckpt_2x2_to_1", "train_elastic",
+             "train_elastic_reshard") + tuple(
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
     serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",

@@ -30,9 +30,11 @@ the launching process, before any rank starts: ranks that met a cold
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 import queue as queue_lib
+import signal
 import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -156,8 +158,23 @@ def make_mesh(shape: Tuple[int, ...],
 
 # ---------------------------------------------------------------- spawner
 
+def _die_with_parent(parent: int) -> None:
+    """Have the kernel SIGKILL this process when its parent dies
+    (``prctl(PR_SET_PDEATHSIG)``; a no-op where libc has no prctl)."""
+    try:
+        prctl = ctypes.CDLL(None, use_errno=True).prctl
+    except (OSError, AttributeError):
+        return
+    prctl.argtypes = [ctypes.c_int] + [ctypes.c_ulong] * 4
+    prctl.restype = ctypes.c_int
+    prctl(1, int(signal.SIGKILL), 0, 0, 0)          # 1: PR_SET_PDEATHSIG
+    if os.getppid() != parent:    # it died before the request took hold
+        os._exit(1)
+
+
 def _rank_main(rank: int, world: int, port: int, backend: str, device: str,
-               fn: Callable, args, queue) -> None:
+               fn: Callable, args, queue, parent: int) -> None:
+    _die_with_parent(parent)
     try:
         if device == "cuda":
             torch.cuda.set_device(0)
@@ -196,7 +213,7 @@ def spawn(fn: Callable, world: int, *args, device: str = "cuda",
     port = store.port
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, port, backend, device, fn, args,
-                               queue))
+                               queue, os.getpid()))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -3,8 +3,9 @@
 Port of the reference's ``launch/train.build_everything`` and
 ``train_loop`` on a ``(Y, X)`` ``("data", "model")`` or ``(P, Y, X)``
 ``("pod", "data", "model")`` world, one process per rank, with periodic
-per-shard checkpoints and restart from the latest onto any world (no
-elastic supervisor yet).  Runs on the card by default:
+per-shard checkpoints and restart from the latest onto any world, and of
+its ``run_elastic`` (``--elastic``: the supervisor of
+``train/elastic.py``).  Runs on the card by default:
 
     python -m repro_torch.launch.train --arch qwen3-0.6b --batch 8 \\
         --seq 2048 --steps 8 [--variant zeropp] [--attn xla|pallas] \\
@@ -42,6 +43,30 @@ step (the batches and the LR schedule, driven by the restored
 N`` saves ``D/ckpt_<step>`` after every N-th step, every rank its own
 shard file, in ``--ckpt-format`` fp32 (exact) or int8 (blockwise, ~4x
 smaller), with meta ``world``, ``arch`` and ``data_cursor``.
+
+Restarts (the reference's ``--simulate-failure-at``/``--max-restarts``):
+the loop fails at the given step and the launcher starts it again, up to
+``--max-restarts`` times, from the latest checkpoint under ``--ckpt-dir``
+(from the seed without one).
+
+Elastic (the reference's flags): ``--elastic`` runs the step loop under
+``train/elastic.Supervisor``: async background checkpoints every
+``--ckpt-every`` steps (``--sync-ckpt``: blocking ones; ``--ckpt-retries``
+and ``--ckpt-backoff`` retry a failed write), restart from the newest
+committed checkpoint after a worker death, a SIGTERM drained within
+``--grace`` seconds into a final checkpoint, and live resharding onto
+other worlds (``--reshard "3:2x2,6:4x2"``: at step 3 onto 2 x 2, at 6
+onto 4 x 2; the state moves through host memory).  Beyond world 1 the
+supervisor stays in this process and each segment of the run is one
+spawn of its world.  ``--fault-die-at``, ``--fault-preempt-at``,
+``--fault-slow-write S`` and ``--fault-flaky-writes N`` inject the
+failures of ``testing/faults.py``.  It takes the reference's knobs
+(arch, depth, world, batch, lr, checkpoints, ``--attn``, ``--device``)
+and its warmup-cosine schedule; e.g. on the CPU:
+
+    python -m repro_torch.launch.train --device cpu --reduced \
+        --arch gpt-350m --mesh 4x2 --batch 16 --seq 64 --lr 3e-3 \
+        --elastic --ckpt-dir D --ckpt-every 2 --fault-die-at 5
 
 Telemetry (the reference's ``--metrics-dir``/``--obs-gate``):
 ``--metrics-dir D`` records the run's knobs (``tune.*`` gauges), a
@@ -98,6 +123,22 @@ class Built:
     lm: SyntheticLM
 
 
+def resolve_arch(arch_name: Union[str, ArchConfig], reduced: bool = False,
+                 moe_chunks: int = 0, layers: int = 0) -> ArchConfig:
+    """The config a run trains: ``arch_name`` (a registered name or an
+    ``ArchConfig``), reduced, regrouped into ``moe_chunks`` expert chunks
+    and cut to its first ``layers`` layers where asked."""
+    arch = arch_name if isinstance(arch_name, ArchConfig) \
+        else get_config(arch_name)
+    if reduced:
+        arch = arch.reduced()
+    if moe_chunks:
+        arch = dataclasses.replace(arch, expert_chunks=moe_chunks)
+    if layers:
+        arch = dataclasses.replace(arch, n_layers=layers)
+    return arch
+
+
 def build_everything(arch_name: Union[str, ArchConfig],
                      mesh_shape: Tuple[int, ...] = (1, 1),
                      variant: str = "zeropp", reduced: bool = False,
@@ -117,14 +158,7 @@ def build_everything(arch_name: Union[str, ArchConfig],
     expert chunks; ``layers`` (> 0) the depth, the config cut to its
     first ``layers`` layers; ``overrides`` further ``ZeroConfig`` fields
     (the paper's knobs)."""
-    arch = arch_name if isinstance(arch_name, ArchConfig) \
-        else get_config(arch_name)
-    if reduced:
-        arch = arch.reduced()
-    if moe_chunks:
-        arch = dataclasses.replace(arch, expert_chunks=moe_chunks)
-    if layers:
-        arch = dataclasses.replace(arch, n_layers=layers)
+    arch = resolve_arch(arch_name, reduced, moe_chunks, layers)
     mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"))
     over = dict(overrides)
     if prefetch is not None:
@@ -236,6 +270,48 @@ def record_step(reg: Registry, tracer: Tracer, i: int, wall_s: float,
     tracer.flush()
 
 
+@dataclasses.dataclass
+class StepRecord:
+    """One timed training step: its loss (summed over the world) and
+    metrics, wall seconds (synchronized), kernel launches, and this rank's
+    wire bytes per collective label (``comm``) and per tier (``tiers``)."""
+    loss: float
+    metrics: Dict[str, Any]
+    wall_s: float
+    launches: Dict[str, int]
+    comm: Dict[str, float]
+    tiers: Dict[str, float]
+
+
+def run_step(built: Built, params, opt, i: int, batch: int, accum: int,
+             tracer: Tracer) -> StepRecord:
+    """Step ``i`` of a run, in place on (``params``, ``opt``): its batch
+    (``device_batch``), then the step in a ``train.step`` profiler range
+    and tracer span, timed from a synchronized start to a synchronized
+    end; the launches and the wire bytes are the counters' deltas."""
+    dev = built.model.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    data = device_batch(built.arch, built.lm, i, batch, accum, dev)
+    sync()
+    before = dict(platform.LAUNCHES)
+    sent, sent_t = comm_bytes(), tier_bytes()
+    t0 = time.perf_counter()
+    with annotate("train.step"), tracer.span("train.step", step=i):
+        metrics = built.step.fn(params, opt, data)
+        loss = float(metrics["loss"])
+        sync()
+    wall = time.perf_counter() - t0
+    return StepRecord(loss, metrics, wall,
+                      {k: platform.LAUNCHES[k] - before[k] for k in before},
+                      comm_since(sent), tier_since(sent_t))
+
+
+class SimulatedFailure(RuntimeError):
+    """``--simulate-failure-at``: the loop's injected node failure, which
+    the launcher's restart loop answers by starting again from the latest
+    checkpoint (``--max-restarts``)."""
+
+
 def train_loop(args, on_step: Optional[Callable] = None,
                overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Train to step ``args.steps`` on this rank of an ``args.mesh`` world
@@ -278,7 +354,6 @@ def train_loop(args, on_step: Optional[Callable] = None,
                   f"world={st.meta.get('world')}, now={model.world})",
                   flush=True)
     log = args.log_every and rank0
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     telemetry = bool(args.metrics_dir)
     old_reg = set_registry(Registry()) if telemetry else None
     reg = get_registry()
@@ -294,21 +369,16 @@ def train_loop(args, on_step: Optional[Callable] = None,
     save_s = []
     try:
         for i in range(start, args.steps):
-            batch = device_batch(built.arch, built.lm, i, args.batch,
-                                 args.accum, dev)
-            sync()
-            before = dict(platform.LAUNCHES)
-            sent, sent_t = comm_bytes(), tier_bytes()
-            t0 = time.perf_counter()
-            with annotate("train.step"), tracer.span("train.step", step=i):
-                metrics = built.step.fn(params, opt, batch)
-                loss = float(metrics["loss"])
-                sync()
-            step_s.append(time.perf_counter() - t0)
-            launches.append({k: platform.LAUNCHES[k] - before[k]
-                             for k in before})
-            comm_steps.append(comm_since(sent))
-            tier_steps.append(tier_since(sent_t))
+            if args.simulate_failure_at is not None \
+                    and i == args.simulate_failure_at:
+                raise SimulatedFailure(f"simulated node failure at step {i}")
+            rec = run_step(built, params, opt, i, args.batch, args.accum,
+                           tracer)
+            metrics, loss = rec.metrics, rec.loss
+            step_s.append(rec.wall_s)
+            launches.append(rec.launches)
+            comm_steps.append(rec.comm)
+            tier_steps.append(rec.tiers)
             losses.append(loss)
             if "moe_aux" in metrics:
                 moe_aux.append(float(metrics["moe_aux"]))
@@ -408,8 +478,12 @@ def _tier_line(tiers: Dict[str, float]) -> str:
 
 def _rank_loop(rank: int, world: int, args) -> Dict[str, Any]:
     """``train_loop`` in one rank of a spawned world: what a host process
-    can receive (the run's params stay in the rank)."""
-    out = train_loop(args)
+    can receive (the run's params stay in the rank), or the message of a
+    simulated failure (every rank fails at the same step)."""
+    try:
+        out = train_loop(args)
+    except SimulatedFailure as e:
+        return {"failure": str(e)}
     return {k: out[k] for k in ("losses", "moe_aux", "step_s", "launches",
                                 "comm_steps",
                                 "tier_steps", "start", "restored", "save_s",
@@ -426,6 +500,8 @@ def run(args):
         return train_loop(args)
     ranks = mesh_lib.spawn(_rank_loop, world, args, device=args.device,
                            timeout=None)
+    if "failure" in ranks[0]:
+        raise SimulatedFailure(ranks[0]["failure"])
     return dict(ranks[0], ranks=ranks)
 
 
@@ -476,14 +552,109 @@ def parser() -> argparse.ArgumentParser:
                     help="raise when a step's wire bytes per label miss "
                          "the analytic projection by more than 1%% (with "
                          "--metrics-dir)")
+    ap.add_argument("--simulate-failure-at", type=int, default=None,
+                    help="fail the run at this step (the restart loop then "
+                         "starts again from the latest checkpoint)")
+    ap.add_argument("--max-restarts", type=int, default=2,
+                    help="restarts after a failure before giving up")
+    # the elastic supervisor (train/elastic.py) and its fault injection
+    ap.add_argument("--elastic", action="store_true",
+                    help="run under the elastic supervisor: async "
+                         "checkpoints, SIGTERM grace drain, restart on "
+                         "worker death, live resharding")
+    ap.add_argument("--sync-ckpt", action="store_true",
+                    help="elastic mode: blocking in-loop saves instead of "
+                         "the async background writer")
+    ap.add_argument("--grace", type=float, default=30.0,
+                    help="seconds between preemption signal and exit")
+    ap.add_argument("--ckpt-retries", type=int, default=0)
+    ap.add_argument("--ckpt-backoff", type=float, default=0.05)
+    ap.add_argument("--reshard", default=None,
+                    help="live reshard plan, e.g. '3:2x2,6:4x2'")
+    ap.add_argument("--fault-die-at", type=int, default=None,
+                    help="inject a worker death at this step")
+    ap.add_argument("--fault-preempt-at", type=int, default=None,
+                    help="inject a graceful preemption at this step")
+    ap.add_argument("--fault-slow-write", type=float, default=None,
+                    help="sleep this long inside every shard write")
+    ap.add_argument("--fault-flaky-writes", type=int, default=None,
+                    help="fail the first N shard writes with OSError")
     return ap
+
+
+def run_elastic(args) -> Dict[str, Any]:
+    """Drive one run under the elastic supervisor (``train/elastic.py``),
+    translating the fault and reshard flags into the injection harness
+    (``testing/faults.py``, imported only when a fault flag is given)."""
+    from repro_torch.train.elastic import ElasticConfig, Supervisor
+
+    plan = {}
+    if args.fault_die_at is not None:
+        plan[args.fault_die_at] = "die"
+    if args.fault_preempt_at is not None:
+        plan[args.fault_preempt_at] = "preempt"
+    hooks = []
+    faults = io_hooks = None
+    if plan or args.fault_slow_write or args.fault_flaky_writes:
+        from repro_torch.testing import faults as fl
+        faults = fl.StepFaults(plan) if plan else None
+        if args.fault_slow_write:
+            hooks.append(fl.SlowIO(args.fault_slow_write))
+        if args.fault_flaky_writes:
+            hooks.append(fl.FlakyIO(args.fault_flaky_writes))
+        if hooks:
+            io_hooks = hooks[0] if len(hooks) == 1 else fl.ChainedHooks(hooks)
+    reshard_plan = None
+    if args.reshard:
+        reshard_plan = {}
+        for part in args.reshard.split(","):
+            step_s, shape_s = part.split(":")
+            reshard_plan[int(step_s)] = mesh_lib.parse_mesh(shape_s)
+    arch = args.arch
+    if args.layers:
+        arch = dataclasses.replace(get_config(arch), n_layers=args.layers)
+    cfg = ElasticConfig(
+        arch=arch, reduced=args.reduced, mesh=mesh_lib.parse_mesh(args.mesh),
+        variant=args.variant, steps=args.steps, batch=args.batch,
+        seq=args.seq, lr=args.lr, accum=args.accum, seed=args.seed,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        ckpt_format=args.ckpt_format, async_ckpt=not args.sync_ckpt,
+        retries=args.ckpt_retries, backoff=args.ckpt_backoff,
+        grace=args.grace, max_restarts=args.max_restarts,
+        metrics_dir=args.metrics_dir, device=args.device, attn=args.attn)
+    sup = Supervisor(cfg, faults=faults, reshard_plan=reshard_plan,
+                     io_hooks=io_hooks)
+    sup.install_signal_handlers()
+    out = sup.run_supervised()
+    last = out["losses"].get(out["final_step"] - 1)
+    print(f"[elastic] done: status={out['status']} "
+          f"final_step={out['final_step']} restarts={out['restarts']} "
+          f"resharded={out['resharded']} "
+          f"last_loss={last if last is None else f'{last:.4f}'}",
+          flush=True)
+    return out
 
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    out = run(args)
+    if args.elastic:
+        run_elastic(args)
+        return
+    # the launcher's restart loop: start again from the latest checkpoint
+    restarts = 0
+    while True:
+        try:
+            out = run(args)
+            break
+        except SimulatedFailure as e:
+            if restarts >= args.max_restarts:
+                raise
+            restarts += 1
+            args.simulate_failure_at = None
+            print(f"[train] {e} -> restarting from checkpoint "
+                  f"({restarts}/{args.max_restarts})", flush=True)
     print(f"[train] losses {[round(x, 4) for x in out['losses']]}; entropy "
-          f"bound {out['entropy_bound']:.4f}")
+          f"bound {out['entropy_bound']:.4f}; restarts {restarts}")
     if len(out["step_s"]) > 1:
         p50 = statistics.median(out["step_s"][1:])
         print(f"[train] rank 0: step p50 (steps 2-{len(out['step_s'])}) "

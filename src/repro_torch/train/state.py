@@ -33,7 +33,11 @@ Where the port departs from the reference:
     follows, rank 0 gathers every file's crc32 and writes the manifest
     (``num_processes`` = world), and a last barrier ends :meth:`ZeroState.save`;
     a failure on any rank is shared with all of them, so that they retry
-    or raise together;
+    or raise together (a cancelled save, :class:`SaveCancelled`, is
+    shared as cancelled); the collectives of a save run on a group the
+    caller names (the async writer's own), and at world > 1
+    :meth:`ZeroState.restore_resilient` validates and quarantines on rank
+    0 alone, then every rank loads the checkpoint rank 0 chose;
   * numpy has no bfloat16 here (no ``ml_dtypes``): bf16 goes to disk as its
     16-bit patterns (uint16, the reference's encoding, layout dtype
     ``"bfloat16"``) and loads widened to float32, which is exact;
@@ -44,6 +48,7 @@ Where the port departs from the reference:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -54,6 +59,7 @@ import zlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import numpy.lib.format as npy
 import torch
 import torch.distributed as dist
 
@@ -75,6 +81,13 @@ class CheckpointError(RuntimeError):
     """A checkpoint could not be written (after exhausting retries)."""
 
 
+class SaveCancelled(Exception):
+    """A save abandoned on purpose (raised from an io hook, e.g. the async
+    writer's cancellation): shared with the peers as such, so that every
+    rank of the world counts it as cancelled, never as a failed write, and
+    not retried."""
+
+
 class CheckpointCorruptError(CheckpointError):
     """A checkpoint on disk failed validation: truncated or bit-flipped
     shard (checksum mismatch / unreadable npz), missing shard, or an
@@ -85,11 +98,16 @@ class IOHooks:
     """Injection seam for checkpoint I/O.
 
     ``ZeroState.save`` calls these at fixed points of the commit protocol
-    (``post_shard`` on every rank, the other two on rank 0); any hook
+    (``mid_shard`` and ``post_shard`` on every rank, the other two on rank
+    0); any hook
     object only needs the methods it cares about.  Raising from a hook
     aborts the staged write exactly as a real I/O failure at that point
     would (OSError is retried, anything else propagates).
     """
+
+    def mid_shard(self, path: str) -> None:
+        """Between two members of a shard file being written (a cancelled
+        write stops here instead of at the next stage)."""
 
     def post_shard(self, path: str) -> None:
         """After a shard file is written + fsynced, before its checksum."""
@@ -107,6 +125,29 @@ def _call_hook(hooks: Any, name: str, *args) -> None:
     fn = getattr(hooks, name, None)
     if fn is not None:
         fn(*args)
+
+
+def _c_order(x) -> np.ndarray:
+    """``x`` as a C-contiguous array, a 0-d one kept 0-d (which
+    ``np.ascontiguousarray`` would make 1-d)."""
+    a = np.asarray(x)
+    return a if a.flags.c_contiguous else np.ascontiguousarray(a)
+
+
+def _write_npz(f, payload: Mapping[str, np.ndarray],
+               between: Optional[Any] = None) -> None:
+    """``np.savez(f, **payload)``, the same members byte for byte (an
+    uncompressed zip64 archive of ``<key>.npy`` files), written a member at
+    a time: each member's data goes to the archive whole, and
+    ``between()`` (if given) runs before every member after the first."""
+    with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for i, (key, arr) in enumerate(payload.items()):
+            if i and between is not None:
+                between()
+            a = _c_order(arr)
+            with zf.open(key + ".npy", "w", force_zip64=True) as fp:
+                npy.write_array_header_1_0(fp, npy.header_data_from_array_1_0(a))
+                fp.write(a.reshape(-1).view(np.uint8).data)
 
 
 def _crc32_file(path: str) -> int:
@@ -323,6 +364,48 @@ def fit_to(arr: np.ndarray, target_shape) -> np.ndarray:
     return np.pad(arr, pad)
 
 
+def fit_shard(arr: np.ndarray, target_shape, rank: int,
+              world: int) -> np.ndarray:
+    """``shard_of(fit_to(arr, target_shape), rank, world)`` without the
+    re-fitted global buffer: a view of ``arr`` where the shard lies inside
+    it, else a copy zero-extended past its end."""
+    tgt = tuple(target_shape)
+    assert arr.shape[:-1] == tgt[:-1], (arr.shape, tgt)
+    assert tgt[-1] % world == 0, (tgt, world)
+    per = tgt[-1] // world
+    lo, hi, cur = rank * per, (rank + 1) * per, arr.shape[-1]
+    if hi <= cur:
+        return arr[..., lo:hi]
+    out = np.zeros(arr.shape[:-1] + (per,), arr.dtype)
+    if lo < cur:
+        out[..., :cur - lo] = arr[..., lo:cur]
+    return out
+
+
+def copy_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` one row of the trailing axis at a time: a shard
+    cut on that axis is strided, and a strided copy between the host and
+    the card goes through a host temporary, which the rows' contiguous
+    copies skip."""
+    if dst.dim() <= 1:
+        dst.copy_(src)
+        return
+    for idx in itertools.product(*map(range, dst.shape[:-1])):
+        dst[idx].copy_(src[idx])
+
+
+def _on_device(x: np.ndarray, dev) -> torch.Tensor:
+    """A tensor of its own on ``dev`` holding ``x`` (a view, maybe strided:
+    on the card copied straight from it, row by row, with no host copy
+    first)."""
+    if torch.device(dev).type == "cpu":
+        return torch.tensor(x)
+    src = torch.from_numpy(x)
+    out = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    copy_rows(out, src)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # checkpoint discovery
 # ---------------------------------------------------------------------------
@@ -533,26 +616,32 @@ def init_shards(model, seed: int) -> Dict[str, torch.Tensor]:
             for k, v in params.items()}
 
 
-def _share_failure(exc: Optional[BaseException], world: int) -> list:
+def _share_failure(exc: Optional[BaseException], world: int,
+                   group=None) -> list:
     """Every rank's outcome of one step of a save (None: it went through),
-    gathered on every rank; the rank whose step failed re-raises its own
-    exception, the others raise OSError (every failure was one: the save
-    retries) or :class:`CheckpointError`.  Returns what every rank sent
-    on success (``exc`` None everywhere)."""
+    gathered on every rank of ``group`` (the default group: None); the
+    rank whose step failed re-raises its own exception, the others raise
+    :class:`SaveCancelled` (a rank's save was cancelled), OSError (every
+    failure was one: the save retries) or :class:`CheckpointError`.
+    Returns what every rank sent on success (``exc`` None everywhere)."""
     if world == 1:
         if exc is not None:
             raise exc
         return [None]
-    mine = None if exc is None else (isinstance(exc, OSError),
-                                     f"{type(exc).__name__}: {exc}")
+    kind = ("cancelled" if isinstance(exc, SaveCancelled) else
+            "os" if isinstance(exc, OSError) else "error")
+    mine = None if exc is None else (kind, f"{type(exc).__name__}: {exc}")
     every = [None] * world
-    dist.all_gather_object(every, mine)
+    dist.all_gather_object(every, mine, group=group)
     if exc is not None:
         raise exc
     bad = {r: m for r, m in enumerate(every) if m is not None}
     if bad:
         msg = "; ".join(f"rank {r}: {m[1]}" for r, m in bad.items())
-        if all(m[0] for m in bad.values()):
+        kinds = {m[0] for m in bad.values()}
+        if "cancelled" in kinds:
+            raise SaveCancelled(f"checkpoint write cancelled on {msg}")
+        if kinds == {"os"}:
             raise OSError(f"checkpoint write failed on {msg}")
         raise CheckpointError(f"checkpoint write failed on {msg}")
     return every
@@ -611,10 +700,10 @@ class ZeroState:
                              f"{sorted(want)}")
         dev, rank, world = self.model.device, self.rank, self.world
 
-        def cut(tree):   # a copy (torch.tensor): the trainer updates it in place
-            return {k: torch.tensor(shard_of(fit_to(
-                np.asarray(tree[k]), want[k]), rank, world), device=dev)
-                for k in want}
+        def cut(tree):   # a copy: the trainer updates it in place
+            return {k: _on_device(fit_shard(np.asarray(tree[k]), want[k],
+                                            rank, world), dev)
+                    for k in want}
 
         self.params = cut(params)
         if opt is not None:
@@ -631,12 +720,18 @@ class ZeroState:
              quant_block: Optional[int] = None,
              io_hooks: Optional[Any] = None,
              retries: int = 0,
-             backoff: float = 0.05) -> str:
+             backoff: float = 0.05,
+             group=None) -> str:
         """Per-shard atomic save to ``ckpt_dir/ckpt_<step>/``; every rank of
         the world calls it, and none returns before the checkpoint exists.
+        Its collectives (the failure exchange and the checksum gather) run
+        on ``group``, a group of the whole world (None: the default group):
+        a save on a background thread needs a group of its own, so that its
+        messages never interleave with the training step's.
 
         Commit protocol (what a crash at any point leaves behind):
-          1. rank 0 sweeps a stale staging dir, then a barrier;
+          1. rank 0 sweeps a stale staging dir and makes a fresh one, then
+             a barrier;
           2. every rank writes ``shard_<rank>.npz`` (its ``key@rank``
              members; rank 0 also the replicated ``opt::count``) into the
              shared ``.tmp`` staging dir, fsynced — a crash here leaves
@@ -655,7 +750,9 @@ class ZeroState:
         retry together) with exponential ``backoff`` (the host payload is
         built once; only file I/O is retried); exhaustion raises
         :class:`CheckpointError`.  ``io_hooks`` is the fault-injection
-        seam (see :class:`IOHooks`).
+        seam (see :class:`IOHooks`); a hook that raises
+        :class:`SaveCancelled` ends the save on every rank at once, with no
+        retry and nothing published.
 
         ``fmt="int8_blockwise"`` (alias ``"int8"``) stores every sharded
         float buffer as an 8-bit payload + fp16 per-block scales — the qwZ
@@ -749,7 +846,7 @@ class ZeroState:
                 time.sleep(backoff * (2 ** (attempt - 1)))
             try:
                 return self._write_staged(ckpt_dir, final, staging,
-                                          payload, manifest, io_hooks)
+                                          payload, manifest, io_hooks, group)
             except OSError as e:       # transient I/O — retry from scratch
                 last_err = e
                 if rank == 0:
@@ -762,70 +859,84 @@ class ZeroState:
     def _write_staged(self, ckpt_dir: str, final: str, staging: str,
                       payload: Dict[str, np.ndarray],
                       manifest: Dict[str, Any],
-                      io_hooks: Optional[Any]) -> str:
+                      io_hooks: Optional[Any], group=None) -> str:
         """One attempt at the staged write + publish (see :meth:`save`);
         every step that can fail on one rank ends with every rank knowing
-        (:func:`_share_failure`), so that the ranks leave together."""
+        (:func:`_share_failure`), so that the ranks leave together, and
+        rank 0 then sweeps the staging dir (the other ranks have stopped
+        writing into it)."""
         world, rank = self.world, self.rank
         err: Optional[BaseException] = None
         try:
-            if rank == 0 and os.path.isdir(staging):
-                shutil.rmtree(staging)     # stale leftover from a crashed save
-            os.makedirs(staging, exist_ok=True)
+            if rank == 0:   # alone: a peer's makedirs would race the sweep
+                if os.path.isdir(staging):
+                    shutil.rmtree(staging)  # stale leftover of a crashed save
+                os.makedirs(staging, exist_ok=True)
         except Exception as e:            # shared below, then re-raised
             err = e
-        # no rank writes before rank 0 has swept the stale staging dir
-        _share_failure(err, world)
-        shard_name = f"shard_{rank:05d}.npz"
-        crc = None
         try:
-            spath = os.path.join(staging, shard_name)
-            with open(spath, "wb") as f:
-                np.savez(f, **payload)
-                f.flush()
-                os.fsync(f.fileno())   # durable BEFORE the manifest commit
-            _call_hook(io_hooks, "post_shard", spath)
-            crc = _crc32_file(spath)
-        except Exception as e:
-            err = e
-        if world > 1:
-            crcs = [None] * world
-            dist.all_gather_object(crcs, crc)
-        else:
-            crcs = [crc]
-        _share_failure(err, world)
-        try:
-            if rank == 0:   # the manifest is rank 0's, written last
-                manifest = dict(manifest)
-                manifest["checksums"] = {
-                    f"shard_{r:05d}.npz": c for r, c in enumerate(crcs)}
-                _call_hook(io_hooks, "pre_manifest", staging)
-                mpath = os.path.join(staging, MANIFEST)
-                with open(mpath, "w") as f:
-                    json.dump(manifest, f, indent=1)
+            # no rank writes before rank 0 has swept and made the staging dir
+            _share_failure(err, world, group)
+            shard_name = f"shard_{rank:05d}.npz"
+            crc = None
+            try:
+                spath = os.path.join(staging, shard_name)
+                with open(spath, "wb") as f:
+                    _write_npz(f, payload, lambda: _call_hook(
+                        io_hooks, "mid_shard", spath))
                     f.flush()
-                    os.fsync(f.fileno())
-                _fsync_dir(staging)
-                _call_hook(io_hooks, "pre_publish", staging, final)
-                # publish: move any previous ckpt for this step ASIDE
-                # before the rename — never a window with neither the old
-                # nor the new checkpoint on disk
-                old = final + ".old"
-                if os.path.isdir(old):
-                    shutil.rmtree(old)
-                if os.path.isdir(final):
-                    os.rename(final, old)
-                os.replace(staging, final)   # atomic publish
-                shutil.rmtree(old, ignore_errors=True)
-                _fsync_dir(ckpt_dir)
-        except Exception as e:
-            err = e
+                    os.fsync(f.fileno())   # durable BEFORE the manifest
+                _call_hook(io_hooks, "post_shard", spath)
+                crc = _crc32_file(spath)
+            except Exception as e:
+                err = e
+            if world > 1:
+                crcs = [None] * world
+                dist.all_gather_object(crcs, crc, group=group)
+            else:
+                crcs = [crc]
+            _share_failure(err, world, group)
+            try:
+                if rank == 0:   # the manifest is rank 0's, written last
+                    self._publish(ckpt_dir, final, staging, manifest, crcs,
+                                  io_hooks)
+            except Exception as e:
+                err = e
+            # no rank returns before the checkpoint is published
+            _share_failure(err, world, group)
         finally:
             if rank == 0 and os.path.isdir(staging):
                 shutil.rmtree(staging, ignore_errors=True)
-        # no rank returns before the checkpoint is published
-        _share_failure(err, world)
         return final
+
+    @staticmethod
+    def _publish(ckpt_dir: str, final: str, staging: str,
+                 manifest: Dict[str, Any], crcs: list,
+                 io_hooks: Optional[Any]) -> None:
+        """Rank 0's commit: the manifest with every shard's crc32, fsynced,
+        then the atomic rename of the staging dir onto ``final``."""
+        manifest = dict(manifest)
+        manifest["checksums"] = {
+            f"shard_{r:05d}.npz": c for r, c in enumerate(crcs)}
+        _call_hook(io_hooks, "pre_manifest", staging)
+        mpath = os.path.join(staging, MANIFEST)
+        with open(mpath, "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        _fsync_dir(staging)
+        _call_hook(io_hooks, "pre_publish", staging, final)
+        # publish: move any previous ckpt for this step ASIDE before the
+        # rename — never a window with neither the old nor the new
+        # checkpoint on disk
+        old = final + ".old"
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        if os.path.isdir(final):
+            os.rename(final, old)
+        os.replace(staging, final)   # atomic publish
+        shutil.rmtree(old, ignore_errors=True)
+        _fsync_dir(ckpt_dir)
 
     # ----------------------------------------------------------- restore
 
@@ -845,20 +956,59 @@ class ZeroState:
     @classmethod
     def restore_resilient(cls, model, mesh, ckpt: str,
                           quarantine: bool = True,
-                          max_fallbacks: int = 8) -> Optional["ZeroState"]:
+                          max_fallbacks: int = 8,
+                          group=None) -> Optional["ZeroState"]:
         """:meth:`restore` with quarantine-and-fall-back: a checkpoint that
         fails validation (:class:`CheckpointCorruptError`) is moved aside
         as ``.corrupt`` (see :func:`quarantine_checkpoint`) and the next
         older checkpoint is tried, until one loads or none remain (then
-        returns None — the caller starts from scratch).  One process a
-        world: with several ranks, every rank would quarantine."""
+        returns None — the caller starts from scratch).  Beyond one rank,
+        rank 0 alone validates and quarantines, then tells every rank of
+        ``group`` (the default group: None) which checkpoint to load: one
+        process moves a corrupt checkpoint aside, and every rank restores
+        the same one."""
+        world = mesh.world
+        rank = cl.flat_rank(group) if world > 1 else 0
+        found: Any = None
+        err: Optional[BaseException] = None
+        if rank == 0:
+            try:
+                found = cls._validated(ckpt, quarantine, max_fallbacks)
+            except CheckpointCorruptError as e:   # shared, then re-raised
+                err = e
+        if world > 1:
+            # the path (or None, or the error) to every rank
+            box = [None if found is None else found[0], err is not None]
+            dist.broadcast_object_list(box, src=0, group=group)
+            if err is not None:
+                raise err
+            if box[1]:
+                raise CheckpointCorruptError(
+                    f"rank 0 could not restore from {ckpt}")
+            if box[0] is None:
+                return None
+            if found is None:
+                found = (box[0],) + load_global(box[0])
+        elif err is not None:
+            raise err
+        if found is None:
+            return None
+        _, step, tree, meta = found
+        st = cls(model, mesh, step=step, meta=meta)
+        return st.place_global(tree["params"], tree.get("opt"))
+
+    @classmethod
+    def _validated(cls, ckpt: str, quarantine: bool, max_fallbacks: int):
+        """(path, step, tree, meta) of the newest checkpoint under ``ckpt``
+        that loads, quarantining each one that fails validation on the
+        way; None when none remains."""
         tried = 0
         while True:
             path = cls._resolve(ckpt)
             if path is None:
                 return None
             try:
-                step, tree, meta = load_global(path)
+                return (path,) + load_global(path)
             except CheckpointCorruptError as e:
                 if not quarantine or tried >= max_fallbacks:
                     raise
@@ -866,9 +1016,6 @@ class ZeroState:
                 q = quarantine_checkpoint(path)
                 print(f"[state] corrupt checkpoint quarantined "
                       f"{path} -> {q}: {e}", flush=True)
-                continue
-            st = cls(model, mesh, step=step, meta=meta)
-            return st.place_global(tree["params"], tree.get("opt"))
 
     @staticmethod
     def _resolve(ckpt: str) -> Optional[str]:

@@ -140,3 +140,44 @@ def test_sharded_serving_entry_points_default_to_cuda():
     with pytest.raises(ValueError, match="world 2"):
         steps.build_decode_step(Model(cfg, z, world=2, device="cpu"),
                                 device="cpu")
+
+
+def test_elastic_entry_points_default_to_cuda(tmp_path):
+    """``ElasticConfig()`` runs on the card: its supervisor (in this
+    process at world 1, in spawned ranks at its default 4 x 2) and an
+    async writer for a model on the card ask for cuda and raise; the
+    launcher's ``--elastic`` keeps ``--device cuda``.  With
+    ``device="cpu"`` they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the cuda default is valid")
+    import types
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train import elastic as el
+    from repro_torch.train.state import ZeroState
+
+    cfg = el.ElasticConfig()
+    assert cfg.device == "cuda" and cfg.mesh == (4, 2)
+    for c in (cfg, el.ElasticConfig(mesh=(1, 1))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            el.Supervisor(c).run_supervised()
+    mesh = mesh_lib.make_mesh((1, 1))
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="(?i)cuda"):
+        el.AsyncCheckpointWriter(on_card, mesh, str(tmp_path))
+    args = tlaunch.parser().parse_args(["--elastic"])
+    assert args.elastic and args.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        tlaunch.run_elastic(tlaunch.parser().parse_args(
+            ["--elastic", "--reduced", "--mesh", "1x1", "--steps", "1"]))
+
+    out = el.Supervisor(el.ElasticConfig(mesh=(1, 1), steps=1, device="cpu",
+                                         log=False)).run_supervised()
+    assert out["status"] == "complete" and list(out["losses"]) == [0]
+    model = tlaunch.build_everything("gpt-350m", (1, 1), reduced=True,
+                                     device="cpu").model
+    st = ZeroState(model, mesh).init(0)
+    w = el.AsyncCheckpointWriter(model, mesh, str(tmp_path))
+    w.submit(1, st.params, st.opt)
+    assert w.drain().endswith("ckpt_1")
+    w.close()
