@@ -350,6 +350,29 @@ last line is printed.
    0-1 bit-identical to the oracle's, every loss within ``SUP_REL``, each
    reshard's seconds printed.  (b) and (c) count as paths of B1-B7, their
    launches every step's ``step_launches``.
+17. Tuning phase (after the paged phase, on phase 3's engine; qwen3-0.6b
+   at full width cut to ``CUT_LAYERS``, --attn pallas, ``TUNE_BATCH`` x
+   2048): (1) world 1, ``--tune static`` at the card's budget (its
+   ``total_memory``): the resolved policy's ``explain()``, ``TUNE_STEPS``
+   finite steps, each with its tuned model's launches (``train_tuned``);
+   (2) the depth sweep, one step at each prefetch of ``TUNE_DEPTHS``
+   under ``testing.ring_probe``: the live gathered layer buffers in the
+   forward and the backward are the ledger's ``ring_buffers`` (k+1), the
+   reduces in their first hop under a VJP its k unreduced-gradient slots,
+   printed beside the ledger's total and ring lines and the step's peak
+   ``max_memory_allocated`` with its increase over depth 0; (3) a 1 x 2
+   gloo world on the card: ``probe_mesh`` on both ranks (each rank's
+   fitted tiers, the same on both), then ``TUNE_STEPS`` steps of ``--tune
+   probe``, the same policy on both (``train_tuned_probe``); where a
+   resolved qwZ or qgZ block is not 256, B1-B5 at it and at the path's
+   layer-group shapes, bit-identical to their plain versions; (4)
+   ``ServeEngine(tune="static")`` on phase 3's model, params and prompts:
+   its tokens are phase 3's, bit for bit (``serve_tuned``); (5)
+   ``TUNE_MOMENT_STEPS`` steps at fp32 and at bf16 Adam moments: losses
+   within ``SUP_REL``, the moments' requested bytes halved, and one layer
+   group's update on the card against the CPU's: m and v bit-identical,
+   the params the CPU's arithmetic on the card's square roots bit for bit
+   (the card's ``torch.sqrt`` is not correctly rounded).
 
 Every phase prints its seconds. The kernel phase also holds B1-B5 at the
 knobs' shapes and widths (``knob_kernel_phase``): the INT8 qgZ chain of
@@ -639,6 +662,15 @@ CKPT_MAX_NEW = 16
 SUP_STEPS, SUP_EVERY, SUP_DIE = 6, 2, 5
 SUP_RESHARD = {2: (1, 2), 4: (1, 1)}
 SUP_REL = 2e-2
+# the tuning phase (after the paged phase; CUT_LAYERS, --attn pallas,
+# phase 5's seed and lr): TUNE_BATCH x TRAIN_SEQ rows a run, TUNE_STEPS
+# steps of each tuned run, the depth sweep's ring depths, TUNE_MOMENT_STEPS
+# steps at fp32 and at bf16 moments (their losses within SUP_REL), the
+# probe's 1 x 2 gloo world
+TUNE_BATCH, TUNE_STEPS, TUNE_MOMENT_STEPS = 4, 2, 3
+TUNE_SEED = 0                  # the launcher's --seed default (phase 5's)
+TUNE_DEPTHS = (0, 1, 2, 3)
+TUNE_PROBE_MESH = (1, 2)
 # phase 5's telemetry-overhead reading: steps with telemetry on
 # alternating with as many with it off (printed, not gated: a wall-clock
 # bar would fail on noise)
@@ -1742,7 +1774,8 @@ def engine_phase(cfg=None, prompt_lens=PROMPTS, max_new: int = MAX_NEW,
           flush=True)
     del eng, warm
     return {"launches": launches, "model": model, "params": params,
-            "prompts": prompts, "stats": st}
+            "prompts": prompts, "stats": st,
+            "tokens": [list(res[u]) for u in uids]}
 
 
 class Capture:
@@ -2122,7 +2155,8 @@ def step_launches(cfg, model, attn: str) -> dict:
     """Kernel launches one training step issues: each of B1-B5 once per
     flat group (embedding where the model has one, layer groups — a
     period of the pattern each, and the leftover layers' rem group —,
-    head norm, unembedding chunks),
+    head norm, unembedding chunks; B1 and B2 twice without hpZ, whose
+    backward re-gathers each group through qwZ),
     none of B8, and under --attn pallas B6 twice per attention layer (the
     forward and the layer's recompute) and B7 once.  The knobs move B1-B5:
     non-blocked
@@ -2135,6 +2169,8 @@ def step_launches(cfg, model, attn: str) -> dict:
               + int(model.rem > 0) + 1 + model.unemb_chunks)
     z = model.zcfg
     reduces = groups
+    if not z.hpz:           # the backward re-gathers every group by qwZ
+        groups *= 2
     if model.is_moe:
         ev = model.comm_events()
         groups = int(sum(e["count"] for e in ev
@@ -4509,6 +4545,393 @@ def _template_args(mangled: str) -> str:
     return re.sub(r"Li(\d+)E", r" \1,", out).strip(" ,").replace(",,", ",")
 
 
+# ------------------------------------------------------------------ tune
+
+def _tune_args(*extra, mesh=(1, 1)):
+    """The tuned runs' launcher args: CUT_LAYERS, --attn pallas, phase 5's
+    seed and lr, TUNE_BATCH x TRAIN_SEQ."""
+    args = train_launch.parser().parse_args([
+        "--batch", str(TUNE_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+        str(TUNE_STEPS), "--lr", str(TRAIN_LR), "--lr-schedule", "constant",
+        "--device", "cuda", "--attn", "pallas", "--log-every", "0",
+        "--mesh", "x".join(map(str, mesh)), *extra])
+    args.arch = cut_config()
+    return args
+
+
+def tune_block_holds(tag: str, z, P: int, world: int, X: int) -> float:
+    """B1-B5 at the tuned path's blocks (``z.qwz_block``, ``z.qgz_block``)
+    and its layer group's shapes on a world of ``world`` ranks, ``X`` on
+    the fast axis: B1 on the fp32 master shard (1, P/world), B2 on the
+    gathered (1, P) payload, B3 on the bf16 gradient (Y, X, P/world), B4 on
+    its (X, ...) payload and B5 on B4's (Y, ...), each bit-identical to its
+    plain version.  Only where a block is not 256 (the kernel phase holds
+    256).  Returns the max abs error read."""
+    if z.qwz_block == z.qgz_block == 256:
+        return 0.0
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    cw, cg = z.qwz_cfg, z.qgz_cfg
+    L, Y = P // world, world // X
+    err = 0.0
+    shard = torch.randn(1, L, generator=g, device=dev)
+    err = max(err, _same(f"{tag} B1 quantize block {cw.block_size}", (1, L),
+                         qb.quantize(shard, cw),
+                         quant.quantize_blockwise(shard, cw)))
+    pay, sc = qb.quantize(torch.randn(1, P, generator=g, device=dev), cw)
+    err = max(err, _same(f"{tag} B2 dequantize block {cw.block_size}",
+                         (1, P), (qb.dequantize(pay, sc, cw, torch.bfloat16),),
+                         (quant.dequantize_blockwise(pay, sc, cw,
+                                                     torch.bfloat16),)))
+    gr = (torch.randn(Y, X, L, generator=g, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    p3 = qb.quantize_reordered(gr, cg)
+    err = max(err, _same(f"{tag} B3 quantize_reordered block "
+                         f"{cg.block_size}", (Y, X, L), p3,
+                         ref.quantize_reordered_ref(gr, cg)))
+    pay, sc = p3[0].reshape(X, -1), p3[1].reshape(X, -1)
+    p4 = fq.dequant_reduce_quant(pay, sc, cg, cg)
+    err = max(err, _same(f"{tag} B4 dequant_reduce_quant block "
+                         f"{cg.block_size}", tuple(pay.shape), p4,
+                         ref.dequant_reduce_quant_ref(pay, sc, cg, cg)))
+    pay5, sc5 = p4[0].reshape(Y, -1), p4[1].reshape(Y, -1)
+    err = max(err, _same(f"{tag} B5 dequant_reduce block {cg.block_size}",
+                         tuple(pay5.shape),
+                         (fq.dequant_reduce(pay5, sc5, cg),),
+                         (ref.dequant_reduce_ref(pay5, sc5, cg),)))
+    print(f"{tag}: B1-B5 at blocks qwZ {cw.block_size} / qgZ "
+          f"{cg.block_size}, the path's layer group (P {P}, world {world}, "
+          f"X {X}): bit-identical", flush=True)
+    return err
+
+
+def tune_static_run() -> tuple:
+    """Phase 17.1: world 1, ``--tune static`` at the card's budget (its
+    memory: one rank), TUNE_STEPS finite steps, every step's launches the
+    tuned model's; the tuned blocks held.  Returns (launches, the block
+    holds' max abs error)."""
+    tag = "tune static"
+    gc.collect()
+    torch.cuda.empty_cache()
+    platform.reset_launches()
+    res = train_launch.train_loop(_tune_args("--tune", "static"))
+    launches = dict(platform.LAUNCHES)
+    built = res["built"]
+    pol, model = built.policy, built.model
+    per_step = step_launches(built.arch, model, "pallas")
+    if any(c != per_step for c in res["launches"]):
+        fail(f"{tag}: launches {res['launches']}, expected {per_step}")
+    if pol.mode != "static" or pol.kernel_backend != "cuda":
+        fail(f"{tag}: resolved {pol.mode} / {pol.kernel_backend}")
+    if not np.isfinite(res["losses"]).all():
+        fail(f"{tag}: non-finite losses {res['losses']}")
+    print(f"{tag}: budget {pol.ledger.budget_bytes / 2 ** 30:.2f} GiB (the "
+          f"card's total_memory), losses {res['losses']!r}, step "
+          f"{[round(t * 1e3, 1) for t in res['step_s']]} ms, prefetch "
+          f"{model.zcfg.prefetch}, blocks {model.zcfg.qwz_block}/"
+          f"{model.zcfg.qgz_block}, hpz {model.zcfg.hpz}", flush=True)
+    err = tune_block_holds(tag, model.zcfg, model.period_spec.padded_size,
+                           1, 1)
+    del res, built
+    return launches, err
+
+
+def tune_depth_sweep() -> None:
+    """Phase 17.2: world 1 (``--tune static`` with the depth pinned), one
+    step at each of TUNE_DEPTHS under ``testing.ring_probe``: the forward's
+    and the backward's live gathered layer buffers must be the ledger's
+    ``ring_buffers`` (k+1), the reduces in their first hop under a VJP
+    its k unreduced-gradient slots; beside the ledger's total and ring
+    lines, the step's peak ``max_memory_allocated`` and its increase over
+    depth 0."""
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.testing.ring_probe import RingProbe
+    from repro_torch.train.state import init_shards
+    peak0 = led0 = loop0 = None
+    for k in TUNE_DEPTHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        built = train_launch.build_everything(
+            cut_config(), batch=TUNE_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            lr_schedule="constant", device="cuda", attn_impl="pallas",
+            prefetch=k, tune="static")
+        model, led = built.model, built.policy.ledger
+        P = model.period_spec.padded_size
+        others = [s[-1] for n, s in model.param_shapes().items()
+                  if n != "blocks"]
+        if P in others:
+            fail(f"tune sweep: the layer group's {P} elements are another "
+                 f"group's too ({others})")
+        params = init_shards(model, TUNE_SEED)
+        opt = init_opt_state(params, built.opt_cfg)
+        data = train_launch.device_batch(built.arch, built.lm, 0, TUNE_BATCH,
+                                         1, model.device)
+        with RingProbe(P, P, P, torch.cuda.memory_allocated) as probe:
+            loss = float(built.step.fn(params, opt, data)["loss"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        rep = probe.report()
+        ring = dict(led.ring_buffers)["layers"]
+        keff = model.zcfg.effective_prefetch(model.n_periods)
+        lines = {l.name: l.bytes for l in led.lines
+                 if l.name.startswith("ring_")}
+        loop = {ph: b - base for ph, b in probe.mem_peak.items()}
+        if peak0 is None:
+            peak0, led0, loop0 = peak, led.total, loop
+        print(f"tune sweep prefetch {k}: live gathered buffers fwd "
+              f"{rep['fwd']} bwd {rep['bwd']} (ledger ring_buffers {ring}), "
+              f"reduces in flight under a VJP {rep['grads']} by hop "
+              f"{rep['grads_by_hop']} (ledger's unreduced slots {keff}); "
+              f"ledger total {led.total / 2 ** 30:.3f} GiB (+"
+              f"{(led.total - led0) / 2 ** 20:.1f} MiB over depth 0), ring "
+              f"lines {{{', '.join(f'{n}: {b / 2 ** 20:.1f} MiB' for n, b in lines.items())}}}; "
+              f"step peak max_memory_allocated {peak / 2 ** 30:.3f} GiB (+"
+              f"{(peak - peak0) / 2 ** 20:.1f} MiB over depth 0); allocated "
+              f"at a layer's compute, most: forward "
+              f"{loop['fwd'] / 2 ** 30:.3f} GiB (+"
+              f"{(loop['fwd'] - loop0['fwd']) / 2 ** 20:.1f} MiB), backward "
+              f"{loop['bwd'] / 2 ** 30:.3f} GiB (+"
+              f"{(loop['bwd'] - loop0['bwd']) / 2 ** 20:.1f} MiB); loss "
+              f"{loss:.4f}", flush=True)
+        if keff != k or not (rep["fwd"] == rep["bwd"] == ring == k + 1):
+            fail(f"tune sweep prefetch {k}: live buffers {rep} against the "
+                 f"ledger's {ring}")
+        if rep["grads_by_hop"].get(1, 0) != k:
+            fail(f"tune sweep prefetch {k}: {rep['grads_by_hop']} reduces "
+                 f"in their first hop under a VJP, the ledger's {k}")
+        if not np.isfinite(loss):
+            fail(f"tune sweep prefetch {k}: loss {loss}")
+        del built, model, params, opt, data
+
+
+def tune_probe_rank(rank: int, world: int) -> dict:
+    """Phase 17.3, one rank of the 1 x 2 gloo world on the card: the probe
+    (its fitted tiers), then TUNE_STEPS steps of ``--tune probe``."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.tune import probe_mesh
+    mesh = mesh_lib.make_mesh(TUNE_PROBE_MESH, axis_groups=True)
+    t0 = time.perf_counter()
+    prof = probe_mesh(mesh, device="cuda").to_json()
+    probe_s = time.perf_counter() - t0
+    res = train_launch.train_loop(_tune_args("--tune", "probe",
+                                             mesh=TUNE_PROBE_MESH))
+    built = res["built"]
+    z = built.model.zcfg
+    err = tune_block_holds(f"tune probe rank {rank}", z,
+                           built.model.period_spec.padded_size, world,
+                           TUNE_PROBE_MESH[-1])
+    return {"profile": prof, "probe_s": probe_s,
+            "policy": built.policy.as_dict(),
+            "policy_profile": built.policy.profile.to_json(),
+            "losses": res["losses"], "step_s": res["step_s"],
+            "launches": res["launches"],
+            "want": step_launches(built.arch, built.model, "pallas"),
+            "hold_err": err}
+
+
+def tune_probe_phase() -> tuple:
+    """Phase 17.3: ``probe_mesh`` on a 1 x 2 gloo world (both ranks on the
+    card): each rank's fitted tiers, which must be the same on both; then
+    TUNE_STEPS steps of ``--tune probe``, the same policy on both ranks.
+    Returns (rank 0's launches over the run, the holds' error)."""
+    from repro_torch.launch import mesh as mesh_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = mesh_lib.spawn(tune_probe_rank, int(np.prod(TUNE_PROBE_MESH)),
+                           device="cuda", timeout=MR_TIMEOUT_S)
+    for r, out in enumerate(ranks):
+        tiers = {a: (f"latency {t['latency_s'] * 1e6:.1f} us, "
+                     f"{t['bandwidth_Bps'] / 1e9:.3f} GB/s")
+                 for a, t in out["profile"]["tiers"].items()}
+        print(f"tune probe rank {r}: fitted tiers {tiers} in "
+              f"{out['probe_s']:.2f} s; --tune probe losses "
+              f"{out['losses']!r}, steps "
+              f"{[round(t * 1e3, 1) for t in out['step_s']]} ms", flush=True)
+        for j, c in enumerate(out["launches"]):
+            if c != out["want"]:
+                fail(f"tune probe rank {r} step {j}: launches {c}, expected "
+                     f"{out['want']}")
+        if not np.isfinite(out["losses"]).all():
+            fail(f"tune probe rank {r}: losses {out['losses']}")
+    a, b = ranks
+    for key in ("profile", "policy", "policy_profile", "losses"):
+        if a[key] != b[key]:
+            fail(f"tune probe: the ranks' {key} differ: {a[key]} vs "
+                 f"{b[key]}")
+    print("tune probe: resolved " + "; ".join(
+        f"{i}. {d}" for i, d in enumerate(a["policy"]["decisions"], 1)),
+        flush=True)
+    total = {k: sum(c[k] for c in a["launches"]) for k in a["want"]}
+    return total, max(a["hold_err"], b["hold_err"])
+
+
+def tune_serve_phase(serve3: dict) -> dict:
+    """Phase 17.4: ``ServeEngine(tune="static")`` on phase 3's model,
+    params and prompts: its tokens must be phase 3's untuned engine's, bit
+    for bit (the ring depth changes no token).  Returns its launches."""
+    cap = Capture()
+    eng = ServeEngine(serve3["model"], serve3["params"], n_slots=N_SLOTS,
+                      kv_len=KV_LEN, tune="static", observer=cap)
+    print(f"tune serve: {eng.policy.explain()}", flush=True)
+    uids = cap.submit(eng, serve3["prompts"], MAX_NEW)
+    torch.cuda.synchronize()
+    platform.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(max_steps=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(platform.LAUNCHES)
+    got = [list(res[u]) for u in uids]
+    same = sum(x == y for x, y in zip(got, serve3["tokens"]))
+    print(f"tune serve: ring depth {eng.model.zcfg.prefetch} (phase 3's "
+          f"{serve3['model'].zcfg.prefetch}), {len(uids)} requests in "
+          f"{wall:.3f} s, {same}/{len(uids)} token streams equal to phase "
+          f"3's bit for bit; launches {launches}", flush=True)
+    if same != len(uids):
+        fail("tune serve: the tuned engine's tokens differ from phase 3's")
+    check_launches("tune serve", launches, cap, eng.model)
+    del eng
+    return launches
+
+
+def _requested() -> int:
+    """The bytes the card's caching allocator was asked for and still
+    holds (``requested_bytes``: before its rounding of each block)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def tune_moments_phase() -> None:
+    """Phase 17.5: TUNE_MOMENT_STEPS steps at fp32 and at bf16 Adam
+    moments (world 1, the preset policy): the losses finite and within
+    SUP_REL of fp32's, the bytes the moments asked the allocator for
+    halved, and one buffer's
+    update on the card equal to the CPU's plain update."""
+    from repro_torch.optim.adamw import apply_update, init_opt_state
+    from repro_torch.train.state import init_shards
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gc.collect()
+        torch.cuda.empty_cache()
+        built = train_launch.build_everything(
+            cut_config(), batch=TUNE_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR,
+            lr_schedule="constant", device="cuda", attn_impl="pallas")
+        cfg = dataclasses.replace(built.opt_cfg, moments_dtype=dt)
+        st = build_train_step(built.model, cfg, device="cuda",
+                              attn_impl="pallas", global_batch=TUNE_BATCH,
+                              mesh=built.mesh)
+        params = init_shards(built.model, TUNE_SEED)
+        before = (torch.cuda.memory_allocated(), _requested())
+        opt = init_opt_state(params, cfg)
+        moments = (torch.cuda.memory_allocated() - before[0],
+                   _requested() - before[1])
+        losses = []
+        for i in range(TUNE_MOMENT_STEPS):
+            data = train_launch.device_batch(built.arch, built.lm, i,
+                                             TUNE_BATCH, 1, "cuda")
+            losses.append(float(st.fn(params, opt, data)["loss"]))
+        out[dt] = {"losses": losses, "moments": moments, "opt": opt,
+                   "params": params, "cfg": cfg}
+        del built, st
+    f32, b16 = out[torch.float32], out[torch.bfloat16]
+    rel = [abs(a - b) / abs(a) for a, b in zip(f32["losses"],
+                                                b16["losses"])]
+    ratio = f32["moments"][1] / b16["moments"][1]
+    print(f"tune moments: losses fp32 {f32['losses']!r}, bf16 "
+          f"{b16['losses']!r} (max rel {max(rel):.2e}, bar {SUP_REL}); "
+          f"the moments' bytes requested from the allocator "
+          f"{f32['moments'][1]} fp32, {b16['moments'][1]} bf16 (ratio "
+          f"{ratio:.6f}); allocated (its blocks rounded up) "
+          f"{f32['moments'][0] / 2 ** 30:.4f} GiB, "
+          f"{b16['moments'][0] / 2 ** 30:.4f} GiB (ratio "
+          f"{f32['moments'][0] / b16['moments'][0]:.4f})", flush=True)
+    if not (np.isfinite(b16["losses"]).all() and max(rel) <= SUP_REL):
+        fail(f"tune moments: bf16 losses {b16['losses']} beyond {SUP_REL} "
+             f"of fp32's {f32['losses']}")
+    if abs(ratio - 2.0) > 1e-3:
+        fail(f"tune moments: the bf16 moments take 1/{ratio:.4f} of fp32's")
+    # one buffer's update (a layer group's row, unclipped: the grad norm's
+    # sum order cannot move the scale) on the card and on the CPU
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    w = b16["params"]["blocks"][:1].clone()
+    state = {"m": {"b": b16["opt"]["m"]["blocks"][:1].clone()},
+             "v": {"b": b16["opt"]["v"]["blocks"][:1].clone()},
+             "count": b16["opt"]["count"].clone()}
+    grad = torch.randn(w.shape, generator=g, device="cuda") * 1e-4
+    host = {k: ({"b": t["b"].cpu()} if isinstance(t, dict) else t.cpu())
+            for k, t in state.items()}
+    w0, m0, v0, c0, g0 = (w.cpu(), host["m"]["b"].clone(),
+                          host["v"]["b"].clone(), host["count"].clone(),
+                          grad.cpu())
+    wc, dev_w, cfg = {"b": w0.clone()}, {"b": w}, b16["cfg"]
+    s_dev = apply_update({"b": grad}, dev_w, state, cfg)
+    s_cpu = apply_update({"b": g0}, wc, host, cfg)
+    if not (float(s_dev["grad_norm"]) < cfg.grad_clip
+            and float(s_cpu["grad_norm"]) < cfg.grad_clip):
+        fail("tune moments: the one-buffer update clipped")
+    same_m = torch.equal(state["m"]["b"].cpu(), host["m"]["b"])
+    same_v = torch.equal(state["v"]["b"].cpu(), host["v"]["b"])
+    got = dev_w["b"].cpu()
+    res_ulps = int((got.view(torch.int32).long()
+                    - wc["b"].view(torch.int32).long()).abs().max())
+
+    def replica(dev, root):
+        """``apply_update``'s arithmetic op for op on ``dev`` (unclipped),
+        the square root taken by ``root``: returns (w, the root's input)."""
+        W, M, V, G = (t.to(dev) for t in (w0, m0, v0, g0))
+        count = c0.to(dev) + 1
+        cf = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(torch.tensor(cfg.b1, device=dev), cf)
+        c2 = 1.0 - torch.pow(torch.tensor(cfg.b2, device=dev), cf)
+        lr = cfg.lr(count) if callable(cfg.lr) else \
+            torch.tensor(cfg.lr, dtype=torch.float32, device=dev)
+        G = G.to(torch.float32) * torch.tensor(1.0, device=dev)
+        m32 = cfg.b1 * M.to(torch.float32) + (1 - cfg.b1) * G
+        v32 = cfg.b2 * V.to(torch.float32) + (1 - cfg.b2) * G * G
+        x = v32 / c2
+        step = (m32 / c1) / (root(x) + cfg.eps) + cfg.weight_decay * W
+        return (W - lr * step).cpu(), x
+
+    # the card's square roots, brought to the CPU: the card's update must
+    # be the CPU's arithmetic on them, bit for bit
+    _, x_card = replica("cuda", torch.sqrt)
+    roots = torch.sqrt(x_card).cpu()
+    plain, x_cpu = replica("cpu", torch.sqrt)
+    with_card_roots, _ = replica("cpu", lambda x: roots)
+    off = int((roots != torch.sqrt(x_cpu)).sum())
+    exact = (torch.equal(plain, wc["b"]) and torch.equal(x_card.cpu(), x_cpu)
+             and torch.equal(with_card_roots, got))
+    print(f"tune moments: one buffer ({w.numel()} elements) updated on the "
+          f"card and on the CPU: m {'bit-identical' if same_m else 'DIFFERS'}"
+          f", v {'bit-identical' if same_v else 'DIFFERS'}; params up to "
+          f"{res_ulps} ulp apart: the card's torch.sqrt rounds {off} of "
+          f"{w.numel()} square roots one ulp off the CPU's, and the CPU's "
+          f"update on the card's roots is the card's update "
+          f"{'bit for bit' if exact else 'NOT bit for bit'}", flush=True)
+    if not (same_m and same_v and exact):
+        fail("tune moments: the card's bf16-moment update is not the CPU's")
+
+
+def tune_phase(serve3: dict) -> tuple:
+    """Phase 17: boot-time tuning.  Returns ({path: launches} of the tuned
+    paths, the tuned-block holds' max abs error)."""
+    t0 = time.perf_counter()
+    paths = {}
+    paths["train_tuned"], err1 = tune_static_run()
+    tune_depth_sweep()
+    paths["train_tuned_probe"], err2 = tune_probe_phase()
+    paths["serve_tuned"] = tune_serve_phase(serve3)
+    tune_moments_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tune phase (17): {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths, max(err1, err2)
+
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, printing its seconds as "<name> phase: X s"."""
     t0 = time.perf_counter()
@@ -4632,6 +5055,10 @@ def main() -> None:
     serve3 = timed("engine", engine_phase)
     by_path["serve"] = serve3["launches"]
     by_path["serve_paged"], by_path["serve_spec"] = paged_phase(serve3)
+    # boot-time tuning: the tuned world-1 run, the depth sweep, the probe's
+    # 1 x 2 world, the tuned engine on phase 3's requests, bf16 moments
+    tuned, tune_err = tune_phase(serve3)
+    by_path.update(tuned)
     del serve3
     by_path["serve_gemma3"] = timed("gemma3 engine", engine_phase,
                                     gemma3_config(), GEMMA_PROMPTS)[
@@ -4695,16 +5122,18 @@ def main() -> None:
                    "train_2x2_sync", "train_ckpt", "train_ckpt_2x2_to_1",
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz",
-                   "train_elastic", "train_elastic_reshard")
+                   "train_elastic", "train_elastic_reshard",
+                   "train_tuned", "train_tuned_probe")
     flash = ("train", "train_2x2", "train_2x2_sync", "train_ckpt",
              "train_ckpt_2x2_to_1", "train_elastic",
-             "train_elastic_reshard") + tuple(
+             "train_elastic_reshard", "train_tuned",
+             "train_tuned_probe") + tuple(
         f"train_2x2_{k}" for k in KNOB_MIB) + ("train_2x2x2",
                                                 "train_2x2x2_hpz")
     serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",
              "serve_qwen2_vl", "serve_moe", "serve_mamba2",
              "serve_recurrentgemma", "serve_ckpt", "serve_sharded",
-             "serve_sharded_paged")
+             "serve_sharded_paged", "serve_tuned")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)
@@ -4826,6 +5255,12 @@ def main() -> None:
                "quantize_blockwise_f32": "_f32"}.get(name, "")
         rec[name.replace("_f32", "")].setdefault("extra", {})[
             f"qwen2_vl_{key}{tag}"] = r
+    # B1-B5 at the tuned paths' blocks (bit-identical, phase 17)
+    for name in ("quantize_blockwise", "dequantize_blockwise",
+                 "quantize_reordered", "dequant_reduce_quant",
+                 "dequant_reduce"):
+        rec[name].setdefault("extra", {})["tune_blocks_max_abs_err"] = \
+            tune_err
     kernels = []
     for name, (src, replaces) in srcs.items():
         r = rec[name]

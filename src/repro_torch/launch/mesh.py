@@ -15,7 +15,8 @@ over an initialised process group plus the groups of its axes:
     ranks), the inter group (every axis but ``model``: qgZ's second hop,
     its ranks row-major over ``("pod", "data")``), the sequence axes of
     a layout (a suffix of the axes), one pod ``("data", "model")`` (a
-    wider hpZ secondary group) and any other ``hpz_axes``.  Every group
+    wider hpZ secondary group), any other ``hpz_axes`` and, for the tune
+    probe, each single axis.  Every group
     is created when the mesh is, so every rank creates them in the same
     order.
 
@@ -124,12 +125,15 @@ def parse_mesh(spec: str) -> Tuple[int, ...]:
 
 
 def make_mesh(shape: Tuple[int, ...],
-              hpz_axes: Optional[Tuple[str, ...]] = None) -> Mesh:
+              hpz_axes: Optional[Tuple[str, ...]] = None,
+              axis_groups: bool = False) -> Mesh:
     """The mesh of ``shape`` over the default process group, with the
     groups a run uses created (every rank must call this, in the same
     order): every proper suffix of the axes (``("model",)``, the
-    sequence axes, one pod), every axis but ``model`` and, where given,
-    ``hpz_axes`` (in mesh order).  Each group's axes, and the world's,
+    sequence axes, one pod), every axis but ``model``, where given
+    ``hpz_axes`` (in mesh order) and, with ``axis_groups``, each single
+    axis (the tune probe times each: ``tune.probe_mesh``).  Each group's
+    axes, and the world's,
     are recorded for the tier counters (``collectives.group_axes``).  A
     world of 1 needs no process group."""
     shape = tuple(int(s) for s in shape)
@@ -137,6 +141,8 @@ def make_mesh(shape: Tuple[int, ...],
     subs = [axes[k:] for k in range(len(axes) - 1, 0, -1)] + [axes[:-1]]
     if hpz_axes:
         subs.append(tuple(a for a in axes if a in hpz_axes))
+    if axis_groups:
+        subs += [(a,) for a in axes]
     world = 1
     for s in shape:
         world *= s

@@ -68,6 +68,14 @@ and its warmup-cosine schedule; e.g. on the CPU:
         --arch gpt-350m --mesh 4x2 --batch 16 --seq 64 --lr 3e-3 \
         --elastic --ckpt-dir D --ckpt-every 2 --fault-die-at 5
 
+Boot-time tuning (the reference's ``--tune``/``--hbm-gb``): ``--tune
+static`` resolves the policy (hpZ placement, qwZ/qgZ blocks, the ring
+depth, the moments' dtype) through ``repro_torch.tune.resolve`` from the
+committed DGX H100 profile, ``--tune probe`` from collectives timed on
+the live world at boot; the HBM ledger walks the ring depth down into
+``--hbm-gb`` GiB a rank (default: the card's memory over the ranks that
+share it).  Rank 0 prints the policy's ``explain()``.
+
 Telemetry (the reference's ``--metrics-dir``/``--obs-gate``):
 ``--metrics-dir D`` records the run's knobs (``tune.*`` gauges), a
 ``train.step`` span, the ``train.steps``/``train.tokens`` counters and a
@@ -112,6 +120,8 @@ from repro_torch.optim.schedule import constant, warmup_cosine
 from repro_torch.train.policy import VARIANTS, make_policy
 from repro_torch.train.state import ZeroState, init_shards
 from repro_torch.train.trainer import build_train_step
+from repro_torch.tune import GB, MODES as TUNE_MODES, resolve
+from repro_torch.tune.memory import device_budget
 
 
 @dataclasses.dataclass
@@ -121,6 +131,8 @@ class Built:
     model: Model
     step: Any
     lm: SyntheticLM
+    opt_cfg: AdamWConfig = AdamWConfig()
+    policy: Any = None      # train.policy.Policy (tune off) or ResolvedPolicy
 
 
 def resolve_arch(arch_name: Union[str, ArchConfig], reduced: bool = False,
@@ -146,7 +158,8 @@ def build_everything(arch_name: Union[str, ArchConfig],
                      accum: int = 1, lr_schedule: str = "warmup_cosine",
                      device="cuda", attn_impl: str = "xla",
                      prefetch: Optional[int] = None, moe_chunks: int = 0,
-                     layers: int = 0, **overrides) -> Built:
+                     layers: int = 0, tune: str = "off",
+                     hbm_gb: Optional[float] = None, **overrides) -> Built:
     """Construct (mesh, arch, model, train step, data) for this rank of a
     ``mesh_shape`` world, for ``arch_name`` (a registered name, or an
     ``ArchConfig`` such as a depth-cut copy of one), ``(Y, X)`` or ``(P, Y, X)`` (a process group of
@@ -157,13 +170,31 @@ def build_everything(arch_name: Union[str, ArchConfig],
     depth (None: the policy's); ``moe_chunks`` (> 0) an MoE model's
     expert chunks; ``layers`` (> 0) the depth, the config cut to its
     first ``layers`` layers; ``overrides`` further ``ZeroConfig`` fields
-    (the paper's knobs)."""
+    (the paper's knobs).  ``tune``: "off" keeps the static preset
+    (``train/policy.make_policy``); "static" and "probe" resolve the
+    policy through ``repro_torch.tune.resolve`` (the committed profile, or
+    a probe of the live world's collectives), with the HBM ledger charged
+    against ``hbm_gb`` GiB a rank (None: the card's memory over the ranks
+    sharing it, ``tune.memory.device_budget``) and ``batch·seq // world``
+    tokens a rank.  The AdamW moments take the policy's dtype."""
     arch = resolve_arch(arch_name, reduced, moe_chunks, layers)
-    mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"))
     over = dict(overrides)
     if prefetch is not None:
         over["prefetch"] = prefetch
-    pol = make_policy(arch, mesh.axes, variant, mesh=mesh, **over)
+    # the mesh holds every group the policy can use (a suffix of the axes
+    # is one pod: the large-model hpZ group) and, for the probe, each axis
+    mesh = mesh_lib.make_mesh(mesh_shape, overrides.get("hpz_axes"),
+                              axis_groups=tune == "probe")
+    if tune and tune != "off":
+        world = mesh.world
+        budget = (int(hbm_gb * GB) if hbm_gb is not None
+                  else device_budget(device, world))
+        pol = resolve(arch, mesh.axes, variant, mode=tune, mesh=mesh,
+                      hbm_budget_bytes=budget,
+                      tokens_per_device=max(batch * seq // world, 1),
+                      overrides=over, device=device)
+    else:
+        pol = make_policy(arch, mesh.axes, variant, mesh=mesh, **over)
     model = Model(arch, pol.zcfg, world=mesh.world, device=device)
     if lr_schedule == "warmup_cosine":
         sched = warmup_cosine(lr, 10, 10_000)
@@ -171,12 +202,12 @@ def build_everything(arch_name: Union[str, ArchConfig],
         sched = constant(lr)
     else:
         raise ValueError(f"unknown lr schedule {lr_schedule!r}")
-    opt_cfg = AdamWConfig(lr=sched)
+    opt_cfg = AdamWConfig(lr=sched, moments_dtype=pol.moments_dtype)
     step = build_train_step(model, opt_cfg, accum=accum, device=device,
                             attn_impl=attn_impl, global_batch=batch // accum,
                             mesh=mesh)
     lm = SyntheticLM(vocab=arch.vocab, seq_len=seq, seed=7)
-    return Built(mesh, arch, model, step, lm)
+    return Built(mesh, arch, model, step, lm, opt_cfg, pol)
 
 
 def device_batch(arch, lm: SyntheticLM, step_i: int, batch: int,
@@ -336,17 +367,22 @@ def train_loop(args, on_step: Optional[Callable] = None,
                              args.seq, args.lr, args.accum, args.lr_schedule,
                              args.device, args.attn, args.prefetch,
                              args.moe_chunks, args.layers,
+                             tune=args.tune, hbm_gb=args.hbm_gb,
                              **(overrides or {}))
     model = built.model
     z = model.zcfg
     dev = model.device
     rank0 = cl.flat_rank(z.group) == 0
+    if args.tune != "off" and rank0:
+        print(f"[tune] {built.policy.explain()}", flush=True)
     ckpt_dir = args.ckpt_dir
-    st = ZeroState.restore(model, built.mesh, ckpt_dir) if ckpt_dir else None
+    md = built.opt_cfg.moments_dtype
+    st = ZeroState.restore(model, built.mesh, ckpt_dir, moments_dtype=md) \
+        if ckpt_dir else None
     if st is None:
         start, restored = 0, None
         params = init_shards(model, args.seed)
-        opt = init_opt_state(params)
+        opt = init_opt_state(params, built.opt_cfg)
     else:
         start, restored, params, opt = st.step, st.meta, st.params, st.opt
         if rank0:
@@ -364,6 +400,7 @@ def train_loop(args, on_step: Optional[Callable] = None,
         for knob in ("prefetch", "qwz", "hpz", "qgz", "qwz_block",
                      "qgz_block", "qwz_blocked", "qgz_bits", "qgz_2hop"):
             reg.gauge(f"tune.{knob}").set(int(getattr(z, knob)))
+        reg.gauge("tune.mode").set(TUNE_MODES.index(args.tune))
     losses, step_s, launches, comm_steps, tier_steps = [], [], [], [], []
     moe_aux = []
     save_s = []
@@ -398,7 +435,8 @@ def train_loop(args, on_step: Optional[Callable] = None,
             if ckpt_dir and args.ckpt_every and \
                     (i + 1) % args.ckpt_every == 0:
                 t0 = time.perf_counter()
-                ZeroState(model, built.mesh, params, opt, step=i + 1).save(
+                ZeroState(model, built.mesh, params, opt, step=i + 1,
+                          moments_dtype=md).save(
                     ckpt_dir, meta={"world": model.world,
                                     "arch": built.arch.name,
                                     "data_cursor": i + 1},
@@ -535,6 +573,15 @@ def parser() -> argparse.ArgumentParser:
                     help="cut the config to its first N layers (0: its "
                          "own depth)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tune", default="off", choices=TUNE_MODES,
+                    help="policy resolution (repro_torch.tune): off = the "
+                         "static preset; static = the committed H100 "
+                         "profile; probe = time real collectives on the "
+                         "live world at boot")
+    ap.add_argument("--hbm-gb", type=float, default=None,
+                    help="per-rank HBM budget in GiB the tune ledger "
+                         "charges the (k+1) ring buffers against (default: "
+                         "the card's memory over the ranks sharing it)")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--metrics-dir", default=None,
                     help="enable telemetry: rank 0 writes events.jsonl and "

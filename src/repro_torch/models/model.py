@@ -53,6 +53,8 @@ as ``aux_loss_weight · aux / (n_moe_layers · dp_world)``.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from functools import partial
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -143,6 +145,14 @@ class Model:
         self.vchunk = cfg.vocab // nv
         self.unemb_spec = ParamSpec(
             (("unemb", (self.vchunk, cfg.d_model)),), align=align)
+
+    def with_prefetch(self, k: int) -> "Model":
+        """A shallow copy of this model at ring depth ``k`` (the layer and
+        the expert-chunk loops), as the reference's: the specs are shared,
+        only the schedule changes (serving deepens its ring this way)."""
+        m = copy.copy(self)
+        m.zcfg = dataclasses.replace(self.zcfg, prefetch=k)
+        return m
 
     def _entries(self, kinds: Sequence[str]) -> tuple:
         """Flat-layout entries of a group of blocks: block i's under

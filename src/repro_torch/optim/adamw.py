@@ -6,8 +6,11 @@ shards, already summed over the world by qgZ or the reduce-scatter, so
 global-norm clipping needs one scalar all-reduce over the ZeRO group.
 There is no separate bf16 parameter copy: the fp32 master IS the
 parameter buffer, and the forward gather quantizes (qwZ) or casts straight
-from it.  The moments are fp32, the reference's preset for models under
-its ``LARGE_PARAMS`` (the only ones the port's policy carries).
+from it.  ``AdamWConfig.moments_dtype`` is the moments' storage: fp32
+(8 B a parameter, the preset below ``LARGE_PARAMS``) or bf16 (4 B, the
+large-model preset); the update's arithmetic is fp32 either way, and the
+new moments are stored rounded to their dtype (the reference's
+``astype``, round to nearest even).
 
 Unlike the reference (immutable arrays), :func:`apply_update` updates the
 parameters and moments IN PLACE: at full width it saves a second copy of
@@ -37,15 +40,18 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    moments_dtype: torch.dtype = torch.float32   # fp32 | bf16 (large models)
 
 
-def init_opt_state(params: Mapping[str, torch.Tensor]) -> Dict:
-    """Zero fp32 moments beside the fp32 master buffers, and a step
-    count."""
+def init_opt_state(params: Mapping[str, torch.Tensor],
+                   cfg: AdamWConfig = AdamWConfig()) -> Dict:
+    """Zero moments in ``cfg.moments_dtype`` beside the fp32 master
+    buffers, and a step count."""
     dev = next(iter(params.values())).device
-    return {"m": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    dt = cfg.moments_dtype
+    return {"m": {k: torch.zeros(p.shape, dtype=dt, device=dev)
                   for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            "v": {k: torch.zeros(p.shape, dtype=dt, device=dev)
                   for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
@@ -84,8 +90,8 @@ def apply_update(grads: Mapping[str, torch.Tensor], params: Tensors,
                                          opt["v"][k], grads[k])))
         for w, m, v, g in rows:
             g = g.to(torch.float32) * scale
-            m32 = cfg.b1 * m + (1 - cfg.b1) * g
-            v32 = cfg.b2 * v + (1 - cfg.b2) * g * g
+            m32 = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
+            v32 = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * g * g
             del g
             step = (m32 / c1) / (torch.sqrt(v32 / c2) + cfg.eps) \
                 + cfg.weight_decay * w

@@ -60,8 +60,12 @@ on the same tick everywhere.
 engine against a request run alone).
 :meth:`ServeEngine.from_checkpoint` boots from a checkpoint (fp32 or
 INT8, saved at any world) through the params-only bf16 load
-(``train.state.load_serving_params``).  Boot-time tuning (``tune=``)
-comes with a later slice; the constructor refuses it.  Models fed by a
+(``train.state.load_serving_params``).  Boot-time tuning (``tune=
+"static" | "probe"``, the reference's): the engine resolves a serve
+policy through ``repro_torch.tune.resolve`` (``n_slots``, ``kv_len``, the
+HBM ledger against ``hbm_gb`` GiB a rank, by default the card's memory
+over the ranks sharing it), keeps it as ``self.policy`` and serves at its
+ring depth (``Model.with_prefetch``); the depth changes no token.  Models fed by a
 frontend stub (``embed_inputs``, ``mrope``) are refused as in the
 reference: they serve through the raw ``serve.steps``.
 """
@@ -147,7 +151,9 @@ class ServeEngine:
     model's world, with ``params`` this rank's shards
     (``train.state.load_serving_params(mesh=)``): slots cut over
     ``batch_axes`` (``n_slots`` must divide over them; the paged pool
-    refuses any) and the cache sequence over ``kv_axes``."""
+    refuses any) and the cache sequence over ``kv_axes``.  ``tune`` and
+    ``hbm_gb``: see the module docstring; ``self.policy`` is the resolved
+    policy (None with ``tune="off"``)."""
 
     def __init__(self, model, params: Dict[str, torch.Tensor], *,
                  n_slots: int, kv_len: int, mesh=None,
@@ -155,7 +161,8 @@ class ServeEngine:
                  kv_axes: Tuple[str, ...] = ("model",),
                  scheduler: Optional[FIFOScheduler] = None,
                  cache_dtype: Optional[torch.dtype] = None,
-                 device="cuda", tune: str = "off", pool: str = "slab",
+                 device="cuda", tune: str = "off",
+                 hbm_gb: Optional[float] = None, pool: str = "slab",
                  page_size: int = 16, n_pages: Optional[int] = None,
                  chunk_size: Optional[int] = None,
                  prefix_cache: bool = True,
@@ -163,15 +170,28 @@ class ServeEngine:
                  spec_tokens: int = 4,
                  clock: Callable[[], float] = time.monotonic,
                  observer: Optional[Observer] = None):
-        if tune and tune != "off":
-            raise NotImplementedError(
-                "tune= (boot-time resolution of the policy) is not ported "
-                "yet")
         dev = platform.resolve_device(device)
         if dev.type != model.device.type:
             raise ValueError(f"engine on {dev} but the model runs on "
                              f"{model.device}")
         cfg = model.cfg
+        self.policy = None
+        if tune and tune != "off":
+            # boot through the training's resolver (repro_torch.tune), serve
+            # workload: the ledger charges the KV pool and the forward-only
+            # ring, and the engine serves at the resolved ring depth
+            from repro_torch.launch.mesh import Mesh
+            from repro_torch.tune import GB, resolve
+            from repro_torch.tune.memory import device_budget
+            world_mesh = mesh if mesh is not None else Mesh((1, 1))
+            budget = (int(hbm_gb * GB) if hbm_gb is not None
+                      else device_budget(dev, world_mesh.world))
+            self.policy = resolve(
+                cfg, world_mesh.axes, "zeropp", mode=tune,
+                mesh=world_mesh, hbm_budget_bytes=budget,
+                workload="serve", n_slots=n_slots, kv_len=kv_len,
+                device=dev)
+            model = model.with_prefetch(self.policy.zcfg.prefetch)
         _refuse_stub_inputs(cfg)
         if "local" in model.period and kv_len < cfg.window:
             raise ValueError(

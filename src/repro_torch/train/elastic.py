@@ -434,6 +434,13 @@ def _buffer_shapes(cfg: ElasticConfig, shape) -> Dict[str, Tuple[int, ...]]:
     return Model(arch, z, world=_world(shape), device="cpu").param_shapes()
 
 
+def _host_dtype(t: torch.Tensor) -> torch.dtype:
+    """A state buffer's dtype in host memory: floats as fp32 (bf16 moments
+    widen exactly, and ``place_global`` narrows them back; numpy, which
+    reads the buffers, has no bf16)."""
+    return torch.float32 if t.is_floating_point() else t.dtype
+
+
 def _state_box(shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, Any]:
     """Shared global buffers for a state of ``shapes`` (fp32 params and
     moments, the int32 step count)."""
@@ -728,12 +735,14 @@ class Supervisor:
             cfg.arch, shape, cfg.variant, cfg.reduced, cfg.batch, cfg.seq,
             cfg.lr, cfg.accum, device=cfg.device, attn_impl=cfg.attn)
         model, mesh = built.model, built.mesh
+        md = built.opt_cfg.moments_dtype
         world = mesh.world
         if init is not None:
             t0 = time.monotonic()
             with _pinned(_leaves((init["params"], init["opt"])),
                          model.device.type == "cuda"):
-                st = ZeroState(model, mesh, step=init["step"]).place_global(
+                st = ZeroState(model, mesh, step=init["step"],
+                               moments_dtype=md).place_global(
                     init["params"], init["opt"])
             start, params, opt = init["step"], st.params, st.opt
             t1 = time.monotonic()
@@ -750,7 +759,8 @@ class Supervisor:
             st = None
             if cfg.ckpt_dir:
                 t0 = time.monotonic()
-                st = ZeroState.restore_resilient(model, mesh, cfg.ckpt_dir)
+                st = ZeroState.restore_resilient(model, mesh, cfg.ckpt_dir,
+                                                 moments_dtype=md)
             if st is not None:
                 self.restore_s.append(time.monotonic() - t0)
                 start, params, opt = int(st.step), st.params, st.opt
@@ -760,7 +770,7 @@ class Supervisor:
             else:
                 start = 0
                 params = init_shards(model, cfg.seed)
-                opt = init_opt_state(params)
+                opt = init_opt_state(params, built.opt_cfg)
         del st, init
         writer = self.writer = self._make_writer(model, mesh)
         reg = get_registry()
@@ -847,7 +857,7 @@ class Supervisor:
         state = {"params": params, "opt": opt}
         card = params[next(iter(params))].is_cuda
         if world == 1:
-            box = _tree_map(lambda t: _shm(t.shape, t.dtype), state)
+            box = _tree_map(lambda t: _shm(t.shape, _host_dtype(t)), state)
             with _pinned(_leaves(box), card):
                 for g, t in zip(_leaves(box), _leaves(state)):
                     g.copy_(t)
@@ -860,7 +870,8 @@ class Supervisor:
                     g = tree[k]
                     per = t.shape[-1]
                     if g.shape[:-1] != t.shape[:-1] or \
-                            g.shape[-1] != per * world or g.dtype != t.dtype:
+                            g.shape[-1] != per * world or \
+                            g.dtype != _host_dtype(t):
                         raise ValueError(
                             f"{k}: shard {tuple(t.shape)} {t.dtype} does not "
                             f"fit the global buffer {tuple(g.shape)} "

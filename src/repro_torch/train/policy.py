@@ -1,35 +1,49 @@
-"""Per-(architecture × mesh) ZeRO++ policy: the reference's static preset.
+"""Per-(architecture × mesh) ZeRO++ policy: a thin preset over ``tune``.
 
-Port of the reference's ``train/policy.make_policy`` (its resolver
-``tune/resolve.py`` in mode ``"off"``) for models under ``LARGE_PARAMS``
-on a ``("data", "model")`` or ``("pod", "data", "model")`` mesh: full
-ZeRO++ over every axis, with the secondary partition on the fast
-``model`` axis (the paper's per-node group; the reference widens it to a
-pod only for large models); Adam moments are fp32 (``optim/adamw.py``)
-and there is no gradient accumulation.  ``mesh``
-(``repro_torch.launch.mesh.Mesh``) is the run's world: its groups become
-the config's ``intra_group`` (``model``), ``inter_group`` (every other
-axis) and, where ``hpz_axes`` is given, ``secondary_group`` (none at
-world 1); ``group``, the whole world, stays the default group.
+Port of the reference's ``train/policy.make_policy``: the decision logic
+lives in ``repro_torch.tune.resolve`` (the one owner of ZeRO++
+configuration); :func:`make_policy` runs it in ``mode="off"`` (the static
+preset table: no probe, no ledger) and wraps the result in
+:class:`Policy`.  The preset rules:
+
+  * models under ``LARGE_PARAMS``: full ZeRO++ with the secondary
+    partition on the fast ``model`` axis (the paper's per-node group),
+    fp32 Adam moments, no accumulation;
+  * large models: on a ``("pod", "data", "model")`` mesh the secondary
+    group widens to one pod (``("data", "model")``), on one pod hpZ is
+    off; the Adam moments are stored bf16 (the update's arithmetic stays
+    fp32); models with >= 70B active parameters take 2 microbatches
+    (``train_accum``, reported: the launcher's ``--accum`` sets the run's).
+
 ``variant`` selects the paper's ablations (Fig. 13): "baseline" is plain
 ZeRO-3, "qwz"/"hpz"/"qgz" enable exactly one technique.  Keyword
 overrides of ``ZeroConfig`` fields win (the paper's knobs
 ``qwz_blocked``, ``hpz_axes``, ``qgz_bits``, ``qgz_2hop``, tests, the
-ring depth ``prefetch``: ``ZeroConfig``'s default 1 otherwise), as the
-reference's convergence benchmark passes them.  The reference's
-large-model rules (hpZ placement, bf16 moments, accumulation) and
-``tune/`` are not ported.
+ring depth ``prefetch``).  ``mesh`` (``repro_torch.launch.mesh.Mesh``),
+the port's addition, is the run's world: its groups become the config's
+``intra_group`` (``model``), ``inter_group`` (every other axis) and,
+where hpZ's axes are wider than ``model``, ``secondary_group`` (none at
+world 1); ``group``, the whole world, stays the default group.
+
+For measurement-driven resolution (``--tune static|probe``) call
+``repro_torch.tune.resolve`` directly: it returns a ``ResolvedPolicy``
+with these fields and the profile, the HBM ledger and ``explain()``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.zeropp import ZeroConfig
 from repro_torch.launch.mesh import Mesh
+from repro_torch.tune.resolve import LARGE_PARAMS, count_params, resolve
 
-LARGE_PARAMS = 32e9
+__all__ = ["LARGE_PARAMS", "VARIANTS", "Policy", "count_params",
+           "make_policy"]
+
 VARIANTS = ("zeropp", "baseline", "qwz", "hpz", "qgz")
 
 
@@ -37,12 +51,9 @@ VARIANTS = ("zeropp", "baseline", "qwz", "hpz", "qgz")
 class Policy:
     zcfg: ZeroConfig
     n_params: int
-
-
-def count_params(arch: ArchConfig) -> int:
-    """Analytic parameter count (no devices touched)."""
-    from repro_torch.models.model import Model
-    return Model(arch, ZeroConfig.local(), device="cpu").n_params()
+    moments_dtype: torch.dtype = torch.float32
+    note: str = ""
+    train_accum: int = 1   # gradient-accumulation microbatches (memory knob)
 
 
 def make_policy(arch: ArchConfig,
@@ -52,19 +63,8 @@ def make_policy(arch: ArchConfig,
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    n = count_params(arch)
-    if n >= LARGE_PARAMS:
-        raise NotImplementedError(
-            f"{n / 1e9:.0f}B params: the large-model preset (hpZ placement, "
-            f"bf16 moments, accumulation) is not ported")
-    kw = dict(qwz=variant in ("zeropp", "qwz"),
-              hpz=variant in ("zeropp", "hpz"),
-              qgz=variant in ("zeropp", "qgz"),
-              dp_axes=tuple(mesh_axes), intra_axis="model")
-    if mesh is not None:
-        kw.update(intra_group=mesh.intra, inter_group=mesh.inter)
-    kw.update(overrides)
-    if mesh is not None and kw.get("hpz_axes") \
-            and "secondary_group" not in overrides:
-        kw["secondary_group"] = mesh.group(tuple(kw["hpz_axes"]))
-    return Policy(zcfg=ZeroConfig(**kw), n_params=n)
+    rp = resolve(arch, tuple(mesh_axes), variant, mode="off", mesh=mesh,
+                 overrides=overrides)
+    return Policy(zcfg=rp.zcfg, n_params=rp.n_params,
+                  moments_dtype=rp.moments_dtype, note=rp.note,
+                  train_accum=rp.train_accum)

@@ -42,8 +42,11 @@ Where the port departs from the reference:
     16-bit patterns (uint16, the reference's encoding, layout dtype
     ``"bfloat16"``) and loads widened to float32, which is exact;
   * the live state is torch tensors (this rank's shards, on the model's
-    device), and :class:`ZeroState` takes no optimizer config (the port's
-    AdamW state needs none to initialise).
+    device), and :class:`ZeroState` takes the moments' dtype
+    (``moments_dtype``: the one field of the optimizer config its state
+    needs) instead of the config; bf16 moments save as bf16 bits and
+    restore widened, then narrowed back into ``moments_dtype`` (exact:
+    the same bits).
 """
 from __future__ import annotations
 
@@ -65,7 +68,7 @@ import torch.distributed as dist
 
 from repro_torch.core import collectives as cl
 from repro_torch.core.partition import shard_of
-from repro_torch.optim.adamw import init_opt_state
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
 _SEP = "::"          # nesting separator in flattened state keys
 _RANK = "@"          # key@rank marks one world-shard of a buffer
@@ -653,8 +656,9 @@ class ZeroState:
     needed to move it: ``(model, mesh)`` (a ``launch.mesh.Mesh`` of the
     model's world) and the live ``params``/``opt`` (this rank's shards as
     the trainer holds them: fp32 master buffers and AdamW's ``m``, ``v``
-    and ``count``, on the model's device).  Provides the seeded init,
-    per-shard checkpointing and elastic restore."""
+    (in ``moments_dtype``) and ``count``, on the model's device).
+    Provides the seeded init, per-shard checkpointing and elastic
+    restore."""
 
     model: Any
     mesh: Any
@@ -662,6 +666,7 @@ class ZeroState:
     opt: Optional[Dict[str, Any]] = None
     step: int = 0
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    moments_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if self.model.world != self.mesh.world:
@@ -683,7 +688,8 @@ class ZeroState:
         """Seeded fp32 init of (params, opt) into this rank's shards (the
         same global parameters at every world)."""
         self.params = init_shards(self.model, seed)
-        self.opt = init_opt_state(self.params)
+        self.opt = init_opt_state(
+            self.params, AdamWConfig(moments_dtype=self.moments_dtype))
         return self
 
     def place_global(self, params: Mapping[str, np.ndarray],
@@ -700,14 +706,15 @@ class ZeroState:
                              f"{sorted(want)}")
         dev, rank, world = self.model.device, self.rank, self.world
 
-        def cut(tree):   # a copy: the trainer updates it in place
+        def cut(tree, dtype=torch.float32):  # a copy: updated in place
             return {k: _on_device(fit_shard(np.asarray(tree[k]), want[k],
-                                            rank, world), dev)
+                                            rank, world), dev).to(dtype)
                     for k in want}
 
         self.params = cut(params)
         if opt is not None:
-            self.opt = {"m": cut(opt["m"]), "v": cut(opt["v"]),
+            md = self.moments_dtype
+            self.opt = {"m": cut(opt["m"], md), "v": cut(opt["v"], md),
                         "count": torch.tensor(int(np.asarray(opt["count"])),
                                               dtype=torch.int32, device=dev)}
         return self
@@ -941,23 +948,29 @@ class ZeroState:
     # ----------------------------------------------------------- restore
 
     @classmethod
-    def restore(cls, model, mesh, ckpt: str) -> Optional["ZeroState"]:
+    def restore(cls, model, mesh, ckpt: str,
+                moments_dtype: torch.dtype = torch.float32
+                ) -> Optional["ZeroState"]:
         """Elastic restore: load the latest checkpoint under ``ckpt`` (or
         ``ckpt`` itself if it is a checkpoint path) onto (model, mesh) —
-        the saved world size/alignment may differ from the current one.
-        None when there is no checkpoint."""
+        the saved world size/alignment may differ from the current one —
+        with the moments in ``moments_dtype``.  None when there is no
+        checkpoint."""
         path = cls._resolve(ckpt)
         if path is None:
             return None
         step, tree, meta = load_global(path)
-        st = cls(model, mesh, step=step, meta=meta)
+        st = cls(model, mesh, step=step, meta=meta,
+                 moments_dtype=moments_dtype)
         return st.place_global(tree["params"], tree.get("opt"))
 
     @classmethod
     def restore_resilient(cls, model, mesh, ckpt: str,
                           quarantine: bool = True,
                           max_fallbacks: int = 8,
-                          group=None) -> Optional["ZeroState"]:
+                          group=None,
+                          moments_dtype: torch.dtype = torch.float32
+                          ) -> Optional["ZeroState"]:
         """:meth:`restore` with quarantine-and-fall-back: a checkpoint that
         fails validation (:class:`CheckpointCorruptError`) is moved aside
         as ``.corrupt`` (see :func:`quarantine_checkpoint`) and the next
@@ -994,7 +1007,8 @@ class ZeroState:
         if found is None:
             return None
         _, step, tree, meta = found
-        st = cls(model, mesh, step=step, meta=meta)
+        st = cls(model, mesh, step=step, meta=meta,
+                 moments_dtype=moments_dtype)
         return st.place_global(tree["params"], tree.get("opt"))
 
     @classmethod

@@ -91,8 +91,8 @@ def test_entry_points_default_to_cuda():
 
 
 def test_engine_refuses_later_slices():
-    """``tune=`` is a later slice's and raises; the paged pool and the
-    speculative drafter construct."""
+    """``tune=`` boots through the resolver (``self.policy``; an unknown
+    mode raises); the paged pool and the speculative drafter construct."""
     from repro_torch.configs import get_config
     from repro_torch.core.zeropp import ZeroConfig
     from repro_torch.models.model import Model
@@ -100,9 +100,15 @@ def test_engine_refuses_later_slices():
 
     model = Model(get_config("qwen3-0.6b").reduced(),
                   ZeroConfig(dp_axes=("model",)), device="cpu")
-    with pytest.raises(NotImplementedError):
+    eng = ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu",
+                      tune="static")
+    assert eng.policy.mode == "static" and eng.policy.ledger is not None
+    assert eng.model.zcfg.prefetch == eng.policy.zcfg.prefetch
+    assert ServeEngine(model, {}, n_slots=1, kv_len=16,
+                       device="cpu").policy is None
+    with pytest.raises(ValueError, match="mode"):
         ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu",
-                    tune="static")
+                    tune="fast")
     for kw in ({"pool": "paged"},
                {"pool": "paged", "draft": (model, {})}):
         eng = ServeEngine(model, {}, n_slots=1, kv_len=16, device="cpu",
@@ -181,3 +187,37 @@ def test_elastic_entry_points_default_to_cuda(tmp_path):
     w.submit(1, st.params, st.opt)
     assert w.drain().endswith("ckpt_1")
     w.close()
+
+
+def test_tune_imports_no_jax_and_its_flags_default():
+    """``repro_torch.tune`` loads neither JAX nor the reference (nor the
+    reference's benchmarks); the launcher's ``--tune`` defaults to the
+    static preset ("off") and ``--hbm-gb`` to None: the card's memory over
+    the ranks that share it."""
+    code = ("import sys\n"
+            "import repro_torch.tune, repro_torch.tune.ring_model\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+    for f in (PKG / "tune").rglob("*.py"):
+        assert _forbidden(f) == [], f
+        tree = ast.parse(f.read_text(), str(f))
+        mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names] + [n.module for n in ast.walk(tree)
+                                     if isinstance(n, ast.ImportFrom)
+                                     and n.module]
+        assert not [m for m in mods if m.split(".")[0] == "benchmarks"], f
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.tune.memory import device_budget, HBM_BYTES
+    args = tlaunch.parser().parse_args([])
+    assert args.tune == "off" and args.hbm_gb is None
+    assert tlaunch.parser().parse_args(
+        ["--tune", "probe", "--hbm-gb", "12.5"]).hbm_gb == 12.5
+    with pytest.raises(SystemExit):
+        tlaunch.parser().parse_args(["--tune", "fast"])
+    assert device_budget("cpu", 4) == HBM_BYTES // 4

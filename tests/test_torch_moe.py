@@ -127,8 +127,9 @@ def test_config_fields_are_the_references(arch):
 @pytest.mark.parametrize("arch", MOE)
 def test_flat_layout_and_counts_are_the_references(arch):
     """Specs, buffer shapes, parameter counts (full width: qwen3-moe is
-    over ``LARGE_PARAMS`` and ``make_policy`` refuses it, A11) and the
-    expert group's place at every world."""
+    over ``LARGE_PARAMS``, where ``make_policy`` takes the large-model
+    preset: bf16 moments, hpZ off on one pod) and the expert group's place
+    at every world."""
     for cfg, jcfg in ((get_config(arch), jax_get_config(arch)),
                       (get_config(arch).reduced(),
                        jax_get_config(arch).reduced())):
@@ -142,8 +143,10 @@ def test_flat_layout_and_counts_are_the_references(arch):
             assert tm.n_params() == jm.n_params()
             assert tm.n_active_params() == jm.n_active_params()
             assert tm.n_moe_layers == jm.n_moe_layers == cfg.n_layers
-    with pytest.raises(NotImplementedError):
-        make_policy(get_config("qwen3-moe-235b-a22b"))
+    big = make_policy(get_config("qwen3-moe-235b-a22b"))
+    assert big.n_params == JaxModel(jax_get_config("qwen3-moe-235b-a22b"),
+                                    JaxZeroConfig()).n_params()
+    assert big.moments_dtype == torch.bfloat16 and not big.zcfg.hpz
     assert make_policy(get_config("deepseek-moe-16b")).n_params == \
         JaxModel(jax_get_config("deepseek-moe-16b"),
                  JaxZeroConfig()).n_params()

@@ -466,8 +466,8 @@ def test_paged_engine_rejects_bad_configs(pair):
                  model.zcfg, device="cpu")
     with pytest.raises(ValueError, match="drafter vocab"):
         _paged(model, params, draft=(wide, {}))
-    with pytest.raises(NotImplementedError):
-        _paged(model, params, tune="static")
+    with pytest.raises(ValueError, match="mode"):
+        _paged(model, params, tune="fast")
 
 
 # ------------------------------------------------------------------- engine
