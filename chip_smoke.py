@@ -41,8 +41,9 @@ last line is printed.
    32-byte sector of its bf16 input and writes its INT4 payload; B4: its
    payload in and out; B5 at the 2 x 2 path's N = 2: as many bytes read
    and written as it moves), then B3 and B4 at edge shapes (1, 3 and 4,097
-   quant blocks, every block size, N up to 11, INT4/INT8, fp32/bf16, u
-   fields, zero, half-way and raw-payload inputs), all bit-identical.
+   quant blocks, every block size, (Y, X) up to (4, 2), N up to 11,
+   INT4/INT8, fp32/bf16, u fields, zero, half-way and raw-payload
+   inputs), all bit-identical.
    Then the flash
    pair: B6 forward and B7 backward in bf16 (the tensor-core kernels) at
    the training path's shape (B 8, S 2048, H 16, K 8, hd 128, causal)
@@ -373,13 +374,39 @@ last line is printed.
    group's update on the card against the CPU's: m and v bit-identical,
    the params the CPU's arithmetic on the card's square roots bit for bit
    (the card's ``torch.sqrt`` is not correctly rounded).
+18. Dry-run phase (last): ``launch/dryrun.py`` traces two cells on fake
+   tensors in a process of its own on the host from the script's start
+   (``DryRunCPU``, lowest priority, one thread): (a) phase 17's cell
+   (``cut_config()``, world 1, ``TUNE_BATCH`` x 2048, --attn pallas,
+   ``--tune static`` at the card's budget), printed beside what phase 17.1
+   measured: the predicted peak against ``max_memory_allocated`` over
+   its second step less what earlier phases keep allocated (the boot and
+   first step's beside it), the roofline's compute, memory and step
+   against the measured step, and the traced FLOPs over the measured
+   step (achieved TFLOP/s); its resolved ring depth and hpZ must be
+   phase 17's, its kernel calls a step's launches of phase 17's run; (b)
+   ``DRYRUN_PROD``,
+   qwen3-0.6b ``train_4k`` on 2 x 32 x 8 (512 fake ranks): ``fits_hbm``,
+   the dominant term and the wire MiB a rank by tier, its ``zero.*``
+   bytes by label and by tier equal to the projection.  Then (c) the
+   examples on the card, ``examples/torch/quickstart.py`` (gpt-350m
+   reduced on 4 x 2 gloo ranks, 10 steps) and ``serve_decode.py --mesh
+   1x1 --from-ckpt`` (qwen3-0.6b at full width booted from its INT8
+   checkpoint) beside ``serve_decode.py --mesh 1x1`` (no checkpoint), as
+   subprocesses beside each other: a non-zero exit, a non-finite loss or
+   a booted engine whose tokens are not those served without the
+   checkpoint fails; rank 0's launches are the paths
+   ``example_quickstart`` (B1-B5) and ``example_serve_decode`` (B1, B2,
+   B8).
 
 Every phase prints its seconds. The kernel phase also holds B1-B5 at the
 knobs' shapes and widths (``knob_kernel_phase``): the INT8 qgZ chain of
 a 2 x 2 rank at a layer group, B5 at N = 4 (the 2 x 2 x 2 inter hop),
 the 1-hop's B1 on (4, L) INT4 slices and its B5 over 4 contributions,
-and B5 with ``init`` (the quantized ring's dequantize-and-add), each
-bit-identical and timed.
+the quickstart example's rank shapes on 4 x 2 (B1 and B2 at each flat
+group's shard and gathered row, the INT4 two-hop chain: B3 on (4, 2, L),
+B4 at N = 2, B5 at N = 4; timed at the layer group), and B5 with
+``init`` (the quantized ring's dequantize-and-add), each bit-identical.
 
 The line before the last is the kernels' JSON record (every kernel: its
 launches on each path — B1, B2 and B8 on ``serve_paged``,
@@ -671,6 +698,25 @@ TUNE_BATCH, TUNE_STEPS, TUNE_MOMENT_STEPS = 4, 2, 3
 TUNE_SEED = 0                  # the launcher's --seed default (phase 5's)
 TUNE_DEPTHS = (0, 1, 2, 3)
 TUNE_PROBE_MESH = (1, 2)
+# the dry-run phase: phase 17's cell (world 1, --tune static) and one
+# production cell traced on fake tensors in a process of its own from the
+# script's start (DRYRUN_TIMEOUT_S), then the examples on the card, all
+# beside each other (EXAMPLE_TIMEOUT_S): run name -> (example, argv).
+# serve_decode runs booted from its INT8 checkpoint (the path), from its
+# fp32 one and without one: the lossless fp32 boot must serve the tokens
+# of the run without a checkpoint (the INT8 one's are printed beside them);
+# quickstart's world is QS_MESH, at whose rank shapes the kernel phase
+# holds B1-B5
+DRYRUN_PROD = ("qwen3-0.6b", "train_4k", True)      # arch, shape, multi-pod
+DRYRUN_TIMEOUT_S, EXAMPLE_TIMEOUT_S = 900, 600
+QS_MESH = (4, 2)
+EXAMPLES = {"quickstart": ("quickstart", ("--mesh", "x".join(
+                map(str, QS_MESH)))),
+            "serve_decode": ("serve_decode", ("--mesh", "1x1",
+                                              "--from-ckpt")),
+            "serve_decode_fp32": ("serve_decode", (
+                "--mesh", "1x1", "--from-ckpt", "--ckpt-format", "fp32")),
+            "serve_decode_plain": ("serve_decode", ("--mesh", "1x1"))}
 # phase 5's telemetry-overhead reading: steps with telemetry on
 # alternating with as many with it off (printed, not gated: a wall-clock
 # bar would fail on noise)
@@ -1236,7 +1282,8 @@ def qgz_edge_holds(g) -> dict:
     """B3 and B4 against their plain versions where the redesigned tiling
     (1,024 elements a warp, 32 a lane) and arithmetic could slip: 1, 3 and
     4,097 quant blocks (a warp or tile part full), every block size, INT4
-    and INT8 in and out, fp32 and bf16 inputs, (Y, X) = (1, 1) and (2, 3),
+    and INT8 in and out, fp32 and bf16 inputs, (Y, X) = (1, 1), (2, 3)
+    and the quickstart example's QS_MESH,
     N in {1, 2, 3, 8, 11} (11 takes the generic loop), with and without a
     u field, an all-zero block, half-way points and their neighbours, and
     raw random payload bytes (nibble 0x8, byte -128).  Bit-identical."""
@@ -1246,7 +1293,8 @@ def qgz_edge_holds(g) -> dict:
         for nb in (1, 3, 4097):
             L = nb * block
             for (Y, X), bits, dtype in itertools.product(
-                    ((1, 1), (2, 3)), (4, 8), (torch.float32, torch.bfloat16)):
+                    ((1, 1), (2, 3), QS_MESH), (4, 8),
+                    (torch.float32, torch.bfloat16)):
                 if nb == 4097 and (Y, X) != (1, 1):
                     continue
                 cfg = QuantConfig(bits, block)
@@ -1290,9 +1338,86 @@ def qgz_edge_holds(g) -> dict:
                     n_b4 += 1
     print(f"B3/B4 edge holds: {n_b3} B3 and {n_b4} B4 launches "
           f"bit-identical (1, 3 and 4097 blocks, blocks "
-          f"{qb._QUANT_BLOCKS}, N 1/2/3/8/11, INT4/INT8, fp32/bf16, u "
+          f"{qb._QUANT_BLOCKS}, (Y, X) (1, 1), (2, 3) and {QS_MESH}, N "
+          f"1/2/3/8/11, INT4/INT8, fp32/bf16, u "
           f"fields, zero, half-way and raw-payload inputs)", flush=True)
     return errs
+
+
+def quickstart_group_sizes() -> dict:
+    """group -> elements of a rank's shard of that flat group in the
+    quickstart example (gpt-350m reduced on QS_MESH, the policy's
+    layout)."""
+    arch = get_config("gpt-350m").reduced()
+    world = int(np.prod(QS_MESH))
+    z = make_policy(arch, ("data", "model")).zcfg
+    shapes = Model(arch, z, world=world, device="cpu").param_shapes()
+    return {k: v[-1] // world for k, v in shapes.items()}
+
+
+def quickstart_kernel_holds(g, hold, record, errs) -> None:
+    """B1-B5 at the shapes a rank of the quickstart example gives them
+    (QS_MESH = (Y, X)), at each flat group's shard of L elements: B1 on
+    the fp32 shard and B2 on the gathered (1, Y·X·L) payload (qwZ, INT8),
+    then the two-hop INT4 qgZ chain, B3 on (Y, X, L) bf16, B4 over X
+    contributions of Y·L and B5 over Y of L.  Each bit-identical to its
+    plain version (``hold``, timed, at the layer group; the others
+    untimed, their errors into ``errs``)."""
+    dev = "cuda"
+    c8, c4 = QuantConfig(8, 256), QuantConfig(4, 256)
+    y, x = QS_MESH
+    w = y * x
+    sizes = quickstart_group_sizes()
+    for group, L in sizes.items():
+        def check(name, key, shape, got, want, fn, plain, nbytes, ops):
+            if group == "blocks":
+                record(name, "quickstart_blocks", hold(
+                    name, key, shape, got, want, fn, plain, nbytes, ops))
+            else:
+                errs[name] = max(errs[name], _same(key, shape, got, want))
+
+        m, n = y * L, w * L
+        sh = torch.randn(1, L, generator=g, device=dev) * 0.02
+        check("quantize_blockwise", "B1 quickstart f32->int8", (1, L),
+              qb.quantize(sh, c8), quant.quantize_blockwise(sh, c8),
+              lambda: qb.quantize(sh, c8),
+              lambda: quant.quantize_blockwise(sh, c8),
+              4 * L + L + 4 * (L // 256), 5 * L)
+        pay, sc = quant.quantize_blockwise(
+            torch.randn(1, n, generator=g, device=dev) * 0.02, c8)
+        check("dequantize_blockwise", "B2 quickstart int8->bf16", (1, n),
+              (qb.dequantize(pay, sc, c8, torch.bfloat16),),
+              (quant.dequantize_blockwise(pay, sc, c8, torch.bfloat16),),
+              lambda: qb.dequantize(pay, sc, c8, torch.bfloat16),
+              lambda: quant.dequantize_blockwise(pay, sc, c8,
+                                                 torch.bfloat16),
+              n + 4 * (n // 256) + 2 * n, n)
+        gr = (torch.randn(y, x, L, generator=g, device=dev) * 1e-3).to(
+            torch.bfloat16)
+        p3 = qb.quantize_reordered(gr, c4)
+        check("quantize_reordered", "B3 quickstart bf16->int4", (y, x, L),
+              p3, ref.quantize_reordered_ref(gr, c4),
+              lambda: qb.quantize_reordered(gr, c4),
+              lambda: ref.quantize_reordered_ref(gr, c4),
+              2 * n + n // 2 + 4 * (n // 256), 5 * n)
+        pay, sc = p3[0].reshape(x, -1), p3[1].reshape(x, -1)
+        p4 = fq.dequant_reduce_quant(pay, sc, c4, c4)
+        check("dequant_reduce_quant", "B4 quickstart int4->int4", (x, m),
+              p4, ref.dequant_reduce_quant_ref(pay, sc, c4, c4),
+              lambda: fq.dequant_reduce_quant(pay, sc, c4, c4),
+              lambda: ref.dequant_reduce_quant_ref(pay, sc, c4, c4),
+              x * (m // 2 + 4 * (m // 256)) + m // 2 + 4 * (m // 256),
+              (2 * x + 6) * m)
+        pay, sc = p4[0].reshape(y, -1), p4[1].reshape(y, -1)
+        check("dequant_reduce", "B5 quickstart int4->f32", (y, L),
+              (fq.dequant_reduce(pay, sc, c4),),
+              (ref.dequant_reduce_ref(pay, sc, c4),),
+              lambda: fq.dequant_reduce(pay, sc, c4),
+              lambda: ref.dequant_reduce_ref(pay, sc, c4),
+              y * (L // 2 + 4 * (L // 256)) + 4 * L, (2 * y + 1) * L)
+        del sh, pay, sc, gr, p3, p4
+    print(f"quickstart on {QS_MESH}: B1-B5 bit-identical at every flat "
+          f"group's rank shard {sizes}", flush=True)
 
 
 def knob_kernel_phase(flush: torch.Tensor) -> dict:
@@ -1303,15 +1428,17 @@ def knob_kernel_phase(flush: torch.Tensor) -> dict:
     2); B5 at N = 4, the 2 x 2 x 2 world's inter hop at a layer group;
     the 1-hop at 2 x 2 (B1 on its (4, L) INT4 slices of the bf16
     gradient, B5 over the 4 contributions: the reference's sum compiles
-    to B5's FMA chain); and B5 with ``init``, the quantized ring's
-    dequantize-and-add, at the edge shapes and a layer group.  Returns
-    {kernel: extra record keys}."""
+    to B5's FMA chain); the quickstart example's rank shapes on QS_MESH
+    (``quickstart_kernel_holds``); and B5 with ``init``, the quantized
+    ring's dequantize-and-add, at the edge shapes and a layer group.
+    Returns {kernel: extra record keys}."""
     dev = "cuda"
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     c8, c4 = QuantConfig(8, 256), QuantConfig(4, 256)
-    out = {k: {} for k in ("quantize_blockwise", "quantize_reordered",
-                           "dequant_reduce_quant", "dequant_reduce")}
+    out = {k: {} for k in ("quantize_blockwise", "dequantize_blockwise",
+                           "quantize_reordered", "dequant_reduce_quant",
+                           "dequant_reduce")}
     errs = {k: 0.0 for k in out}
 
     def hold(name, key, shape, got, want, fn, plain, nbytes, ops):
@@ -1402,6 +1529,7 @@ def knob_kernel_phase(flush: torch.Tensor) -> dict:
         W * (MR_L // 2 + 4 * (MR_L // 256)) + 4 * MR_L,
         (2 * W + 1) * MR_L))
     del gr, p1, pay, sc
+    quickstart_kernel_holds(g, hold, record, errs)
     # B5 with init (the ring's hop: one contribution added to an fp32
     # slice in one FMA), every block size, INT4 and INT8, edge rows
     n_init = 0
@@ -4610,12 +4738,27 @@ def tune_static_run() -> tuple:
     """Phase 17.1: world 1, ``--tune static`` at the card's budget (its
     memory: one rank), TUNE_STEPS finite steps, every step's launches the
     tuned model's; the tuned blocks held.  Returns (launches, the block
-    holds' max abs error)."""
+    holds' max abs error, the run's readings for phase 18: the
+    ``max_memory_allocated`` of the boot and first step and that of the
+    later steps, the bytes allocated before the run, step seconds and
+    resolved knobs)."""
     tag = "tune static"
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases keep alive (phase 3's engine, for 17.4)
+    base = torch.cuda.memory_allocated()
     platform.reset_launches()
-    res = train_launch.train_loop(_tune_args("--tune", "static"))
+    boot = []
+
+    def after(i, metrics):
+        # the boot and the first step's peak, then each later step's own
+        if i == 0:
+            torch.cuda.synchronize()
+            boot.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+    res = train_launch.train_loop(_tune_args("--tune", "static"),
+                                  on_step=after)
     launches = dict(platform.LAUNCHES)
     built = res["built"]
     pol, model = built.policy, built.model
@@ -4633,8 +4776,13 @@ def tune_static_run() -> tuple:
           f"{model.zcfg.qgz_block}, hpz {model.zcfg.hpz}", flush=True)
     err = tune_block_holds(tag, model.zcfg, model.period_spec.padded_size,
                            1, 1)
+    readings = {"peak_bytes": res["peak_bytes"], "boot_peak_bytes": boot[0],
+                "base_bytes": base,
+                "step_s": res["step_s"],
+                "prefetch": model.zcfg.prefetch, "hpz": model.zcfg.hpz,
+                "blocks": (model.zcfg.qwz_block, model.zcfg.qgz_block)}
     del res, built
-    return launches, err
+    return launches, err, readings
 
 
 def tune_depth_sweep() -> None:
@@ -4917,10 +5065,11 @@ def tune_moments_phase() -> None:
 
 def tune_phase(serve3: dict) -> tuple:
     """Phase 17: boot-time tuning.  Returns ({path: launches} of the tuned
-    paths, the tuned-block holds' max abs error)."""
+    paths, the tuned-block holds' max abs error, the static run's readings
+    for phase 18)."""
     t0 = time.perf_counter()
     paths = {}
-    paths["train_tuned"], err1 = tune_static_run()
+    paths["train_tuned"], err1, readings = tune_static_run()
     tune_depth_sweep()
     paths["train_tuned_probe"], err2 = tune_probe_phase()
     paths["serve_tuned"] = tune_serve_phase(serve3)
@@ -4928,8 +5077,220 @@ def tune_phase(serve3: dict) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"tune phase (17): {time.perf_counter() - t0:.1f} s", flush=True)
-    return paths, max(err1, err2)
+    return paths, max(err1, err2), readings
 
+
+
+def dryrun_cpu_main(path: str, budget: int) -> None:
+    """Phase 18's traces, in a process of its own at the lowest priority
+    on one thread, from the script's start: (a) phase 17's cell
+    (``cut_config()``, world 1, ``TUNE_BATCH`` x ``TRAIN_SEQ``, --attn
+    pallas, ``--tune static`` at the card's ``budget``), (b) the
+    production cell ``DRYRUN_PROD``; both analysed (``launch.dryrun``) into
+    ``path`` (JSON)."""
+    os.nice(19)
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun as dr
+    out = {}
+    t0 = time.perf_counter()
+    with dr.fake_world((1, 1)) as mesh:
+        trace, info = dr.trace_cell(cut_config(), mesh, "train", TUNE_BATCH,
+                                    TRAIN_SEQ, tune="static",
+                                    attn_impl="pallas", budget_bytes=budget)
+    info["trace_s"] = round(time.perf_counter() - t0, 1)
+    out["cell17"] = dr.analyze(trace, info)
+    trace, info = dr.lower_cell(*DRYRUN_PROD)
+    out["production"] = dr.analyze(trace, info)
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f, default=str)
+    os.replace(path + ".tmp", path)
+
+
+class DryRunCPU:
+    """``dryrun_cpu_main`` in a spawned process from the script's start;
+    :meth:`get` waits for its JSON (failing if the process died)."""
+
+    def __init__(self, budget: int):
+        import torch.multiprocessing as tmp
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.path = os.path.join(self.dir, "dryrun.json")
+        self.proc = tmp.get_context("spawn").Process(
+            target=dryrun_cpu_main, args=(self.path, budget), daemon=True)
+        self.proc.start()
+
+    def get(self) -> dict:
+        t0 = time.perf_counter()
+        self.proc.join(DRYRUN_TIMEOUT_S)
+        if self.proc.is_alive():
+            self.proc.kill()
+            fail(f"the dry-run process did not finish in {DRYRUN_TIMEOUT_S}"
+                 f" s")
+        if self.proc.exitcode != 0 or not os.path.exists(self.path):
+            fail(f"the dry-run process ended with exit code "
+                 f"{self.proc.exitcode}")
+        with open(self.path) as f:
+            out = json.load(f)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        print(f"dry-run process ended ({time.perf_counter() - t0:.1f} s "
+              f"waited)", flush=True)
+        return out
+
+
+DRYRUN = None        # main's DryRunCPU
+
+
+def _gib(b: float) -> str:
+    return f"{b / 2 ** 30:.3f} GiB"
+
+
+def dryrun_runnable_cell(cell: dict, measured: dict, launches: dict
+                         ) -> None:
+    """Phase 18 (a): phase 17's cell as the dry run projects it, beside
+    what phase 17 measured on the card: the resolved knobs must agree,
+    and the trace's kernel calls must be a step's launches of phase 17's
+    run (``launches``, over its TUNE_STEPS steps); the peak, the
+    roofline's terms and the trace's FLOPs over the measured step
+    (achieved TFLOP/s) are printed."""
+    tag = "dry run (a), phase 17's cell"
+    knobs = (cell["prefetch"], cell["hpz_axes"] is not None)
+    if knobs != (measured["prefetch"], measured["hpz"]):
+        fail(f"{tag}: the trace resolved prefetch / hpZ {knobs}, phase 17 "
+             f"{measured['prefetch']} / {measured['hpz']}")
+    per_step = {k: n // TUNE_STEPS for k, n in launches.items() if n}
+    if cell["kernel_calls"] != per_step:
+        fail(f"{tag}: the trace calls {cell['kernel_calls']}, a step of "
+             f"phase 17 launches {per_step}")
+    mem, r = cell["memory"], cell["roofline"]
+    own = measured["peak_bytes"] - measured["base_bytes"]
+    step_s = measured["step_s"][-1]
+    steps_ms = [round(t * 1e3, 1) for t in measured["step_s"]]
+    flops = cell["cost"]["flops"]
+    if not (mem["peak_bytes_per_device"] > 0 and flops > 0):
+        fail(f"{tag}: an empty trace {mem} {cell['cost']}")
+    print(f"{tag} (qwen3-0.6b at {CUT_LAYERS} layers, {TUNE_BATCH} x "
+          f"{TRAIN_SEQ}, world 1, --tune static, traced in "
+          f"{cell['trace_s']} s): peak predicted "
+          f"{_gib(mem['peak_bytes_per_device'])} (the ledger "
+          f"{_gib(mem['ledger_total_bytes'])}) vs max_memory_allocated "
+          f"{_gib(measured['peak_bytes'])} over step 2, less the "
+          f"{_gib(measured['base_bytes'])} earlier phases keep alive: "
+          f"{_gib(own)} the run's own (ratio "
+          f"{mem['peak_bytes_per_device'] / own:.3f}; the boot and step 1: "
+          f"{_gib(measured['boot_peak_bytes'] - measured['base_bytes'])})",
+          flush=True)
+    print(f"{tag}: roofline compute {r['compute_s'] * 1e3:.2f} ms, memory "
+          f"{r['memory_s'] * 1e3:.2f} ms, step {r['step_time_s'] * 1e3:.2f}"
+          f" ms ({r['dominant']}) vs the measured step "
+          f"{step_s * 1e3:.1f} ms (steps {steps_ms}); "
+          f"{flops:.4e} FLOPs traced: achieved {flops / step_s / 1e12:.1f} "
+          f"TFLOP/s ({flops / step_s / r['peak_flops'] * 100:.1f} % of "
+          f"the bf16 peak), HBM model {cell['cost']['bytes_accessed']:.4e} "
+          f"B; the kernel calls are a step's launches: "
+          f"{cell['kernel_calls']}", flush=True)
+
+
+def dryrun_production_cell(cell: dict) -> None:
+    """Phase 18 (b): the production cell's fit, dominant term and wire
+    MiB a rank by tier; its ``zero.*`` bytes by label and by tier must be
+    the port's projection (``zeropp.step_wire_by_label``/``_by_tier``)."""
+    from repro_torch.core import zeropp as tz
+    arch_name, shape, multi_pod = DRYRUN_PROD
+    tag = f"dry run (b), {arch_name} {shape} on {cell['mesh']}"
+    arch = get_config(arch_name)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    z = make_policy(arch, axes).zcfg
+    events = Model(arch, z, world=cell["world"], device="cpu").comm_events()
+    sizes = dict(zip(axes, map(int, cell["mesh"].split("x"))))
+    c = cell["collectives"]
+    zero = {k: v for k, v in c["wire_by_label"].items()
+            if k.startswith("zero.")}
+    tiers = {t: b - c["per_tier_other"][t]
+             for t, b in c["per_tier_wire"].items() if b}
+    if zero != tz.step_wire_by_label(events, z, sizes) or \
+            tiers != tz.step_wire_by_tier(events, z, sizes):
+        fail(f"{tag}: traced {zero} / {tiers} off the projection")
+    mem, r = cell["memory"], cell["roofline"]
+    print(f"{tag} (world {cell['world']}, traced in {cell['trace_s']} s): "
+          f"fits_hbm {mem['fits_hbm']} (peak "
+          f"{_gib(mem['peak_bytes_per_device'])} a rank), dominant "
+          f"{r['dominant']} (compute {r['compute_s'] * 1e3:.2f}, memory "
+          f"{r['memory_s'] * 1e3:.2f}, collective "
+          f"{r['collective_s'] * 1e3:.2f} ms), wire MiB a rank by tier "
+          + ", ".join(f"{t} {b / 2 ** 20:.3f}"
+                      for t, b in c["per_tier_wire"].items())
+          + f" (other {sum(c['per_tier_other'].values()) / 2 ** 20:.3f}); "
+          f"the zero.* bytes by label and tier are the projection's",
+          flush=True)
+
+
+def examples_on_card() -> dict:
+    """Phase 18 (c): the runs of EXAMPLES (``examples/torch/<example>.py``)
+    as subprocesses on the card beside each other; a non-zero exit, a
+    non-finite loss or an engine booted from the fp32 checkpoint whose
+    tokens are not those served without one fails the phase (the INT8
+    checkpoint is lossy: how many of its requests agree is printed).
+    Returns {"example_<name>": rank 0's kernel launches} of quickstart
+    and the INT8-booted serve_decode."""
+    procs = {}
+    for name, (example, argv) in EXAMPLES.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable,
+             str(ROOT / "examples" / "torch" / f"{example}.py"), *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out, tokens = {}, {}
+    for name, p in procs.items():
+        cmd = f"{EXAMPLES[name][0]} {' '.join(EXAMPLES[name][1])}"
+        try:
+            text, _ = p.communicate(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"example {cmd} did not finish in {EXAMPLE_TIMEOUT_S} s")
+        lines = text.strip().splitlines()
+        if p.returncode != 0:
+            fail(f"example {cmd} exited {p.returncode}:\n"
+                 + "\n".join(lines[-30:]))
+        head = "kernel launches on rank 0: "
+        got = [json.loads(x[len(head):]) for x in lines
+               if x.startswith(head)]
+        if not got:
+            fail(f"example {cmd}: no launch line")
+        shown = [x for x in lines if x.startswith(("step ", "(best", "req ",
+                                                   "[serve]", "model:"))]
+        print(f"example {cmd} (exit 0):\n  " + "\n  ".join(shown[-14:]),
+              flush=True)
+        losses = [float(m) for m in re.findall(r"^step \d+: loss (\S+)",
+                                                text, re.M)]
+        if not np.isfinite(losses).all():
+            fail(f"example {cmd}: non-finite losses {losses}")
+        tokens[name] = re.findall(r"^req \d+: prompt=.* generated=(.*)$",
+                                  text, re.M)
+        if name in ("quickstart", "serve_decode"):
+            out[f"example_{name}"] = got[-1]
+    fp32, plain = tokens["serve_decode_fp32"], tokens["serve_decode_plain"]
+    if not plain or fp32 != plain:
+        fail(f"example serve_decode: booted from its fp32 checkpoint it "
+             f"served {fp32}, without one {plain}")
+    same = sum(a == b for a, b in zip(tokens["serve_decode"], plain))
+    print(f"example serve_decode: booted from the fp32 checkpoint, the "
+          f"{len(plain)} requests' tokens are those served without one; "
+          f"from the INT8 checkpoint {same} of {len(plain)} requests' "
+          f"(not gated: the INT8 weights differ)", flush=True)
+    return out
+
+
+def dryrun_phase(measured: dict, launches: dict) -> dict:
+    """Phase 18: the dry run's two cells (traced beside the earlier
+    phases) against phase 17's readings (``measured``, ``launches``),
+    then the examples on the card.  Returns their launches by path."""
+    t0 = time.perf_counter()
+    res = DRYRUN.get()
+    dryrun_runnable_cell(res["cell17"], measured, launches)
+    dryrun_production_cell(res["production"])
+    paths = examples_on_card()
+    print(f"dry-run phase (18): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return paths
 
 
 def timed(name: str, fn, *args):
@@ -4948,6 +5309,9 @@ def main() -> None:
     t0 = time.perf_counter()
     table = stub_table_thread()
     PARITY = ParityCPU()
+    global DRYRUN
+    from repro_torch.tune.memory import device_budget
+    DRYRUN = DryRunCPU(device_budget("cuda", 1))
     logs = platform.build()
     print(f"built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -5057,7 +5421,7 @@ def main() -> None:
     by_path["serve_paged"], by_path["serve_spec"] = paged_phase(serve3)
     # boot-time tuning: the tuned world-1 run, the depth sweep, the probe's
     # 1 x 2 world, the tuned engine on phase 3's requests, bf16 moments
-    tuned, tune_err = tune_phase(serve3)
+    tuned, tune_err, tune_readings = tune_phase(serve3)
     by_path.update(tuned)
     del serve3
     by_path["serve_gemma3"] = timed("gemma3 engine", engine_phase,
@@ -5114,6 +5478,9 @@ def main() -> None:
     # the 2 x 2 x 2 world
     by_path["train_2x2x2"], by_path["train_2x2x2_hpz"] = timed(
         "multi-pod", multipod_phase, timed("world 1 cut", cut_world1_losses))
+    # the dry run of phase 17's cell and of a production cell, then the
+    # examples on the card
+    by_path.update(dryrun_phase(tune_readings, by_path["train_tuned"]))
 
     # each kernel's path(s): it must have launched in every one of them
     quant_train = ("train", "train_xla", "train_gemma3", "train_qwen2_vl",
@@ -5123,7 +5490,7 @@ def main() -> None:
                    "train_2x2_seq", "train_2x2_qgz_int8",
                    "train_2x2_hpz_world", "train_2x2x2", "train_2x2x2_hpz",
                    "train_elastic", "train_elastic_reshard",
-                   "train_tuned", "train_tuned_probe")
+                   "train_tuned", "train_tuned_probe", "example_quickstart")
     flash = ("train", "train_2x2", "train_2x2_sync", "train_ckpt",
              "train_ckpt_2x2_to_1", "train_elastic",
              "train_elastic_reshard", "train_tuned",
@@ -5133,7 +5500,7 @@ def main() -> None:
     serve = ("serve", "serve_paged", "serve_spec", "serve_gemma3",
              "serve_qwen2_vl", "serve_moe", "serve_mamba2",
              "serve_recurrentgemma", "serve_ckpt", "serve_sharded",
-             "serve_sharded_paged", "serve_tuned")
+             "serve_sharded_paged", "serve_tuned", "example_serve_decode")
     paths = {"quantize_blockwise": serve + ("train_2x2_qgz_1hop",)
              + quant_train,
              "dequantize_blockwise": serve + ("train_2x2_qgz_1hop",)

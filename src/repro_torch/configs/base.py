@@ -2,7 +2,8 @@
 reference's ``configs/base.py``, cut to the fields the port's ``attn``,
 ``local``, ``moe``, ``ssd`` and ``rec`` blocks, its inputs and its flat
 parameter layout read), and the named workload shapes the serving shape
-policy reads (``ShapeConfig``, ``SHAPES``)."""
+policy and the dry run read (``ShapeConfig``, ``SHAPES``,
+``shape_supported``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -61,6 +62,9 @@ class ArchConfig:
     # io: a frontend stub supplies (B, S, d_model) embeddings (audio, vlm);
     # the model then has no embedding group
     embed_inputs: bool = False
+    # sub-quadratic in the context (window or recurrence): may run the
+    # long_500k shape (``shape_supported``)
+    long_context: bool = False
 
     @property
     def d_head(self) -> int:
@@ -128,3 +132,12 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+def shape_supported(arch: ArchConfig, shape: str) -> Tuple[bool, str]:
+    """Whether ``arch`` runs the named shape, and why not (the
+    reference's rule: only a long-context config decodes 500k tokens)."""
+    if shape == "long_500k" and not arch.long_context:
+        return False, ("pure full-attention architecture: 500k-token decode "
+                       "requires sub-quadratic attention")
+    return True, ""

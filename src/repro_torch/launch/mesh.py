@@ -162,6 +162,13 @@ def make_mesh(shape: Tuple[int, ...],
     return Mesh(shape, groups)
 
 
+# The production worlds the dry run traces (``launch/dryrun.py``), by
+# multi-pod: one pod of a DGX H100 cluster, 32 nodes of 8 GPUs on
+# NVLink, and two pods; the layout of ``tune/profiles/static_h100.json``.
+# The reference's are the TPU's 16 x 16 and 2 x 16 x 16.
+PRODUCTION = {False: (32, 8), True: (2, 32, 8)}
+
+
 # ---------------------------------------------------------------- spawner
 
 def _die_with_parent(parent: int) -> None:

@@ -251,7 +251,9 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
                 toks, dtype=torch.float32, device=loss.device)]
                 + ([aux] if aux is not None else []))
             cl.all_reduce(tot, z.group)
-            loss, nll, toks = tot[0], tot[1], float(tot[2])
+            # every rank's tile holds the same count, so the tokens' sum
+            # is known on the host and nothing is read back from the device
+            loss, nll, toks = tot[0], tot[1], toks * world
             aux = tot[3] if aux is not None else None
         out = {"loss": loss, "nll": nll / toks, "tokens": toks,
                "grad_norm": stats["grad_norm"], "lr": stats["lr"]}

@@ -221,3 +221,28 @@ def test_tune_imports_no_jax_and_its_flags_default():
     with pytest.raises(SystemExit):
         tlaunch.parser().parse_args(["--tune", "fast"])
     assert device_budget("cpu", 4) == HBM_BYTES // 4
+
+
+def test_dryrun_and_examples_import_no_jax():
+    """``launch.dryrun`` and ``launch.trace_analysis`` load neither JAX nor
+    the reference (nor the reference's benchmarks), and the port's four
+    examples (``examples/torch/``) import neither; the dry run's output
+    defaults under the gitignored ``results/``."""
+    code = ("import sys\n"
+            "import repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.trace_analysis\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]", r.stdout
+    examples = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert [f.stem for f in examples] == [
+        "elastic_restart", "quickstart", "serve_decode", "train_gpt_zeropp"]
+    assert [b for f in examples for b in _forbidden(f)] == []
+    from repro_torch.launch import dryrun
+    out = dryrun.parser().parse_args(["--arch", "qwen3-0.6b"]).out
+    assert out.startswith("results/")
