@@ -146,7 +146,10 @@ last line is printed.
    launches, and rank 0's profiled step: host wall, its device busy time
    and the host time inside the gloo collectives, and that time split by
    collective label (the ``zero.*``/``other`` ranges around each issue
-   and each ``.wait``).  Both runs have the launcher's telemetry on
+   and each ``.wait``), then each label's ranges summed
+   (``overlap_analysis.measured_overlap``): its ms in flight, ms
+   exposed and ``hidden_share`` at depth 1 and at depth 0 (printed, not
+   gated: loopback gloo timing is no interconnect's).  Both runs have the launcher's telemetry on
    (``--metrics-dir``, ``--obs-gate``): every rank gates its wire bytes
    per label at every step (the ``comm.<label>.bytes`` counters) against
    the port's projection at 1 % and checks that the ranks agree, and a
@@ -384,11 +387,18 @@ last line is printed.
    first step's beside it), the roofline's compute, memory and step
    against the measured step, and the traced FLOPs over the measured
    step (achieved TFLOP/s); its resolved ring depth and hpZ must be
-   phase 17's, its kernel calls a step's launches of phase 17's run; (b)
+   phase 17's, its kernel calls a step's launches of phase 17's run, its
+   overlap reading empty (world 1 issues no collective); (b)
    ``DRYRUN_PROD``,
    qwen3-0.6b ``train_4k`` on 2 x 32 x 8 (512 fake ranks): ``fits_hbm``,
    the dominant term and the wire MiB a rank by tier, its ``zero.*``
-   bytes by label and by tier equal to the projection.  Then (c) the
+   bytes by label and by tier equal to the projection, and its overlap
+   reading (``launch/overlap_analysis.py``, from the trace's issue, wait
+   and compute order): its line printed, its wire invariant held (the
+   colls folded by their trips are the in-loop bytes, and with the
+   out-of-loop bytes the counters': an accounting identity), and at ring
+   depth >= 1 a fraction above 0 and every in-loop ``zero.*`` collective
+   overlappable (under compute between its issue and its wait).  Then (c) the
    examples on the card, ``examples/torch/quickstart.py`` (gpt-350m
    reduced on 4 x 2 gloo ranks, 10 steps) and ``serve_decode.py --mesh
    1x1 --from-ckpt`` (qwen3-0.6b at full width booted from its INT8
@@ -461,6 +471,8 @@ from repro_torch.kernels import fused_dequant_reduce_quant as fq  # noqa: E402
 from repro_torch.kernels import platform, ref  # noqa: E402
 from repro_torch.kernels import quant_block as qb  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch.overlap_analysis import (  # noqa: E402
+    check_wire, measured_overlap, summary_line)
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.obs.metrics import Registry, set_registry  # noqa: E402
 from repro_torch.obs.report import overhead_gate  # noqa: E402
@@ -4581,8 +4593,12 @@ def profile_step(step, what: str, n: int = 1, show: bool = True,
     the gloo collectives (their ``gloo:*`` spans, copies to and from the
     card included), the device time under each of the PyTorch ``ops``
     (e.g. ``aten::bmm``: the MoE expert GEMMs, forward and backward) and
-    the top device ops per step from torch.profiler over n more calls.
-    Returns {"wall", "busy", "gloo"} in ms per step.
+    the top device ops per step from torch.profiler over n more calls,
+    and each collective label's issue and ``.wait`` host ranges summed
+    (``overlap_analysis.measured_overlap``: ms in
+    flight, ms exposed, the hidden share over the n calls; printed, not
+    gated: loopback gloo is no interconnect).  Returns {"wall", "busy",
+    "gloo", "labels", "overlap"} (ms per step; overlap by label).
     With ``show`` False it only makes the same calls (a rank whose peers
     are profiled must match their collectives) and returns None."""
     from torch.profiler import ProfilerActivity, profile
@@ -4614,12 +4630,17 @@ def profile_step(step, what: str, n: int = 1, show: bool = True,
             e.time_range.elapsed_us() / 1e3 / n
     gloo: dict = {}
     labels: dict = {}       # the collectives' issue and .wait ranges
+    spans = []              # their host ranges, for the overlap reading
     for e in events:
         ms = e.time_range.elapsed_us() / 1e3 / n
         if e.name.startswith("gloo:"):
             gloo[e.name] = gloo.get(e.name, 0.0) + ms
         elif e.name.startswith(("zero.", "other")):
             labels[e.name] = labels.get(e.name, 0.0) + ms
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                spans.append((e.name, e.time_range.start,
+                              e.time_range.end))
+    overlap = measured_overlap(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     flash = {re.search(r"::(flash_\w+)", k).group(1): ms
              for k, ms in by_name.items() if "::flash_" in k}
@@ -4636,6 +4657,11 @@ def profile_step(step, what: str, n: int = 1, show: bool = True,
         print("  by label, host ms/step in issue / in .wait: " + ", ".join(
             f"{k} {labels.get(k, 0.0):.3f} / {labels.get(k + '.wait', 0.0):.3f}"
             for k in names), flush=True)
+        print(f"  overlap by label over {n} step(s) (issue to wait): "
+              + ", ".join(f"{k} {o['n']} in flight {o['in_flight_ms']:.3f} "
+                          f"ms, exposed {o['exposed_ms']:.3f} ms, "
+                          f"hidden_share {o['hidden_share']:.4f}"
+                          for k, o in overlap.items()), flush=True)
     if flash:
         print(f"  flash kernels {sum(flash.values()):.3f} ms/step: "
               + ", ".join(f"{k} {ms:.3f}" for k, ms in flash.items()),
@@ -4660,7 +4686,7 @@ def profile_step(step, what: str, n: int = 1, show: bool = True,
     for name, ms in top:
         print(f"  {ms:9.3f} ms/step  {name[:90]}", flush=True)
     return {"wall": wall, "busy": busy, "gloo": sum(gloo.values()),
-            "labels": labels}
+            "labels": labels, "overlap": overlap}
 
 
 def _template_args(mangled: str) -> str:
@@ -5160,6 +5186,11 @@ def dryrun_runnable_cell(cell: dict, measured: dict, launches: dict
     if cell["kernel_calls"] != per_step:
         fail(f"{tag}: the trace calls {cell['kernel_calls']}, a step of "
              f"phase 17 launches {per_step}")
+    ov = cell["overlap"]
+    if ov["wire_bytes"] or ov["async_pairs"]:
+        fail(f"{tag}: world 1 issued collectives: {summary_line(ov)}")
+    print(f"{tag}: {summary_line(ov)} (world 1: no collective)",
+          flush=True)
     mem, r = cell["memory"], cell["roofline"]
     own = measured["peak_bytes"] - measured["base_bytes"]
     step_s = measured["step_s"][-1]
@@ -5209,6 +5240,29 @@ def dryrun_production_cell(cell: dict) -> None:
     if zero != tz.step_wire_by_label(events, z, sizes) or \
             tiers != tz.step_wire_by_tier(events, z, sizes):
         fail(f"{tag}: traced {zero} / {tiers} off the projection")
+    ov = cell["overlap"]
+    try:
+        check_wire(ov, sum(c["wire_by_label"].values()))
+    except ValueError as e:
+        fail(f"{tag}: {e}")
+    depth = cell["prefetch_effective"]["layers"]
+    exposed = [(k, c["label"], c["op"]) for k, loop in ov["per_loop"].items()
+               for c in loop["colls"]
+               if c["label"].startswith("zero.") and not c["overlappable"]]
+    if depth >= 1 and not ov["overlap_fraction"] > 0:
+        fail(f"{tag}: ring depth {depth} and nothing in a loop overlaps: "
+             f"{summary_line(ov)}")
+    if depth >= 1 and exposed:
+        fail(f"{tag}: ring depth {depth} and in-loop zero.* collectives "
+             f"under no compute: {exposed}; {summary_line(ov)}")
+    print(f"{tag}: {summary_line(ov)} at ring depth {depth}; in loop "
+          f"{ov['in_loop_wire_bytes'] / 2 ** 20:.3f} MiB + out of loop "
+          f"{ov['out_of_loop_wire_bytes'] / 2 ** 20:.3f} MiB = the "
+          f"counters' {ov['wire_bytes'] / 2 ** 20:.3f} MiB; per loop "
+          + ", ".join(f"{k} {l['overlappable']}/{l['collectives']} x "
+                      f"{l['trip_count']} x {l['outer_mult']}, "
+                      f"{l['flops_per_iter']:.4e} FLOPs an iteration"
+                      for k, l in ov["per_loop"].items()), flush=True)
     mem, r = cell["memory"], cell["roofline"]
     print(f"{tag} (world {cell['world']}, traced in {cell['trace_s']} s): "
           f"fits_hbm {mem['fits_hbm']} (peak "

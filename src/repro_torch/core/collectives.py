@@ -70,7 +70,14 @@ of ``model`` < ``data`` < ``pod``), and ``other``'s share to
 ``comm.tier.<tier>.other.bytes``; :func:`axis_group` records each group's axes,
 :func:`set_world_axes` the default group's (``launch.mesh.make_mesh`` sets
 them; ``("data", "model")`` until then).  A world of 1 issues nothing and
-counts nothing."""
+counts nothing.
+
+Every collective is issued asynchronously and waited for by :func:`_wait`,
+one ``<label>.wait`` range an issue.  When a step recorder is installed
+(:data:`RECORDER`, ``launch/overlap_analysis.StepRecorder``), each count
+also records the issue (label, kind, wire bytes, tier, its ``Work``) and
+each wait the end of it; with none installed the check is one global
+read."""
 from __future__ import annotations
 
 from typing import Any, Dict, Generator, Optional, Sequence, Tuple
@@ -96,6 +103,12 @@ QGZ_1HOP = "zero.qgz_reduce1hop"
 BASELINE_REDUCE = "zero.baseline_reduce"
 QGZ_RING = "zero.qgz_ring"
 OTHER = "other"
+
+# The step recorder of ``launch/overlap_analysis.py``, or None.  It takes
+# ``issue(label, kind, nbytes, tier, work)`` from :func:`_count`,
+# ``wait(work)`` from :func:`_wait` and, from ``zeropp.ring``,
+# ``loop_enter(name)``, ``loop_iter()`` and ``loop_exit()``.
+RECORDER: Any = None
 
 
 def world_size(group=None) -> int:
@@ -162,26 +175,34 @@ def group_axes(group) -> Tuple[str, ...]:
                          "its tier is unknown") from None
 
 
-def _count(label: str, nbytes, group) -> None:
+def _count(label: str, nbytes, group, kind: str, work) -> None:
     """Add a collective's wire bytes per rank to ``comm.<label>.bytes``
     and to its group's tier, ``comm.tier.<tier>.bytes`` (``other``'s also
-    to ``comm.tier.<tier>.other.bytes``)."""
+    to ``comm.tier.<tier>.other.bytes``); ``kind`` (all_gather,
+    reduce_scatter, all_to_all, all_reduce, send) and ``work`` (its
+    ``Work``, or the list of a send/receive pair's) go to the recorder."""
     reg = get_registry()
     reg.counter(f"comm.{label}.bytes").inc(nbytes)
     t = tier(group_axes(group))
     reg.counter(f"comm.tier.{t}.bytes").inc(nbytes)
     if label == OTHER:
         reg.counter(f"comm.tier.{t}.other.bytes").inc(nbytes)
+    if RECORDER is not None:
+        RECORDER.issue(label, kind, nbytes, t, work)
 
 
 def _wait(label: str, *works) -> None:
-    """Wait for ``works`` (None: nothing was issued) under the profiler
-    range ``<label>.wait``."""
-    works = [w for w in works if w is not None]
-    if works:
+    """Wait for ``works``, each one issue's ``Work`` (or list of them;
+    None: nothing was issued), each under a profiler range
+    ``<label>.wait`` of its own."""
+    for w in works:
+        if w is None:
+            continue
         with annotate(label + ".wait"):
-            for w in works:
-                w.wait()
+            for one in (w if isinstance(w, list) else (w,)):
+                one.wait()
+        if RECORDER is not None:
+            RECORDER.wait(w)
 
 
 def _gather_start(shard: torch.Tensor, group, label: str):
@@ -197,7 +218,7 @@ def _gather_start(shard: torch.Tensor, group, label: str):
     with annotate(label):
         work = dist.all_gather_into_tensor(out, shard, group=group,
                                            async_op=True)
-    _count(label, out.nbytes - shard.nbytes, group)
+    _count(label, out.nbytes - shard.nbytes, group, "all_gather", work)
     return out, work
 
 
@@ -223,8 +244,11 @@ def all_reduce(x: torch.Tensor, group=None, label: str = OTHER,
     if not x.is_contiguous():
         raise ValueError("all_reduce works in place on a contiguous tensor")
     with annotate(label):
-        dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
-    _count(label, 2 * x.nbytes * (world - 1) / world, group)
+        work = dist.all_reduce(x, op=_REDUCE_OPS[op], group=group,
+                               async_op=True)
+    _count(label, 2 * x.nbytes * (world - 1) / world, group, "all_reduce",
+           work)
+    _wait(label, work)
 
 
 def gather_rows(x: torch.Tensor, group=None, label: str = OTHER
@@ -329,7 +353,8 @@ def baseline_reduce_scatter_hops(grad: torch.Tensor, group=None,
         with annotate(label):
             work = dist.reduce_scatter_tensor(out, grad, group=group,
                                               async_op=True)
-        _count(label, grad.nbytes - out.nbytes, group)
+        _count(label, grad.nbytes - out.nbytes, group, "reduce_scatter",
+               work)
     yield
     _wait(label, work)
     return out
@@ -457,7 +482,8 @@ def _all_to_all_start(x: torch.Tensor, group, label: str):
     out = torch.empty_like(x)
     with annotate(label):
         work = dist.all_to_all_single(out, x, group=group, async_op=True)
-    _count(label, x.nbytes * (world - 1) // world, group)
+    _count(label, x.nbytes * (world - 1) // world, group, "all_to_all",
+           work)
     return out, work
 
 
@@ -603,8 +629,8 @@ def qgz_quantized_ring_reduce_scatter(grad: torch.Tensor, group,
             works = dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, msg, nxt, group),
                 dist.P2POp(dist.irecv, got, prv, group)])
-        _count(QGZ_RING, msg.nbytes, group)
-        _wait(QGZ_RING, *works)
+        _count(QGZ_RING, msg.nbytes, group, "send", works)
+        _wait(QGZ_RING, works)
         payload, scales = _unpack_scales(got, payload.shape[-1])
         acc = _kops.dequant_reduce(payload[None], scales[None], cfg,
                                    init=chunk(rank - 2 - i))

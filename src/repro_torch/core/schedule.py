@@ -20,7 +20,13 @@ whole stack:
              step i's gradient reduce starts as soon as its VJP is
              enqueued, and each later hop of it (qgZ's second all-to-all,
              then its last reduce) runs k steps further down, after the
-             VJP it was in flight under.
+             VJP it was in flight under.  Two places differ at the end of
+             the loop: step 0's reduce begins after the loop (the
+             reference's epilogue; nothing runs in between), and in the
+             last iteration a reduce with more than one hop left advances
+             after the recompute, so its last hop flies under the last VJP
+             instead of after the loop.  At k = 0 (the chunk ring under
+             hpZ) each reduce runs to its end right after its VJP.
 
 A collective on the card's tensors waits for the stream up to where it
 was issued, so each one is issued before the compute it should hide
@@ -55,13 +61,15 @@ gives the same bits as the synchronous loop.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core import collectives as cl
 from repro_torch.core.zeropp import (ZeroConfig, bwd_gather_hops,
-                                     fwd_gather_hops, grad_reduce_hops, ring,
+                                     fwd_gather_hops, grad_reduce_hop_count,
+                                     grad_reduce_hops, ring,
                                      saved_for_bwd, together, zero_apply,
                                      zero_scan_inference)
 
@@ -81,12 +89,18 @@ class _Plan:
     real carry (False: a dummy, the chunk pipeline's); ``fwd_src``: the
     forward gathers' sources when they are not the primary shards (the
     hpZ replay's secondary stack, hpZ-gathered and kept as the backward's
-    sources); ``collect``: also return each step's secondary slice."""
+    sources); ``collect``: also return each step's secondary slice;
+    ``name``: the loop's name for a step recorder ("layers" or "chunks":
+    the forward ring ``<name>.fwd``, the reverse ring ``<name>.bwd``);
+    ``bwd_ahead``: the backward follows the forward at once (a chunk ring
+    in a recompute), so the forward begins its first re-gather."""
 
     def __init__(self, f, z, k, n, *, m=0, xs=None, nb=0, carry=True,
                  ys=False, has_w0=False, f_fwd=None, f_bwd=None, spec=None,
-                 bwd_spec=None, fwd_src=None, collect=False):
+                 bwd_spec=None, fwd_src=None, collect=False,
+                 name="layers", bwd_ahead=False):
         self.f, self.z, self.k, self.n = f, z, k, n
+        self.name, self.bwd_ahead = name, bwd_ahead
         self.m, self.xs, self.nb = m, xs, nb
         self.carry, self.ys, self.has_w0 = carry, ys, has_w0
         self.f_fwd, self.f_bwd = f_fwd, f_bwd
@@ -114,12 +128,27 @@ class _Plan:
                                   fwd_gather_hops(self.spec(xs, i), z))
 
 
+# The hand-over lists of the rings whose backward is running, innermost
+# last: a nested ring (the chunk ring inside a layer's VJP) hands the
+# reduces it still has in flight at its end to the ring around it, which
+# waits for them under its own later compute.
+_ADOPT: List[list] = []
+
+
 class _Ring(torch.autograd.Function):
     """The depth-k ring over n steps (distributed).  Inputs: the plan, h0,
     the n primary shards, the n·m per-step input tensors, the broadcast
     args, then W0 where the plan has one; outputs: the last h (a real
     carry only), the n per-step outputs (``plan.ys``), the n secondary
-    slices (``plan.collect``, not differentiable)."""
+    slices (``plan.collect``, not differentiable).
+
+    With ``plan.bwd_ahead`` (a chunk ring built where its backward follows
+    at once: a recompute) the forward begins the backward's first
+    re-gather beside its last step's compute.  A ring whose backward runs
+    inside another's (``_ADOPT``) ends by handing its reduces still in
+    flight to that one instead of draining them: their gradients come
+    back as zeros here, and the outer ring adds their results to what
+    autograd gives its step inputs."""
 
     @staticmethod
     def forward(ctx, plan, h0, *rest):
@@ -130,22 +159,28 @@ class _Ring(torch.autograd.Function):
         W0 = rest[-1] if plan.has_w0 else None
         xs = plan.step_xs(xt)
         h, h_ins, saved, ys, auxs = h0, [], [], [], []
+        ctx.ahead = None
         for i, W in enumerate(ring(range(n), plan.start(shards, xs), plan.k,
-                                   W0)):
+                                   W0, name=plan.name + ".fwd")):
             Ws = None
             if plan.spec is not None:
                 W, Ws = W
             h_ins.append(h)
+            saved.append(plan.fwd_src[i] if plan.fwd_src is not None
+                         else saved_for_bwd(W, shards[i], z))
+            if plan.bwd_ahead and plan.k >= 1 and i == n - 1:
+                ctx.ahead = cl.begin(bwd_gather_hops(saved[-1], z))
             if plan.f_fwd is not None:
                 h, y, aux = plan.f_fwd(W, Ws, h, xs[i], *bargs)
                 auxs.append(tuple(aux or ()))
             else:
                 h, y = plan.f(W, h, xs[i], *bargs)
             ys.append(y)
-            saved.append(plan.fwd_src[i] if plan.fwd_src is not None
-                         else saved_for_bwd(W, shards[i], z))
             del W, Ws
         ctx.plan, ctx.na = plan, len(auxs[0]) if auxs else 0
+        # the shards themselves, for a hand-over (weakly: the caller holds
+        # them while the backward runs)
+        ctx.shards = [weakref.ref(t) for t in shards]
         ctx.save_for_backward(*saved, *h_ins, *xt,
                               *[a for aux in auxs for a in aux], *bargs)
         out = ((h,) if plan.carry else ()) + (tuple(ys) if plan.ys else ())
@@ -156,6 +191,15 @@ class _Ring(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gouts):
+        adopted: list = []      # (shard ref, hops, hops left): a nested ring's
+        _ADOPT.append(adopted)
+        try:
+            return _Ring._backward(ctx, adopted, *gouts)
+        finally:
+            _ADOPT.pop()
+
+    @staticmethod
+    def _backward(ctx, adopted, *gouts):
         plan, na = ctx.plan, ctx.na
         z, k, n, m, nb = plan.z, plan.k, plan.n, plan.m, plan.nb
         g_h = gouts[0] if plan.carry else None
@@ -176,7 +220,32 @@ class _Ring(torch.autograd.Function):
         dbargs: List = [None] * nb
         dxt: List = [None] * (n * m)
         dshards: List = [None] * n
-        reduces: list = []          # [step, hops, due iteration]
+        # [where the result goes: a step (its shard) or ("x", j) (input
+        # tensor j: a nested ring's reduce, added to its gradient), hops,
+        # due iteration, hops left]
+        reduces: list = []
+        hops_per_reduce = grad_reduce_hop_count(z)
+
+        def advance(r):
+            red = cl.advance(r[1])
+            r[3] -= 1
+            if red is None:
+                return
+            r[1] = None
+            if isinstance(r[0], int):
+                dshards[r[0]] = red
+            else:
+                j = r[0][1]
+                red = red.to(xt[j].dtype)
+                dxt[j] = red if dxt[j] is None else dxt[j] + red
+
+        def advance_due(i):
+            for r in reduces:
+                if r[1] is not None and r[2] >= i:
+                    advance(r)
+                    r[2] -= k
+            return [r for r in reduces if r[1] is not None]
+
         if plan.bwd_spec is None:
             def start(i):
                 return bwd_gather_hops(res[i], z)
@@ -185,8 +254,11 @@ class _Ring(torch.autograd.Function):
                 return together(bwd_gather_hops(res[i], z),
                                 bwd_gather_hops(plan.bwd_spec(auxs, i), z))
         xs_static = plan.step_xs(())
-        for i, W in zip(range(n - 1, -1, -1),
-                        ring(range(n - 1, -1, -1), start, k)):
+        last = None                 # step 0's reduce: the epilogue's
+        # the ring first: it runs out (its loop closes) as this loop ends
+        for W, i in zip(ring(range(n - 1, -1, -1), start, k,
+                             name=plan.name + ".bwd", ahead=ctx.ahead),
+                        range(n - 1, -1, -1)):
             W0 = None
             if plan.bwd_spec is not None:
                 W, W0 = W
@@ -203,6 +275,14 @@ class _Ring(torch.autograd.Function):
                     h2, y = plan.f_bwd(W, h, x, auxs[i], *bs, **kw)
                 else:
                     h2, y = plan.f(W, h, x, *bs)
+            if i == 0:
+                # the tail: a reduce with hops after this one would wait
+                # for its last after the loop, under nothing; it advances
+                # now, and its last hop flies under the last VJP
+                for r in reduces:
+                    if r[1] is not None and r[3] > 1:
+                        advance(r)
+                        r[2] = -1               # waited after the loop
             outs, gs = [], []
             for o, g in ((h2, g_h), (y, g_ys[i])):
                 if torch.is_tensor(o) and o.requires_grad and g is not None:
@@ -216,16 +296,15 @@ class _Ring(torch.autograd.Function):
             dW = got[id(W)] if got[id(W)] is not None else torch.zeros_like(W)
             del outs, h2, y, W, W0
             # the hops in flight under this VJP are waited for after it
-            for r in reduces:
-                if r[2] >= i:
-                    red = cl.advance(r[1])
-                    if red is None:
-                        r[2] -= k
-                    else:
-                        dshards[r[0]], r[1] = red, None
-            reduces = [r for r in reduces if r[1] is not None]
-            reduces.append([i, cl.begin(grad_reduce_hops(dW.reshape(-1), z)),
-                            i - k])
+            reduces = advance_due(i)
+            if k < 1:                           # synchronous: reduce now
+                dshards[i] = cl.finish(grad_reduce_hops(dW.reshape(-1), z))
+            elif i > 0:
+                reduces.append([i, cl.begin(grad_reduce_hops(dW.reshape(-1),
+                                                             z)),
+                                i - k, hops_per_reduce])
+            else:
+                last = grad_reduce_hops(dW.reshape(-1), z)
             g_h = got.get(id(h)) if plan.carry and h.requires_grad else None
             for j, t in enumerate(xi):
                 if t.requires_grad:
@@ -234,9 +313,31 @@ class _Ring(torch.autograd.Function):
                 g = got.get(id(b)) if b.requires_grad else None
                 if g is not None:
                     dbargs[j] = g if dbargs[j] is None else dbargs[j] + g
-            del grads, got, dW
+            for ref, hops, left in adopted:     # a nested ring's reduces
+                j = next((j for j, t in enumerate(xi) if t is ref()), None)
+                if j is None:
+                    raise RuntimeError("a nested ring handed over the "
+                                       "reduce of a tensor that is not "
+                                       "this step's input")
+                reduces.append([("x", i * m + j), hops, i - k, left])
+            adopted.clear()
+            del grads, got, dW, xi
+        if last is not None:                    # the epilogue
+            reduces.append([0, cl.begin(last), None, hops_per_reduce])
+        outer = _ADOPT[-2] if len(_ADOPT) > 1 else None
+        if outer is not None:
+            for r in reduces:
+                if isinstance(r[0], int):       # the outer ring waits
+                    shard = ctx.shards[r[0]]()
+                    if shard is None:
+                        raise RuntimeError("a reduce handed over for a "
+                                           "shard no longer alive")
+                    outer.append((ctx.shards[r[0]], r[1], r[3]))
+                    dshards[r[0]] = torch.zeros_like(shard)
+                    r[1] = None
         for r in reduces:                       # oldest first
-            dshards[r[0]] = cl.finish(r[1])
+            while r[1] is not None:
+                advance(r)
         return (None, g_h if want_h else None, *dshards, *dxt, *dbargs,
                 *((None,) if plan.has_w0 else ()))
 
@@ -330,7 +431,8 @@ def _chunk_ring(f: Callable, z: ZeroConfig, stacked, bargs, W0, *,
     plan = _Plan(lambda W, h, c, *b: (h, f(W, c, *b)), z,
                  z.effective_prefetch(n), n, xs=range(n), nb=len(bargs),
                  carry=False, ys=True, has_w0=W0 is not None,
-                 fwd_src=fwd_src, collect=collect)
+                 fwd_src=fwd_src, collect=collect, name="chunks",
+                 bwd_ahead=torch.is_grad_enabled())
     out = _Ring.apply(plan, None, *stacked, *bargs,
                       *(() if W0 is None else (W0,)))
     out = (out,) if torch.is_tensor(out) else tuple(out)
@@ -392,7 +494,7 @@ def zero_chunk_scan_inference(f: Callable, z: ZeroConfig) -> Callable:
     vjp.  ``run(stacked, *bargs, W0=None) -> [y_0, …]``."""
     def run(stacked, *bargs, W0: Optional[torch.Tensor] = None):
         _, ys = zero_scan_inference(
-            lambda W, h, c: (h, f(W, c, *bargs)), z)(
+            lambda W, h, c: (h, f(W, c, *bargs)), z, name="chunks")(
             stacked, None, range(len(stacked)), W0=W0)
         return ys
     return run

@@ -232,22 +232,44 @@ def together(*hops: cl.Hops) -> cl.Hops:
 
 
 def ring(srcs: Sequence, start: Callable[[Any], cl.Hops], k: int,
-         first: Optional[torch.Tensor] = None) -> Iterator[Any]:
+         first: Optional[torch.Tensor] = None,
+         name: str = "layers.fwd",
+         ahead: Optional[cl.Hops] = None) -> Iterator[Any]:
     """The depth-k prefetch ring: yields ``finish(start(srcs[i]))`` for
     i = 0, 1, …, with item i+k's collective begun before item i's is
     finished (so it is in flight while the consumer computes with item
     i).  k = 0 is the synchronous schedule.  ``first``, where given, is
     item 0 already gathered (the routing-ahead buffer): its collective is
-    not issued."""
+    not issued; ``ahead``, where given, is item 0's collective already
+    begun.
+
+    Iteration i runs from this generator's resumption for item i (item
+    i+k's issue, item i's wait, then the consumer's compute with it) to
+    its resumption for the next; the first k items' issues come before
+    iteration 0, outside the loop (the reference's prologue).  A step
+    recorder (``collectives.RECORDER``) sees the loop ``name`` enter,
+    each iteration begin and the loop exit."""
+    rec = cl.RECORDER
+    if rec is not None:
+        rec.loop_enter(name)
+
     def begun(j):
         if j == 0 and first is not None:
             return cl.begin(_ready(first))
+        if j == 0 and ahead is not None:
+            return ahead
         return cl.begin(start(srcs[j]))
-    pending = deque(begun(j) for j in range(min(k, len(srcs))))
-    for i in range(len(srcs)):
-        if i + k < len(srcs):
-            pending.append(begun(i + k))
-        yield cl.finish(pending.popleft())
+    try:
+        pending = deque(begun(j) for j in range(min(k, len(srcs))))
+        for i in range(len(srcs)):
+            if rec is not None:
+                rec.loop_iter()
+            if i + k < len(srcs):
+                pending.append(begun(i + k))
+            yield cl.finish(pending.popleft())
+    finally:
+        if rec is not None:
+            rec.loop_exit()
 
 
 def fwd_gather_quant(primary: torch.Tensor, z: ZeroConfig
@@ -282,22 +304,31 @@ def grad_reduce_hops(dW: torch.Tensor, z: ZeroConfig) -> cl.Hops:
         yield
         return dW.to(z.grad_dtype)
     if z.qgz and not z.qgz_2hop:
-        red = yield from cl.qgz_reduce_scatter_1hop_hops(dW, z.group,
-                                                         z.qgz_cfg)
-        return red.to(z.grad_dtype)
-    if z.qgz:
+        hops = cl.qgz_reduce_scatter_1hop_hops(dW, z.group, z.qgz_cfg)
+    elif z.qgz:
         two_tier = bool(z.inter_axes)
         tiers = cl.world_size(z.intra_group) * (
             cl.world_size(z.inter_group) if two_tier else 1)
         if tiers != cl.world_size(z.group):
             raise ValueError(f"intra x inter groups hold {tiers} ranks, the "
                              f"ZeRO world {cl.world_size(z.group)}")
-        red = yield from cl.qgz_reduce_scatter_hops(
+        hops = cl.qgz_reduce_scatter_hops(
             dW, z.intra_group, z.inter_group, z.qgz_cfg, two_tier=two_tier)
-        return red.to(z.grad_dtype)
-    red = yield from cl.baseline_reduce_scatter_hops(dW.to(z.reduce_dtype),
-                                                     z.group)
+    else:
+        hops = cl.baseline_reduce_scatter_hops(dW.to(z.reduce_dtype),
+                                               z.group)
+    # the hops hold what they need (qgZ quantizes the gradient and drops
+    # it at its first hop): a reduce in flight does not keep it alive
+    del dW
+    red = yield from hops
     return red.to(z.grad_dtype)
+
+
+def grad_reduce_hop_count(z: ZeroConfig) -> int:
+    """The hops :func:`grad_reduce_hops` waits on: two for the two-tier
+    qgZ, else one."""
+    return 2 if (z.distributed and z.qgz and z.qgz_2hop
+                 and bool(z.inter_axes)) else 1
 
 
 def grad_reduce(dW: torch.Tensor, z: ZeroConfig) -> torch.Tensor:
@@ -371,7 +402,8 @@ def zero_apply_inference(f: Callable, z: ZeroConfig) -> Callable:
 
 
 def zero_scan_inference(f: Callable, z: ZeroConfig, *,
-                        spec: Optional[Callable] = None) -> Callable:
+                        spec: Optional[Callable] = None,
+                        name: str = "layers") -> Callable:
     """The layer loop of the serving path, with the depth-k prefetch ring
     (the reference's ``core/schedule.py`` ``zero_scan_inference``).
 
@@ -385,7 +417,9 @@ def zero_scan_inference(f: Callable, z: ZeroConfig, *,
     shard`` (routing-ahead: an MoE layer's first expert chunk) the ring
     also gathers ``spec(xs, i + k)`` beside layer i+k's group and the body
     is called ``f(W, W_spec, h, x)`` (W_spec None on the synchronous
-    schedule, where nothing is gathered ahead).
+    schedule, where nothing is gathered ahead).  ``name`` names the loop
+    for a step recorder (``<name>.fwd``: "layers", or the chunk
+    pipeline's "chunks").
     """
     def run(stacked, h0, xs: Optional[Sequence] = None,
             W0: Optional[torch.Tensor] = None):
@@ -401,7 +435,8 @@ def zero_scan_inference(f: Callable, z: ZeroConfig, *,
             def start(i):
                 return fwd_gather_hops(stacked[i], z)
         for i, W in enumerate(ring(range(n), start, k,
-                                   None if ahead else W0)):
+                                   None if ahead else W0,
+                                   name=name + ".fwd")):
             x = None if xs is None else xs[i]
             if spec is None:
                 h, y = f(W, h, x)

@@ -23,7 +23,11 @@ turns that into one JSON per cell:
   * ``roofline``: compute at ``tune/ring_model.PEAK``, memory at the card's
     HBM rate, each tier's bytes at its bandwidth in
     ``tune/profiles/static_h100.json``; the dominant term, the projected
-    step and the MFU bound.
+    step and the MFU bound;
+  * ``overlap``: the reference's ``analyze_overlap`` dict of the same run
+    (``launch/overlap_analysis.py``): which in-loop wire bytes the ring
+    schedules under compute, read from the step's issue, wait and compute
+    order.
 
 These are projections from stated constants, not measurements.  The
 traced tensors are fake tensors on the CPU, so the kernel seam takes each
@@ -39,7 +43,8 @@ of ``--attn pallas`` are the plain flash versions' for the same function.
 ``--all`` runs the (arch × shape × mesh) matrix, one subprocess a cell,
 skipping cells whose JSON exists (resumable); a failed cell leaves
 ``<cell>.FAILED`` with its output; ``--table`` prints every cell under
-``--out`` as a markdown table.  The default meshes are a DGX H100
+``--out`` as a markdown table (its ``overlap`` column the structural
+overlap fraction).  The default meshes are a DGX H100
 cluster's, 32 × 8 and 2 × 32 × 8 (``launch.mesh.PRODUCTION``);
 ``--meshes 16x16,2x16x16`` runs the reference's TPU meshes like for like.
 """
@@ -61,7 +66,9 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import SHAPES, ArchConfig, shape_supported
 from repro_torch.core import collectives as cl
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.overlap_analysis import summary_line
 from repro_torch.launch.trace_analysis import analyze_step, tree_nbytes
+from repro_torch.launch.train import micro_cut
 from repro_torch.models.model import Model
 from repro_torch.obs.metrics import TIER_RANK
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
@@ -207,9 +214,7 @@ def trace_cell(arch: ArchConfig, mesh: mesh_lib.Mesh, kind: str, batch: int,
                                     global_batch=batch // accum, mesh=mesh)
             data = _batch(arch, batch, seq)
             data["targets"] = torch.zeros((batch, seq), dtype=torch.long)
-            if accum > 1:
-                data = {k: v.reshape((accum, -1) + tuple(v.shape[1:]))
-                        for k, v in data.items()}
+            data = {k: micro_cut(k, v, accum) for k, v in data.items()}
             info["tokens_per_step"] = batch * seq
             info["state_bytes"] = tree_nbytes((params, opt))
             trace = analyze_step(step.fn, params, opt, data,
@@ -281,7 +286,8 @@ def lower_cell(arch_name: str, shape_name: str, multi_pod: bool,
 
 
 def analyze(trace: Dict[str, Any], info: Dict[str, Any]) -> Dict[str, Any]:
-    """Fold a trace into ``info``: memory, cost, collectives, roofline."""
+    """Fold a trace into ``info``: memory, cost, collectives, roofline,
+    overlap."""
     world = info["world"]
     peak = int(trace["peak_bytes"])
     mem = {"peak_bytes_per_device": peak,
@@ -300,6 +306,7 @@ def analyze(trace: Dict[str, Any], info: Dict[str, Any]) -> Dict[str, Any]:
     info["collectives"] = coll
     # the kernels the step calls, each a launch on the card
     info["kernel_calls"] = trace["kernel_calls"]
+    info["overlap"] = trace["overlap"]
 
     bw = tier_bandwidths()
     tier_s = {t: coll["per_tier_wire"][t] / bw[t] for t in TIER_RANK}
@@ -399,8 +406,9 @@ def table(out_dir: str) -> str:
     """The markdown table of every cell under ``out_dir``, one row an
     (arch, shape), its meshes side by side (``a / b``, fewest ranks
     first): peak GiB a rank, ``fits_hbm``, the dominant term, the
-    projected step, the MFU bound and the trace seconds; a failed cell
-    gives its error, a skipped one its reason."""
+    projected step, the MFU bound, the structural overlap fraction and the
+    trace seconds; a failed cell gives its error, a skipped one its
+    reason."""
     cells: Dict[Tuple[str, str], Dict[str, Any]] = {}
     for f in sorted(os.listdir(out_dir)):
         name, ext = os.path.splitext(f)
@@ -426,8 +434,8 @@ def table(out_dir: str) -> str:
         return f"{i['roofline']['step_time_s']:.4g}"
 
     rows = ["| arch | shape | meshes | peak GiB / rank | fits_hbm | "
-            "dominant | step s | mfu_bound | trace s |",
-            "| --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
+            "dominant | step s | mfu_bound | overlap | trace s |",
+            "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |"]
     for (arch, shape), by_mesh in sorted(cells.items()):
         meshes = sorted(by_mesh, key=lambda m: mesh_lib.Mesh(
             mesh_lib.parse_mesh(m)).world)
@@ -436,7 +444,7 @@ def table(out_dir: str) -> str:
         bad = [i for i in infos if "failed" in i or i.get("skipped")]
         if len(bad) == len(infos):
             why = bad[0].get("why") or f"failed: `{bad[0]['failed'][:110]}`"
-            rows.append(f"{head} {why} | | | | | |")
+            rows.append(f"{head} {why} | | | | | | |")
             continue
         rows.append(" | ".join([
             head[:-2], col(infos, peak),
@@ -444,6 +452,7 @@ def table(out_dir: str) -> str:
             col(infos, lambda i: i["roofline"]["dominant"][:-2]),
             col(infos, step),
             col(infos, lambda i: f"{i['roofline']['mfu_bound']:.3f}"),
+            col(infos, lambda i: f"{i['overlap']['overlap_fraction']:.3f}"),
             col(infos, lambda i: str(i["trace_s"]))]) + " |")
     return "\n".join(rows)
 
@@ -471,7 +480,8 @@ def summary(info: Dict[str, Any]) -> str:
         f"  useful_flops_ratio={r['useful_flops_ratio']:.3f} "
         f"mfu_bound={r['mfu_bound']:.3f}",
         f"  schedule: prefetch={info['prefetch']} "
-        f"effective={info['prefetch_effective']}"])
+        f"effective={info['prefetch_effective']}",
+        "  " + summary_line(info["overlap"])])
 
 
 def parser() -> argparse.ArgumentParser:

@@ -32,7 +32,11 @@ dict of the reference's ``analyze_jaxpr``:
   * ``peak_bytes`` program-order liveness: every storage an op creates is
                    live from that op until Python frees its last tensor (a
                    finalizer on the fake storage), on top of the storages
-                   handed in as ``state``; the most live at once.
+                   handed in as ``state``; the most live at once;
+  * ``overlap``    the reference's ``analyze_overlap`` dict, read from the
+                   same run's issue, wait, compute and loop events
+                   (``launch/overlap_analysis.py``), its wire invariant
+                   held against the counters' growth.
 
 Each call through the kernel seam (``kernels/ops.py``: B1-B8) counts as
 one op, as the reference's walk counts a ``pallas_call``: its operands and
@@ -132,11 +136,14 @@ class TraceCounter(TorchDispatchMode):
     """Counts, op by op, the fusion-blind HBM bytes of the module
     docstring, the liveness of every storage the ops create and the
     collectives by kind (``per_op``; :meth:`settle` credits the last one
-    its wire bytes)."""
+    its wire bytes).  ``rec``, where given (an
+    ``overlap_analysis.StepRecorder``), is handed every matmul op and
+    every kernel-seam call outside another, its compute events."""
 
-    def __init__(self, live: Optional[Liveness] = None):
+    def __init__(self, live: Optional[Liveness] = None, rec=None):
         super().__init__()
         self.live = live if live is not None else Liveness()
+        self.rec = rec
         self.hbm_bytes = 0.0
         self.kernel_calls: Dict[str, int] = {}
         self.per_op: Dict[str, Dict[str, float]] = {}
@@ -178,6 +185,8 @@ class TraceCounter(TorchDispatchMode):
         elif packet in _MATMUL:
             self.hbm_bytes += tree_nbytes((args, kwargs)) \
                 + tree_nbytes(out)
+            if self.rec is not None:
+                self.rec.matmul(func, args, kwargs, out)
         elif packet in _MATERIALIZING:
             self.hbm_bytes += 2 * tree_nbytes(out)
             if packet in _SCATTER:
@@ -204,6 +213,8 @@ class TraceCounter(TorchDispatchMode):
                 for t in res:
                     self.live.add(t)
                 self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
+                if self.rec is not None:
+                    self.rec.seam(name, args, kwargs)
             return out
         return call
 
@@ -259,17 +270,29 @@ def analyze_step(step: Callable, *args, state: Iterable = ()
     state, batch, caches), counted live from the start."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.core import collectives as cl
+    from repro_torch.launch.overlap_analysis import (StepRecorder,
+                                                     analyze_overlap,
+                                                     check_wire)
+
     live = Liveness()
     for t in tree_leaves(list(state)):
         if isinstance(t, torch.Tensor):
             live.add(t)
     before = counters()
-    tc = TraceCounter(live)
-    with FlopCounterMode(display=False) as fc, tc, tc.kernels_as_calls():
+    rec = StepRecorder()
+    tc = TraceCounter(live, rec)
+    with FlopCounterMode(display=False) as fc, tc, tc.kernels_as_calls(), \
+            rec:
         step(*args)
     tc.settle()
+    coll = collectives_since(before, tc.per_op)
+    overlap = analyze_overlap(rec.events,
+                              multi_pod="pod" in cl.group_axes(None))
+    check_wire(overlap, sum(coll["wire_by_label"].values()))
     return {"flops": float(fc.get_total_flops()),
             "hbm_bytes": tc.hbm_bytes,
-            "collectives": collectives_since(before, tc.per_op),
+            "collectives": coll,
             "peak_bytes": float(live.peak),
-            "kernel_calls": dict(tc.kernel_calls)}
+            "kernel_calls": dict(tc.kernel_calls),
+            "overlap": overlap}

@@ -17,7 +17,7 @@ deepseek-moe-16b, gemma3-4b, gpt-18b, gpt-350m, mamba2-130m,
 musicgen-large, qwen1.5-110b, qwen2-vl-72b, qwen3-0.6b,
 qwen3-moe-235b-a22b, recurrentgemma-2b or starcoder2-3b; musicgen-large
 and qwen2-vl-72b train on the frontend stub's embeddings, qwen2-vl-72b
-with its M-RoPE positions (accum 1 only).  ``--moe-chunks N`` regroups
+with its M-RoPE positions (under ``--accum N`` cut (N, 3, B/N, S)).  ``--moe-chunks N`` regroups
 an MoE config's experts into N chunks, as the reference's flag does.
 ``--layers N`` cuts the config to its first N layers at full width, e.g.
 recurrentgemma-2b at 8 of its 26 (two periods and the rem group), which
@@ -214,18 +214,30 @@ def device_batch(arch, lm: SyntheticLM, step_i: int, batch: int,
                  accum: int, device) -> Dict[str, torch.Tensor]:
     """Step ``step_i``'s batch on ``device``: tokens, targets and M-RoPE
     positions as long, the stub's embeds as float32; with accum > 1 a
-    leading microbatch axis (accum, batch/accum, ...) on every leaf, as
-    the reference's launcher cuts it (the step refuses accum > 1 for an
-    M-RoPE model, whose positions are (3, B, S))."""
+    leading microbatch axis on every leaf, microbatch i the rows [i·b,
+    (i+1)·b) of b = batch/accum: (accum, b, ...), and M-RoPE positions
+    (3, B, S) cut on their rows into (accum, 3, b, S), as the reference's
+    trainer and dry run take them."""
     host = make_batch(arch, lm, step_i, batch)
     out = {}
     for k, v in host.items():
         t = torch.from_numpy(v)
         t = t.float() if k == "embeds" else t.long()
-        if accum > 1:
-            t = t.reshape((accum, -1) + tuple(t.shape[1:]))
-        out[k] = t.to(device)
+        out[k] = micro_cut(k, t, accum).to(device)
     return out
+
+
+def micro_cut(key: str, t: torch.Tensor, accum: int) -> torch.Tensor:
+    """Batch leaf ``key`` cut into ``accum`` microbatches of consecutive
+    rows on a new leading axis: (B, ...) -> (accum, B/accum, ...), and
+    M-RoPE ``positions`` (3, B, S) -> (accum, 3, B/accum, S).  accum 1
+    leaves it as it is."""
+    if accum <= 1:
+        return t
+    if key == "positions":
+        return t.reshape((t.shape[0], accum, -1) + tuple(t.shape[2:])
+                         ).movedim(1, 0).contiguous()
+    return t.reshape((accum, -1) + tuple(t.shape[1:]))
 
 
 def _counted(head: str) -> Dict[str, float]:

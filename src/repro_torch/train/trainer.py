@@ -117,10 +117,11 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
     the model's ZeRO world (``zcfg.group``, tiers ``intra_group`` and
     ``inter_group``; world ``model.world``).  The step takes this rank's
     primary shards and the GLOBAL batch; with ``accum > 1`` every batch
-    leaf carries a leading microbatch axis (accum, B, S), the tiles are
-    cut on the next two axes, and the gradients of the microbatches are
-    summed, then divided by ``accum``, as in the reference (an M-RoPE
-    model, whose ``positions`` are (3, B, S), takes accum 1 only).  The
+    leaf carries a leading microbatch axis (accum, B, S) — M-RoPE
+    ``positions`` (accum, 3, B, S), the reference's ``P(None, None, b,
+    s)`` — the tiles are cut on the rows and sequence axes after it, and
+    the gradients of the microbatches are summed, then divided by
+    ``accum``, as in the reference.  The
     layout is the reference's: ``global_batch`` (rows per microbatch) takes
     ``choose_batch_seq_axes``; without it the batch goes over ``data`` and
     the sequence over ``model``.  A sequence axis of size 1 is left out
@@ -141,13 +142,6 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
                          f"{model.world}, its ZeRO group holds {world} ranks")
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
-    if accum > 1 and model.cfg.mrope:
-        # the reference's launcher cuts every leaf as (accum, B/accum,
-        # ...), which cannot split the (3, B, S) positions by rows
-        raise ValueError("gradient accumulation (accum > 1) does not run "
-                         "an M-RoPE batch: the reference cuts every batch "
-                         "leaf on its leading axis, and positions are "
-                         "(3, B, S)")
     rank = cl.flat_rank(z.group) if world > 1 else 0
     axes, sizes, group_of = _layout(world, mesh)
     if global_batch is not None:
@@ -172,7 +166,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         """This rank's rows and sequence slice of the global batch (views):
         every leaf is cut on its (rows, sequence) axes, (0, 1) — (1, 2)
         under a microbatch axis — and M-RoPE ``positions`` (3, B, S) on
-        (1, 2), the reference's ``P(None, b, s)``."""
+        (1, 2) — (2, 3) under a microbatch axis — the reference's
+        ``P(None, b, s)`` and ``P(None, None, b, s)``."""
         if world == 1:
             return batch
         ax = 1 if accum > 1 else 0
@@ -185,7 +180,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, accum: int = 1,
         rb, sb = b // nb, s // ns
 
         def cut(k, v):
-            a = 1 if k == "positions" else ax
+            a = ax + 1 if k == "positions" else ax
             return v.narrow(a, rank // ns * rb, rb).narrow(
                 a + 1, rank % ns * sb, sb)
         return {k: cut(k, v) for k, v in batch.items()}

@@ -24,8 +24,13 @@ seq 32, zeropp.
       one;
   (f) a production cell cut in depth (qwen3-0.6b, 2 of 28 layers,
       train_4k on 2 x 32 x 8: 512 fake ranks): its bytes by label and by
-      tier are ``zeropp.step_wire_by_label`` and ``step_wire_by_tier``;
-  and the CLI writes a cell's JSON and skips what the reference skips.
+      tier are ``zeropp.step_wire_by_label`` and ``step_wire_by_tier``,
+      and its overlap reading holds its wire invariant;
+  (g) every traced cell has an ``overlap`` dict (``analyze``) whose wire
+      invariant holds against the counters' growth: nothing overlaps at
+      prefetch 0, the default ring overlaps;
+  and the CLI writes a cell's JSON (``summary`` printing the overlap
+  line, ``--table`` its column) and skips what the reference skips.
 """
 import dataclasses
 import json
@@ -42,6 +47,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import SHAPES
 from repro_torch.core import zeropp as tz
 from repro_torch.launch import dryrun as dr
+from repro_torch.launch.overlap_analysis import check_wire
 from repro_torch.launch.trace_analysis import Liveness, TraceCounter
 from repro_torch.models.model import Model
 from repro_torch.train.policy import make_policy
@@ -198,6 +204,22 @@ def test_the_references_own_assertions_hold(cells):
          "dequant_reduce_quant", "dequant_reduce"), 6)
 
 
+@pytest.mark.parametrize("name", ["train-zeropp", "train-baseline",
+                                  "train-zeropp-default", "prefill",
+                                  "decode"])
+def test_every_cell_reads_its_overlap(cells, name):
+    trace, info = cells[name]
+    ov = dr.analyze(dict(trace), dict(info))["overlap"]
+    check_wire(ov, sum(trace["collectives"]["wire_by_label"].values()))
+    if name == "train-zeropp-default":
+        assert ov["overlap_fraction"] > 0.8, ov
+        assert set(ov["per_loop"]) == {"layers.fwd", "layers.bwd"}
+        assert all(l["has_compute"] for l in ov["per_loop"].values())
+    else:
+        assert ov["overlap_fraction"] == 0.0, ov
+        assert ov["overlappable_collectives"] == 0, ov
+
+
 def test_liveness_peak_is_exact_on_a_hand_built_run():
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
@@ -252,6 +274,8 @@ def test_a_production_cell_cut_in_depth_holds_the_projection():
             for t, b in c["per_tier_wire"].items() if b} == want
     # the sequence's K/V gathers ride the model tier as ``other``
     assert c["per_tier_other"]["model"] > 0
+    check_wire(trace["overlap"], sum(c["wire_by_label"].values()))
+    assert trace["overlap"]["overlap_fraction"] > 0
 
 
 def test_cli_writes_a_cell_and_skips_what_the_reference_skips(tmp_path):
@@ -268,12 +292,21 @@ def test_cli_writes_a_cell_and_skips_what_the_reference_skips(tmp_path):
                                                         "pod"}
     assert doc["roofline"]["dominant"] in ("compute_s", "memory_s",
                                            "collective_s")
+    assert doc["overlap"]["overlap_fraction"] == \
+        info["overlap"]["overlap_fraction"]
+    line = [x for x in dr.summary(info).splitlines() if "overlap:" in x]
+    assert len(line) == 1 and line[0].strip().startswith(
+        "overlap: fraction=")
     skip = dr.main(["--arch", "qwen3-0.6b", "--shape", "long_500k",
                     "--out", str(tmp_path)])
     assert skip["skipped"] and "500k" in skip["why"]
     rows = dr.table(str(tmp_path)).splitlines()
     assert len(rows) == 4 and rows[2].startswith(
         "| qwen3-0.6b | decode_32k | 2x2x2 | ")
+    cols = [c.strip() for c in rows[0].strip("|").split("|")]
+    at = cols.index("overlap")
+    assert rows[2].strip("|").split("|")[at].strip() == \
+        f"{info['overlap']['overlap_fraction']:.3f}"
     assert "sub-quadratic" in rows[3]
     with pytest.raises(SystemExit):
         dr.main(["--arch", "qwen3-0.6b", "--shape", "train_4k",

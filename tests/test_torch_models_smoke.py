@@ -402,30 +402,34 @@ def test_engine_refuses_stub_fed_models(tmp_path):
                                         n_slots=2, kv_len=16, device="cpu")
 
 
-def test_accumulation_cuts_embeds_and_refuses_mrope():
+def test_accumulation_cuts_embeds_and_mrope_positions():
     """accum > 1: the embeddings (B, S, d) are cut into microbatches as the
-    reference's launcher cuts every leaf, and the two halves' step equals
-    the whole batch's; an M-RoPE model is refused (the reference's cut
-    would split the (3, B, S) positions on their stream axis)."""
+    reference's launcher cuts every leaf, and M-RoPE positions (3, B, S)
+    on their rows into (accum, 3, B/accum, S), as the reference's trainer
+    takes them (``P(None, None, b, s)``); the two halves' step equals the
+    whole batch's for musicgen-large (embeds) and qwen2-vl-72b (embeds and
+    M-RoPE)."""
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.launch.train import device_batch
-    cfg = get_config("musicgen-large").reduced()
-    model = Model(cfg, TZ, device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(0),
-                               dtype=torch.float32)
-    lm = SyntheticLM(cfg.vocab, 32, seed=7)
-    one = build_train_step(model, AdamWConfig(), device="cpu")
-    two = build_train_step(model, AdamWConfig(), accum=2, device="cpu")
-    whole = device_batch(cfg, lm, 0, 4, 1, "cpu")
-    halves = device_batch(cfg, lm, 0, 4, 2, "cpu")
-    assert whole["embeds"].dtype == torch.float32
-    assert tuple(halves["embeds"].shape) == (2, 2, 32, cfg.d_model)
-    l1, _, g1 = one.loss_and_grads(params, whole)
-    l2, _, g2 = two.loss_and_grads(params, halves)
-    assert abs(float(l1) - float(l2)) <= 1e-5
-    for k in g1:
-        step_bars.close(g2[k].numpy(), g1[k].numpy(), k)
-    vl = get_config(VLM).reduced()
-    with pytest.raises(ValueError, match="M-RoPE"):
-        build_train_step(Model(vl, TZ, device="cpu"), AdamWConfig(),
-                         accum=2, device="cpu")
+    for arch in ("musicgen-large", VLM):
+        cfg = get_config(arch).reduced()
+        model = Model(cfg, TZ, device="cpu")
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   dtype=torch.float32)
+        lm = SyntheticLM(cfg.vocab, 32, seed=7)
+        one = build_train_step(model, AdamWConfig(), device="cpu")
+        two = build_train_step(model, AdamWConfig(), accum=2, device="cpu")
+        whole = device_batch(cfg, lm, 0, 4, 1, "cpu")
+        halves = device_batch(cfg, lm, 0, 4, 2, "cpu")
+        assert whole["embeds"].dtype == torch.float32
+        assert tuple(halves["embeds"].shape) == (2, 2, 32, cfg.d_model)
+        if cfg.mrope:
+            assert tuple(halves["positions"].shape) == (2, 3, 2, 32)
+            for i in range(2):
+                assert torch.equal(halves["positions"][i],
+                                   whole["positions"][:, 2 * i:2 * i + 2])
+        l1, _, g1 = one.loss_and_grads(params, whole)
+        l2, _, g2 = two.loss_and_grads(params, halves)
+        assert abs(float(l1) - float(l2)) <= 1e-5, (arch, l1, l2)
+        for k in g1:
+            step_bars.close(g2[k].numpy(), g1[k].numpy(), f"{arch} {k}")

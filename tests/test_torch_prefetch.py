@@ -241,7 +241,8 @@ def _toy_run(k, monkeypatch):
     """A toy layer loop (h -> h·(1 + mean(W)/10)) through zero_apply_scan
     at depth ``k``, its gathers, re-gathers and reduces replaced by fakes
     that log when they are issued and waited for (two hops a reduce, as
-    qgZ's), and each compute logged.  Returns (log, loss, grads)."""
+    qgZ's), and each compute (and, in the backward, each VJP's start)
+    logged.  Returns (log, loss, grads)."""
     log = []
 
     def gather(p, z):
@@ -274,7 +275,10 @@ def _toy_run(k, monkeypatch):
         i = int(W[0])
         log.append(("compute" if torch.is_grad_enabled() else "forward",
                     "layer", i))
-        return h * (1 + W.mean() / 10)
+        out = h * (1 + W.mean() / 10)
+        if out.requires_grad:       # the recompute: log its VJP's start
+            out.register_hook(lambda g: log.append(("vjp", "layer", i)))
+        return out
 
     z = ZeroConfig(prefetch=k, hpz=False)
     shards = [torch.full((4,), float(i)).requires_grad_(True)
@@ -322,3 +326,104 @@ def test_ring_issues_before_the_compute_it_hides_under(k, monkeypatch):
                 assert any(issued < c < waited for c in computes), (hop, j)
             if j - behind >= 0:
                 assert waited > bt("compute", "layer", j - behind), (hop, j)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_reverse_ring_waits_each_hop_after_the_vjp_it_flew_under(
+        k, monkeypatch):
+    """The reverse ring's steady state: layer j's reduce is issued after
+    its VJP, and each hop, due k layers on, is waited for after that
+    layer's VJP and before the next layer's recompute.  At the end: a
+    first hop still in flight in the last layer is waited for after its
+    recompute and before its VJP, so that its second hop flies under that
+    VJP; every second hop still in flight is waited for after the last
+    VJP."""
+    log, _, _ = _toy_run(k, monkeypatch)
+    bwd = log[log.index(("forward", "layer", N_TOY - 1)) + 1:]
+
+    def bt(*ev):
+        return bwd.index(ev)
+
+    def vjp(i):
+        return bt("vjp", "layer", i)
+
+    def compute(i):
+        return bt("compute", "layer", i)
+    assert bt("issue", "reduce", 0) > vjp(0)
+    for j in range(1, N_TOY):
+        assert bt("issue", "reduce", j) > vjp(j)
+        d = j - k
+        w1, w2 = bt("wait", "reduce", j), bt("wait", "reduce2", j)
+        if d >= 1:
+            assert vjp(d) < w1 < compute(d - 1), (j, "reduce")
+        else:
+            assert compute(0) < w1 < vjp(0), (j, "reduce")
+        if d - k >= 1:
+            assert vjp(d - k) < w2 < compute(d - k - 1), (j, "reduce2")
+        else:
+            assert w2 > vjp(0), (j, "reduce2")
+
+
+N_CHUNKS = 2
+
+
+def _nested_run(k, monkeypatch):
+    """A toy layer loop whose layers each run a chunk ring over their
+    per-layer chunk shards (as an MoE layer's expert chunks) and also use
+    chunk 0 directly, at depth ``k``; gathers and two-hop reduces are
+    fakes (a reduce doubles the gradient).  Returns the loss and the
+    gradients of the layer shards, the chunk shards and h0."""
+    def gather(p, z):
+        yield
+        return p.clone()
+
+    def reduce(dW, z):
+        yield
+        yield
+        return dW.to(torch.float32) * 2
+
+    for mod in (schedule, zeropp):
+        monkeypatch.setattr(mod, "fwd_gather_hops", gather)
+        monkeypatch.setattr(mod, "bwd_gather_hops", gather)
+        monkeypatch.setattr(mod, "grad_reduce_hops", reduce)
+    z = ZeroConfig(prefetch=k, hpz=False)
+
+    def chunk(W, c):
+        return W.mean() * (c + 1)
+
+    # each tensor's gradient has at most two terms, so that no order of
+    # summing them differs between the schedules
+    def f(W, h, x):
+        ys = schedule.zero_chunk_scan(chunk, z)(list(x))
+        h = h * (1 + W.mean() / 10) + 0.1 * (ys[0] + ys[1]) \
+            + 0.5 * x[0].sum()
+        return h, (3 * x[1]).sum()
+
+    g = torch.Generator().manual_seed(0)
+    shards = [torch.rand(4, generator=g).requires_grad_(True)
+              for _ in range(N_TOY)]
+    xs = [tuple(torch.rand(4, generator=g).requires_grad_(True)
+                for _ in range(N_CHUNKS)) for _ in range(N_TOY)]
+    h0 = torch.rand(3, generator=g).requires_grad_(True)
+    h, ys = schedule.zero_apply_scan(f, z)(shards, h0, xs=xs)
+    loss = h.sum() + sum(ys)
+    loss.backward()
+    return float(loss.detach()), [t.grad.clone() for t in
+                                  shards + [c for x in xs for c in x] + [h0]]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_nested_ring_hands_its_reduces_over_and_keeps_other_gradients(
+        k, monkeypatch):
+    """A chunk ring inside a layer's VJP hands the reduces it still has in
+    flight to the layer ring, which adds their results to the gradient
+    autograd gave the chunk shards: a shard's other uses (here chunk 0
+    used directly by the layer, chunk 1 by the layer's output) keep their
+    share, and every gradient equals the synchronous loop's bit for
+    bit."""
+    loss, grads = _nested_run(k, monkeypatch)
+    sync_loss, sync_grads = _nested_run(0, monkeypatch)
+    assert loss == sync_loss
+    for a, b in zip(grads, sync_grads):
+        assert torch.equal(a, b), (a, b)
+

@@ -50,6 +50,9 @@ and reads its rows of the same global ``SyntheticLM`` batch.
       reduce-scatters of the sharded sequence on the ``model`` tier (the
       port under ``other``); the port's two scalar all-reduces on the
       ``data`` tier, which the jaxpr walk does not count, are taken out.
+      With qgZ off, two microbatches of 2 rows (accum 2: ``positions``
+      (2, 3, 2, S), cut on axes 2 and 3) give the batch of 4's loss
+      within 1e-5 and its gradient shards within rtol 1e-5 / atol 1e-6.
 
 Every rank runs all of its variants in one spawn (one for world 4, one for
 world 8), while the reference's subprocess runs beside them.  The module
@@ -121,6 +124,7 @@ def _qwen2_vl():
 
 
 VL_BATCH = 2                # (f): rows over data, the sequence over model
+VL_ACCUM_BATCH = 4          # (f): accum 2 of 2 rows against 4 rows at once
 
 
 def _vl_params(world):
@@ -293,6 +297,24 @@ def _step_rank(rank, world, p4, batch, g4, v4, vbatch):
                            tiers=tlaunch.tier_since(before_t),
                            projected=projected_wire_by_label(
                                model, dict(zip(mesh.axes, mesh.shape))))
+    # (f) accumulation: batch 4 whole (rows over both axes) and as two
+    # microbatches of 2 (rows over data, the sequence over model, so the
+    # positions (2, 3, 2, S) are cut on axes 2 and 3), qgZ off
+    pol = make_policy(arch, mesh_lib.AXES, "zeropp", mesh=mesh, qgz=False,
+                      **TF32)
+    model = Model(arch, pol.zcfg, world=world, device="cpu")
+    params = params_from_numpy(v4, model, rank=rank, world=world)
+    lm = tsyn.SyntheticLM(arch.vocab, SEQ, seed=7)
+    out["qwen2_vl_accum"] = {}
+    for accum in (1, 2):
+        step = trainer.build_train_step(
+            model, AdamWConfig(lr=LR), accum=accum, device="cpu",
+            global_batch=VL_ACCUM_BATCH // accum, mesh=mesh)
+        loss, _, grads = step.loss_and_grads(params, tlaunch.device_batch(
+            arch, lm, 0, VL_ACCUM_BATCH, accum, "cpu"))
+        out["qwen2_vl_accum"][accum] = dict(
+            loss=float(loss), grads=to_numpy(grads),
+            seq_axes=step.run_spec.seq_axes)
     return out
 
 
@@ -481,6 +503,20 @@ def test_world4_qwen2_vl_rows_and_sequence_match_reference(runs):
         assert (t["model.other"], t["data.other"]) == (kv_other, scalars)
         assert {"model": t["model"], "data": t["data"] - scalars} == tiers, \
             (t, tiers)
+
+
+def test_world4_qwen2_vl_accumulation_matches_one_batch(runs):
+    """(f): two microbatches of 2 rows (M-RoPE positions cut (2, 3, 2, S)
+    and tiled on axes 2 and 3) give the loss of the batch of 4 within 1e-5
+    and every rank's gradient shard within ``step_bars.close``."""
+    ranks = [r["qwen2_vl_accum"] for r in runs["step"]]
+    assert all(r[1]["seq_axes"] == () and r[2]["seq_axes"] == ("model",)
+               for r in ranks)
+    l1, l2 = (sum(r[a]["loss"] for r in ranks) for a in (1, 2))
+    assert abs(l1 - l2) <= 1e-5, (l1, l2)
+    for i, r in enumerate(ranks):
+        for k, g in r[1]["grads"].items():
+            step_bars.close(r[2]["grads"][k], g, f"rank {i} {k}")
 
 
 def test_world4_loss_equals_world1_loss(runs):
